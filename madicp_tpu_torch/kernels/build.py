@@ -1,0 +1,96 @@
+"""Build and load the hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its
+own shared library with a plain C interface and loaded with ``ctypes``
+(no PyTorch headers: a build takes seconds, not minutes). Libraries go to
+``build/madicp_tpu_torch/`` beside the package (listed in
+``.gitignore``), named by a hash of the source and flags, so an edited
+source rebuilds at its first use and an unchanged one is reused.
+Nothing is compiled at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "madicp_tpu_torch"
+NVCC_FLAGS = (
+    "-gencode=arch=compute_90a,code=sm_90a",
+    "-std=c++17",
+    "-O3",
+    "-shared",
+    "-Xcompiler",
+    "-fPIC",
+)
+SOURCES = ("segsum_moments",)
+
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError(
+        "madicp_tpu_torch: nvcc not found (PATH, $CUDA_HOME/bin, "
+        "/usr/local/cuda/bin); the CUDA kernels cannot be built"
+    )
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}_{h}.so"
+
+
+def _start_build(name: str):
+    """Start nvcc for one source into a temporary file; None when the
+    library for this source hash already exists."""
+    out = library_path(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(
+        cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+    )
+    return proc, tmp, out
+
+
+def _finish_build(name: str, started) -> None:
+    proc, tmp, out = started
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
+    os.replace(tmp, out)  # atomic: a concurrent build never sees a partial file
+
+
+def build_all(names=SOURCES) -> dict[str, Path]:
+    """Compile every listed source, all ``nvcc`` processes at once."""
+    started = {name: _start_build(name) for name in names}
+    for name, s in started.items():
+        if s is not None:
+            _finish_build(name, s)
+    return {name: library_path(name) for name in names}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built at first use."""
+    lib = _loaded.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(str(build_all((name,))[name]))
+        _loaded[name] = lib
+    return lib

@@ -1,0 +1,25 @@
+"""Device selection for the entry points."""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: CUDA unless the caller names
+    another. Raises when CUDA is asked for (explicitly or by default) and
+    no CUDA device exists — the port never falls back to the CPU on its
+    own."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "madicp_tpu_torch: no CUDA device is available; pass "
+            "device='cpu' to run on the CPU"
+        )
+    return dev
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for the device's queued work (no-op on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

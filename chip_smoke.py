@@ -8,10 +8,17 @@ script exits non-zero without the final line):
 
 1. device     card name and power limit (nvidia-smi);
 2. build      nvcc builds every CUDA kernel from csrc/, all at once;
-3. kernels    every kernel against its plain PyTorch version on the card,
-              at the shapes and on the data of a flagship tree build (all
-              17 levels, float32 and float64), with kernel, plain, library
-              and bound times;
+3. kernels    segsum_moments against its plain PyTorch version on the
+              card, at the shapes and on the data of a flagship tree
+              build (all 17 levels, float32 and float64), with kernel
+              (eager and in a CUDA graph), plain, library and bound times;
+3b. probe     the four scatter-probe kernels (onehot_segsum in its three
+              modes, fused_moments, rmw_segsum, scatter_segsum) against
+              their plain versions at every probe shape (rmw_segsum bit
+              for bit, the others within 1e-3 of float64), then the
+              probe entry point itself (python -m
+              madicp_tpu_torch.probes.scatter_probe) with its times, its
+              launches counted from 0;
 4. precision  float32 point transforms at 40 m range within 1e-4 m of
               float64 (the TF32 guard);
 5. golden     the four-walls golden drive (tests/test_golden.py): float64
@@ -26,7 +33,9 @@ script exits non-zero without the final line):
               with 16 trees: steady-state scans/s, per-phase ms from CUDA
               events, descents, kernel launches per scan.
 
-Then the line {"kernels": [...]}, the nvidia-smi line, and last
+Then the line {"kernels": [...]} (all five kernels: segsum_moments per
+flagship build with its main-path launches, the probe kernels summed
+over one probe pass with the probe's launches), the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Imports nothing of JAX or of the JAX
 package; the golden file is read with numpy. Needs one card.
 
@@ -37,7 +46,6 @@ kernel time by kernel name, and the device's busy share.
 from __future__ import annotations
 
 import json
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -61,22 +69,6 @@ def emit(obj) -> None:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
-
-
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device milliseconds of ``fn()`` over ``reps`` warm calls."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 # ---------------------------------------------------------------- scenes --
@@ -160,13 +152,11 @@ def pipeline(**kw):
 
 # ---------------------------------------------------------------- phases --
 def phase_device(torch) -> dict:
-    name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    ).stdout.strip().splitlines()
-    out = {"phase": "device", "name": name, "count": torch.cuda.device_count(),
-           "nvidia_smi": smi[0] if smi else "unavailable",
+    from madicp_tpu_torch.utils.device import card_name
+
+    out = {"phase": "device", "name": torch.cuda.get_device_name(0),
+           "count": torch.cuda.device_count(),
+           "nvidia_smi": card_name(torch.device("cuda", 0)),
            "torch": torch.__version__, "cuda": torch.version.cuda}
     emit(out)
     return out
@@ -203,6 +193,7 @@ def capture_levels(points, valid):
 
 def phase_kernels(torch) -> dict:
     from madicp_tpu_torch.kernels import segsum
+    from madicp_tpu_torch.utils.timing import event_ms, graph_ms
 
     rng = np.random.default_rng(0)
     R, t = bench_pose(3)
@@ -217,7 +208,8 @@ def phase_kernels(torch) -> dict:
         levels = capture_levels(torch.as_tensor(pts, dtype=dtype, device=DEV), valid)
         check(len(levels) == DEPTH + 1, f"expected {DEPTH + 1} levels, got {len(levels)}")
         esize = torch.finfo(dtype).bits // 8
-        rows, tot = [], dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+        rows, tot = [], dict(ms=0.0, device_ms=0.0, plain_ms=0.0, library_ms=0.0,
+                             bound_ms=0.0)
         max_abs = max_rel = 0.0
         bound_by = set()
         for d, idx, sz in levels:
@@ -235,25 +227,75 @@ def phase_kernels(torch) -> dict:
             ids = torch.where((idx >= 0) & (idx < sz), idx.long(), sz)
             mom = segsum._moment_columns(d)
             tab = torch.zeros((sz + 1, 10), dtype=dtype, device=DEV)
-            ms = cuda_ms(lambda: segsum.segsum_moments(d, idx, sz), 20)
-            plain_ms = cuda_ms(lambda: segsum.segsum_moments_ref(d, idx, sz), 20)
-            library_ms = cuda_ms(lambda: tab.index_add_(0, ids, mom), 20)
+            ms = event_ms(lambda: segsum.segsum_moments(d, idx, sz), 20)
+            device_ms = graph_ms(lambda: segsum.segsum_moments(d, idx, sz), 20)
+            plain_ms = event_ms(lambda: segsum.segsum_moments_ref(d, idx, sz), 20)
+            library_ms = event_ms(lambda: tab.index_add_(0, ids, mom), 20)
             n = d.shape[0]
             t_bytes = (n * (3 * esize + 4) + sz * 10 * esize) / H100_BYTES_PER_S * 1e3
             t_ops = n * SEGSUM_FLOPS_PER_POINT / PEAK_FLOPS[dname] * 1e3
             bound_ms = max(t_bytes, t_ops)
             bound_by.add("bytes" if t_bytes >= t_ops else "operations")
-            rows.append({"sz": sz, "ms": ms, "plain_ms": plain_ms,
-                         "library_ms": library_ms, "bound_ms": bound_ms,
-                         "max_abs_err": float(err.max())})
-            for k, v in (("ms", ms), ("plain_ms", plain_ms),
-                         ("library_ms", library_ms), ("bound_ms", bound_ms)):
-                tot[k] += v
+            row = {"sz": sz, "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+                   "library_ms": library_ms, "bound_ms": bound_ms}
+            for k in tot:
+                tot[k] += row[k]
+            rows.append(dict(row, max_abs_err=float(err.max())))
         summary[dname] = dict(tot, max_abs_err=max_abs, max_rel_err=max_rel,
                               bound_by="/".join(sorted(bound_by)))
         emit({"phase": "kernels", "kernel": "segsum_moments", "dtype": dname,
               "n": N_POINTS, "per_build": summary[dname], "levels": rows})
     return summary
+
+
+PROBE_KERNELS = {  # wrapper -> the TPU kernel it replaces
+    "onehot_segsum": "scripts/pallas_scatter_probe.py:66",
+    "fused_moments": "scripts/pallas_scatter_probe.py:155",
+    "rmw_segsum": "scripts/pallas_scatter_probe.py:365",
+    "scatter_segsum": "scripts/pallas_scatter_probe.py:401",
+}
+
+
+def phase_probe(torch) -> dict:
+    """Each probe kernel against its plain version at every probe shape,
+    then one run of the probe entry point; per kernel, its sums over that
+    run's cases and the launches the run made."""
+    from madicp_tpu_torch.kernels import scatter_probe as sp
+    from madicp_tpu_torch.probes import scatter_probe as probe
+
+    worst: dict = {}
+    for case in probe.cases(DEV):
+        rec = probe.check(case)
+        check(rec["ok"], f"probe: {case.name} M={case.m} disagrees with its plain "
+                         f"version: {rec}")
+        worst[case.name] = max(worst.get(case.name, 0.0), rec["max_abs_err"])
+    emit({"phase": "probe", "step": "check", "tol": probe.TOL,
+          "rmw_segsum": "bitwise equal to the in-order plain version",
+          "max_abs_err": worst})
+
+    for k in sp.launches:
+        sp.launches[k] = 0  # the probe's run starts here
+    t0 = time.perf_counter()
+    records = probe.run(DEV, emit=lambda s: print(s, flush=True))
+    seconds = time.perf_counter() - t0
+    launches = dict(sp.launches)  # read right after the run
+    check(all(r["ok"] for r in records), "probe: a case failed its check")
+    out = {}
+    for name in PROBE_KERNELS:
+        recs = [r for r in records if r["kernel"] == name]
+        check(launches[name] > 0, f"probe: {name} was never launched")
+        lib = [r["library_ms"] for r in recs]
+        out[name] = {
+            "cases": len(recs), "launches": launches[name],
+            "max_abs_err": max(r["max_abs_err"] for r in recs),
+            **{k: sum(r[k] for r in recs)
+               for k in ("ms", "device_ms", "plain_ms", "bound_ms")},
+            "library_ms": None if None in lib else sum(lib),
+            "bound_by": max(recs, key=lambda r: r["bound_ms"])["bound_by"],
+        }
+    emit({"phase": "probe", "step": "run", "seconds": seconds,
+          "per_probe_pass": out})
+    return out
 
 
 def phase_precision(torch) -> None:
@@ -454,13 +496,14 @@ def main() -> int:
     dev = phase_device(torch)
     phase_build()
     ksum = phase_kernels(torch)
+    probe = phase_probe(torch)
     phase_precision(torch)
     phase_golden(torch)
     phase_accuracy(torch)
     steady = phase_steady(torch)
 
     f32 = ksum["float32"]
-    emit({"kernels": [{
+    rows = [{
         "name": "segsum_moments",
         "route": "cuda",
         "source": "madicp_tpu_torch/kernels/csrc/segsum_moments.cu",
@@ -468,11 +511,24 @@ def main() -> int:
         "launches": steady["segsum_launches"],
         "max_abs_err": f32["max_abs_err"],
         "ms": f32["ms"],
+        "device_ms": f32["device_ms"],
         "plain_ms": f32["plain_ms"],
         "bound_ms": f32["bound_ms"],
         "bound_by": "bytes" if f32["bound_by"] == "bytes" else "operations",
         "library_ms": f32["library_ms"],
-    }]})
+    }]
+    for name, replaces in PROBE_KERNELS.items():
+        k = probe[name]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "madicp_tpu_torch/kernels/csrc/scatter_probe.cu",
+            "replaces": replaces, "launches": k["launches"],
+            "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+            "device_ms": k["device_ms"], "plain_ms": k["plain_ms"],
+            "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+            "library_ms": k["library_ms"],
+        })
+    emit({"kernels": rows})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(dev["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],

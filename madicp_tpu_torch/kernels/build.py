@@ -29,7 +29,7 @@ NVCC_FLAGS = (
     "-Xcompiler",
     "-fPIC",
 )
-SOURCES = ("segsum_moments",)
+SOURCES = ("segsum_moments", "scatter_probe")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -85,6 +85,15 @@ def build_all(names=SOURCES) -> dict[str, Path]:
         if s is not None:
             _finish_build(name, s)
     return {name: library_path(name) for name in names}
+
+
+def raise_on_error(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    """Raise when a launch function of ``lib`` returned a CUDA error code."""
+    if rc != 0:
+        lib.madicp_cuda_error_string.restype = ctypes.c_char_p
+        lib.madicp_cuda_error_string.argtypes = [ctypes.c_int]
+        msg = lib.madicp_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{what} kernel launch failed: {msg} ({rc})")
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -105,10 +105,6 @@ def segsum_moments(d: torch.Tensor, idx: torch.Tensor, sz: int) -> torch.Tensor:
         stream = torch.cuda.current_stream(d.device).cuda_stream
         rc = fn(d.data_ptr(), idx.data_ptr(), n, sz, blocks,
                 scratch.data_ptr(), out.data_ptr(), stream)
-    if rc != 0:
-        lib.madicp_cuda_error_string.restype = ctypes.c_char_p
-        lib.madicp_cuda_error_string.argtypes = [ctypes.c_int]
-        msg = lib.madicp_cuda_error_string(rc).decode()
-        raise RuntimeError(f"segsum_moments kernel launch failed: {msg} ({rc})")
+    build.raise_on_error(lib, rc, "segsum_moments")
     counter.launches += 1
     return out

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import subprocess
+
 import torch
 
 
@@ -23,3 +25,21 @@ def synchronize(device: torch.device) -> None:
     """Wait for the device's queued work (no-op on the CPU)."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def card_name(device: torch.device) -> str:
+    """The card's name and power limit as ``nvidia-smi --query-gpu=
+    name,power.limit --format=csv,noheader`` gives them ("cpu" on the
+    CPU): every time measured on a card is reported beside them."""
+    if device.type != "cuda":
+        return "cpu"
+    try:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60).stdout.splitlines()
+    except OSError:
+        smi = []
+    index = device.index or 0
+    if index < len(smi):
+        return smi[index].strip()
+    return f"{torch.cuda.get_device_name(device)}, power limit unavailable"

@@ -1,4 +1,4 @@
-"""Per-phase timing of the odometry step.
+"""Per-phase timing of the odometry step, and kernel timers for the card.
 
 A :class:`PhaseTimer` handed to ``odometry_step`` (or set as
 ``Pipeline.timer``) brackets each phase — deskew, build, leaves,
@@ -56,3 +56,45 @@ class PhaseTimer:
 def phase(timer, name: str):
     """``timer(name)``, or a no-op context when there is no timer."""
     return contextlib.nullcontext() if timer is None else timer(name)
+
+
+def event_ms(fn, reps: int) -> float:
+    """Mean milliseconds of ``fn()`` over ``reps`` warm eager calls, from
+    CUDA events: what a caller pays per call, wrapper included."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int, replays: int = 3) -> float:
+    """Mean device milliseconds of ``fn()``: ``reps`` calls captured in
+    one CUDA graph, replayed ``replays`` times. The host work of each
+    call (argument checks, allocation, the launch itself) is paid once at
+    capture, so this is the kernels' time on the card."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the default stream
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * replays)

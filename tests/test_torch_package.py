@@ -13,7 +13,7 @@ import torch
 
 import madicp_tpu_torch  # noqa: F401  (pins the matmul precision)
 from madicp_tpu_torch.apps import cli
-from madicp_tpu_torch.kernels import build, segsum
+from madicp_tpu_torch.kernels import build, scatter_probe, segsum
 from madicp_tpu_torch.models.nn import MADtree
 from madicp_tpu_torch.models.pipeline import Pipeline
 from madicp_tpu_torch.models.registration import MADicp
@@ -30,6 +30,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         "import madicp_tpu_torch, madicp_tpu_torch.ops, madicp_tpu_torch.models\n"
         "import madicp_tpu_torch.kernels, madicp_tpu_torch.utils.convert\n"
         "import madicp_tpu_torch.apps.cli, chip_smoke\n"
+        "import madicp_tpu_torch.kernels.scatter_probe\n"
+        "import madicp_tpu_torch.probes.scatter_probe\n"
         "bad = [m for m in sys.modules if m in ('jax', 'madicp_tpu')\n"
         "       or m.startswith(('jax.', 'madicp_tpu.'))]\n"
         "print(bad)\n"
@@ -79,6 +81,44 @@ def test_segsum_dispatch_and_argument_checks():
         segsum.segsum_moments(d.to("meta"), idx.to("meta"), 1)
 
 
+def _probe_inputs(name: str, n: int, m: int, seed: int = 0):
+    """(idx (1, n) with dropped ids on both sides, values in the layout
+    of the wrapper ``name``)."""
+    rng = np.random.default_rng(seed)
+    idx = torch.from_numpy(rng.integers(-2, m + 3, (1, n)).astype(np.int32))
+    shape = {"onehot_segsum": (16, n), "fused_moments": (n, 3)}.get(name, (n, 16))
+    return idx, torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32))
+
+
+@pytest.mark.parametrize("name", list(scatter_probe.launches))
+def test_probe_wrapper_dispatch_and_argument_checks(name):
+    """CPU tensors take the plain version without counting a launch; the
+    arguments are checked on every device, and any other non-CUDA
+    device is refused."""
+    wrap, plain = getattr(scatter_probe, name), getattr(scatter_probe, f"{name}_ref")
+    idx, x = _probe_inputs(name, 64, 8)
+    before = dict(scatter_probe.launches)
+    torch.testing.assert_close(wrap(idx, x, 8), plain(idx, x, 8), rtol=0, atol=0)
+    torch.testing.assert_close(wrap(idx[0], x, 8), plain(idx, x, 8), rtol=0, atol=0)
+    assert scatter_probe.launches == before
+    with pytest.raises(ValueError, match="unsupported device"):
+        wrap(idx.to("meta"), x.to("meta"), 8)
+    with pytest.raises(TypeError, match="float32"):
+        wrap(idx, x.double(), 8)
+    with pytest.raises(TypeError, match="int32"):
+        wrap(idx.long(), x, 8)
+    with pytest.raises(ValueError, match="want values"):
+        wrap(idx[:, 1:], x, 8)
+    with pytest.raises(ValueError, match="1 <= M"):
+        wrap(idx, x, 0)
+    if name == "onehot_segsum":
+        with pytest.raises(ValueError, match="mode"):
+            wrap(idx, x, 8, "tf32")
+    if name == "rmw_segsum":
+        with pytest.raises(ValueError, match="Mq must be"):
+            wrap(idx, x, scatter_probe.RMW_MAX_ROWS + 1)
+
+
 def test_kernel_build_requires_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
@@ -116,6 +156,57 @@ def test_segsum_kernel_matches_plain_on_cuda(cuda_device, dtype, sz):
     want = segsum.segsum_moments_ref(d.double(), idx, sz)
     tol = dict(rtol=1e-5, atol=5e-3) if dtype == torch.float32 else dict(rtol=1e-9, atol=1e-9)
     torch.testing.assert_close(got.cpu().double(), want, **tol)
+
+
+def _probe_kernel_case(cuda_device, name, m, *args):
+    """The wrapper ``name`` on the card at the probe's N (less 5, so the
+    last 16-point chunk is ragged), its launch counted once."""
+    idx, x = _probe_inputs(name, 131072 - 5, m, seed=m)
+    before = scatter_probe.launches[name]
+    got = getattr(scatter_probe, name)(idx.to(cuda_device), x.to(cuda_device), m, *args)
+    torch.cuda.synchronize()
+    assert scatter_probe.launches[name] == before + 1
+    return idx, x, got.cpu()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", scatter_probe.MODES)
+@pytest.mark.parametrize("m", [64, 100, 4096])
+def test_onehot_segsum_kernel_matches_plain_on_cuda(cuda_device, mode, m):
+    """Every mode (f32/highest: shared and global scatter; bf16x3: tensor
+    cores, a ragged column tile at m = 100) against the float64 sums at
+    the probe's tolerance, atol 1e-3 (float32 sum order)."""
+    idx, x, got = _probe_kernel_case(cuda_device, "onehot_segsum", m, mode)
+    want = scatter_probe.segsum16_ref(idx, x.double().T, m).T
+    torch.testing.assert_close(got.double(), want, rtol=0, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [64, 100, 4096])
+def test_fused_moments_kernel_matches_plain_on_cuda(cuda_device, m):
+    """The moment columns formed in the kernel, contracted on the tensor
+    cores, against the float64 sums at atol 1e-3."""
+    idx, d, got = _probe_kernel_case(cuda_device, "fused_moments", m)
+    want = scatter_probe.segsum16_ref(idx, scatter_probe.moment_columns16(d.double()), m)
+    torch.testing.assert_close(got.double(), want, rtol=0, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_rmw_segsum_kernel_is_bitwise_in_order_on_cuda(cuda_device):
+    """Row order, float32: bit for bit the in-order plain loop."""
+    idx, vals = _probe_inputs("rmw_segsum", 8192, 256, seed=3)
+    got = scatter_probe.rmw_segsum(idx.to(cuda_device), vals.to(cuda_device), 256)
+    assert torch.equal(got.cpu(), scatter_probe.rmw_segsum_ref(idx, vals, 256))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [256, 4096])
+def test_scatter_segsum_kernel_matches_plain_on_cuda(cuda_device, m):
+    """Shared-table (m = 256) and global (m = 4096) paths against the
+    float64 sums at atol 1e-3."""
+    idx, vals, got = _probe_kernel_case(cuda_device, "scatter_segsum", m)
+    want = scatter_probe.segsum16_ref(idx, vals.double(), m)
+    torch.testing.assert_close(got.double(), want, rtol=0, atol=1e-3)
 
 
 def _write_kitti(dirpath: Path, scans):

@@ -19,6 +19,10 @@ from madicp_tpu_torch.models.pipeline import Pipeline
 from madicp_tpu_torch.models.registration import MADicp
 from madicp_tpu_torch.models.vel_estimator import VelEstimator
 
+# keeps a test process that runs many JAX pipeline tests under the kernel's
+# limit on memory mappings (see xla_map_guard.py)
+pytest_plugins = ["xla_map_guard"]
+
 REPO = Path(__file__).resolve().parents[1]
 PIPE_KW = dict(sensor_hz=10.0, deskew=False, b_max=0.2, rho_ker=0.1, p_th=0.8,
                b_min=0.1, b_ratio=0.02, num_keyframes=2)

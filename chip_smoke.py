@@ -12,13 +12,13 @@ script exits non-zero without the final line):
               card, at the shapes and on the data of a flagship tree
               build (all 17 levels, float32 and float64), with kernel
               (eager and in a CUDA graph), plain, library and bound times;
-3b. probe     the four scatter-probe kernels (onehot_segsum in its three
-              modes, fused_moments, rmw_segsum, scatter_segsum) against
-              their plain versions at every probe shape (rmw_segsum bit
-              for bit, the others within 1e-3 of float64), then the
-              probe entry point itself (python -m
-              madicp_tpu_torch.probes.scatter_probe) with its times, its
-              launches counted from 0;
+3b. probe     one run of the probe entry point (python -m
+              madicp_tpu_torch.probes.scatter_probe), its launches counted
+              from 0: it holds the four scatter-probe kernels
+              (onehot_segsum in its three modes, fused_moments,
+              rmw_segsum, scatter_segsum) against their plain versions at
+              every probe shape (rmw_segsum bit for bit, the others
+              within 1e-3 of float64), then times them;
 4. precision  float32 point transforms at 40 m range within 1e-4 m of
               float64 (the TF32 guard);
 5. golden     the four-walls golden drive (tests/test_golden.py): float64
@@ -57,8 +57,6 @@ DEV = "cuda"
 
 # flagship configuration of the JAX package's bench (bench.py:100-169)
 N_POINTS, DEPTH, KEYFRAMES, MAX_LEAVES = 131072, 16, 16, 32768
-H100_BYTES_PER_S = 3.35e12  # HBM3, NVIDIA H100 SXM data sheet
-PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}  # non-tensor-core, data sheet
 SEGSUM_FLOPS_PER_POINT = 19  # 9 products + 10 adds
 
 
@@ -193,7 +191,7 @@ def capture_levels(points, valid):
 
 def phase_kernels(torch) -> dict:
     from madicp_tpu_torch.kernels import segsum
-    from madicp_tpu_torch.utils.timing import event_ms, graph_ms
+    from madicp_tpu_torch.utils.timing import bound_ms, event_ms, graph_ms
 
     rng = np.random.default_rng(0)
     R, t = bench_pose(3)
@@ -232,12 +230,11 @@ def phase_kernels(torch) -> dict:
             plain_ms = event_ms(lambda: segsum.segsum_moments_ref(d, idx, sz), 20)
             library_ms = event_ms(lambda: tab.index_add_(0, ids, mom), 20)
             n = d.shape[0]
-            t_bytes = (n * (3 * esize + 4) + sz * 10 * esize) / H100_BYTES_PER_S * 1e3
-            t_ops = n * SEGSUM_FLOPS_PER_POINT / PEAK_FLOPS[dname] * 1e3
-            bound_ms = max(t_bytes, t_ops)
-            bound_by.add("bytes" if t_bytes >= t_ops else "operations")
+            bound, by = bound_ms(n * (3 * esize + 4) + sz * 10 * esize,
+                                 n * SEGSUM_FLOPS_PER_POINT, dname)
+            bound_by.add(by)
             row = {"sz": sz, "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
-                   "library_ms": library_ms, "bound_ms": bound_ms}
+                   "library_ms": library_ms, "bound_ms": bound}
             for k in tot:
                 tot[k] += row[k]
             rows.append(dict(row, max_abs_err=float(err.max())))
@@ -257,21 +254,11 @@ PROBE_KERNELS = {  # wrapper -> the TPU kernel it replaces
 
 
 def phase_probe(torch) -> dict:
-    """Each probe kernel against its plain version at every probe shape,
-    then one run of the probe entry point; per kernel, its sums over that
-    run's cases and the launches the run made."""
+    """One run of the probe entry point, which checks every case before
+    it times it; per kernel, its sums over that run's cases and the
+    launches the run made."""
     from madicp_tpu_torch.kernels import scatter_probe as sp
     from madicp_tpu_torch.probes import scatter_probe as probe
-
-    worst: dict = {}
-    for case in probe.cases(DEV):
-        rec = probe.check(case)
-        check(rec["ok"], f"probe: {case.name} M={case.m} disagrees with its plain "
-                         f"version: {rec}")
-        worst[case.name] = max(worst.get(case.name, 0.0), rec["max_abs_err"])
-    emit({"phase": "probe", "step": "check", "tol": probe.TOL,
-          "rmw_segsum": "bitwise equal to the in-order plain version",
-          "max_abs_err": worst})
 
     for k in sp.launches:
         sp.launches[k] = 0  # the probe's run starts here
@@ -279,7 +266,8 @@ def phase_probe(torch) -> dict:
     records = probe.run(DEV, emit=lambda s: print(s, flush=True))
     seconds = time.perf_counter() - t0
     launches = dict(sp.launches)  # read right after the run
-    check(all(r["ok"] for r in records), "probe: a case failed its check")
+    bad = [r for r in records if not r["ok"]]
+    check(not bad, f"probe: cases disagree with their plain versions: {bad}")
     out = {}
     for name in PROBE_KERNELS:
         recs = [r for r in records if r["kernel"] == name]
@@ -292,8 +280,11 @@ def phase_probe(torch) -> dict:
                for k in ("ms", "device_ms", "plain_ms", "bound_ms")},
             "library_ms": None if None in lib else sum(lib),
             "bound_by": max(recs, key=lambda r: r["bound_ms"])["bound_by"],
+            # the dense one-hot cases' tensor-core flops at the bf16 peak
+            "design_ops_ms": sum(r["design_ops_ms"] or 0.0 for r in recs) or None,
         }
-    emit({"phase": "probe", "step": "run", "seconds": seconds,
+    emit({"phase": "probe", "seconds": seconds, "tol": probe.TOL,
+          "rmw_segsum": "bitwise equal to the in-order plain version",
           "per_probe_pass": out})
     return out
 

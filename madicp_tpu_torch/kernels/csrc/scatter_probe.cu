@@ -24,8 +24,9 @@
 //       Each value is truncation-split into three bf16 parts (hi/mid/lo,
 //       pallas_scatter_probe.py:113-123) whose products with the 0/1
 //       one-hot are exact; the three products accumulate in f32. Bound:
-//       operations at large m (2 n m 16 3 flops: ~0.2 ms at m = 16384 on
-//       989 TFLOP/s), bytes at small m. The one-hot tile is built in
+//       bytes, as for f32 (the function). The dense design adds 2 n m 16 3
+//       tensor-core flops (~0.2 ms at m = 16384 on 989 TFLOP/s), its own
+//       floor, which grows with m. The one-hot tile is built in
 //       shared memory from the ids, 16 bytes a lane, never in device
 //       memory; a warp keeps accumulators for 8 column tiles (128
 //       columns) in registers and reuses each split A tile across them.
@@ -43,7 +44,8 @@
 //     registers from d as the 10 moment columns [d, outer6(d), 1] plus 6
 //     zero columns. The same function as segsum_moments.cu, by another
 //     design (dense contraction in f32 instead of a scatter in double).
-//     Bound: operations at large m, bytes (n x 16 B) at small m.
+//     Bound: bytes (n x 16 B in, 64 m B out); the design's own floor is
+//     K2 bf16x3's tensor-core flops.
 // K4  rmw_segsum16                   vals (q, 16), idx (q,) -> (m, 16)
 //     replaces rmw_kernel (pallas_scatter_probe.py:365, call :375), the
 //     TPU's serial in-order read-modify-write loop. One block holds the
@@ -449,7 +451,8 @@ int launch_onehot(const int32_t* idx, const float* src, int n, int m,
 extern "C" {
 
 // Plain C interface for ctypes: (ids, values, n rows, m table rows,
-// double scratch of 16 m entries, output, stream). The scratch is used,
+// double scratch of 16 m entries, output, stream); n and m are at most
+// 2^26, so every index below fits in an int. The scratch is used,
 // and must be zeroed, by the tensor-core kernels only; the scatter
 // kernels need a zeroed output instead. Returns the cudaGetLastError()
 // code after the launches (0 = success).

@@ -36,7 +36,7 @@ from madicp_tpu_torch.kernels import build
 
 MODES = ("f32", "highest", "bf16x3")
 RMW_MAX_ROWS = 2048  # the in-order kernel keeps the table in shared memory
-_MAX_N = 2**31 // 16
+_MAX_N = 2**26  # 16 N and 16 M, plus a grid's stride, stay within a C int
 
 launches = {"onehot_segsum": 0, "fused_moments": 0, "rmw_segsum": 0,
             "scatter_segsum": 0}
@@ -116,8 +116,9 @@ def _checked(name: str, idx, x, shape: tuple, n: int, m: int) -> bool:
     if tuple(x.shape) != shape or idx.shape not in ((n,), (1, n)):
         raise ValueError(f"{name}: want values {shape} and idx ({n},) or (1, {n}), "
                          f"got {tuple(x.shape)} and {tuple(idx.shape)}")
-    if m < 1 or n > _MAX_N:
-        raise ValueError(f"{name}: need 1 <= M and N <= {_MAX_N}, got M={m}, N={n}")
+    if not (1 <= m <= _MAX_N and n <= _MAX_N):
+        raise ValueError(f"{name}: need 1 <= M <= {_MAX_N} and N <= {_MAX_N}, "
+                         f"got M={m}, N={n}")
     if idx.device != x.device:
         raise ValueError(f"{name}: idx and values on different devices")
     if x.device.type == "cpu":

@@ -18,10 +18,13 @@ version in float64 (``atol 1e-3``, float32 reassociation), and
 Then it prints one line for people and one JSON line with ``ms`` (eager
 calls, CUDA events over R calls: what a caller pays), ``device_ms`` (R
 calls in one CUDA graph, replayed: the kernel without its host
-wrapper), ``plain_ms``, ``library_ms`` (one ``index_add_``, where one call
-computes the same sums), ``bound_ms``/``bound_by`` (bytes over 3.35 TB/s
-or operations over the peak of their type, the larger), ``max_abs_err``
-and the card with its power limit.
+wrapper), ``plain_ms``, ``library_ms`` (one ``index_add_`` computing the
+same sums, in its own order), ``bound_ms``/``bound_by`` (the function's
+bytes over 3.35 TB/s or its float32 operations over the peak, the
+larger), ``design_ops_ms`` (the dense one-hot contraction's tensor-core
+flops over the bf16 peak: the floor of that design, not of the function;
+null for the scatters), ``max_abs_err`` and the card with its power
+limit.
 
 Run on the card, output to a file:
 
@@ -47,7 +50,7 @@ import torch
 from madicp_tpu_torch.kernels import scatter_probe as sp
 from madicp_tpu_torch.kernels import segsum
 from madicp_tpu_torch.utils.device import card_name, resolve_device
-from madicp_tpu_torch.utils.timing import event_ms, graph_ms
+from madicp_tpu_torch.utils.timing import H100_PEAK_FLOPS, bound_ms, event_ms, graph_ms
 
 N = 131072
 R = 20
@@ -55,8 +58,7 @@ SIZES = (64, 256, 1024, 4096, 16384)  # the JAX probe's PROBE_SIZES
 Q, MQ = 8192, 256
 TOL = 1e-3  # float32 reassociation over ~2000 terms of N(0, 1)
 RMW_PLAIN_REPS = 2  # the in-order plain loop launches one add per row
-BYTES_PER_S = 3.35e12  # H100 SXM HBM3, data sheet
-PEAK_FLOPS = {"bf16": 989e12, "float32": 67e12}  # dense tensor core / CUDA core
+MOMENT_FLOPS = 19  # a point's 9 products and 10 adds
 
 
 @dataclass
@@ -73,8 +75,8 @@ class Case:
     want: Callable  # the sums in float64
     library: Optional[Callable]  # one PyTorch call for the same sums
     nbytes: int  # each input read once, the output written once
-    flops: int
-    peak: str  # key of PEAK_FLOPS
+    flops: int  # the function's float32 operations
+    design_flops: int = 0  # the dense contraction's bf16 flops, where used
     bitwise: bool = False  # must equal the plain version bit for bit
     plain_reps: Optional[int] = None
     baselines: dict = field(default_factory=dict)  # other designs, same sums
@@ -119,9 +121,8 @@ def cases(device, n: int = N, sizes=SIZES) -> list:
                 plain=partial(sp.onehot_segsum_ref, idx2d, vals_t, m, mode),
                 want=partial(_cols64, idx2d, vals_t, m),
                 library=partial(tab.index_add_, 1, idx2d.reshape(-1).long(), vals_t),
-                nbytes=n * 16 * 4 + n * 4 + 16 * m * 4,
-                flops=2 * n * m * 16 * 3 if dense else n * 16,
-                peak="bf16" if dense else "float32"))
+                nbytes=n * 16 * 4 + n * 4 + 16 * m * 4, flops=n * 16,
+                design_flops=2 * n * m * 16 * 3 if dense else 0))
 
     d = torch.as_tensor(rng.normal(0, 1, (n, 3)).astype(np.float32), device=dev)
     mom = sp.moment_columns16(d)
@@ -134,8 +135,8 @@ def cases(device, n: int = N, sizes=SIZES) -> list:
             plain=partial(sp.fused_moments_ref, idx2d, d, m),
             want=partial(_moments, idx2d, d.double(), m),
             library=partial(tab.index_add_, 0, idx2d.reshape(-1).long(), mom),
-            nbytes=n * 3 * 4 + n * 4 + m * 16 * 4,
-            flops=2 * n * m * 16 * 3, peak="bf16",
+            nbytes=n * 3 * 4 + n * 4 + m * 16 * 4, flops=n * MOMENT_FLOPS,
+            design_flops=2 * n * m * 16 * 3,
             baselines={"mom_scatter": partial(_moments, idx2d, d, m),
                        "segsum_moments": partial(
                            segsum.segsum_moments, d, idx2d.reshape(-1), m)}))
@@ -144,21 +145,20 @@ def cases(device, n: int = N, sizes=SIZES) -> list:
     vals_q = torch.as_tensor(rng.normal(0, 1, (Q, 16)).astype(np.float32), device=dev)
     want_q = partial(sp.segsum16_ref, idx_q, vals_q.double(), MQ)
     rows_bytes = Q * 16 * 4 + Q * 4 + MQ * 16 * 4
+    tab_q = torch.zeros((MQ, 16), dtype=torch.float32, device=dev)
+    # the same sums for B and C; index_add_ does not keep row order
+    lib_q = partial(tab_q.index_add_, 0, idx_q.reshape(-1).long(), vals_q)
     out.append(Case(
         "B", "rmw_segsum", None, MQ, Q,
         call=partial(sp.rmw_segsum, idx_q, vals_q, MQ),
         plain=partial(sp.rmw_segsum_ref, idx_q, vals_q, MQ),
-        want=want_q, library=None,  # no PyTorch call sums in row order
-        nbytes=rows_bytes, flops=Q * 16, peak="float32",
+        want=want_q, library=lib_q, nbytes=rows_bytes, flops=Q * 16,
         bitwise=True, plain_reps=RMW_PLAIN_REPS))
-    tab_q = torch.zeros((MQ, 16), dtype=torch.float32, device=dev)
     out.append(Case(
         "C", "scatter_segsum", None, MQ, Q,
         call=partial(sp.scatter_segsum, idx_q, vals_q, MQ),
         plain=partial(sp.scatter_segsum_ref, idx_q, vals_q, MQ),
-        want=want_q,
-        library=partial(tab_q.index_add_, 0, idx_q.reshape(-1).long(), vals_q),
-        nbytes=rows_bytes, flops=Q * 16, peak="float32"))
+        want=want_q, library=lib_q, nbytes=rows_bytes, flops=Q * 16))
     return out
 
 
@@ -174,13 +174,6 @@ def check(case: Case) -> dict:
         ok = ok and out["bitwise_equal_to_plain"]
     out["ok"] = ok
     return out
-
-
-def bound(case: Case) -> tuple:
-    """(least milliseconds the card could take, "bytes" or "operations")."""
-    t_bytes = case.nbytes / BYTES_PER_S * 1e3
-    t_ops = case.flops / PEAK_FLOPS[case.peak] * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def measure(case: Case, reps: int) -> dict:
@@ -203,7 +196,9 @@ def _human(rec: dict) -> str:
                  f"({rec['device_ms'] * 1e6 / rec['n']:.3f} ns/row), plain "
                  f"{rec['plain_ms']:.4f}, index_add_ "
                  + ("-" if lib is None else f"{lib:.4f}")
-                 + f", bound {rec['bound_ms']:.5f} ({rec['bound_by']})")
+                 + f", bound {rec['bound_ms']:.5f} ({rec['bound_by']})"
+                 + ("" if rec["design_ops_ms"] is None
+                    else f", dense design's flops {rec['design_ops_ms']:.4f}"))
     return line
 
 
@@ -218,7 +213,9 @@ def run(device="cuda", n: int = N, sizes=SIZES, reps: int = R, emit=print) -> li
         rec = {"probe": "scatter", "section": case.section, "kernel": case.kernel,
                "mode": case.mode, "M": case.m, "n": case.n, "card": card}
         rec.update(check(case))
-        rec["bound_ms"], rec["bound_by"] = bound(case)
+        rec["bound_ms"], rec["bound_by"] = bound_ms(case.nbytes, case.flops, "float32")
+        rec["design_ops_ms"] = (case.design_flops / H100_PEAK_FLOPS["bf16"] * 1e3
+                                if case.design_flops else None)
         if dev.type == "cuda" and rec["ok"]:
             rec.update(measure(case, reps))
         emit(_human(rec))

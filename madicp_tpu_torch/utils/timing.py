@@ -16,6 +16,20 @@ import torch
 
 PHASES = ("deskew", "build", "leaves", "association", "terms+solve", "rings")
 
+# NVIDIA H100 SXM data sheet: HBM3 bandwidth and dense peak rates
+# (bf16 on the tensor cores; float32 and float64 on the CUDA cores)
+H100_BYTES_PER_S = 3.35e12
+H100_PEAK_FLOPS = {"bf16": 989e12, "float32": 67e12, "float64": 34e12}
+
+
+def bound_ms(nbytes: float, flops: float, kind: str) -> tuple:
+    """(least milliseconds an H100 could take, "bytes" or "operations"):
+    the larger of ``nbytes`` over the memory rate and ``flops`` over the
+    peak rate of ``kind``."""
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = flops / H100_PEAK_FLOPS[kind] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
 
 class PhaseTimer:
     def __init__(self, device: torch.device):

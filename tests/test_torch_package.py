@@ -20,7 +20,8 @@ from madicp_tpu_torch.models.registration import MADicp
 from madicp_tpu_torch.models.vel_estimator import VelEstimator
 
 # keeps a test process that runs many JAX pipeline tests under the kernel's
-# limit on memory mappings (see xla_map_guard.py)
+# limit on memory mappings; only processes that collect this file load it
+# (see xla_map_guard.py for running a JAX test file alone)
 pytest_plugins = ["xla_map_guard"]
 
 REPO = Path(__file__).resolve().parents[1]

@@ -152,6 +152,13 @@ def test_probe_entry_point_on_cpu(capsys):
     assert [(r["section"], r["kernel"], r["mode"], r["M"]) for r in recs] == want
     assert all(r["ok"] and r["card"] == "cpu" and "ms" not in r for r in recs)
     assert all(r["max_abs_err"] <= probe.TOL and r["bound_ms"] > 0 for r in recs)
+    # the bound is the function's (bytes at these shapes), whatever the
+    # design; the dense contraction's flops are reported apart
+    assert all(r["bound_by"] == "bytes" for r in recs)
+    dense = [r for r in recs if r["mode"] == "bf16x3" or r["kernel"] == "fused_moments"]
+    assert all((r["design_ops_ms"] is not None) == (r in dense) for r in recs)
+    by_m = {(r["mode"], r["M"]): r["bound_ms"] for r in recs if r["section"] == "A"}
+    assert all(by_m[("bf16x3", m)] == by_m[("f32", m)] for m in (64, 256))
 
 
 def test_probe_entry_point_refuses_to_fall_back_to_the_cpu():

@@ -12,8 +12,16 @@ process's mappings and, past half of that limit, calls
 persistent compilation cache) what they use, and compute the same results.
 A test process that never imports JAX is left alone.
 
-It is registered by ``pytest_plugins`` in ``test_torch_package.py``, so it
-is loaded in every process that collects the whole suite.
+It is registered by ``pytest_plugins`` in ``test_torch_package.py``, and
+only a process that collects that file loads it: every process of a run
+over ``tests/`` does, but a JAX test file run alone
+(``python -m pytest tests/test_pipeline.py``) runs unguarded. Load it by
+name there:
+
+    PYTHONPATH=tests python -m pytest -p xla_map_guard tests/test_pipeline.py
+
+The card's runs of ``test_torch_package.py`` load it too; with no JAX
+imported it does nothing.
 """
 
 from __future__ import annotations

@@ -11,7 +11,8 @@ script exits non-zero without the final line):
 3. kernels    segsum_moments against its plain PyTorch version on the
               card, at the shapes and on the data of a flagship tree
               build (all 17 levels, float32 and float64), with kernel
-              (eager and in a CUDA graph), plain, library and bound times;
+              and library (each eager and in a CUDA graph), plain and bound
+              times;
 3b. probe     one run of the probe entry point (python -m
               madicp_tpu_torch.probes.scatter_probe), its launches counted
               from 0: it holds the four scatter-probe kernels
@@ -207,7 +208,7 @@ def phase_kernels(torch) -> dict:
         check(len(levels) == DEPTH + 1, f"expected {DEPTH + 1} levels, got {len(levels)}")
         esize = torch.finfo(dtype).bits // 8
         rows, tot = [], dict(ms=0.0, device_ms=0.0, plain_ms=0.0, library_ms=0.0,
-                             bound_ms=0.0)
+                             library_device_ms=0.0, bound_ms=0.0)
         max_abs = max_rel = 0.0
         bound_by = set()
         for d, idx, sz in levels:
@@ -229,12 +230,14 @@ def phase_kernels(torch) -> dict:
             device_ms = graph_ms(lambda: segsum.segsum_moments(d, idx, sz), 20)
             plain_ms = event_ms(lambda: segsum.segsum_moments_ref(d, idx, sz), 20)
             library_ms = event_ms(lambda: tab.index_add_(0, ids, mom), 20)
+            library_device_ms = graph_ms(lambda: tab.index_add_(0, ids, mom), 20)
             n = d.shape[0]
             bound, by = bound_ms(n * (3 * esize + 4) + sz * 10 * esize,
                                  n * SEGSUM_FLOPS_PER_POINT, dname)
             bound_by.add(by)
             row = {"sz": sz, "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
-                   "library_ms": library_ms, "bound_ms": bound}
+                   "library_ms": library_ms, "library_device_ms": library_device_ms,
+                   "bound_ms": bound}
             for k in tot:
                 tot[k] += row[k]
             rows.append(dict(row, max_abs_err=float(err.max())))
@@ -273,12 +276,14 @@ def phase_probe(torch) -> dict:
         recs = [r for r in records if r["kernel"] == name]
         check(launches[name] > 0, f"probe: {name} was never launched")
         lib = [r["library_ms"] for r in recs]
+        lib_dev = [r["library_device_ms"] for r in recs]
         out[name] = {
             "cases": len(recs), "launches": launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in recs),
             **{k: sum(r[k] for r in recs)
                for k in ("ms", "device_ms", "plain_ms", "bound_ms")},
             "library_ms": None if None in lib else sum(lib),
+            "library_device_ms": None if None in lib_dev else sum(lib_dev),
             "bound_by": max(recs, key=lambda r: r["bound_ms"])["bound_by"],
             # the dense one-hot cases' tensor-core flops at the bf16 peak
             "design_ops_ms": sum(r["design_ops_ms"] or 0.0 for r in recs) or None,
@@ -360,23 +365,13 @@ def phase_accuracy(torch) -> None:
     check(worst <= 0.01, f"flagship motion error {worst * 1e3:.2f} mm > 10 mm")
 
 
-def profile_window(torch, run, n_scans: int) -> dict:
+def profile_window(run, n_scans: int) -> dict:
     """Device time by CUDA kernel name and the device's busy share over
     ``run()`` (``n_scans`` scans), from torch.profiler."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from madicp_tpu_torch.utils.timing import device_kernels
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name: dict = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            ms, cnt = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (ms + e.device_time_total / 1e3, cnt + 1)
+    by_us, wall_ms = device_kernels(run)
+    by_name = {k: (us / 1e3, cnt) for k, (us, cnt) in by_us.items()}
     busy_ms = sum(ms for ms, _ in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:25]
     return {
@@ -450,7 +445,7 @@ def phase_steady(torch) -> dict:
         for i in range(i0, i0 + n_phase):
             pipe.compute_device(0.1 * i, *staged[i])
 
-    prof = profile_window(torch, run, n_phase)
+    prof = profile_window(run, n_phase)
 
     poses = torch.stack(poses).cpu().numpy()
     descents = [int(d) for d in descents]
@@ -507,6 +502,7 @@ def main() -> int:
         "bound_ms": f32["bound_ms"],
         "bound_by": "bytes" if f32["bound_by"] == "bytes" else "operations",
         "library_ms": f32["library_ms"],
+        "library_device_ms": f32["library_device_ms"],
     }]
     for name, replaces in PROBE_KERNELS.items():
         k = probe[name]
@@ -518,6 +514,7 @@ def main() -> int:
             "device_ms": k["device_ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": k["library_ms"],
+            "library_device_ms": k["library_device_ms"],
         })
     emit({"kernels": rows})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})

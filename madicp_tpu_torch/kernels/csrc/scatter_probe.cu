@@ -37,30 +37,66 @@
 //       m = 64 (H100 80GB HBM3, 700 W), next to the 1e-3 tolerance.
 //       The warps' partial sums are combined by double atomics into a
 //       scratch table and cast once, so adding hundreds of partials into
-//       sums of ~2000 (K3's x*x column at m = 64) rounds only once.
+//       large sums rounds only once.
 // K3  fused_moments16                d (n, 3), idx (n,) -> (m, 16)
 //     replaces make_fused_moments (pallas_scatter_probe.py:155, call
-//     :224): K2's bf16x3 tensor-core core with the A tile formed in
-//     registers from d as the 10 moment columns [d, outer6(d), 1] plus 6
-//     zero columns. The same function as segsum_moments.cu, by another
-//     design (dense contraction in f32 instead of a scatter in double).
-//     Bound: bytes (n x 16 B in, 64 m B out); the design's own floor is
-//     K2 bf16x3's tensor-core flops.
+//     :224), the TPU's one-hot contraction of the 10 moment columns
+//     [d, outer6(d), 1] (plus 6 zero columns) on the matrix unit. Its
+//     function is a scatter: bound by bytes (n x 16 B in, 64 m B out,
+//     ~0.6-1.6 us). A dense contraction costs 2 n m 48 flops, which grows
+//     with m (1.8 ms at m = 16384 when this kernel was one), so here a
+//     thread per point reads its 12 bytes and its id, forms the 10
+//     columns in registers and scatters them; the accumulator follows
+//     the contention n / m:
+//     * n >= 256 m and m <= 2048 (few table rows, hundreds to thousands
+//       of terms each): a per-block (10, m) float32 table in shared
+//       memory with shared atomics, about two blocks an SM. The 8 blocks
+//       of a thread-block cluster add their tables in double over
+//       distributed shared memory, each block a slice, and each cluster
+//       adds its slice to a double workspace with global atomics: one
+//       atomic an entry a cluster, not a block, so the blocks can be 4x
+//       as many (m = 256: 29.3 us with 32 blocks and no cluster, 15.0
+//       with 128 in clusters; H100 80GB HBM3, 700 W). The last block to
+//       finish (a ticket counter) rounds the sums to float32 once, writes
+//       the output, and zeroes the workspace and the ticket for the next
+//       call: one launch, no memset, no cast kernel. At m = 64 an entry sums ~2000
+//       terms near 2000, where one float32 ulp is 1.2e-4, so the combine
+//       is in double. No warp pre-aggregation for m <= 32: each warp
+//       takes about one 32-point step, so a conflict costs it a few
+//       serialised shared atomics once, less than a shuffle reduction
+//       per distinct id (41-91 us at segsum_moments.cu's sz 8-32 levels).
+//     * otherwise (at most a few hundred terms an entry): the output is
+//       zeroed by a memset and each point adds its row with three
+//       vector atomics (float4, float4, float2: sm_90 global memory)
+//       straight into it, so a point costs 3 atomics, not 10. The other
+//       design for this regime, the whole table in one cluster's
+//       distributed shared memory (fused_moments16_cluster, kept for the
+//       probe's A/B), took 0.46/0.44 ms at m = 4096/16384 against
+//       8.4/7.7 us here: 8 SMs of remote shared atomics.
 // K4  rmw_segsum16                   vals (q, 16), idx (q,) -> (m, 16)
 //     replaces rmw_kernel (pallas_scatter_probe.py:365, call :375), the
-//     TPU's serial in-order read-modify-write loop. One block holds the
-//     table in shared memory (m <= 2048); rows are staged 512 at a time
-//     (16-byte loads: `vals` must be 16-byte aligned),
-//     and each table entry (id, c) is owned by one thread (column c, id
-//     mod 16: two id classes a warp). A warp reads 32 staged ids at once,
-//     ballots the rows it owns and walks just those, in order, so no
-//     thread scans rows it does not own (scanning every row in every
-//     thread took 0.39-0.50 ms at q = 8192). So every entry sums
-//     its rows in row order in float32: bitwise equal to np.add.at. The
+//     TPU's serial in-order read-modify-write loop. Every entry (id, c)
+//     is 0.0f + v_r1 + v_r2 + ... over its rows in increasing row index:
+//     bitwise a float32 np.add.at. Bound: bytes (~0.6 MB, ~0.2 us). The
+//     order binds only inside one entry, so the entries spread over the
+//     card: each block owns 16 consecutive ids (one thread an entry).
+//     A block reads every id, 8192 rows a pass (warp w takes rows
+//     512 w .. 512 w + 511, 32 at a time in order), and sorts the rows
+//     of its ids stably by id: __match_any_sync plus popc of the lower
+//     lanes ranks equal ids inside a warp step, per-warp counters carry
+//     the rank across steps, and an exclusive scan over (id, warp) gives
+//     each row its place. The sorted rows are staged in shared memory
+//     with 16-byte cp.async copies, all in flight at once (`vals` must be
+//     16-byte aligned), and each entry's thread adds its run in order:
+//     the loads do not wait on the adds, so a chain of ~32 rows costs
+//     ~32 shared loads and float32 adds, not ~32 memory latencies. The
 //     TPU indexed out-of-range ids with undefined results; here they
-//     drop. Bound: bytes (~0.6 MB, ~0.2 us); in practice one SM's
-//     serial walk: each warp visits q/8 rows, one dependent shared
-//     read-modify-write each.
+//     drop. Each block reads all q ids, so the work grows as q m / 16
+//     (the wrapper caps m). At q = 8192, m = 256 this takes 4.5 us
+//     against index_add_'s 2.9 (its own order). Three variants ran
+//     slower in the same calls (H100 80GB HBM3, 700 W): 1024 threads
+//     (5.5 us), a leader-only counter update with an 8-deep unrolled sum
+//     (4.9), per-step histograms with a 4-deep pipelined sum (5.4-5.9).
 // K5  scatter_segsum16               vals (q, 16), idx (q,) -> (m, 16)
 //     replaces scat_kernel (pallas_scatter_probe.py:401, call :406), an
 //     in-kernel `.at[].add(mode="drop")` that Mosaic could not lower.
@@ -73,9 +109,12 @@
 // they match a float64 sum to float32 reassociation only.
 // Inputs must be finite: the dense contraction multiplies every value
 // by 0 or 1. Outputs of K2 (f32) and K5 must be zeroed by the caller,
-// and so must the double scratch of K2 (bf16x3) and K3, which write
-// every entry of their output, as K4 does.
+// and so must the double scratch of K2 (bf16x3), which writes every
+// entry of its output, as K3 and K4 do. K3's workspace is zeroed once by
+// its owner and left zeroed by every call; calls that share it must be
+// ordered on one stream.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -86,20 +125,42 @@
 namespace {
 
 using namespace nvcuda;
+namespace cg = cooperative_groups;
 
 constexpr int NCOL = 16;
 constexpr int THREADS = 256;
 constexpr size_t SCATTER_SMEM_MAX = 96 * 1024;  // shared table, m <= 1536
 constexpr int SHARED_MIN_ROWS_PER_ID = 256;     // contention worth a table
-constexpr size_t RMW_SMEM_MAX = 128 * 1024;     // rmw table, m <= 2048
-constexpr int RMW_CHUNK = 512;                  // rows staged per step
-constexpr int RMW_GROUPS = THREADS / NCOL;      // 16 id classes, 2 a warp
 constexpr unsigned FULL_MASK = 0xffffffffu;
 
 constexpr int WARPS = 4;                 // warps per block of the mma kernel
 constexpr int TILES = 8;                 // 16-column tiles a warp accumulates
 constexpr int GROUP_COLS = 16 * TILES;   // 128 output columns per warp
 constexpr int KMIN_CHUNKS = 16;          // least 16-point chunks per warp
+
+constexpr int MOM_COLS = 10;             // [d, outer6(d), 1]
+constexpr int MOM_THREADS = 512;
+constexpr int MOM_SHARED_MAX_M = 2048;   // (10, m) float32 table, 80 KB
+constexpr int MOM_ROWS_PER_BLOCK_ID = 4;  // least points a block per table row
+constexpr int MOM_CLUSTER = 8;           // blocks of a cluster (portable size)
+constexpr int MOM_DSMEM_THREADS = 1024;
+constexpr int MOM_DSMEM_MAX_M = 16384;   // 2048 rows of the table a block, 80 KB
+// workspace: one ticket word, then the (10, m) double sums
+constexpr int MOM_WORKSPACE = 1 + MOM_COLS * MOM_SHARED_MAX_M;
+
+constexpr int RMW_THREADS = 512;
+constexpr int RMW_WARPS = RMW_THREADS / 32;       // 16
+constexpr int RMW_IDS = 16;                        // table rows a block owns
+constexpr int RMW_CHUNK = 8192;                    // rows sorted a pass
+constexpr int RMW_STEPS = RMW_CHUNK / RMW_THREADS; // 32-row steps a warp
+constexpr int RMW_STAGE = 1024;                    // rows staged at once
+
+struct RmwShared {
+  float stage[RMW_STAGE * NCOL];  // staged rows, in sorted order
+  int list[RMW_CHUNK];            // the pass's rows of this block, sorted
+  int cnt[RMW_WARPS][RMW_IDS];    // per-warp counts, then offsets
+  int seg[RMW_IDS + 1];           // each id's first place; seg[16]: total
+};
 
 int sm_count() {
   static int sms = 0;
@@ -176,62 +237,206 @@ __global__ void scatter_rows_kernel(const int32_t* __restrict__ idx,
   if (SHARED) flush_table(tab, NCOL * m, out);
 }
 
-// ----------------------------------------------- K4: in-order RMW ------
-__global__ void __launch_bounds__(THREADS)
-rmw_kernel(const int32_t* __restrict__ idx, const float* __restrict__ vals,
-           int q, int m, float* __restrict__ out) {
-  extern __shared__ float tab[];
-  __shared__ __align__(16) float stage[RMW_CHUNK * NCOL];
-  __shared__ int ids[RMW_CHUNK];
-  const int tab_n = NCOL * m;
-  for (int i = threadIdx.x; i < tab_n; i += blockDim.x) tab[i] = 0.f;
-  // lane l of warp w owns the entries (id, l % 16) with id % 16 == 2 w + l / 16
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int c = lane % NCOL, half = lane / NCOL;
-  constexpr int VEC = RMW_CHUNK * NCOL / 4 / THREADS;  // float4 a thread
-  constexpr int IDS = RMW_CHUNK / THREADS;              // ids a thread
-  for (int base = 0; base < q; base += RMW_CHUNK) {
-    const int rows = min(RMW_CHUNK, q - base);
-    // every load of the chunk in flight at once, then one barrier: a
-    // load-store loop waited out one memory latency per row group
-    const float4* src = reinterpret_cast<const float4*>(vals) +
-                        static_cast<size_t>(base) * (NCOL / 4);
-    float4 v[VEC];
-    int id_in[IDS];
-#pragma unroll
-    for (int k = 0; k < VEC; ++k) {
-      const int i = threadIdx.x + k * THREADS;
-      v[k] = i < rows * (NCOL / 4) ? src[i] : make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-#pragma unroll
-    for (int k = 0; k < IDS; ++k) {
-      const int r = threadIdx.x + k * THREADS;
-      id_in[k] = r < rows ? idx[base + r] : -1;
-    }
-    __syncthreads();  // the table is zeroed, the previous chunk consumed
-#pragma unroll
-    for (int k = 0; k < VEC; ++k)
-      reinterpret_cast<float4*>(stage)[threadIdx.x + k * THREADS] = v[k];
-#pragma unroll
-    for (int k = 0; k < IDS; ++k) ids[threadIdx.x + k * THREADS] = id_in[k];
-    __syncthreads();
-    for (int r0 = 0; r0 < rows; r0 += 32) {  // the warp's rows, in order
-      const int id = r0 + lane < rows ? ids[r0 + lane] : -1;
-      unsigned todo = __ballot_sync(FULL_MASK, id >= 0 && id < m &&
-                                                   (id % RMW_GROUPS) / 2 == warp);
-      while (todo) {
-        const int src = __ffs(todo) - 1;
-        todo &= todo - 1;
-        const int j = __shfl_sync(FULL_MASK, id, src);
-        if (j % 2 == half) tab[j * NCOL + c] += stage[(r0 + src) * NCOL + c];
-      }
-    }
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < tab_n; i += blockDim.x) out[i] = tab[i];
+// ------------------------------------------ K4: in-order, spread out --
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
 }
 
-// ------------------------------------- K2 bf16x3 and K3: tensor cores --
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Block b owns ids 16 b .. 16 b + 15; thread t < 256 owns the entry
+// (16 b + t / 16, t % 16) and keeps its sum in a register across passes.
+__global__ void __launch_bounds__(RMW_THREADS)
+rmw_kernel(const int32_t* __restrict__ idx, const float* __restrict__ vals,
+           int q, int m, float* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char rmw_smem[];
+  RmwShared& s = *reinterpret_cast<RmwShared*>(rmw_smem);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int lo = blockIdx.x * RMW_IDS;
+  const int own_k = threadIdx.x / NCOL, own_c = threadIdx.x % NCOL;
+  const bool owner = threadIdx.x < RMW_IDS * NCOL;
+  const unsigned lower = (1u << lane) - 1;
+  float acc = 0.f;
+  for (int base = 0; base < q; base += RMW_CHUNK) {
+    // 1. every id of the warp's 512 rows at once, then rank them in order
+    const int row0 = base + warp * (RMW_STEPS * 32);
+    int key[RMW_STEPS], rank[RMW_STEPS];
+#pragma unroll
+    for (int t = 0; t < RMW_STEPS; ++t) {
+      const int r = row0 + t * 32 + lane;
+      const int id = r < q ? idx[r] : -1;
+      key[t] = (id >= lo && id < lo + RMW_IDS && id < m) ? id - lo : -1;
+    }
+    if (lane < RMW_IDS) s.cnt[warp][lane] = 0;
+    __syncwarp();
+#pragma unroll
+    for (int t = 0; t < RMW_STEPS; ++t) {
+      const unsigned same = __match_any_sync(FULL_MASK, key[t]);
+      const int before = __popc(same & lower);
+      rank[t] = key[t] >= 0 ? s.cnt[warp][key[t]] + before : 0;
+      __syncwarp();
+      if (key[t] >= 0 && before == 0) s.cnt[warp][key[t]] += __popc(same);
+      __syncwarp();
+    }
+    __syncthreads();
+    // 2. places: ids in order, inside an id the warps in (row) order
+    if (warp == 0) {
+      int tot = 0;
+      if (lane < RMW_IDS)
+        for (int w = 0; w < RMW_WARPS; ++w) tot += s.cnt[w][lane];
+      int incl = tot;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int v = __shfl_up_sync(FULL_MASK, incl, o);
+        if (lane >= o) incl += v;
+      }
+      if (lane < RMW_IDS) {
+        int off = incl - tot;
+        s.seg[lane] = off;
+        for (int w = 0; w < RMW_WARPS; ++w) {
+          const int c = s.cnt[w][lane];
+          s.cnt[w][lane] = off;
+          off += c;
+        }
+        if (lane == RMW_IDS - 1) s.seg[RMW_IDS] = incl;
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int t = 0; t < RMW_STEPS; ++t)
+      if (key[t] >= 0) s.list[s.cnt[warp][key[t]] + rank[t]] = row0 + t * 32 + lane;
+    __syncthreads();
+    // 3. stage the sorted rows, RMW_STAGE at a time; each owner adds its run
+    const int total = s.seg[RMW_IDS];
+    const int run_lo = owner ? s.seg[own_k] : 0, run_hi = owner ? s.seg[own_k + 1] : 0;
+    for (int b0 = 0; b0 < total; b0 += RMW_STAGE) {
+      const int nb = min(RMW_STAGE, total - b0);
+      for (int e = threadIdx.x; e < nb * (NCOL / 4); e += RMW_THREADS)
+        cp_async16(&s.stage[e * 4],
+                   vals + static_cast<size_t>(s.list[b0 + e / 4]) * NCOL + (e % 4) * 4);
+      cp_async_wait_all();
+      __syncthreads();
+      const int p_hi = min(run_hi, b0 + nb);
+      for (int p = max(run_lo, b0); p < p_hi; ++p) acc += s.stage[(p - b0) * NCOL + own_c];
+      __syncthreads();  // the stage is read before the next batch lands
+    }
+  }
+  if (owner && lo + own_k < m) out[static_cast<size_t>(lo + own_k) * NCOL + own_c] = acc;
+}
+
+// ---------------------------------------------- K3: moments, scatter --
+__device__ __forceinline__ void moment_row(const float* __restrict__ d, int p,
+                                           float v[MOM_COLS]) {
+  const float x = d[3 * p + 0], y = d[3 * p + 1], z = d[3 * p + 2];
+  v[0] = x; v[1] = y; v[2] = z;
+  v[3] = x * x; v[4] = x * y; v[5] = x * z; v[6] = y * y; v[7] = y * z; v[8] = z * z;
+  v[9] = 1.f;
+}
+
+// High contention: a (10, m) float32 table per block (layout c * m + id)
+// with shared atomics. The 8 tables of a cluster are added in double, in
+// rank order, over distributed shared memory (each block one slice of
+// the entries), and go to the double workspace ws[1..] by atomics: one
+// global atomic an entry per cluster, not per block. The last block to
+// finish rounds once into the (m, 16) output and clears the workspace.
+__global__ void __cluster_dims__(MOM_CLUSTER, 1, 1) __launch_bounds__(MOM_THREADS)
+moments_shared_kernel(const int32_t* __restrict__ idx, const float* __restrict__ d,
+                      int n, int m, double* __restrict__ ws, float* __restrict__ out) {
+  extern __shared__ float mtab[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int tab_n = MOM_COLS * m;
+  zero_table(mtab, tab_n);
+  const int stride = gridDim.x * blockDim.x;
+  for (int p = blockIdx.x * blockDim.x + threadIdx.x; p < n; p += stride) {
+    const int id = idx[p];
+    if (id < 0 || id >= m) continue;
+    float v[MOM_COLS];
+    moment_row(d, p, v);
+#pragma unroll
+    for (int c = 0; c < MOM_COLS; ++c) atomicAdd(&mtab[c * m + id], v[c]);
+  }
+  cluster.sync();
+  double* acc = ws + 1;
+  const int rank = static_cast<int>(cluster.block_rank());
+  for (int i = rank * blockDim.x + threadIdx.x; i < tab_n; i += MOM_CLUSTER * blockDim.x) {
+    double sum = 0.0;
+#pragma unroll
+    for (int j = 0; j < MOM_CLUSTER; ++j) sum += cluster.map_shared_rank(mtab, j)[i];
+    if (sum != 0.0) atomicAdd(acc + i, sum);
+  }
+  __threadfence();  // this block's sums are visible before its ticket
+  cluster.sync();   // and no block leaves while a peer reads its table
+  __shared__ bool last;
+  if (threadIdx.x == 0)
+    last = atomicAdd(reinterpret_cast<unsigned*>(ws), 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (int e = threadIdx.x; e < NCOL * m; e += blockDim.x) {
+    const int c = e % NCOL;
+    out[e] = c < MOM_COLS ? static_cast<float>(__ldcg(acc + c * m + e / NCOL)) : 0.f;
+  }
+  __syncthreads();  // every sum is read before it is cleared
+  for (int i = threadIdx.x; i < tab_n; i += blockDim.x) acc[i] = 0.0;
+  if (threadIdx.x == 0) *reinterpret_cast<unsigned*>(ws) = 0u;
+}
+
+// Low contention: each point adds its row into the zeroed (m, 16) output
+// with three vector atomics (float4, float4, float2; sm_90 global memory).
+__global__ void __launch_bounds__(MOM_THREADS)
+moments_global_kernel(const int32_t* __restrict__ idx, const float* __restrict__ d,
+                      int n, int m, float* __restrict__ out) {
+  const int stride = gridDim.x * blockDim.x;
+  for (int p = blockIdx.x * blockDim.x + threadIdx.x; p < n; p += stride) {
+    const int id = idx[p];
+    if (id < 0 || id >= m) continue;
+    float v[MOM_COLS];
+    moment_row(d, p, v);
+    float* row = out + static_cast<size_t>(id) * NCOL;
+    atomicAdd(reinterpret_cast<float4*>(row), make_float4(v[0], v[1], v[2], v[3]));
+    atomicAdd(reinterpret_cast<float4*>(row + 4), make_float4(v[4], v[5], v[6], v[7]));
+    atomicAdd(reinterpret_cast<float2*>(row + 8), make_float2(v[8], v[9]));
+  }
+}
+
+// The other low-contention design, kept for the probe's A/B: one cluster
+// of 8 blocks holds the whole (10, m) float32 table in distributed
+// shared memory (block r: rows r * rows .. + rows), every point adds into
+// its owner's slice with shared atomics over the cluster, and each block
+// writes its rows out with plain stores: no memset, no global atomics,
+// but 8 of the 132 SMs.
+__global__ void __cluster_dims__(MOM_CLUSTER, 1, 1) __launch_bounds__(MOM_DSMEM_THREADS)
+moments_dsmem_kernel(const int32_t* __restrict__ idx, const float* __restrict__ d,
+                     int n, int m, float* __restrict__ out) {
+  extern __shared__ float mtab[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rows = (m + MOM_CLUSTER - 1) / MOM_CLUSTER;
+  zero_table(mtab, MOM_COLS * rows);
+  cluster.sync();  // every slice is zeroed before any peer adds into it
+  const int stride = gridDim.x * blockDim.x;
+  for (int p = blockIdx.x * blockDim.x + threadIdx.x; p < n; p += stride) {
+    const int id = idx[p];
+    if (id < 0 || id >= m) continue;
+    float v[MOM_COLS];
+    moment_row(d, p, v);
+    const int owner = id / rows, r = id - owner * rows;
+    float* t = cluster.map_shared_rank(mtab, owner);
+#pragma unroll
+    for (int c = 0; c < MOM_COLS; ++c) atomicAdd(t + c * rows + r, v[c]);
+  }
+  cluster.sync();
+  const int first = static_cast<int>(cluster.block_rank()) * rows;
+  for (int e = threadIdx.x; e < rows * NCOL; e += blockDim.x) {
+    const int r = e / NCOL, c = e % NCOL;
+    if (first + r < m)
+      out[static_cast<size_t>(first + r) * NCOL + c] = c < MOM_COLS ? mtab[c * rows + r] : 0.f;
+  }
+}
+
+// ------------------------------------------- K2 bf16x3: tensor cores --
 struct alignas(32) WarpTiles {
   __nv_bfloat16 a[3][16 * 16];      // hi/mid/lo of the A tile (c x k, row-major)
   __nv_bfloat16 b[TILES][16 * 16];  // one-hot tiles (k x col, row-major)
@@ -253,34 +458,15 @@ __device__ __forceinline__ void split3(float v, __nv_bfloat16 part[3]) {
 
 // A tile of 16 value columns x 16 points starting at k0: lane -> point
 // k0 + (lane % 16), columns 8 (lane / 16) .. + 8. Points past n are 0.
-template <bool MOMENTS>
 __device__ __forceinline__ void fill_a(const float* __restrict__ src, int n,
                                        int k0, int lane, WarpTiles& t) {
   const int k = lane % 16, half = lane / 16, p = k0 + k;
   const bool in = p < n;
-  float v[8];
-  if (MOMENTS) {
-    const float x = in ? src[3 * p + 0] : 0.f;
-    const float y = in ? src[3 * p + 1] : 0.f;
-    const float z = in ? src[3 * p + 2] : 0.f;
-    if (half == 0) {
-      v[0] = x; v[1] = y; v[2] = z; v[3] = x * x;
-      v[4] = x * y; v[5] = x * z; v[6] = y * y; v[7] = y * z;
-    } else {
-      v[0] = z * z; v[1] = in ? 1.f : 0.f;
-#pragma unroll
-      for (int j = 2; j < 8; ++j) v[j] = 0.f;
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      v[j] = in ? src[static_cast<size_t>(half * 8 + j) * n + p] : 0.f;
-  }
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
-    __nv_bfloat16 part[3];
-    split3(v[j], part);
     const int c = half * 8 + j;
+    __nv_bfloat16 part[3];
+    split3(in ? src[static_cast<size_t>(c) * n + p] : 0.f, part);
 #pragma unroll
     for (int s = 0; s < 3; ++s) t.a[s][c * 16 + k] = part[s];
   }
@@ -309,9 +495,8 @@ __device__ __forceinline__ void fill_b(const int32_t* __restrict__ idx, int n,
 }
 
 // Each warp owns 128 output columns (group g) and one slice of the
-// 16-point chunks; its partial sums go to `acc` (the output's layout, in
-// double) by global atomics.
-template <bool MOMENTS>
+// 16-point chunks; its partial sums go to `acc64` (the (16, m) output's
+// layout, in double) by global atomics.
 __global__ void __launch_bounds__(WARPS * 32)
 onehot_mma_kernel(const int32_t* __restrict__ idx, const float* __restrict__ src,
                   int n, int m, int groups, int ksplits, double* __restrict__ acc64) {
@@ -335,7 +520,7 @@ onehot_mma_kernel(const int32_t* __restrict__ idx, const float* __restrict__ src
 
   for (int ch = c_lo; ch < c_hi; ++ch) {
     const int k0 = ch * 16;
-    fill_a<MOMENTS>(src, n, k0, lane, t);
+    fill_a(src, n, k0, lane, t);
     fill_b(idx, n, m, k0, col0, nt, lane, t);
     __syncwarp();
 #pragma unroll
@@ -360,17 +545,11 @@ onehot_mma_kernel(const int32_t* __restrict__ idx, const float* __restrict__ src
       wmma::store_matrix_sync(t.c, acc[tt], 16, wmma::mem_row_major);
       __syncwarp();
       for (int e = lane; e < 256; e += 32) {
-        // coalesced in the output's fast axis: columns for (16, m),
-        // value columns for (m, 16)
-        const int ci = MOMENTS ? e % 16 : e / 16;
-        const int j = MOMENTS ? e / 16 : e % 16;
+        const int ci = e / 16, j = e % 16;  // coalesced in the output's columns
         const int col = col0 + tt * 16 + j;
         const float v = t.c[ci * 16 + j];
-        if (col < m && v != 0.f) {
-          double* dst = MOMENTS ? acc64 + static_cast<size_t>(col) * NCOL + ci
-                                : acc64 + static_cast<size_t>(ci) * m + col;
-          atomicAdd(dst, static_cast<double>(v));
-        }
+        if (col < m && v != 0.f)
+          atomicAdd(acc64 + static_cast<size_t>(ci) * m + col, static_cast<double>(v));
       }
       __syncwarp();
     }
@@ -397,7 +576,16 @@ cudaError_t configure() {
     if (done == cudaSuccess)
       done = cudaFuncSetAttribute(rmw_kernel,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  static_cast<int>(RMW_SMEM_MAX));
+                                  static_cast<int>(sizeof(RmwShared)));
+    if (done == cudaSuccess)
+      done = cudaFuncSetAttribute(moments_shared_kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  MOM_COLS * MOM_SHARED_MAX_M * static_cast<int>(sizeof(float)));
+    if (done == cudaSuccess)
+      done = cudaFuncSetAttribute(moments_dsmem_kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  MOM_COLS * (MOM_DSMEM_MAX_M / MOM_CLUSTER) *
+                                      static_cast<int>(sizeof(float)));
   }
   return done;
 }
@@ -430,31 +618,15 @@ int launch_scatter(const int32_t* idx, const float* vals, int n, int m,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool MOMENTS>
-int launch_onehot(const int32_t* idx, const float* src, int n, int m,
-                  double* scratch, float* out, cudaStream_t stream) {
-  const int chunks = (n + 15) / 16;
-  const int groups = (m + GROUP_COLS - 1) / GROUP_COLS;
-  const int target_warps = 16 * sm_count();
-  const int max_splits = std::max(1, (chunks + KMIN_CHUNKS - 1) / KMIN_CHUNKS);
-  const int ksplits = std::max(1, std::min(max_splits, (target_warps + groups - 1) / groups));
-  const int blocks = (groups * ksplits + WARPS - 1) / WARPS;
-  onehot_mma_kernel<MOMENTS><<<blocks, WARPS * 32, 0, stream>>>(
-      idx, src, n, m, groups, ksplits, scratch);
-  const int total = NCOL * m;
-  cast_kernel<<<(total + THREADS - 1) / THREADS, THREADS, 0, stream>>>(scratch, total, out);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 extern "C" {
 
 // Plain C interface for ctypes: (ids, values, n rows, m table rows,
-// double scratch of 16 m entries, output, stream); n and m are at most
-// 2^26, so every index below fits in an int. The scratch is used,
-// and must be zeroed, by the tensor-core kernels only; the scatter
-// kernels need a zeroed output instead. Returns the cudaGetLastError()
+// double scratch, output, stream); n and m are at most 2^26, so every
+// index below fits in an int. Only K2 bf16x3 (16 m doubles, zeroed by
+// the caller) and K3 (its workspace, fused_moments16_workspace()
+// doubles, zeroed once) use the scratch. Returns the cudaGetLastError()
 // code after the launches (0 = success).
 
 int onehot_segsum16_f32(const int32_t* idx, const float* vals_t, int n, int m,
@@ -465,24 +637,60 @@ int onehot_segsum16_f32(const int32_t* idx, const float* vals_t, int n, int m,
 
 int onehot_segsum16_bf16x3(const int32_t* idx, const float* vals_t, int n,
                            int m, double* scratch, float* out, void* stream) {
-  return launch_onehot<false>(idx, vals_t, n, m, scratch, out,
-                              static_cast<cudaStream_t>(stream));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int chunks = (n + 15) / 16;
+  const int groups = (m + GROUP_COLS - 1) / GROUP_COLS;
+  const int target_warps = 16 * sm_count();
+  const int max_splits = std::max(1, (chunks + KMIN_CHUNKS - 1) / KMIN_CHUNKS);
+  const int ksplits = std::max(1, std::min(max_splits, (target_warps + groups - 1) / groups));
+  const int blocks = (groups * ksplits + WARPS - 1) / WARPS;
+  onehot_mma_kernel<<<blocks, WARPS * 32, 0, s>>>(idx, vals_t, n, m, groups, ksplits, scratch);
+  const int total = NCOL * m;
+  cast_kernel<<<(total + THREADS - 1) / THREADS, THREADS, 0, s>>>(scratch, total, out);
+  return static_cast<int>(cudaGetLastError());
 }
 
+int fused_moments16_workspace() { return MOM_WORKSPACE; }
+
 int fused_moments16(const int32_t* idx, const float* d, int n, int m,
-                    double* scratch, float* out, void* stream) {
-  return launch_onehot<true>(idx, d, n, m, scratch, out,
-                             static_cast<cudaStream_t>(stream));
+                    double* workspace, float* out, void* stream) {
+  const cudaError_t cfg = configure();
+  if (cfg != cudaSuccess) return static_cast<int>(cfg);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (m <= MOM_SHARED_MAX_M && n / SHARED_MIN_ROWS_PER_ID >= m) {
+    // about two blocks an SM, but enough points a table row in each
+    const int want = std::max(1, std::min(2 * sm_count(), n / (MOM_ROWS_PER_BLOCK_ID * m)));
+    const int blocks = (want + MOM_CLUSTER - 1) / MOM_CLUSTER * MOM_CLUSTER;
+    moments_shared_kernel<<<blocks, MOM_THREADS, MOM_COLS * m * sizeof(float), s>>>(
+        idx, d, n, m, workspace, out);
+  } else {
+    const cudaError_t z = cudaMemsetAsync(out, 0, static_cast<size_t>(m) * NCOL * sizeof(float), s);
+    if (z != cudaSuccess) return static_cast<int>(z);
+    const int sweep_blocks = std::max(1, (n + MOM_THREADS - 1) / MOM_THREADS);
+    moments_global_kernel<<<std::min(sweep_blocks, 8 * sm_count()), MOM_THREADS, 0, s>>>(
+        idx, d, n, m, out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K3 by the distributed-shared-memory table (m <= MOM_DSMEM_MAX_M).
+int fused_moments16_cluster(const int32_t* idx, const float* d, int n, int m,
+                            double* /*workspace*/, float* out, void* stream) {
+  const cudaError_t cfg = configure();
+  if (cfg != cudaSuccess) return static_cast<int>(cfg);
+  if (m > MOM_DSMEM_MAX_M) return static_cast<int>(cudaErrorInvalidValue);
+  const int rows = (m + MOM_CLUSTER - 1) / MOM_CLUSTER;
+  moments_dsmem_kernel<<<MOM_CLUSTER, MOM_DSMEM_THREADS, MOM_COLS * rows * sizeof(float),
+                         static_cast<cudaStream_t>(stream)>>>(idx, d, n, m, out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 int rmw_segsum16(const int32_t* idx, const float* vals, int q, int m,
                  double* /*scratch*/, float* out, void* stream) {
   const cudaError_t cfg = configure();
   if (cfg != cudaSuccess) return static_cast<int>(cfg);
-  const size_t tab_bytes = static_cast<size_t>(m) * NCOL * sizeof(float);
-  if (tab_bytes > RMW_SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  rmw_kernel<<<1, THREADS, tab_bytes, static_cast<cudaStream_t>(stream)>>>(
-      idx, vals, q, m, out);
+  rmw_kernel<<<(m + RMW_IDS - 1) / RMW_IDS, RMW_THREADS, sizeof(RmwShared),
+               static_cast<cudaStream_t>(stream)>>>(idx, vals, q, m, out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -10,8 +10,9 @@ outside ``[0, M)`` drops:
   full-FP32 scatter on CUDA cores; ``bf16x3`` is the one-hot contraction
   on the tensor cores with each value split into three exact bf16 parts.
 - :func:`fused_moments`  ``(N, 3)`` points -> ``(M, 16)`` sums of
-  ``[d, outer6(d), 1, 0 x 6]``, the bf16x3 contraction with the moment
-  columns formed in the kernel; replaces ``make_fused_moments`` (``:155``).
+  ``[d, outer6(d), 1, 0 x 6]``, a scatter of the moment columns formed in
+  the kernel; replaces ``make_fused_moments`` (``:155``). Option
+  ``table="cluster"`` is the other low-contention design, for the probe.
 - :func:`rmw_segsum`     ``(Q, 16)`` -> ``(Mq, 16)``, summed in row order:
   bitwise equal to a float32 ``np.add.at``; replaces ``rmw_kernel``
   (``:365``). The TPU kernel indexed out-of-range ids with undefined
@@ -28,6 +29,7 @@ launch adds one to ``launches[<wrapper name>]``.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -35,11 +37,17 @@ import torch
 from madicp_tpu_torch.kernels import build
 
 MODES = ("f32", "highest", "bf16x3")
-RMW_MAX_ROWS = 2048  # the in-order kernel keeps the table in shared memory
+TABLES = ("auto", "cluster")  # fused_moments' accumulators
+CLUSTER_MAX_M = 16384  # the cluster table: 2048 rows of 10 floats a block
+RMW_MAX_ROWS = 65536  # every block of 16 table rows reads all Q ids
 _MAX_N = 2**26  # 16 N and 16 M, plus a grid's stride, stay within a C int
 
 launches = {"onehot_segsum": 0, "fused_moments": 0, "rmw_segsum": 0,
             "scatter_segsum": 0}
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+_symbols: dict = {}  # C symbol -> its ctypes function, argtypes set
+_workspaces: dict = {}  # device -> fused_moments' workspace
 
 
 # ------------------------------------------------------ plain versions --
@@ -130,20 +138,45 @@ def _checked(name: str, idx, x, shape: tuple, n: int, m: int) -> bool:
     return True
 
 
+def _symbol(symbol: str):
+    fn = _symbols.get(symbol)
+    if fn is None:
+        fn = getattr(build.load("scatter_probe"), symbol)
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+        _symbols[symbol] = fn
+    return fn
+
+
 def _launch(name: str, symbol: str, idx, x, n: int, m: int, out,
             scratch=None) -> torch.Tensor:
-    lib = build.load("scatter_probe")
-    fn = getattr(lib, symbol)
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(idx.data_ptr(), x.data_ptr(), n, m,
-                None if scratch is None else scratch.data_ptr(), out.data_ptr(), stream)
-    build.raise_on_error(lib, rc, name)
+    fn = _symbol(symbol)
+    args = (idx.data_ptr(), x.data_ptr(), n, m,
+            None if scratch is None else scratch.data_ptr(), out.data_ptr())
+    dev = x.device
+    current = dev.index == torch.cuda.current_device()
+    with contextlib.nullcontext() if current else torch.cuda.device(dev):
+        rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    if rc:
+        build.raise_on_error(build.load("scatter_probe"), rc, name)
     launches[name] += 1
     return out
+
+
+def _workspace(device: torch.device) -> torch.Tensor:
+    """``fused_moments``' double workspace on ``device``: zeroed here
+    once, left zeroed by every launch (the last block clears it), so
+    calls that share it must be ordered on one stream."""
+    ws = _workspaces.get(device)
+    if ws is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("fused_moments: call it once outside CUDA graph "
+                               "capture first, to allocate its workspace")
+        lib = build.load("scatter_probe")
+        ws = torch.zeros(lib.fused_moments16_workspace(), dtype=torch.float64,
+                         device=device)
+        _workspaces[device] = ws
+    return ws
 
 
 def onehot_segsum(idx2d, vals_t, M: int, mode: str = "f32") -> torch.Tensor:
@@ -163,15 +196,24 @@ def onehot_segsum(idx2d, vals_t, M: int, mode: str = "f32") -> torch.Tensor:
                    out, scratch)
 
 
-def fused_moments(idx2d, d, M: int) -> torch.Tensor:
+def fused_moments(idx2d, d, M: int, table: str = "auto") -> torch.Tensor:
     """``(M, 16)`` sums of the moment columns of the ``(N, 3)`` float32
-    points ``d`` (columns 10-15 zero)."""
+    points ``d`` (columns 10-15 zero). ``table="auto"`` picks the
+    kernel's accumulator by contention; ``"cluster"`` forces the table in
+    one cluster's distributed shared memory (``M <= CLUSTER_MAX_M``), the
+    design the probe compares it with."""
+    if table not in TABLES:
+        raise ValueError(f"fused_moments: table must be one of {TABLES}, got {table!r}")
+    if table == "cluster" and M > CLUSTER_MAX_M:
+        raise ValueError(f"fused_moments: table='cluster' needs M <= {CLUSTER_MAX_M}, got {M}")
     n = d.shape[0]
     if not _checked("fused_moments", idx2d, d, (n, 3), n, M):
         return fused_moments_ref(idx2d, d, M)
     out = torch.empty((M, 16), dtype=torch.float32, device=d.device)
-    scratch = torch.zeros(16 * M, dtype=torch.float64, device=d.device)
-    return _launch("fused_moments", "fused_moments16", idx2d, d, n, M, out, scratch)
+    if table == "cluster":
+        return _launch("fused_moments", "fused_moments16_cluster", idx2d, d, n, M, out)
+    return _launch("fused_moments", "fused_moments16", idx2d, d, n, M, out,
+                   _workspace(d.device))
 
 
 def rmw_segsum(idx, vals, Mq: int) -> torch.Tensor:

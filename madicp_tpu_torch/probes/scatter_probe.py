@@ -7,8 +7,10 @@ order), through the kernels of
 :mod:`madicp_tpu_torch.kernels.scatter_probe`:
 
 - A   ``onehot_segsum`` in modes f32, highest and bf16x3, at each M;
-- A2  ``fused_moments`` beside "moment columns + scatter" and beside the
-      main path's ``segsum_moments`` (the same sums, another design);
+- A2  ``fused_moments`` beside "moment columns + scatter", beside the
+      main path's ``segsum_moments`` (the same sums, another design) and,
+      at the low-contention shapes, beside its own cluster-table design
+      (``table="cluster"``);
 - B   ``rmw_segsum``, the in-order segment sum, at Q = 8192, Mq = 256;
 - C   ``scatter_segsum``, unordered, at the same shapes.
 
@@ -19,7 +21,8 @@ Then it prints one line for people and one JSON line with ``ms`` (eager
 calls, CUDA events over R calls: what a caller pays), ``device_ms`` (R
 calls in one CUDA graph, replayed: the kernel without its host
 wrapper), ``plain_ms``, ``library_ms`` (one ``index_add_`` computing the
-same sums, in its own order), ``bound_ms``/``bound_by`` (the function's
+same sums, in its own order) and ``library_device_ms`` (the same in a
+CUDA graph), ``bound_ms``/``bound_by`` (the function's
 bytes over 3.35 TB/s or its float32 operations over the peak, the
 larger), ``design_ops_ms`` (the dense one-hot contraction's tensor-core
 flops over the bf16 peak: the floor of that design, not of the function;
@@ -31,8 +34,11 @@ Run on the card, output to a file:
     python -m madicp_tpu_torch.probes.scatter_probe > scatter_probe.log
 
 ``--device cpu`` runs the plain versions and their checks only, with no
-times; ``--n`` and ``--sizes`` cut the shapes of sections A and A2. The
-exit code is 1 when a check fails.
+times; ``--n`` and ``--sizes`` cut the shapes of sections A and A2;
+``--profile`` adds, to each case on the card, the CUDA kernels that one
+call of the wrapper and of its library call launches, with their device
+microseconds from ``torch.profiler``. The exit code is 1 when a check
+fails.
 """
 
 from __future__ import annotations
@@ -50,7 +56,8 @@ import torch
 from madicp_tpu_torch.kernels import scatter_probe as sp
 from madicp_tpu_torch.kernels import segsum
 from madicp_tpu_torch.utils.device import card_name, resolve_device
-from madicp_tpu_torch.utils.timing import H100_PEAK_FLOPS, bound_ms, event_ms, graph_ms
+from madicp_tpu_torch.utils.timing import (H100_PEAK_FLOPS, bound_ms, device_kernels,
+                                           event_ms, graph_ms)
 
 N = 131072
 R = 20
@@ -59,6 +66,7 @@ Q, MQ = 8192, 256
 TOL = 1e-3  # float32 reassociation over ~2000 terms of N(0, 1)
 RMW_PLAIN_REPS = 2  # the in-order plain loop launches one add per row
 MOMENT_FLOPS = 19  # a point's 9 products and 10 adds
+CLUSTER_CONTENTION = 256  # n / M below which fused_moments scatters globally
 
 
 @dataclass
@@ -80,6 +88,7 @@ class Case:
     bitwise: bool = False  # must equal the plain version bit for bit
     plain_reps: Optional[int] = None
     baselines: dict = field(default_factory=dict)  # other designs, same sums
+    checked: tuple = ()  # baselines held to TOL like the kernel
 
     @property
     def name(self) -> str:
@@ -129,6 +138,12 @@ def cases(device, n: int = N, sizes=SIZES) -> list:
     for m in sizes:
         idx2d = _draw_ids(rng, m, n, dev)
         tab = torch.zeros((m + 1, 16), dtype=torch.float32, device=dev)
+        # the cluster table is a low-contention design: one float32 table
+        # sums every term, so it is compared where the kernel scatters
+        # into global memory (n < 256 m), not where an entry sums ~2000
+        low = n < CLUSTER_CONTENTION * m and m <= sp.CLUSTER_MAX_M
+        cluster = {"cluster_table": partial(sp.fused_moments, idx2d, d, m,
+                                            table="cluster")} if low else {}
         out.append(Case(
             "A2", "fused_moments", None, m, n,
             call=partial(sp.fused_moments, idx2d, d, m),
@@ -139,7 +154,9 @@ def cases(device, n: int = N, sizes=SIZES) -> list:
             design_flops=2 * n * m * 16 * 3,
             baselines={"mom_scatter": partial(_moments, idx2d, d, m),
                        "segsum_moments": partial(
-                           segsum.segsum_moments, d, idx2d.reshape(-1), m)}))
+                           segsum.segsum_moments, d, idx2d.reshape(-1), m),
+                       **cluster},
+            checked=tuple(cluster)))
 
     idx_q = torch.as_tensor(rng.integers(0, MQ, Q).astype(np.int32)[None, :], device=dev)
     vals_q = torch.as_tensor(rng.normal(0, 1, (Q, 16)).astype(np.float32), device=dev)
@@ -163,12 +180,16 @@ def cases(device, n: int = N, sizes=SIZES) -> list:
 
 
 def check(case: Case) -> dict:
-    """The kernel (the plain version on the CPU) against the float64 sums
-    and, where ``case.bitwise``, bit for bit against the plain version."""
-    got = case.call()
-    err = float((got.double() - case.want()).abs().max())
+    """The kernel (the plain version on the CPU) and ``case.checked``
+    against the float64 sums and, where ``case.bitwise``, bit for bit
+    against the plain version."""
+    got, want = case.call(), case.want()
+    err = float((got.double() - want).abs().max())
     out = {"max_abs_err": err, "tol": TOL}
     ok = err <= TOL
+    for name in case.checked:
+        out[f"{name}_max_abs_err"] = float((case.baselines[name]().double() - want).abs().max())
+        ok = ok and out[f"{name}_max_abs_err"] <= TOL
     if case.bitwise:
         out["bitwise_equal_to_plain"] = bool(torch.equal(got, case.plain()))
         ok = ok and out["bitwise_equal_to_plain"]
@@ -177,12 +198,30 @@ def check(case: Case) -> dict:
 
 
 def measure(case: Case, reps: int) -> dict:
+    lib = case.library
     out = {"ms": event_ms(case.call, reps), "device_ms": graph_ms(case.call, reps),
            "plain_ms": event_ms(case.plain, case.plain_reps or reps),
-           "library_ms": event_ms(case.library, reps) if case.library else None}
+           "library_ms": event_ms(lib, reps) if lib else None,
+           "library_device_ms": graph_ms(lib, reps) if lib else None}
     for name, fn in case.baselines.items():
         out[f"{name}_ms"] = event_ms(fn, reps)
         out[f"{name}_device_ms"] = graph_ms(fn, reps)
+    return out
+
+
+def profile(case: Case, reps: int) -> dict:
+    """Per call of the wrapper (``kernel``) and of its library call: each
+    CUDA kernel it launched, by name, with its device microseconds and
+    launches, from ``torch.profiler`` over ``reps`` warm calls."""
+    out = {}
+    for label, fn in (("kernel", case.call), ("library", case.library)):
+        if fn is None:
+            continue
+        fn()
+        by_name, _ = device_kernels(lambda: [fn() for _ in range(reps)])
+        out[label] = [{"name": k[:100], "us_per_call": us / reps,
+                       "launches_per_call": cnt / reps}
+                      for k, (us, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])]
     return out
 
 
@@ -191,20 +230,22 @@ def _human(rec: dict) -> str:
     line = (f"{rec['section']:2s} {name:22s} M={rec['M']:<6d} err {rec['max_abs_err']:.1e}"
             + ("" if rec["ok"] else " FAILS its check"))
     if "ms" in rec:
-        lib = rec["library_ms"]
+        lib, lib_dev = rec["library_ms"], rec["library_device_ms"]
         line += (f" | {rec['ms']:.4f} ms eager, {rec['device_ms']:.4f} ms device "
                  f"({rec['device_ms'] * 1e6 / rec['n']:.3f} ns/row), plain "
                  f"{rec['plain_ms']:.4f}, index_add_ "
-                 + ("-" if lib is None else f"{lib:.4f}")
+                 + ("-" if lib is None else f"{lib:.4f} ({lib_dev:.4f} device)")
                  + f", bound {rec['bound_ms']:.5f} ({rec['bound_by']})"
                  + ("" if rec["design_ops_ms"] is None
                     else f", dense design's flops {rec['design_ops_ms']:.4f}"))
     return line
 
 
-def run(device="cuda", n: int = N, sizes=SIZES, reps: int = R, emit=print) -> list:
+def run(device="cuda", n: int = N, sizes=SIZES, reps: int = R, emit=print,
+        with_profile: bool = False) -> list:
     """Check, then time (on the card), every case; one human and one JSON
-    line each through ``emit``. Returns the JSON records."""
+    line each through ``emit``; ``with_profile`` adds :func:`profile`'s
+    trace to each timed case. Returns the JSON records."""
     dev = resolve_device(device)
     card = card_name(dev)
     emit(f"scatter probe on {card}: N={n}, R={reps}, sizes={list(sizes)}, Q={Q}, Mq={MQ}")
@@ -218,6 +259,8 @@ def run(device="cuda", n: int = N, sizes=SIZES, reps: int = R, emit=print) -> li
                                 if case.design_flops else None)
         if dev.type == "cuda" and rec["ok"]:
             rec.update(measure(case, reps))
+            if with_profile:
+                rec["profile"] = profile(case, reps)
         emit(_human(rec))
         emit(json.dumps(rec))
         records.append(rec)
@@ -231,9 +274,12 @@ def main(argv=None) -> int:
     ap.add_argument("--n", type=int, default=N, help="rows of sections A and A2")
     ap.add_argument("--sizes", default=",".join(map(str, SIZES)),
                     help="table sizes M of sections A and A2")
+    ap.add_argument("--profile", action="store_true",
+                    help="add each case's CUDA kernels and their device time")
     args = ap.parse_args(argv)
     sizes = [int(s) for s in args.sizes.split(",")]
-    records = run(args.device, args.n, sizes, emit=lambda s: print(s, flush=True))
+    records = run(args.device, args.n, sizes, emit=lambda s: print(s, flush=True),
+                  with_profile=args.profile)
     bad = [r for r in records if not r["ok"]]
     if bad:
         print(f"scatter_probe: {len(bad)} case(s) failed their check", file=sys.stderr)

@@ -87,6 +87,26 @@ def event_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_kernels(fn) -> tuple:
+    """({CUDA kernel name: (device microseconds, launches)}, wall ms) of
+    one ``fn()`` under ``torch.profiler``; memsets count as kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            us, cnt = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (us + e.device_time_total, cnt + 1)
+    return by_name, wall_ms
+
+
 def graph_ms(fn, reps: int, replays: int = 3) -> float:
     """Mean device milliseconds of ``fn()``: ``reps`` calls captured in
     one CUDA graph, replayed ``replays`` times. The host work of each

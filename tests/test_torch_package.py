@@ -122,6 +122,11 @@ def test_probe_wrapper_dispatch_and_argument_checks(name):
     if name == "rmw_segsum":
         with pytest.raises(ValueError, match="Mq must be"):
             wrap(idx, x, scatter_probe.RMW_MAX_ROWS + 1)
+    if name == "fused_moments":
+        with pytest.raises(ValueError, match="table must be"):
+            wrap(idx, x, 8, table="dense")
+        with pytest.raises(ValueError, match="needs M <="):
+            wrap(idx, x, scatter_probe.CLUSTER_MAX_M + 1, table="cluster")
 
 
 def test_kernel_build_requires_nvcc(monkeypatch, tmp_path):
@@ -187,11 +192,25 @@ def test_onehot_segsum_kernel_matches_plain_on_cuda(cuda_device, mode, m):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m", [64, 100, 4096])
+@pytest.mark.parametrize("m", [8, 64, 100, 4096, 16384])
 def test_fused_moments_kernel_matches_plain_on_cuda(cuda_device, m):
-    """The moment columns formed in the kernel, contracted on the tensor
-    cores, against the float64 sums at atol 1e-3."""
+    """The moment columns formed in the kernel and scattered (per-block
+    shared tables combined in double at m = 8, 64 and 100, vector atomics
+    into the output at 4096 and 16384) against the float64 sums at atol
+    1e-3; the workspace is left zeroed for the next call."""
     idx, d, got = _probe_kernel_case(cuda_device, "fused_moments", m)
+    want = scatter_probe.segsum16_ref(idx, scatter_probe.moment_columns16(d.double()), m)
+    torch.testing.assert_close(got.double(), want, rtol=0, atol=1e-3)
+    assert all(not ws.any() for ws in scatter_probe._workspaces.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1024, 4096, 16384])
+def test_fused_moments_cluster_table_matches_plain_on_cuda(cuda_device, m):
+    """The probe's other low-contention design, the table in one
+    cluster's distributed shared memory, against the float64 sums at
+    atol 1e-3 (at most ~128 terms an entry, as where the probe uses it)."""
+    idx, d, got = _probe_kernel_case(cuda_device, "fused_moments", m, "cluster")
     want = scatter_probe.segsum16_ref(idx, scatter_probe.moment_columns16(d.double()), m)
     torch.testing.assert_close(got.double(), want, rtol=0, atol=1e-3)
 
@@ -202,6 +221,31 @@ def test_rmw_segsum_kernel_is_bitwise_in_order_on_cuda(cuda_device):
     idx, vals = _probe_inputs("rmw_segsum", 8192, 256, seed=3)
     got = scatter_probe.rmw_segsum(idx.to(cuda_device), vals.to(cuda_device), 256)
     assert torch.equal(got.cpu(), scatter_probe.rmw_segsum_ref(idx, vals, 256))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q,mq,drop_all", [
+    (1000, 256, False),  # Q not a multiple of 32
+    (3 * 8192 + 77, 1, False),  # ragged last pass; one run of 24653 rows
+    (8192, 64, True),  # every id out of range
+    (4099, scatter_probe.RMW_MAX_ROWS, False),  # the largest table admitted
+])
+def test_rmw_segsum_kernel_is_bitwise_at_its_edges_on_cuda(cuda_device, q, mq, drop_all):
+    """Bit for bit the in-order plain loop where the kernel's passes,
+    staging batches and blocks of 16 ids are ragged, full or empty."""
+    rng = np.random.default_rng(q)
+    ids = rng.integers(-2, mq + 3, q)
+    if drop_all:
+        ids = np.where(rng.random(q) < 0.5, -1 - ids % 7, mq + ids % 7)
+    idx = torch.from_numpy(ids.astype(np.int32))
+    vals = torch.from_numpy(rng.normal(0, 1, (q, 16)).astype(np.float32))
+    before = scatter_probe.launches["rmw_segsum"]
+    got = scatter_probe.rmw_segsum(idx.to(cuda_device), vals.to(cuda_device), mq)
+    torch.cuda.synchronize()
+    assert scatter_probe.launches["rmw_segsum"] == before + 1
+    want = scatter_probe.rmw_segsum_ref(idx, vals, mq)
+    assert torch.equal(got.cpu(), want)
+    assert bool(want.any()) != drop_all
 
 
 @pytest.mark.cuda

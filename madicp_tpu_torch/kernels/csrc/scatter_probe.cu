@@ -46,33 +46,41 @@
 //     ~0.6-1.6 us). A dense contraction costs 2 n m 48 flops, which grows
 //     with m (1.8 ms at m = 16384 when this kernel was one), so here a
 //     thread per point reads its 12 bytes and its id, forms the 10
-//     columns in registers and scatters them; the accumulator follows
-//     the contention n / m:
-//     * n >= 256 m and m <= 2048 (few table rows, hundreds to thousands
-//       of terms each): a per-block (10, m) float32 table in shared
-//       memory with shared atomics, about two blocks an SM. The 8 blocks
-//       of a thread-block cluster add their tables in double over
-//       distributed shared memory, each block a slice, and each cluster
-//       adds its slice to a double workspace with global atomics: one
-//       atomic an entry a cluster, not a block, so the blocks can be 4x
-//       as many (m = 256: 29.3 us with 32 blocks and no cluster, 15.0
+//     columns in registers and scatters them. Precision sets the rest: a
+//     float32 sum of k terms of N(0, 1) moments in random order is off by
+//     up to ~2.6e-4 at k = 256 and ~1.9e-3 at k = 1024 (numpy emulation),
+//     against the probe's 1e-3. So no float32 sum holds more than about
+//     MOM_F32_TERMS = 256 terms of an entry (ids spread evenly, as the
+//     probe draws them); above that, sums are combined in double and
+//     rounded once. The contention n / m picks the accumulator:
+//     * n < 256 m (fewer than 256 terms an entry): the output is zeroed
+//       by a memset and each point adds its row with three vector
+//       atomics (float4, float4, float2: sm_90 global memory) straight
+//       into it, so a point costs 3 atomics, not 10. The whole table in
+//       one cluster's distributed shared memory, the issue's other
+//       design for this regime, took 0.46/0.44 ms at m = 4096/16384
+//       against 8.4/7.7 us here (8 SMs of remote shared atomics; H100
+//       80GB HBM3, 700 W), and was dropped.
+//     * n >= 256 m and m <= 2048: a per-block (10, m) float32 table in
+//       shared memory with shared atomics, about two blocks an SM, and
+//       more where a block would otherwise sum over 256 terms of an entry.
+//       The 8 blocks of a thread-block cluster add their tables in double
+//       over distributed shared memory, each block a slice, and each
+//       cluster adds its slice to a double workspace with global atomics:
+//       one atomic an entry a cluster, not a block, so the blocks can be
+//       4x as many (m = 256: 29.3 us with 32 blocks and no cluster, 15.0
 //       with 128 in clusters; H100 80GB HBM3, 700 W). The last block to
 //       finish (a ticket counter) rounds the sums to float32 once, writes
 //       the output, and zeroes the workspace and the ticket for the next
-//       call: one launch, no memset, no cast kernel. At m = 64 an entry sums ~2000
-//       terms near 2000, where one float32 ulp is 1.2e-4, so the combine
-//       is in double. No warp pre-aggregation for m <= 32: each warp
-//       takes about one 32-point step, so a conflict costs it a few
-//       serialised shared atomics once, less than a shuffle reduction
-//       per distinct id (41-91 us at segsum_moments.cu's sz 8-32 levels).
-//     * otherwise (at most a few hundred terms an entry): the output is
-//       zeroed by a memset and each point adds its row with three
-//       vector atomics (float4, float4, float2: sm_90 global memory)
-//       straight into it, so a point costs 3 atomics, not 10. The other
-//       design for this regime, the whole table in one cluster's
-//       distributed shared memory (fused_moments16_cluster, kept for the
-//       probe's A/B), took 0.46/0.44 ms at m = 4096/16384 against
-//       8.4/7.7 us here: 8 SMs of remote shared atomics.
+//       call: one launch, no memset, no cast kernel. No warp
+//       pre-aggregation for m <= 32: each warp takes about one 32-point
+//       step, so a conflict costs it a few serialised shared atomics
+//       once, less than a shuffle reduction per distinct id (41-91 us at
+//       segsum_moments.cu's sz 8-32 levels).
+//     * n >= 256 m and m > 2048 (the table outgrows shared memory): each
+//       point adds its 10 values to the double workspace with global
+//       atomics, and a second kernel rounds the sums into the output and
+//       zeroes the workspace. Not a probe shape; it keeps the precision.
 // K4  rmw_segsum16                   vals (q, 16), idx (q,) -> (m, 16)
 //     replaces rmw_kernel (pallas_scatter_probe.py:365, call :375), the
 //     TPU's serial in-order read-modify-write loop. Every entry (id, c)
@@ -92,7 +100,7 @@
 //     ~32 shared loads and float32 adds, not ~32 memory latencies. The
 //     TPU indexed out-of-range ids with undefined results; here they
 //     drop. Each block reads all q ids, so the work grows as q m / 16
-//     (the wrapper caps m). At q = 8192, m = 256 this takes 4.5 us
+//     (the wrapper caps m at 2048: 128 reads of every id). At q = 8192, m = 256 this takes 4.5 us
 //     against index_add_'s 2.9 (its own order). Three variants ran
 //     slower in the same calls (H100 80GB HBM3, 700 W): 1024 threads
 //     (5.5 us), a leader-only counter update with an 8-deep unrolled sum
@@ -110,9 +118,9 @@
 // Inputs must be finite: the dense contraction multiplies every value
 // by 0 or 1. Outputs of K2 (f32) and K5 must be zeroed by the caller,
 // and so must the double scratch of K2 (bf16x3), which writes every
-// entry of its output, as K3 and K4 do. K3's workspace is zeroed once by
-// its owner and left zeroed by every call; calls that share it must be
-// ordered on one stream.
+// entry of its output, as K3 and K4 do. K3's workspace (where its path
+// needs one) is zeroed once by its owner and left zeroed by every call;
+// calls that share it must be ordered on one stream.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -142,11 +150,8 @@ constexpr int MOM_COLS = 10;             // [d, outer6(d), 1]
 constexpr int MOM_THREADS = 512;
 constexpr int MOM_SHARED_MAX_M = 2048;   // (10, m) float32 table, 80 KB
 constexpr int MOM_ROWS_PER_BLOCK_ID = 4;  // least points a block per table row
+constexpr int MOM_F32_TERMS = 256;        // most terms of an entry a float32 sum takes
 constexpr int MOM_CLUSTER = 8;           // blocks of a cluster (portable size)
-constexpr int MOM_DSMEM_THREADS = 1024;
-constexpr int MOM_DSMEM_MAX_M = 16384;   // 2048 rows of the table a block, 80 KB
-// workspace: one ticket word, then the (10, m) double sums
-constexpr int MOM_WORKSPACE = 1 + MOM_COLS * MOM_SHARED_MAX_M;
 
 constexpr int RMW_THREADS = 512;
 constexpr int RMW_WARPS = RMW_THREADS / 32;       // 16
@@ -336,6 +341,23 @@ __device__ __forceinline__ void moment_row(const float* __restrict__ d, int p,
   v[9] = 1.f;
 }
 
+// The (10, m) double sums `acc` rounded once into the (m, 16) output
+// (columns 10-15 zero), entries e0, e0 + stride, ...; each sum is read
+// and then cleared by the one thread that writes it.
+__device__ __forceinline__ void round_moments(double* __restrict__ acc, int m,
+                                              float* __restrict__ out, int e0, int stride) {
+  for (int e = e0; e < NCOL * m; e += stride) {
+    const int c = e % NCOL;
+    float v = 0.f;
+    if (c < MOM_COLS) {
+      double* s = acc + c * m + e / NCOL;
+      v = static_cast<float>(__ldcg(s));
+      *s = 0.0;
+    }
+    out[e] = v;
+  }
+}
+
 // High contention: a (10, m) float32 table per block (layout c * m + id)
 // with shared atomics. The 8 tables of a cluster are added in double, in
 // rank order, over distributed shared memory (each block one slice of
@@ -375,13 +397,30 @@ moments_shared_kernel(const int32_t* __restrict__ idx, const float* __restrict__
   __syncthreads();
   if (!last) return;
   __threadfence();
-  for (int e = threadIdx.x; e < NCOL * m; e += blockDim.x) {
-    const int c = e % NCOL;
-    out[e] = c < MOM_COLS ? static_cast<float>(__ldcg(acc + c * m + e / NCOL)) : 0.f;
-  }
-  __syncthreads();  // every sum is read before it is cleared
-  for (int i = threadIdx.x; i < tab_n; i += blockDim.x) acc[i] = 0.0;
+  round_moments(acc, m, out, threadIdx.x, blockDim.x);
   if (threadIdx.x == 0) *reinterpret_cast<unsigned*>(ws) = 0u;
+}
+
+// High contention past the shared table's size: each point adds its 10
+// values to the double sums ws[1..] with global atomics; moments_round_kernel
+// then writes the output and clears them.
+__global__ void __launch_bounds__(MOM_THREADS)
+moments_double_kernel(const int32_t* __restrict__ idx, const float* __restrict__ d,
+                      int n, int m, double* __restrict__ ws) {
+  double* acc = ws + 1;
+  const int stride = gridDim.x * blockDim.x;
+  for (int p = blockIdx.x * blockDim.x + threadIdx.x; p < n; p += stride) {
+    const int id = idx[p];
+    if (id < 0 || id >= m) continue;
+    float v[MOM_COLS];
+    moment_row(d, p, v);
+#pragma unroll
+    for (int c = 0; c < MOM_COLS; ++c) atomicAdd(acc + c * m + id, static_cast<double>(v[c]));
+  }
+}
+
+__global__ void moments_round_kernel(double* __restrict__ ws, int m, float* __restrict__ out) {
+  round_moments(ws + 1, m, out, blockIdx.x * blockDim.x + threadIdx.x, gridDim.x * blockDim.x);
 }
 
 // Low contention: each point adds its row into the zeroed (m, 16) output
@@ -399,40 +438,6 @@ moments_global_kernel(const int32_t* __restrict__ idx, const float* __restrict__
     atomicAdd(reinterpret_cast<float4*>(row), make_float4(v[0], v[1], v[2], v[3]));
     atomicAdd(reinterpret_cast<float4*>(row + 4), make_float4(v[4], v[5], v[6], v[7]));
     atomicAdd(reinterpret_cast<float2*>(row + 8), make_float2(v[8], v[9]));
-  }
-}
-
-// The other low-contention design, kept for the probe's A/B: one cluster
-// of 8 blocks holds the whole (10, m) float32 table in distributed
-// shared memory (block r: rows r * rows .. + rows), every point adds into
-// its owner's slice with shared atomics over the cluster, and each block
-// writes its rows out with plain stores: no memset, no global atomics,
-// but 8 of the 132 SMs.
-__global__ void __cluster_dims__(MOM_CLUSTER, 1, 1) __launch_bounds__(MOM_DSMEM_THREADS)
-moments_dsmem_kernel(const int32_t* __restrict__ idx, const float* __restrict__ d,
-                     int n, int m, float* __restrict__ out) {
-  extern __shared__ float mtab[];
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rows = (m + MOM_CLUSTER - 1) / MOM_CLUSTER;
-  zero_table(mtab, MOM_COLS * rows);
-  cluster.sync();  // every slice is zeroed before any peer adds into it
-  const int stride = gridDim.x * blockDim.x;
-  for (int p = blockIdx.x * blockDim.x + threadIdx.x; p < n; p += stride) {
-    const int id = idx[p];
-    if (id < 0 || id >= m) continue;
-    float v[MOM_COLS];
-    moment_row(d, p, v);
-    const int owner = id / rows, r = id - owner * rows;
-    float* t = cluster.map_shared_rank(mtab, owner);
-#pragma unroll
-    for (int c = 0; c < MOM_COLS; ++c) atomicAdd(t + c * rows + r, v[c]);
-  }
-  cluster.sync();
-  const int first = static_cast<int>(cluster.block_rank()) * rows;
-  for (int e = threadIdx.x; e < rows * NCOL; e += blockDim.x) {
-    const int r = e / NCOL, c = e % NCOL;
-    if (first + r < m)
-      out[static_cast<size_t>(first + r) * NCOL + c] = c < MOM_COLS ? mtab[c * rows + r] : 0.f;
   }
 }
 
@@ -581,13 +586,16 @@ cudaError_t configure() {
       done = cudaFuncSetAttribute(moments_shared_kernel,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   MOM_COLS * MOM_SHARED_MAX_M * static_cast<int>(sizeof(float)));
-    if (done == cudaSuccess)
-      done = cudaFuncSetAttribute(moments_dsmem_kernel,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  MOM_COLS * (MOM_DSMEM_MAX_M / MOM_CLUSTER) *
-                                      static_cast<int>(sizeof(float)));
   }
   return done;
+}
+
+// K3's accumulator at (n, m): see the header.
+enum class MomPath { kFloat32, kShared, kDouble };
+
+MomPath moments_path(int n, int m) {
+  if (n / MOM_F32_TERMS < m) return MomPath::kFloat32;  // < 256 terms an entry
+  return m <= MOM_SHARED_MAX_M ? MomPath::kShared : MomPath::kDouble;
 }
 
 template <bool ROWS>
@@ -625,8 +633,8 @@ extern "C" {
 // Plain C interface for ctypes: (ids, values, n rows, m table rows,
 // double scratch, output, stream); n and m are at most 2^26, so every
 // index below fits in an int. Only K2 bf16x3 (16 m doubles, zeroed by
-// the caller) and K3 (its workspace, fused_moments16_workspace()
-// doubles, zeroed once) use the scratch. Returns the cudaGetLastError()
+// the caller) and K3 (its workspace, fused_moments16_workspace(n, m)
+// doubles, zeroed once, null where that is 0) use the scratch. Returns the cudaGetLastError()
 // code after the launches (0 = success).
 
 int onehot_segsum16_f32(const int32_t* idx, const float* vals_t, int n, int m,
@@ -650,38 +658,46 @@ int onehot_segsum16_bf16x3(const int32_t* idx, const float* vals_t, int n,
   return static_cast<int>(cudaGetLastError());
 }
 
-int fused_moments16_workspace() { return MOM_WORKSPACE; }
+// Doubles of workspace fused_moments16 needs at (n, m): a ticket word,
+// then the (10, m) double sums; 0 where it scatters in float32.
+int fused_moments16_workspace(int n, int m) {
+  return moments_path(n, m) == MomPath::kFloat32 ? 0 : 1 + MOM_COLS * m;
+}
 
 int fused_moments16(const int32_t* idx, const float* d, int n, int m,
                     double* workspace, float* out, void* stream) {
   const cudaError_t cfg = configure();
   if (cfg != cudaSuccess) return static_cast<int>(cfg);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (m <= MOM_SHARED_MAX_M && n / SHARED_MIN_ROWS_PER_ID >= m) {
-    // about two blocks an SM, but enough points a table row in each
-    const int want = std::max(1, std::min(2 * sm_count(), n / (MOM_ROWS_PER_BLOCK_ID * m)));
-    const int blocks = (want + MOM_CLUSTER - 1) / MOM_CLUSTER * MOM_CLUSTER;
-    moments_shared_kernel<<<blocks, MOM_THREADS, MOM_COLS * m * sizeof(float), s>>>(
-        idx, d, n, m, workspace, out);
-  } else {
-    const cudaError_t z = cudaMemsetAsync(out, 0, static_cast<size_t>(m) * NCOL * sizeof(float), s);
-    if (z != cudaSuccess) return static_cast<int>(z);
-    const int sweep_blocks = std::max(1, (n + MOM_THREADS - 1) / MOM_THREADS);
-    moments_global_kernel<<<std::min(sweep_blocks, 8 * sm_count()), MOM_THREADS, 0, s>>>(
-        idx, d, n, m, out);
+  const int sweep_blocks = std::max(1, (n + MOM_THREADS - 1) / MOM_THREADS);
+  switch (moments_path(n, m)) {
+    case MomPath::kShared: {
+      // about two blocks an SM with enough points a table row in each,
+      // and more where a block would sum over MOM_F32_TERMS terms of an entry
+      const int fill = std::min(2 * sm_count(), n / (MOM_ROWS_PER_BLOCK_ID * m));
+      const int precise = (n + MOM_F32_TERMS * m - 1) / (MOM_F32_TERMS * m);
+      const int want = std::max(1, std::max(fill, precise));
+      const int blocks = (want + MOM_CLUSTER - 1) / MOM_CLUSTER * MOM_CLUSTER;
+      moments_shared_kernel<<<blocks, MOM_THREADS, MOM_COLS * m * sizeof(float), s>>>(
+          idx, d, n, m, workspace, out);
+      break;
+    }
+    case MomPath::kDouble: {
+      moments_double_kernel<<<std::min(sweep_blocks, 8 * sm_count()), MOM_THREADS, 0, s>>>(
+          idx, d, n, m, workspace);
+      moments_round_kernel<<<(NCOL * m + THREADS - 1) / THREADS, THREADS, 0, s>>>(
+          workspace, m, out);
+      break;
+    }
+    case MomPath::kFloat32: {
+      const cudaError_t z =
+          cudaMemsetAsync(out, 0, static_cast<size_t>(m) * NCOL * sizeof(float), s);
+      if (z != cudaSuccess) return static_cast<int>(z);
+      moments_global_kernel<<<std::min(sweep_blocks, 8 * sm_count()), MOM_THREADS, 0, s>>>(
+          idx, d, n, m, out);
+      break;
+    }
   }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// K3 by the distributed-shared-memory table (m <= MOM_DSMEM_MAX_M).
-int fused_moments16_cluster(const int32_t* idx, const float* d, int n, int m,
-                            double* /*workspace*/, float* out, void* stream) {
-  const cudaError_t cfg = configure();
-  if (cfg != cudaSuccess) return static_cast<int>(cfg);
-  if (m > MOM_DSMEM_MAX_M) return static_cast<int>(cudaErrorInvalidValue);
-  const int rows = (m + MOM_CLUSTER - 1) / MOM_CLUSTER;
-  moments_dsmem_kernel<<<MOM_CLUSTER, MOM_DSMEM_THREADS, MOM_COLS * rows * sizeof(float),
-                         static_cast<cudaStream_t>(stream)>>>(idx, d, n, m, out);
   return static_cast<int>(cudaGetLastError());
 }
 

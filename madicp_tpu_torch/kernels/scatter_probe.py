@@ -11,8 +11,7 @@ outside ``[0, M)`` drops:
   on the tensor cores with each value split into three exact bf16 parts.
 - :func:`fused_moments`  ``(N, 3)`` points -> ``(M, 16)`` sums of
   ``[d, outer6(d), 1, 0 x 6]``, a scatter of the moment columns formed in
-  the kernel; replaces ``make_fused_moments`` (``:155``). Option
-  ``table="cluster"`` is the other low-contention design, for the probe.
+  the kernel; replaces ``make_fused_moments`` (``:155``).
 - :func:`rmw_segsum`     ``(Q, 16)`` -> ``(Mq, 16)``, summed in row order:
   bitwise equal to a float32 ``np.add.at``; replaces ``rmw_kernel``
   (``:365``). The TPU kernel indexed out-of-range ids with undefined
@@ -37,9 +36,7 @@ import torch
 from madicp_tpu_torch.kernels import build
 
 MODES = ("f32", "highest", "bf16x3")
-TABLES = ("auto", "cluster")  # fused_moments' accumulators
-CLUSTER_MAX_M = 16384  # the cluster table: 2048 rows of 10 floats a block
-RMW_MAX_ROWS = 65536  # every block of 16 table rows reads all Q ids
+RMW_MAX_ROWS = 2048  # every block of 16 table rows reads all Q ids
 _MAX_N = 2**26  # 16 N and 16 M, plus a grid's stride, stay within a C int
 
 launches = {"onehot_segsum": 0, "fused_moments": 0, "rmw_segsum": 0,
@@ -163,18 +160,17 @@ def _launch(name: str, symbol: str, idx, x, n: int, m: int, out,
     return out
 
 
-def _workspace(device: torch.device) -> torch.Tensor:
-    """``fused_moments``' double workspace on ``device``: zeroed here
-    once, left zeroed by every launch (the last block clears it), so
-    calls that share it must be ordered on one stream."""
+def _workspace(device: torch.device, doubles: int) -> torch.Tensor:
+    """``fused_moments``' double workspace on ``device``, at least
+    ``doubles`` long: zeroed here when it is made or grown, left zeroed by
+    every launch (the kernel clears it), so calls that share it must be
+    ordered on one stream."""
     ws = _workspaces.get(device)
-    if ws is None:
+    if ws is None or ws.numel() < doubles:
         if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError("fused_moments: call it once outside CUDA graph "
-                               "capture first, to allocate its workspace")
-        lib = build.load("scatter_probe")
-        ws = torch.zeros(lib.fused_moments16_workspace(), dtype=torch.float64,
-                         device=device)
+            raise RuntimeError("fused_moments: call it once at this shape outside CUDA "
+                               "graph capture first, to allocate its workspace")
+        ws = torch.zeros(doubles, dtype=torch.float64, device=device)
         _workspaces[device] = ws
     return ws
 
@@ -196,30 +192,25 @@ def onehot_segsum(idx2d, vals_t, M: int, mode: str = "f32") -> torch.Tensor:
                    out, scratch)
 
 
-def fused_moments(idx2d, d, M: int, table: str = "auto") -> torch.Tensor:
+def fused_moments(idx2d, d, M: int) -> torch.Tensor:
     """``(M, 16)`` sums of the moment columns of the ``(N, 3)`` float32
-    points ``d`` (columns 10-15 zero). ``table="auto"`` picks the
-    kernel's accumulator by contention; ``"cluster"`` forces the table in
-    one cluster's distributed shared memory (``M <= CLUSTER_MAX_M``), the
-    design the probe compares it with."""
-    if table not in TABLES:
-        raise ValueError(f"fused_moments: table must be one of {TABLES}, got {table!r}")
-    if table == "cluster" and M > CLUSTER_MAX_M:
-        raise ValueError(f"fused_moments: table='cluster' needs M <= {CLUSTER_MAX_M}, got {M}")
+    points ``d`` (columns 10-15 zero); the kernel picks its accumulator
+    by contention."""
     n = d.shape[0]
     if not _checked("fused_moments", idx2d, d, (n, 3), n, M):
         return fused_moments_ref(idx2d, d, M)
     out = torch.empty((M, 16), dtype=torch.float32, device=d.device)
-    if table == "cluster":
-        return _launch("fused_moments", "fused_moments16_cluster", idx2d, d, n, M, out)
+    need = build.load("scatter_probe").fused_moments16_workspace(n, M)
     return _launch("fused_moments", "fused_moments16", idx2d, d, n, M, out,
-                   _workspace(d.device))
+                   _workspace(d.device, need) if need else None)
 
 
 def rmw_segsum(idx, vals, Mq: int) -> torch.Tensor:
     """``(Mq, 16)`` segment sums of the ``(Q, 16)`` float32 rows, each
     entry summed in row order (bitwise a float32 ``np.add.at``);
-    ``Mq <= RMW_MAX_ROWS``; on the card ``vals`` is 16-byte aligned."""
+    on the card ``vals`` is 16-byte aligned. Each block of 16 table rows
+    reads all Q ids, so the work grows as Q * Mq / 16: ``Mq`` is capped
+    at ``RMW_MAX_ROWS``, eight times the probe's 256."""
     q = vals.shape[0]
     if Mq > RMW_MAX_ROWS:
         raise ValueError(f"rmw_segsum: Mq must be <= {RMW_MAX_ROWS}, got {Mq}")

@@ -7,10 +7,8 @@ order), through the kernels of
 :mod:`madicp_tpu_torch.kernels.scatter_probe`:
 
 - A   ``onehot_segsum`` in modes f32, highest and bf16x3, at each M;
-- A2  ``fused_moments`` beside "moment columns + scatter", beside the
-      main path's ``segsum_moments`` (the same sums, another design) and,
-      at the low-contention shapes, beside its own cluster-table design
-      (``table="cluster"``);
+- A2  ``fused_moments`` beside "moment columns + scatter" and beside the
+      main path's ``segsum_moments`` (the same sums, another design);
 - B   ``rmw_segsum``, the in-order segment sum, at Q = 8192, Mq = 256;
 - C   ``scatter_segsum``, unordered, at the same shapes.
 
@@ -66,7 +64,6 @@ Q, MQ = 8192, 256
 TOL = 1e-3  # float32 reassociation over ~2000 terms of N(0, 1)
 RMW_PLAIN_REPS = 2  # the in-order plain loop launches one add per row
 MOMENT_FLOPS = 19  # a point's 9 products and 10 adds
-CLUSTER_CONTENTION = 256  # n / M below which fused_moments scatters globally
 
 
 @dataclass
@@ -88,7 +85,6 @@ class Case:
     bitwise: bool = False  # must equal the plain version bit for bit
     plain_reps: Optional[int] = None
     baselines: dict = field(default_factory=dict)  # other designs, same sums
-    checked: tuple = ()  # baselines held to TOL like the kernel
 
     @property
     def name(self) -> str:
@@ -138,12 +134,6 @@ def cases(device, n: int = N, sizes=SIZES) -> list:
     for m in sizes:
         idx2d = _draw_ids(rng, m, n, dev)
         tab = torch.zeros((m + 1, 16), dtype=torch.float32, device=dev)
-        # the cluster table is a low-contention design: one float32 table
-        # sums every term, so it is compared where the kernel scatters
-        # into global memory (n < 256 m), not where an entry sums ~2000
-        low = n < CLUSTER_CONTENTION * m and m <= sp.CLUSTER_MAX_M
-        cluster = {"cluster_table": partial(sp.fused_moments, idx2d, d, m,
-                                            table="cluster")} if low else {}
         out.append(Case(
             "A2", "fused_moments", None, m, n,
             call=partial(sp.fused_moments, idx2d, d, m),
@@ -154,9 +144,7 @@ def cases(device, n: int = N, sizes=SIZES) -> list:
             design_flops=2 * n * m * 16 * 3,
             baselines={"mom_scatter": partial(_moments, idx2d, d, m),
                        "segsum_moments": partial(
-                           segsum.segsum_moments, d, idx2d.reshape(-1), m),
-                       **cluster},
-            checked=tuple(cluster)))
+                           segsum.segsum_moments, d, idx2d.reshape(-1), m)}))
 
     idx_q = torch.as_tensor(rng.integers(0, MQ, Q).astype(np.int32)[None, :], device=dev)
     vals_q = torch.as_tensor(rng.normal(0, 1, (Q, 16)).astype(np.float32), device=dev)
@@ -180,16 +168,12 @@ def cases(device, n: int = N, sizes=SIZES) -> list:
 
 
 def check(case: Case) -> dict:
-    """The kernel (the plain version on the CPU) and ``case.checked``
-    against the float64 sums and, where ``case.bitwise``, bit for bit
-    against the plain version."""
+    """The kernel (the plain version on the CPU) against the float64 sums
+    and, where ``case.bitwise``, bit for bit against the plain version."""
     got, want = case.call(), case.want()
     err = float((got.double() - want).abs().max())
     out = {"max_abs_err": err, "tol": TOL}
     ok = err <= TOL
-    for name in case.checked:
-        out[f"{name}_max_abs_err"] = float((case.baselines[name]().double() - want).abs().max())
-        ok = ok and out[f"{name}_max_abs_err"] <= TOL
     if case.bitwise:
         out["bitwise_equal_to_plain"] = bool(torch.equal(got, case.plain()))
         ok = ok and out["bitwise_equal_to_plain"]

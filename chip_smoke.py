@@ -285,8 +285,6 @@ def phase_probe(torch) -> dict:
             "library_ms": None if None in lib else sum(lib),
             "library_device_ms": None if None in lib_dev else sum(lib_dev),
             "bound_by": max(recs, key=lambda r: r["bound_ms"])["bound_by"],
-            # the dense one-hot cases' tensor-core flops at the bf16 peak
-            "design_ops_ms": sum(r["design_ops_ms"] or 0.0 for r in recs) or None,
         }
     emit({"phase": "probe", "seconds": seconds, "tol": probe.TOL,
           "rmw_segsum": "bitwise equal to the in-order plain version",

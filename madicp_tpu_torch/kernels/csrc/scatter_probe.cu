@@ -4,83 +4,78 @@
 // scripts/pallas_scatter_probe.py. Each computes that kernel's function;
 // none is carried over block by block. Every id outside [0, m) drops.
 //
-// K2  onehot_segsum16_{f32,bf16x3}   vals_t (16, n), idx (n,) -> (16, m)
-//     replaces make_onehot_segsum (pallas_scatter_probe.py:66, call :143).
-//     * f32/highest: on the TPU both were an f32 one-hot product (the
-//       plain `f32` dot lowered as one bf16 pass, error ~0.28; its Hopper
-//       twin would be TF32). Here both are the scatter itself, in full
-//       FP32 on CUDA cores: a thread per point adds its 16 values into a
-//       per-block (16, m) table in shared memory, and each block then
-//       adds its nonzero entries to the output with global atomics. The
-//       shared table only pays where many rows share a table row (n >=
-//       256 m, e.g. m <= 512 at n = 131072): at m = 1024 it ran 3.4x
-//       slower than global atomics at m = 4096. Elsewhere the kernel adds
-//       straight into the output with global atomics.
-//       Bound: bytes, n x 68 B in + 64 m B out (~9 MB, ~2.7 us at
-//       3.35 TB/s); in practice shared-atomic contention at small m,
-//       where 131072 rows fall into 64 table rows.
-//     * bf16x3: the one-hot matrix-unit product, as on the TPU, on the
-//       tensor cores (nvcuda::wmma bf16 16x16x16, f32 accumulators).
-//       Each value is truncation-split into three bf16 parts (hi/mid/lo,
-//       pallas_scatter_probe.py:113-123) whose products with the 0/1
-//       one-hot are exact; the three products accumulate in f32. Bound:
-//       bytes, as for f32 (the function). The dense design adds 2 n m 16 3
-//       tensor-core flops (~0.2 ms at m = 16384 on 989 TFLOP/s), its own
-//       floor, which grows with m. The one-hot tile is built in
-//       shared memory from the ids, 16 bytes a lane, never in device
-//       memory; a warp keeps accumulators for 8 column tiles (128
-//       columns) in registers and reuses each split A tile across them.
-//       The tensor cores form each 16-point chunk's sums from zero; the
-//       warp adds them into its accumulators with round-to-nearest f32
-//       adds, because the tensor cores' own f32 accumulation truncates:
-//       accumulating 64 chunks inside the MMA left 8.6e-4 of error at
-//       m = 64 (H100 80GB HBM3, 700 W), next to the 1e-3 tolerance.
-//       The warps' partial sums are combined by double atomics into a
-//       scratch table and cast once, so adding hundreds of partials into
-//       large sums rounds only once.
+// K2, K3 and K5 are one scatter core, templated on the source of a
+// point's values (a "Src" below: K2 reads 16 value columns, K3 forms 10
+// moment columns from a point, K5 reads 16-wide rows) and on the output's
+// layout. Their function is a scatter, bound by bytes: each input read
+// once, the output written once. The contention (rows an id) picks the
+// accumulator, and precision sets one rule: a float32 sum of k terms
+// of N(0, 1) values in random order is off by up to ~2.6e-4 at k = 256
+// and ~1.9e-3 at k = 1024 (numpy emulation, moment columns), against the
+// probe's 1e-3, so no float32 sum holds more than about F32_TERMS = 256
+// terms of an entry (ids spread evenly, as the probe draws them); above
+// that, partial sums are combined in double and rounded once.
+//   * Shared tables (n >= 256 m, m <= 2048): a per-block float32 table in
+//     shared memory, about two blocks an SM and more where a block would
+//     otherwise sum over 256 terms of an entry. The 8 blocks of a
+//     thread-block cluster add their tables in double over distributed
+//     shared memory, each block a slice, and each cluster adds its slice
+//     to a double workspace with global atomics (one atomic an entry a
+//     cluster, not a block: at m = 256, 29.3 us with 32 blocks and no
+//     cluster, 15.0 with 128 in clusters; H100 80GB HBM3, 700 W). The last
+//     block to finish (a ticket counter) rounds the sums once into the
+//     output and zeroes the workspace and the ticket for the next call:
+//     one launch. On sm_90a a shared-memory float atomicAdd is a CAS loop
+//     (ATOMS.CAST.SPIN in the SASS; the global ones are native ATOMG.ADD),
+//     which is most of this path's time.
+//   * Double atomics (n >= 256 m, m > 2048): each point adds its values
+//     to the double workspace with global atomics; a second kernel rounds
+//     them into the output and zeroes the workspace. Not a probe shape;
+//     it keeps the precision.
+//   * Vector atomics (n < 256 m): float32 atomics of 16 bytes (sm_90
+//     global memory) into (m, 16) rows, so a 16-wide row costs 4 atomics,
+//     not 16. Where the output is those rows (K3, K5) they go straight
+//     into it after a memset; K2's (16, m) output puts a point's values m
+//     floats apart, so its rows are summed in the workspace and a second
+//     kernel writes them to the output transposed and clears them.
+
+// K2  onehot_segsum16                vals_t (16, n), idx (n,) -> (16, m)
+//     replaces make_onehot_segsum (pallas_scatter_probe.py:66, call :143)
+//     in all three modes. On the TPU f32 and highest were an f32 one-hot
+//     product (the plain `f32` dot lowered as one bf16 pass, error ~0.28;
+//     its Hopper twin would be TF32), and bf16x3 split each value into
+//     three bf16 parts so the matrix unit's products with the 0/1 one-hot
+//     were exact (:112-130). The split is exact, hi + mid + lo == v, and
+//     the three products go into one float32 sum, so every mode's function
+//     is the float32 segment sum of the values; here all three are that
+//     scatter, in full FP32 on CUDA cores. (The one-hot product on the
+//     tensor cores, nvcuda::wmma bf16 with the split, took 34 us at
+//     m = 64 and 1865 us at m = 16384: 2 n m 48 flops for a scatter.)
+//     A thread per point reads its 16 values (coalesced along each
+//     column). Shared tables from n >= 256 m (m <= 512 at n = 131072),
+//     layout c * m + id: neighbouring threads hold random ids, so their
+//     shared atomics spread over the banks. Below, vector atomics into the
+//     workspace and a transposing second kernel: two launches, no memset
+//     (16 scalar atomics a point into a memset output took 2-3x as long;
+//     H100 80GB HBM3, 700 W). Bound: bytes, n x 68 B in + 64 m B out
+//     (~9 MB, ~2.7 us at 3.35 TB/s).
 // K3  fused_moments16                d (n, 3), idx (n,) -> (m, 16)
 //     replaces make_fused_moments (pallas_scatter_probe.py:155, call
 //     :224), the TPU's one-hot contraction of the 10 moment columns
-//     [d, outer6(d), 1] (plus 6 zero columns) on the matrix unit. Its
-//     function is a scatter: bound by bytes (n x 16 B in, 64 m B out,
-//     ~0.6-1.6 us). A dense contraction costs 2 n m 48 flops, which grows
-//     with m (1.8 ms at m = 16384 when this kernel was one), so here a
-//     thread per point reads its 12 bytes and its id, forms the 10
-//     columns in registers and scatters them. Precision sets the rest: a
-//     float32 sum of k terms of N(0, 1) moments in random order is off by
-//     up to ~2.6e-4 at k = 256 and ~1.9e-3 at k = 1024 (numpy emulation),
-//     against the probe's 1e-3. So no float32 sum holds more than about
-//     MOM_F32_TERMS = 256 terms of an entry (ids spread evenly, as the
-//     probe draws them); above that, sums are combined in double and
-//     rounded once. The contention n / m picks the accumulator:
-//     * n < 256 m (fewer than 256 terms an entry): the output is zeroed
-//       by a memset and each point adds its row with three vector
-//       atomics (float4, float4, float2: sm_90 global memory) straight
-//       into it, so a point costs 3 atomics, not 10. The whole table in
-//       one cluster's distributed shared memory, the issue's other
-//       design for this regime, took 0.46/0.44 ms at m = 4096/16384
-//       against 8.4/7.7 us here (8 SMs of remote shared atomics; H100
-//       80GB HBM3, 700 W), and was dropped.
-//     * n >= 256 m and m <= 2048: a per-block (10, m) float32 table in
-//       shared memory with shared atomics, about two blocks an SM, and
-//       more where a block would otherwise sum over 256 terms of an entry.
-//       The 8 blocks of a thread-block cluster add their tables in double
-//       over distributed shared memory, each block a slice, and each
-//       cluster adds its slice to a double workspace with global atomics:
-//       one atomic an entry a cluster, not a block, so the blocks can be
-//       4x as many (m = 256: 29.3 us with 32 blocks and no cluster, 15.0
-//       with 128 in clusters; H100 80GB HBM3, 700 W). The last block to
-//       finish (a ticket counter) rounds the sums to float32 once, writes
-//       the output, and zeroes the workspace and the ticket for the next
-//       call: one launch, no memset, no cast kernel. No warp
-//       pre-aggregation for m <= 32: each warp takes about one 32-point
-//       step, so a conflict costs it a few serialised shared atomics
-//       once, less than a shuffle reduction per distinct id (41-91 us at
-//       segsum_moments.cu's sz 8-32 levels).
-//     * n >= 256 m and m > 2048 (the table outgrows shared memory): each
-//       point adds its 10 values to the double workspace with global
-//       atomics, and a second kernel rounds the sums into the output and
-//       zeroes the workspace. Not a probe shape; it keeps the precision.
+//     [d, outer6(d), 1] (plus 6 zero columns) on the matrix unit. A
+//     dense contraction costs 2 n m 48 flops, which grows with m (1.8 ms
+//     at m = 16384 when this kernel was one), so here a thread per point
+//     reads its 12 bytes and its id, forms the 10 columns in registers and
+//     scatters them: shared tables (layout c * m + id) from n >= 256 m,
+//     else three vector atomics a point (float4, float4, float2) into the
+//     output after a memset. The whole table in one cluster's distributed
+//     shared memory, another design for that regime, took 0.46/0.44 ms at
+//     m = 4096/16384 against 8.4/7.7 us (8 SMs of remote shared atomics;
+//     H100 80GB HBM3, 700 W), and was dropped. No warp pre-aggregation for
+//     m <= 32: each warp takes about one 32-point step, so a conflict
+//     costs it a few serialised shared atomics once, less than a shuffle
+//     reduction per distinct id (41-91 us at segsum_moments.cu's sz 8-32
+//     levels). Bound: bytes, n x 16 B in, 64 m B out (~0.6-1.6 us).
 // K4  rmw_segsum16                   vals (q, 16), idx (q,) -> (m, 16)
 //     replaces rmw_kernel (pallas_scatter_probe.py:365, call :375), the
 //     TPU's serial in-order read-modify-write loop. Every entry (id, c)
@@ -108,50 +103,47 @@
 // K5  scatter_segsum16               vals (q, 16), idx (q,) -> (m, 16)
 //     replaces scat_kernel (pallas_scatter_probe.py:401, call :406), an
 //     in-kernel `.at[].add(mode="drop")` that Mosaic could not lower.
-//     Unordered: a thread per element (consecutive threads hit
-//     consecutive columns of one row) adds into the output with global
-//     atomics, or into K2's per-block shared table where n >= 256 m.
-//     Bound: bytes, as K4.
-//
+//     Unordered. A thread per quarter row: at the probe's q = 8192,
+//     m = 256, a memset and one float4 atomic a quarter row into the
+//     output, 4 atomics a row, not 16. Table layout id * 16 + c where the
+//     shared tables apply (q >= 256 m). Bound: bytes, as K4. At this size
+//     the function is latency-bound: three one-launch designs without a
+//     memset were slower (H100 80GB HBM3, 700 W): a cluster of 8 blocks
+//     with shared tables stored once (9.1 us), one cluster that zeroes
+//     the output, waits at the cluster barrier and then adds with float4
+//     atomics (4.0-4.6), and blocks that own ids, zero their rows and add
+//     the rows they list (4.6); this path took 3.3-3.4.
+
 // K2, K3 and K5 sum in an order that changes from run to run (atomics);
-// they match a float64 sum to float32 reassociation only.
-// Inputs must be finite: the dense contraction multiplies every value
-// by 0 or 1. Outputs of K2 (f32) and K5 must be zeroed by the caller,
-// and so must the double scratch of K2 (bf16x3), which writes every
-// entry of its output, as K3 and K4 do. K3's workspace (where its path
-// needs one) is zeroed once by its owner and left zeroed by every call;
-// calls that share it must be ordered on one stream.
+// they match a float64 sum to float32 reassociation only. Their
+// workspace (where a path needs one; <name>_workspace(n, m) doubles: a
+// ticket word, padding, then the sums) is zeroed once by its owner and
+// left zeroed by every call, so calls that share it must be ordered on
+// one stream. K4 writes every entry of its output.
 
 #include <cooperative_groups.h>
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <algorithm>
 
 namespace {
 
-using namespace nvcuda;
 namespace cg = cooperative_groups;
 
 constexpr int NCOL = 16;
-constexpr int THREADS = 256;
-constexpr size_t SCATTER_SMEM_MAX = 96 * 1024;  // shared table, m <= 1536
-constexpr int SHARED_MIN_ROWS_PER_ID = 256;     // contention worth a table
+constexpr int THREADS = 256;             // round and transpose kernels
 constexpr unsigned FULL_MASK = 0xffffffffu;
 
-constexpr int WARPS = 4;                 // warps per block of the mma kernel
-constexpr int TILES = 8;                 // 16-column tiles a warp accumulates
-constexpr int GROUP_COLS = 16 * TILES;   // 128 output columns per warp
-constexpr int KMIN_CHUNKS = 16;          // least 16-point chunks per warp
-
+constexpr int SEG_THREADS = 512;         // scatter kernels
+constexpr int SHARED_MAX_M = 2048;       // table rows; (16, m) float32 is 128 KB
+constexpr int ROWS_PER_BLOCK_ID = 4;     // least points a block per table row
+constexpr int F32_TERMS = 256;           // most terms of an entry a float32 sum takes
+constexpr int CLUSTER = 8;               // blocks of a cluster (portable size)
+constexpr int WS_HEAD = 2;               // workspace doubles before the sums
+constexpr int LOADS_IN_FLIGHT = 8;       // K5's quarter rows a thread loads at once
+constexpr int ROUND_BATCH = 8;           // sums a thread reads at once when it rounds
 constexpr int MOM_COLS = 10;             // [d, outer6(d), 1]
-constexpr int MOM_THREADS = 512;
-constexpr int MOM_SHARED_MAX_M = 2048;   // (10, m) float32 table, 80 KB
-constexpr int MOM_ROWS_PER_BLOCK_ID = 4;  // least points a block per table row
-constexpr int MOM_F32_TERMS = 256;        // most terms of an entry a float32 sum takes
-constexpr int MOM_CLUSTER = 8;           // blocks of a cluster (portable size)
 
 constexpr int RMW_THREADS = 512;
 constexpr int RMW_WARPS = RMW_THREADS / 32;       // 16
@@ -178,71 +170,284 @@ int sm_count() {
   return sms;
 }
 
-// -------------------------------------------- K2 f32 and K5: scatter --
+__device__ __forceinline__ bool kept(int id, int m) { return id >= 0 && id < m; }
+
+__device__ __forceinline__ void moment_row(const float* __restrict__ d, int p,
+                                           float v[MOM_COLS]) {
+  const float x = __ldg(d + 3 * p), y = __ldg(d + 3 * p + 1), z = __ldg(d + 3 * p + 2);
+  v[0] = x; v[1] = y; v[2] = z;
+  v[3] = x * x; v[4] = x * y; v[5] = x * z; v[6] = y * y; v[7] = y * z; v[8] = z * z;
+  v[9] = 1.f;
+}
+
+// ------------------------------------------------------------ sources --
+// A source holds the inputs and says, for the scatter core: how many
+// values a point has (COLS), where value c of id sits in the table and in
+// the workspace's sums (tab), which sum an output entry holds (tab_of_out,
+// -1 for a zero column), whether the output is (m, 16) rows (OUT_ROWS),
+// how its points are visited (for_each calls add(id, c, value) for every
+// kept value) and how it adds (m, 16) rows with vector atomics (add_rows).
+
+// K2: the (16, n) value columns, a thread per point; table, sums and
+// output in the (16, m) layout.
+struct ColsSrc {
+  static constexpr int COLS = NCOL;
+  static constexpr int LANES = 1;  // threads a point
+  static constexpr bool OUT_ROWS = false;
+  const float* v;
+  int n;
+
+  static __device__ __forceinline__ int tab(int id, int c, int m) { return c * m + id; }
+  static __device__ __forceinline__ int tab_of_out(int e, int) { return e; }
+
+  __device__ __forceinline__ void row(int p, float r[NCOL]) const {
+#pragma unroll
+    for (int c = 0; c < NCOL; ++c) r[c] = __ldg(v + static_cast<size_t>(c) * n + p);
+  }
+
+  template <class Add>
+  __device__ __forceinline__ void for_each(const int32_t* __restrict__ idx, int m, Add add) const {
+    const int stride = gridDim.x * blockDim.x;
+    for (int p = blockIdx.x * blockDim.x + threadIdx.x; p < n; p += stride) {
+      const int id = __ldg(idx + p);
+      if (!kept(id, m)) continue;
+      float r[NCOL];
+      row(p, r);
+#pragma unroll
+      for (int c = 0; c < NCOL; ++c) add(id, c, r[c]);
+    }
+  }
+
+  __device__ __forceinline__ void add_rows(const int32_t* __restrict__ idx, int m,
+                                           float* __restrict__ rows) const {
+    const int stride = gridDim.x * blockDim.x;
+    for (int p = blockIdx.x * blockDim.x + threadIdx.x; p < n; p += stride) {
+      const int id = __ldg(idx + p);
+      if (!kept(id, m)) continue;
+      float r[NCOL];
+      row(p, r);
+      float4* dst = reinterpret_cast<float4*>(rows + static_cast<size_t>(id) * NCOL);
+#pragma unroll
+      for (int q = 0; q < NCOL / 4; ++q)
+        atomicAdd(dst + q, make_float4(r[4 * q], r[4 * q + 1], r[4 * q + 2], r[4 * q + 3]));
+    }
+  }
+};
+
+// K3: the 10 moment columns of the (n, 3) points, a thread per point;
+// table and sums (10, m), output (m, 16) with columns 10-15 zero.
+struct MomSrc {
+  static constexpr int COLS = MOM_COLS;
+  static constexpr int LANES = 1;
+  static constexpr bool OUT_ROWS = true;
+  const float* d;
+  int n;
+
+  static __device__ __forceinline__ int tab(int id, int c, int m) { return c * m + id; }
+  static __device__ __forceinline__ int tab_of_out(int e, int m) {
+    const int c = e % NCOL;
+    return c < COLS ? c * m + e / NCOL : -1;
+  }
+
+  template <class Add>
+  __device__ __forceinline__ void for_each(const int32_t* __restrict__ idx, int m, Add add) const {
+    const int stride = gridDim.x * blockDim.x;
+    for (int p = blockIdx.x * blockDim.x + threadIdx.x; p < n; p += stride) {
+      const int id = __ldg(idx + p);
+      if (!kept(id, m)) continue;
+      float r[COLS];
+      moment_row(d, p, r);
+#pragma unroll
+      for (int c = 0; c < COLS; ++c) add(id, c, r[c]);
+    }
+  }
+
+  // three vector atomics a point: float4, float4, float2
+  __device__ __forceinline__ void add_rows(const int32_t* __restrict__ idx, int m,
+                                           float* __restrict__ rows) const {
+    const int stride = gridDim.x * blockDim.x;
+    for (int p = blockIdx.x * blockDim.x + threadIdx.x; p < n; p += stride) {
+      const int id = __ldg(idx + p);
+      if (!kept(id, m)) continue;
+      float r[COLS];
+      moment_row(d, p, r);
+      float* row = rows + static_cast<size_t>(id) * NCOL;
+      atomicAdd(reinterpret_cast<float4*>(row), make_float4(r[0], r[1], r[2], r[3]));
+      atomicAdd(reinterpret_cast<float4*>(row + 4), make_float4(r[4], r[5], r[6], r[7]));
+      atomicAdd(reinterpret_cast<float2*>(row + 8), make_float2(r[8], r[9]));
+    }
+  }
+};
+
+// K5: the (n, 16) rows, a thread per quarter row; table, sums and output
+// in the (m, 16) layout.
+struct RowsSrc {
+  static constexpr int COLS = NCOL;
+  static constexpr int LANES = NCOL / 4;  // threads a row
+  static constexpr bool OUT_ROWS = true;
+  const float* v;
+  int n;
+
+  static __device__ __forceinline__ int tab(int id, int c, int) { return id * NCOL + c; }
+  static __device__ __forceinline__ int tab_of_out(int e, int) { return e; }
+
+  __device__ __forceinline__ float4 quarter(int t) const {  // any alignment
+    const float* x = v + static_cast<size_t>(t) * 4;
+    return make_float4(__ldg(x), __ldg(x + 1), __ldg(x + 2), __ldg(x + 3));
+  }
+
+  // The grid's stride is a multiple of 4, so a thread keeps its quarter.
+  template <class Add>
+  __device__ __forceinline__ void for_each(const int32_t* __restrict__ idx, int m, Add add) const {
+    constexpr int U = LOADS_IN_FLIGHT;
+    const int quads = n * LANES, stride = gridDim.x * blockDim.x;
+    int t = blockIdx.x * blockDim.x + threadIdx.x;
+    const int c0 = (t % LANES) * 4;
+    auto add4 = [&](int id, float4 x) {
+      add(id, c0, x.x);
+      add(id, c0 + 1, x.y);
+      add(id, c0 + 2, x.z);
+      add(id, c0 + 3, x.w);
+    };
+    for (; t + (U - 1) * stride < quads; t += U * stride) {
+      int id[U];
+      float4 x[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        id[u] = __ldg(idx + (t + u * stride) / LANES);
+        x[u] = quarter(t + u * stride);
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (kept(id[u], m)) add4(id[u], x[u]);
+    }
+    for (; t < quads; t += stride) {
+      const int id = __ldg(idx + t / LANES);
+      if (kept(id, m)) add4(id, quarter(t));
+    }
+  }
+
+  __device__ __forceinline__ void add_rows(const int32_t* __restrict__ idx, int m,
+                                           float* __restrict__ rows) const {
+    const int quads = n * LANES, stride = gridDim.x * blockDim.x;
+    for (int t = blockIdx.x * blockDim.x + threadIdx.x; t < quads; t += stride) {
+      const int id = __ldg(idx + t / LANES);
+      if (!kept(id, m)) continue;
+      atomicAdd(reinterpret_cast<float4*>(rows + static_cast<size_t>(id) * NCOL) + t % LANES,
+                quarter(t));
+    }
+  }
+};
+
+// ------------------------------------------------------ scatter core --
 __device__ __forceinline__ void zero_table(float* tab, int tab_n) {
   for (int i = threadIdx.x; i < tab_n; i += blockDim.x) tab[i] = 0.f;
   __syncthreads();
 }
 
-__device__ __forceinline__ void flush_table(const float* tab, int tab_n,
-                                            float* __restrict__ out) {
-  __syncthreads();
-  for (int i = threadIdx.x; i < tab_n; i += blockDim.x) {
-    const float v = tab[i];
-    if (v != 0.f) atomicAdd(out + i, v);
-  }
+// A workspace sum, read and cleared by the one thread that uses it.
+__device__ __forceinline__ double take(double* s) {
+  const double v = __ldcg(s);
+  *s = 0.0;
+  return v;
 }
 
-// K2 f32: vals_t (16, n) -> out (16, m); a thread per point, table
-// layout c * m + id (neighbouring threads: neighbouring points, random
-// ids, spread banks).
-template <bool SHARED>
-__global__ void scatter_cols_kernel(const int32_t* __restrict__ idx,
-                                    const float* __restrict__ vals_t, int n,
-                                    int m, float* __restrict__ out) {
-  extern __shared__ float tab[];
-  if (SHARED) zero_table(tab, NCOL * m);
-  const int stride = gridDim.x * blockDim.x;
-  for (int p = blockIdx.x * blockDim.x + threadIdx.x; p < n; p += stride) {
-    const int id = idx[p];
-    if (id < 0 || id >= m) continue;
+// The output entries e0, e0 + stride, ...: each the sum sum(t) of its
+// table entry t, rounded once to float32, or 0 in a zero column;
+// ROUND_BATCH sums in flight a thread.
+template <class Src, class Sum>
+__device__ __forceinline__ void write_out(int m, float* __restrict__ out, int e0, int stride,
+                                          Sum sum) {
+  constexpr int U = ROUND_BATCH;
+  const int total = NCOL * m;
+  for (int e = e0; e < total; e += U * stride) {
+    double v[U];
 #pragma unroll
-    for (int c = 0; c < NCOL; ++c) {
-      const float v = vals_t[static_cast<size_t>(c) * n + p];
-      if (SHARED) {
-        atomicAdd(&tab[c * m + id], v);
-      } else {
-        atomicAdd(&out[static_cast<size_t>(c) * m + id], v);
-      }
+    for (int u = 0; u < U; ++u) {
+      const int t = e + u * stride < total ? Src::tab_of_out(e + u * stride, m) : -1;
+      v[u] = t < 0 ? 0.0 : sum(t);
     }
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (e + u * stride < total) out[e + u * stride] = static_cast<float>(v[u]);
   }
-  if (SHARED) flush_table(tab, NCOL * m, out);
 }
 
-// K5: vals (n, 16) -> out (m, 16); a thread per element, table layout
-// id * 16 + c (sixteen neighbouring threads share a row).
-template <bool SHARED>
-__global__ void scatter_rows_kernel(const int32_t* __restrict__ idx,
-                                    const float* __restrict__ vals, int n,
-                                    int m, float* __restrict__ out) {
-  extern __shared__ float tab[];
-  if (SHARED) zero_table(tab, NCOL * m);
-  const int total = n * NCOL;
-  const int stride = gridDim.x * blockDim.x;
-  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < total; e += stride) {
-    const int id = idx[e / NCOL];
-    if (id < 0 || id >= m) continue;
-    const int t = id * NCOL + (e % NCOL);
-    if (SHARED) {
-      atomicAdd(&tab[t], vals[e]);
-    } else {
-      atomicAdd(&out[t], vals[e]);
-    }
+// Shared tables: see the header.
+template <class Src>
+__global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(SEG_THREADS)
+shared_kernel(Src src, const int32_t* __restrict__ idx, int m, double* __restrict__ ws,
+              float* __restrict__ out) {
+  extern __shared__ float table[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int tab_n = Src::COLS * m;
+  zero_table(table, tab_n);
+  src.for_each(idx, m, [&](int id, int c, float v) { atomicAdd(&table[Src::tab(id, c, m)], v); });
+  cluster.sync();
+  double* acc = ws + WS_HEAD;
+  const int rank = static_cast<int>(cluster.block_rank());
+  for (int i = rank * blockDim.x + threadIdx.x; i < tab_n; i += CLUSTER * blockDim.x) {
+    double sum = 0.0;
+#pragma unroll
+    for (int j = 0; j < CLUSTER; ++j) sum += cluster.map_shared_rank(table, j)[i];
+    if (sum != 0.0) atomicAdd(acc + i, sum);
   }
-  if (SHARED) flush_table(tab, NCOL * m, out);
+  __threadfence();  // this block's sums are visible before its ticket
+  cluster.sync();   // and no block leaves while a peer reads its table
+  __shared__ bool last;
+  if (threadIdx.x == 0)
+    last = atomicAdd(reinterpret_cast<unsigned*>(ws), 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  write_out<Src>(m, out, threadIdx.x, blockDim.x, [&](int t) { return take(acc + t); });
+  if (threadIdx.x == 0) *reinterpret_cast<unsigned*>(ws) = 0u;
 }
 
-// ------------------------------------------ K4: in-order, spread out --
+// Double atomics into the workspace's sums; round_kernel then writes the
+// output and clears them.
+template <class Src>
+__global__ void __launch_bounds__(SEG_THREADS)
+double_kernel(Src src, const int32_t* __restrict__ idx, int m, double* __restrict__ ws) {
+  double* acc = ws + WS_HEAD;
+  src.for_each(idx, m, [&](int id, int c, float v) {
+    atomicAdd(acc + Src::tab(id, c, m), static_cast<double>(v));
+  });
+}
+
+template <class Src>
+__global__ void round_kernel(double* __restrict__ ws, int m, float* __restrict__ out) {
+  double* acc = ws + WS_HEAD;
+  write_out<Src>(m, out, blockIdx.x * blockDim.x + threadIdx.x, gridDim.x * blockDim.x,
+                 [&](int t) { return take(acc + t); });
+}
+
+// Vector atomics into zeroed (m, 16) rows.
+template <class Src>
+__global__ void __launch_bounds__(SEG_THREADS)
+rows_kernel(Src src, const int32_t* __restrict__ idx, int m, float* __restrict__ rows) {
+  src.add_rows(idx, m, rows);
+}
+
+// K2's float32 path: the (m, 16) rows summed in the workspace, written to
+// the (16, m) output and cleared; a thread per quarter row, so reads and
+// clears are coalesced and each store of a warp fills whole 32-byte
+// sectors (8 neighbouring ids of 4 output rows).
+__global__ void transpose_kernel(float* __restrict__ rows, int m, float* __restrict__ out) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= m * (NCOL / 4)) return;
+  const int id = t / 4, q = t % 4;
+  float4* r = reinterpret_cast<float4*>(rows + static_cast<size_t>(id) * NCOL) + q;
+  const float4 v = __ldcg(r);
+  *r = make_float4(0.f, 0.f, 0.f, 0.f);
+  float* o = out + static_cast<size_t>(4 * q) * m + id;
+  o[0] = v.x;
+  o[m] = v.y;
+  o[2 * static_cast<size_t>(m)] = v.z;
+  o[3 * static_cast<size_t>(m)] = v.w;
+}
+
+// -------------------------------------------- K4: in-order, spread out --
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
@@ -332,296 +537,89 @@ rmw_kernel(const int32_t* __restrict__ idx, const float* __restrict__ vals,
   if (owner && lo + own_k < m) out[static_cast<size_t>(lo + own_k) * NCOL + own_c] = acc;
 }
 
-// ---------------------------------------------- K3: moments, scatter --
-__device__ __forceinline__ void moment_row(const float* __restrict__ d, int p,
-                                           float v[MOM_COLS]) {
-  const float x = d[3 * p + 0], y = d[3 * p + 1], z = d[3 * p + 2];
-  v[0] = x; v[1] = y; v[2] = z;
-  v[3] = x * x; v[4] = x * y; v[5] = x * z; v[6] = y * y; v[7] = y * z; v[8] = z * z;
-  v[9] = 1.f;
-}
-
-// The (10, m) double sums `acc` rounded once into the (m, 16) output
-// (columns 10-15 zero), entries e0, e0 + stride, ...; each sum is read
-// and then cleared by the one thread that writes it.
-__device__ __forceinline__ void round_moments(double* __restrict__ acc, int m,
-                                              float* __restrict__ out, int e0, int stride) {
-  for (int e = e0; e < NCOL * m; e += stride) {
-    const int c = e % NCOL;
-    float v = 0.f;
-    if (c < MOM_COLS) {
-      double* s = acc + c * m + e / NCOL;
-      v = static_cast<float>(__ldcg(s));
-      *s = 0.0;
-    }
-    out[e] = v;
-  }
-}
-
-// High contention: a (10, m) float32 table per block (layout c * m + id)
-// with shared atomics. The 8 tables of a cluster are added in double, in
-// rank order, over distributed shared memory (each block one slice of
-// the entries), and go to the double workspace ws[1..] by atomics: one
-// global atomic an entry per cluster, not per block. The last block to
-// finish rounds once into the (m, 16) output and clears the workspace.
-__global__ void __cluster_dims__(MOM_CLUSTER, 1, 1) __launch_bounds__(MOM_THREADS)
-moments_shared_kernel(const int32_t* __restrict__ idx, const float* __restrict__ d,
-                      int n, int m, double* __restrict__ ws, float* __restrict__ out) {
-  extern __shared__ float mtab[];
-  cg::cluster_group cluster = cg::this_cluster();
-  const int tab_n = MOM_COLS * m;
-  zero_table(mtab, tab_n);
-  const int stride = gridDim.x * blockDim.x;
-  for (int p = blockIdx.x * blockDim.x + threadIdx.x; p < n; p += stride) {
-    const int id = idx[p];
-    if (id < 0 || id >= m) continue;
-    float v[MOM_COLS];
-    moment_row(d, p, v);
-#pragma unroll
-    for (int c = 0; c < MOM_COLS; ++c) atomicAdd(&mtab[c * m + id], v[c]);
-  }
-  cluster.sync();
-  double* acc = ws + 1;
-  const int rank = static_cast<int>(cluster.block_rank());
-  for (int i = rank * blockDim.x + threadIdx.x; i < tab_n; i += MOM_CLUSTER * blockDim.x) {
-    double sum = 0.0;
-#pragma unroll
-    for (int j = 0; j < MOM_CLUSTER; ++j) sum += cluster.map_shared_rank(mtab, j)[i];
-    if (sum != 0.0) atomicAdd(acc + i, sum);
-  }
-  __threadfence();  // this block's sums are visible before its ticket
-  cluster.sync();   // and no block leaves while a peer reads its table
-  __shared__ bool last;
-  if (threadIdx.x == 0)
-    last = atomicAdd(reinterpret_cast<unsigned*>(ws), 1u) == gridDim.x - 1;
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  round_moments(acc, m, out, threadIdx.x, blockDim.x);
-  if (threadIdx.x == 0) *reinterpret_cast<unsigned*>(ws) = 0u;
-}
-
-// High contention past the shared table's size: each point adds its 10
-// values to the double sums ws[1..] with global atomics; moments_round_kernel
-// then writes the output and clears them.
-__global__ void __launch_bounds__(MOM_THREADS)
-moments_double_kernel(const int32_t* __restrict__ idx, const float* __restrict__ d,
-                      int n, int m, double* __restrict__ ws) {
-  double* acc = ws + 1;
-  const int stride = gridDim.x * blockDim.x;
-  for (int p = blockIdx.x * blockDim.x + threadIdx.x; p < n; p += stride) {
-    const int id = idx[p];
-    if (id < 0 || id >= m) continue;
-    float v[MOM_COLS];
-    moment_row(d, p, v);
-#pragma unroll
-    for (int c = 0; c < MOM_COLS; ++c) atomicAdd(acc + c * m + id, static_cast<double>(v[c]));
-  }
-}
-
-__global__ void moments_round_kernel(double* __restrict__ ws, int m, float* __restrict__ out) {
-  round_moments(ws + 1, m, out, blockIdx.x * blockDim.x + threadIdx.x, gridDim.x * blockDim.x);
-}
-
-// Low contention: each point adds its row into the zeroed (m, 16) output
-// with three vector atomics (float4, float4, float2; sm_90 global memory).
-__global__ void __launch_bounds__(MOM_THREADS)
-moments_global_kernel(const int32_t* __restrict__ idx, const float* __restrict__ d,
-                      int n, int m, float* __restrict__ out) {
-  const int stride = gridDim.x * blockDim.x;
-  for (int p = blockIdx.x * blockDim.x + threadIdx.x; p < n; p += stride) {
-    const int id = idx[p];
-    if (id < 0 || id >= m) continue;
-    float v[MOM_COLS];
-    moment_row(d, p, v);
-    float* row = out + static_cast<size_t>(id) * NCOL;
-    atomicAdd(reinterpret_cast<float4*>(row), make_float4(v[0], v[1], v[2], v[3]));
-    atomicAdd(reinterpret_cast<float4*>(row + 4), make_float4(v[4], v[5], v[6], v[7]));
-    atomicAdd(reinterpret_cast<float2*>(row + 8), make_float2(v[8], v[9]));
-  }
-}
-
-// ------------------------------------------- K2 bf16x3: tensor cores --
-struct alignas(32) WarpTiles {
-  __nv_bfloat16 a[3][16 * 16];      // hi/mid/lo of the A tile (c x k, row-major)
-  __nv_bfloat16 b[TILES][16 * 16];  // one-hot tiles (k x col, row-major)
-  float c[16 * 16];                 // accumulator staging (c x col)
-};
-
-// Truncation split: v == hi + mid + lo exactly, each with at most 8
-// significant bits, so each is a bf16 bit pattern (the high half of its
-// float32 bits). A rounding conversion would leave a residue.
-__device__ __forceinline__ void split3(float v, __nv_bfloat16 part[3]) {
-  const uint32_t b = __float_as_uint(v);
-  const float r1 = v - __uint_as_float(b & 0xFFFF0000u);
-  const uint32_t rb = __float_as_uint(r1);
-  const float lo = r1 - __uint_as_float(rb & 0xFFFF0000u);
-  part[0] = __ushort_as_bfloat16(static_cast<unsigned short>(b >> 16));
-  part[1] = __ushort_as_bfloat16(static_cast<unsigned short>(rb >> 16));
-  part[2] = __ushort_as_bfloat16(static_cast<unsigned short>(__float_as_uint(lo) >> 16));
-}
-
-// A tile of 16 value columns x 16 points starting at k0: lane -> point
-// k0 + (lane % 16), columns 8 (lane / 16) .. + 8. Points past n are 0.
-__device__ __forceinline__ void fill_a(const float* __restrict__ src, int n,
-                                       int k0, int lane, WarpTiles& t) {
-  const int k = lane % 16, half = lane / 16, p = k0 + k;
-  const bool in = p < n;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int c = half * 8 + j;
-    __nv_bfloat16 part[3];
-    split3(in ? src[static_cast<size_t>(c) * n + p] : 0.f, part);
-#pragma unroll
-    for (int s = 0; s < 3; ++s) t.a[s][c * 16 + k] = part[s];
-  }
-}
-
-// One-hot tiles of 16 points x 16 columns: lane -> point k0 + lane / 2,
-// columns 8 (lane % 2) .. + 8 of each tile, one 16-byte store a tile.
-__device__ __forceinline__ void fill_b(const int32_t* __restrict__ idx, int n,
-                                       int m, int k0, int col0, int nt,
-                                       int lane, WarpTiles& t) {
-  const int k = lane / 2, h = lane % 2, p = k0 + k;
-  int id = p < n ? idx[p] : -1;
-  if (id < 0 || id >= m) id = -1;
-#pragma unroll
-  for (int tt = 0; tt < TILES; ++tt) {
-    if (tt < nt) {
-      const int rel = id - (col0 + tt * 16 + h * 8);  // < 0 when id == -1
-      uint32_t w[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-        w[q] = (rel == 2 * q ? 0x3F80u : 0u) | (rel == 2 * q + 1 ? 0x3F800000u : 0u);
-      *reinterpret_cast<uint4*>(&t.b[tt][k * 16 + h * 8]) =
-          make_uint4(w[0], w[1], w[2], w[3]);
-    }
-  }
-}
-
-// Each warp owns 128 output columns (group g) and one slice of the
-// 16-point chunks; its partial sums go to `acc64` (the (16, m) output's
-// layout, in double) by global atomics.
-__global__ void __launch_bounds__(WARPS * 32)
-onehot_mma_kernel(const int32_t* __restrict__ idx, const float* __restrict__ src,
-                  int n, int m, int groups, int ksplits, double* __restrict__ acc64) {
-  __shared__ WarpTiles tiles[WARPS];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int w = blockIdx.x * WARPS + warp;
-  if (w >= groups * ksplits) return;  // uniform across the warp
-  WarpTiles& t = tiles[warp];
-  const int g = w % groups, ks = w / groups;
-  const int col0 = g * GROUP_COLS;
-  const int nt = min(TILES, (m - col0 + 15) / 16);
-  const int chunks = (n + 15) / 16;
-  const int per = (chunks + ksplits - 1) / ksplits;
-  const int c_lo = ks * per, c_hi = min(chunks, c_lo + per);
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[TILES], sums;
-#pragma unroll
-  for (int tt = 0; tt < TILES; ++tt) wmma::fill_fragment(acc[tt], 0.f);
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[3];
-  wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b;
-
-  for (int ch = c_lo; ch < c_hi; ++ch) {
-    const int k0 = ch * 16;
-    fill_a(src, n, k0, lane, t);
-    fill_b(idx, n, m, k0, col0, nt, lane, t);
-    __syncwarp();
-#pragma unroll
-    for (int s = 0; s < 3; ++s) wmma::load_matrix_sync(a[s], t.a[s], 16);
-#pragma unroll
-    for (int tt = 0; tt < TILES; ++tt) {
-      if (tt < nt) {
-        wmma::load_matrix_sync(b, t.b[tt], 16);
-        wmma::fill_fragment(sums, 0.f);
-#pragma unroll
-        for (int s = 0; s < 3; ++s) wmma::mma_sync(sums, a[s], b, sums);
-#pragma unroll
-        for (int i = 0; i < sums.num_elements; ++i) acc[tt].x[i] += sums.x[i];
-      }
-    }
-    __syncwarp();  // tiles consumed before the next chunk overwrites them
-  }
-
-#pragma unroll
-  for (int tt = 0; tt < TILES; ++tt) {
-    if (tt < nt) {
-      wmma::store_matrix_sync(t.c, acc[tt], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int ci = e / 16, j = e % 16;  // coalesced in the output's columns
-        const int col = col0 + tt * 16 + j;
-        const float v = t.c[ci * 16 + j];
-        if (col < m && v != 0.f)
-          atomicAdd(acc64 + static_cast<size_t>(ci) * m + col, static_cast<double>(v));
-      }
-      __syncwarp();
-    }
-  }
-}
-
-__global__ void cast_kernel(const double* __restrict__ acc64, int total,
-                            float* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < total) out[i] = static_cast<float>(acc64[i]);
-}
-
 // ------------------------------------------------------------ launch --
 cudaError_t configure() {
   static cudaError_t done = cudaErrorNotReady;
   if (done == cudaErrorNotReady) {
-    done = cudaFuncSetAttribute(scatter_cols_kernel<true>,
+    const int f = static_cast<int>(sizeof(float));
+    done = cudaFuncSetAttribute(shared_kernel<ColsSrc>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                static_cast<int>(SCATTER_SMEM_MAX));
+                                ColsSrc::COLS * SHARED_MAX_M * f);
     if (done == cudaSuccess)
-      done = cudaFuncSetAttribute(scatter_rows_kernel<true>,
+      done = cudaFuncSetAttribute(shared_kernel<MomSrc>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  static_cast<int>(SCATTER_SMEM_MAX));
+                                  MomSrc::COLS * SHARED_MAX_M * f);
+    if (done == cudaSuccess)
+      done = cudaFuncSetAttribute(shared_kernel<RowsSrc>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  RowsSrc::COLS * SHARED_MAX_M * f);
     if (done == cudaSuccess)
       done = cudaFuncSetAttribute(rmw_kernel,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   static_cast<int>(sizeof(RmwShared)));
-    if (done == cudaSuccess)
-      done = cudaFuncSetAttribute(moments_shared_kernel,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  MOM_COLS * MOM_SHARED_MAX_M * static_cast<int>(sizeof(float)));
   }
   return done;
 }
 
-// K3's accumulator at (n, m): see the header.
-enum class MomPath { kFloat32, kShared, kDouble };
+// The scatter core's accumulator at (n rows, m ids): see the header.
+enum class Path { kFloat32, kShared, kDouble };
 
-MomPath moments_path(int n, int m) {
-  if (n / MOM_F32_TERMS < m) return MomPath::kFloat32;  // < 256 terms an entry
-  return m <= MOM_SHARED_MAX_M ? MomPath::kShared : MomPath::kDouble;
+template <class Src>
+Path seg_path(int n, int m) {
+  if (n / F32_TERMS >= m) return m <= SHARED_MAX_M ? Path::kShared : Path::kDouble;
+  return Path::kFloat32;  // < 256 terms an entry
 }
 
-template <bool ROWS>
-int launch_scatter(const int32_t* idx, const float* vals, int n, int m,
-                   float* out, cudaStream_t stream) {
+// Blocks of the shared-table path: about two an SM with enough points a
+// table row in each, more where a block would sum over F32_TERMS terms of
+// an entry, whole clusters.
+int shared_blocks(int n, int m) {
+  const int fill = std::min(2 * sm_count(), n / (ROWS_PER_BLOCK_ID * m));
+  const int precise = (n + F32_TERMS * m - 1) / (F32_TERMS * m);
+  const int want = std::max(1, std::max(fill, precise));
+  return (want + CLUSTER - 1) / CLUSTER * CLUSTER;
+}
+
+template <class Src>
+int workspace_doubles(int n, int m) {
+  switch (seg_path<Src>(n, m)) {
+    case Path::kShared:
+    case Path::kDouble:
+      return WS_HEAD + Src::COLS * m;
+    case Path::kFloat32:
+      return Src::OUT_ROWS ? 0 : WS_HEAD + NCOL * m / 2;  // (m, 16) float32 rows
+  }
+  return 0;
+}
+
+template <class Src>
+int launch_segsum(const Src& src, const int32_t* idx, int n, int m, double* ws,
+                  float* out, cudaStream_t s) {
   const cudaError_t cfg = configure();
   if (cfg != cudaSuccess) return static_cast<int>(cfg);
-  const size_t tab_bytes = static_cast<size_t>(m) * NCOL * sizeof(float);
-  const int per_block = ROWS ? THREADS / NCOL : THREADS;  // points per sweep
-  const int sweep_blocks = n > 0 ? (n + per_block - 1) / per_block : 1;
-  if (tab_bytes <= SCATTER_SMEM_MAX &&
-      n / SHARED_MIN_ROWS_PER_ID >= m) {
-    // about two blocks an SM, but at least 4 points per table row each
-    const int blocks = std::max(1, std::min(std::min(2 * sm_count(), sweep_blocks), n / (4 * m)));
-    if (ROWS) {
-      scatter_rows_kernel<true><<<blocks, THREADS, tab_bytes, stream>>>(idx, vals, n, m, out);
-    } else {
-      scatter_cols_kernel<true><<<blocks, THREADS, tab_bytes, stream>>>(idx, vals, n, m, out);
-    }
-  } else {
-    const int blocks = std::min(sweep_blocks, 32 * sm_count());
-    if (ROWS) {
-      scatter_rows_kernel<false><<<blocks, THREADS, 0, stream>>>(idx, vals, n, m, out);
-    } else {
-      scatter_cols_kernel<false><<<blocks, THREADS, 0, stream>>>(idx, vals, n, m, out);
-    }
+  const int sweep = std::max(1, std::min((n * Src::LANES + SEG_THREADS - 1) / SEG_THREADS,
+                                         8 * sm_count()));
+  switch (seg_path<Src>(n, m)) {
+    case Path::kShared:
+      shared_kernel<Src><<<shared_blocks(n, m), SEG_THREADS, Src::COLS * m * sizeof(float), s>>>(
+          src, idx, m, ws, out);
+      break;
+    case Path::kDouble:
+      double_kernel<Src><<<sweep, SEG_THREADS, 0, s>>>(src, idx, m, ws);
+      round_kernel<Src><<<(NCOL * m + THREADS - 1) / THREADS, THREADS, 0, s>>>(ws, m, out);
+      break;
+    case Path::kFloat32:
+      if constexpr (Src::OUT_ROWS) {
+        const cudaError_t z =
+            cudaMemsetAsync(out, 0, static_cast<size_t>(m) * NCOL * sizeof(float), s);
+        if (z != cudaSuccess) return static_cast<int>(z);
+        rows_kernel<Src><<<sweep, SEG_THREADS, 0, s>>>(src, idx, m, out);
+      } else {
+        float* rows = reinterpret_cast<float*>(ws + WS_HEAD);
+        rows_kernel<Src><<<sweep, SEG_THREADS, 0, s>>>(src, idx, m, rows);
+        transpose_kernel<<<(m * (NCOL / 4) + THREADS - 1) / THREADS, THREADS, 0, s>>>(rows, m, out);
+      }
+      break;
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -631,78 +629,30 @@ int launch_scatter(const int32_t* idx, const float* vals, int n, int m,
 extern "C" {
 
 // Plain C interface for ctypes: (ids, values, n rows, m table rows,
-// double scratch, output, stream); n and m are at most 2^26, so every
-// index below fits in an int. Only K2 bf16x3 (16 m doubles, zeroed by
-// the caller) and K3 (its workspace, fused_moments16_workspace(n, m)
-// doubles, zeroed once, null where that is 0) use the scratch. Returns the cudaGetLastError()
-// code after the launches (0 = success).
+// workspace, output, stream); n and m are at most 2^26, so every index
+// below fits in an int. The workspace of K2, K3 and K5 is
+// <name>_workspace(n, m) doubles, zeroed once by the caller and left
+// zeroed by every call, null where that is 0; K4 takes none. Each
+// returns the cudaGetLastError() code after the launches (0 = success).
 
-int onehot_segsum16_f32(const int32_t* idx, const float* vals_t, int n, int m,
-                        double* /*scratch*/, float* out, void* stream) {
-  return launch_scatter<false>(idx, vals_t, n, m, out,
-                               static_cast<cudaStream_t>(stream));
+int onehot_segsum16_workspace(int n, int m) { return workspace_doubles<ColsSrc>(n, m); }
+
+int onehot_segsum16(const int32_t* idx, const float* vals_t, int n, int m,
+                    double* workspace, float* out, void* stream) {
+  return launch_segsum(ColsSrc{vals_t, n}, idx, n, m, workspace, out,
+                       static_cast<cudaStream_t>(stream));
 }
 
-int onehot_segsum16_bf16x3(const int32_t* idx, const float* vals_t, int n,
-                           int m, double* scratch, float* out, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int chunks = (n + 15) / 16;
-  const int groups = (m + GROUP_COLS - 1) / GROUP_COLS;
-  const int target_warps = 16 * sm_count();
-  const int max_splits = std::max(1, (chunks + KMIN_CHUNKS - 1) / KMIN_CHUNKS);
-  const int ksplits = std::max(1, std::min(max_splits, (target_warps + groups - 1) / groups));
-  const int blocks = (groups * ksplits + WARPS - 1) / WARPS;
-  onehot_mma_kernel<<<blocks, WARPS * 32, 0, s>>>(idx, vals_t, n, m, groups, ksplits, scratch);
-  const int total = NCOL * m;
-  cast_kernel<<<(total + THREADS - 1) / THREADS, THREADS, 0, s>>>(scratch, total, out);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Doubles of workspace fused_moments16 needs at (n, m): a ticket word,
-// then the (10, m) double sums; 0 where it scatters in float32.
-int fused_moments16_workspace(int n, int m) {
-  return moments_path(n, m) == MomPath::kFloat32 ? 0 : 1 + MOM_COLS * m;
-}
+int fused_moments16_workspace(int n, int m) { return workspace_doubles<MomSrc>(n, m); }
 
 int fused_moments16(const int32_t* idx, const float* d, int n, int m,
                     double* workspace, float* out, void* stream) {
-  const cudaError_t cfg = configure();
-  if (cfg != cudaSuccess) return static_cast<int>(cfg);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int sweep_blocks = std::max(1, (n + MOM_THREADS - 1) / MOM_THREADS);
-  switch (moments_path(n, m)) {
-    case MomPath::kShared: {
-      // about two blocks an SM with enough points a table row in each,
-      // and more where a block would sum over MOM_F32_TERMS terms of an entry
-      const int fill = std::min(2 * sm_count(), n / (MOM_ROWS_PER_BLOCK_ID * m));
-      const int precise = (n + MOM_F32_TERMS * m - 1) / (MOM_F32_TERMS * m);
-      const int want = std::max(1, std::max(fill, precise));
-      const int blocks = (want + MOM_CLUSTER - 1) / MOM_CLUSTER * MOM_CLUSTER;
-      moments_shared_kernel<<<blocks, MOM_THREADS, MOM_COLS * m * sizeof(float), s>>>(
-          idx, d, n, m, workspace, out);
-      break;
-    }
-    case MomPath::kDouble: {
-      moments_double_kernel<<<std::min(sweep_blocks, 8 * sm_count()), MOM_THREADS, 0, s>>>(
-          idx, d, n, m, workspace);
-      moments_round_kernel<<<(NCOL * m + THREADS - 1) / THREADS, THREADS, 0, s>>>(
-          workspace, m, out);
-      break;
-    }
-    case MomPath::kFloat32: {
-      const cudaError_t z =
-          cudaMemsetAsync(out, 0, static_cast<size_t>(m) * NCOL * sizeof(float), s);
-      if (z != cudaSuccess) return static_cast<int>(z);
-      moments_global_kernel<<<std::min(sweep_blocks, 8 * sm_count()), MOM_THREADS, 0, s>>>(
-          idx, d, n, m, out);
-      break;
-    }
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_segsum(MomSrc{d, n}, idx, n, m, workspace, out,
+                       static_cast<cudaStream_t>(stream));
 }
 
 int rmw_segsum16(const int32_t* idx, const float* vals, int q, int m,
-                 double* /*scratch*/, float* out, void* stream) {
+                 double* /*workspace*/, float* out, void* stream) {
   const cudaError_t cfg = configure();
   if (cfg != cudaSuccess) return static_cast<int>(cfg);
   rmw_kernel<<<(m + RMW_IDS - 1) / RMW_IDS, RMW_THREADS, sizeof(RmwShared),
@@ -710,10 +660,12 @@ int rmw_segsum16(const int32_t* idx, const float* vals, int q, int m,
   return static_cast<int>(cudaGetLastError());
 }
 
+int scatter_segsum16_workspace(int q, int m) { return workspace_doubles<RowsSrc>(q, m); }
+
 int scatter_segsum16(const int32_t* idx, const float* vals, int q, int m,
-                     double* /*scratch*/, float* out, void* stream) {
-  return launch_scatter<true>(idx, vals, q, m, out,
-                              static_cast<cudaStream_t>(stream));
+                     double* workspace, float* out, void* stream) {
+  return launch_segsum(RowsSrc{vals, q}, idx, q, m, workspace, out,
+                       static_cast<cudaStream_t>(stream));
 }
 
 const char* madicp_cuda_error_string(int code) {

@@ -6,9 +6,10 @@ layouts (``idx`` may be ``(N,)`` or the probe's ``(1, N)``); every id
 outside ``[0, M)`` drops:
 
 - :func:`onehot_segsum`  ``(16, N)`` values -> ``(16, M)`` sums; replaces
-  ``make_onehot_segsum`` (``:66``). Modes ``f32`` and ``highest`` are a
-  full-FP32 scatter on CUDA cores; ``bf16x3`` is the one-hot contraction
-  on the tensor cores with each value split into three exact bf16 parts.
+  ``make_onehot_segsum`` (``:66``). Every mode is the float32 segment sum
+  of the values, so all three run one full-FP32 scatter on CUDA cores:
+  ``bf16x3``'s three bf16 parts add up to each value exactly
+  (:func:`bf16x3_parts`), and the TPU summed their products in float32.
 - :func:`fused_moments`  ``(N, 3)`` points -> ``(M, 16)`` sums of
   ``[d, outer6(d), 1, 0 x 6]``, a scatter of the moment columns formed in
   the kernel; replaces ``make_fused_moments`` (``:155``).
@@ -19,11 +20,16 @@ outside ``[0, M)`` drops:
 - :func:`scatter_segsum` the same function, unordered; replaces
   ``scat_kernel`` (``:401``).
 
-The kernels are in ``csrc/scatter_probe.cu`` (design and bounds in its
-header). Beside each wrapper is its plain PyTorch version (``*_ref``).
-Arguments are checked on every device; then CPU tensors take the plain
-version and CUDA tensors launch the kernel or the call raises. Each
-launch adds one to ``launches[<wrapper name>]``.
+``onehot_segsum``, ``fused_moments`` and ``scatter_segsum`` are one
+scatter core that picks its accumulator by contention: per-block shared
+tables added over a thread-block cluster and combined in double through
+a self-clearing workspace, or 16-byte vector atomics. Each call is one
+launch, or two (a memset or a second kernel); the caller zeroes nothing.
+The kernels are in ``csrc/scatter_probe.cu`` (design and
+bounds in its header). Beside each wrapper is its plain PyTorch version
+(``*_ref``). Arguments are checked on every device; then CPU tensors take
+the plain version and CUDA tensors launch the kernel or the call raises.
+Each launch adds one to ``launches[<wrapper name>]``.
 """
 
 from __future__ import annotations
@@ -44,7 +50,7 @@ launches = {"onehot_segsum": 0, "fused_moments": 0, "rmw_segsum": 0,
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
 _symbols: dict = {}  # C symbol -> its ctypes function, argtypes set
-_workspaces: dict = {}  # device -> fused_moments' workspace
+_workspaces: dict = {}  # device -> the scatter core's workspace
 
 
 # ------------------------------------------------------ plain versions --
@@ -146,10 +152,10 @@ def _symbol(symbol: str):
 
 
 def _launch(name: str, symbol: str, idx, x, n: int, m: int, out,
-            scratch=None) -> torch.Tensor:
+            workspace=None) -> torch.Tensor:
     fn = _symbol(symbol)
     args = (idx.data_ptr(), x.data_ptr(), n, m,
-            None if scratch is None else scratch.data_ptr(), out.data_ptr())
+            None if workspace is None else workspace.data_ptr(), out.data_ptr())
     dev = x.device
     current = dev.index == torch.cuda.current_device()
     with contextlib.nullcontext() if current else torch.cuda.device(dev):
@@ -160,19 +166,28 @@ def _launch(name: str, symbol: str, idx, x, n: int, m: int, out,
     return out
 
 
-def _workspace(device: torch.device, doubles: int) -> torch.Tensor:
-    """``fused_moments``' double workspace on ``device``, at least
-    ``doubles`` long: zeroed here when it is made or grown, left zeroed by
-    every launch (the kernel clears it), so calls that share it must be
-    ordered on one stream."""
+def _workspace(name: str, device: torch.device, doubles: int) -> torch.Tensor:
+    """The scatter core's double workspace on ``device``, shared by its
+    three wrappers, at least ``doubles`` long: zeroed here when it is made
+    or grown, left zeroed by every launch (the kernels clear it), so calls
+    that share it must be ordered on one stream."""
     ws = _workspaces.get(device)
     if ws is None or ws.numel() < doubles:
         if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError("fused_moments: call it once at this shape outside CUDA "
+            raise RuntimeError(f"{name}: call it once at this shape outside CUDA "
                                "graph capture first, to allocate its workspace")
         ws = torch.zeros(doubles, dtype=torch.float64, device=device)
         _workspaces[device] = ws
     return ws
+
+
+def _scatter(name: str, symbol: str, idx, x, n: int, m: int, shape: tuple) -> torch.Tensor:
+    """Launch the scatter core's ``symbol`` into a new ``shape`` output,
+    with the workspace ``<symbol>_workspace(n, m)`` says it needs."""
+    out = torch.empty(shape, dtype=torch.float32, device=x.device)
+    need = getattr(build.load("scatter_probe"), f"{symbol}_workspace")(n, m)
+    return _launch(name, symbol, idx, x, n, m, out,
+                   _workspace(name, x.device, need) if need else None)
 
 
 def onehot_segsum(idx2d, vals_t, M: int, mode: str = "f32") -> torch.Tensor:
@@ -183,13 +198,7 @@ def onehot_segsum(idx2d, vals_t, M: int, mode: str = "f32") -> torch.Tensor:
     n = vals_t.shape[-1]
     if not _checked("onehot_segsum", idx2d, vals_t, (16, n), n, M):
         return onehot_segsum_ref(idx2d, vals_t, M, mode)
-    if mode != "bf16x3":
-        out = torch.zeros((16, M), dtype=torch.float32, device=vals_t.device)
-        return _launch("onehot_segsum", "onehot_segsum16_f32", idx2d, vals_t, n, M, out)
-    out = torch.empty((16, M), dtype=torch.float32, device=vals_t.device)
-    scratch = torch.zeros(16 * M, dtype=torch.float64, device=vals_t.device)
-    return _launch("onehot_segsum", "onehot_segsum16_bf16x3", idx2d, vals_t, n, M,
-                   out, scratch)
+    return _scatter("onehot_segsum", "onehot_segsum16", idx2d, vals_t, n, M, (16, M))
 
 
 def fused_moments(idx2d, d, M: int) -> torch.Tensor:
@@ -199,10 +208,7 @@ def fused_moments(idx2d, d, M: int) -> torch.Tensor:
     n = d.shape[0]
     if not _checked("fused_moments", idx2d, d, (n, 3), n, M):
         return fused_moments_ref(idx2d, d, M)
-    out = torch.empty((M, 16), dtype=torch.float32, device=d.device)
-    need = build.load("scatter_probe").fused_moments16_workspace(n, M)
-    return _launch("fused_moments", "fused_moments16", idx2d, d, n, M, out,
-                   _workspace(d.device, need) if need else None)
+    return _scatter("fused_moments", "fused_moments16", idx2d, d, n, M, (M, 16))
 
 
 def rmw_segsum(idx, vals, Mq: int) -> torch.Tensor:
@@ -228,5 +234,4 @@ def scatter_segsum(idx, vals, Mq: int) -> torch.Tensor:
     q = vals.shape[0]
     if not _checked("scatter_segsum", idx, vals, (q, 16), q, Mq):
         return scatter_segsum_ref(idx, vals, Mq)
-    out = torch.zeros((Mq, 16), dtype=torch.float32, device=vals.device)
-    return _launch("scatter_segsum", "scatter_segsum16", idx, vals, q, Mq, out)
+    return _scatter("scatter_segsum", "scatter_segsum16", idx, vals, q, Mq, (Mq, 16))

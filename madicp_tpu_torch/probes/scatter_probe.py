@@ -22,10 +22,7 @@ wrapper), ``plain_ms``, ``library_ms`` (one ``index_add_`` computing the
 same sums, in its own order) and ``library_device_ms`` (the same in a
 CUDA graph), ``bound_ms``/``bound_by`` (the function's
 bytes over 3.35 TB/s or its float32 operations over the peak, the
-larger), ``design_ops_ms`` (the dense one-hot contraction's tensor-core
-flops over the bf16 peak: the floor of that design, not of the function;
-null for the scatters), ``max_abs_err`` and the card with its power
-limit.
+larger), ``max_abs_err`` and the card with its power limit.
 
 Run on the card, output to a file:
 
@@ -54,8 +51,7 @@ import torch
 from madicp_tpu_torch.kernels import scatter_probe as sp
 from madicp_tpu_torch.kernels import segsum
 from madicp_tpu_torch.utils.device import card_name, resolve_device
-from madicp_tpu_torch.utils.timing import (H100_PEAK_FLOPS, bound_ms, device_kernels,
-                                           event_ms, graph_ms)
+from madicp_tpu_torch.utils.timing import bound_ms, device_kernels, event_ms, graph_ms
 
 N = 131072
 R = 20
@@ -81,7 +77,6 @@ class Case:
     library: Optional[Callable]  # one PyTorch call for the same sums
     nbytes: int  # each input read once, the output written once
     flops: int  # the function's float32 operations
-    design_flops: int = 0  # the dense contraction's bf16 flops, where used
     bitwise: bool = False  # must equal the plain version bit for bit
     plain_reps: Optional[int] = None
     baselines: dict = field(default_factory=dict)  # other designs, same sums
@@ -119,15 +114,13 @@ def cases(device, n: int = N, sizes=SIZES) -> list:
         idx2d = _draw_ids(rng, m, n, dev)
         tab = torch.zeros((16, m + 1), dtype=torch.float32, device=dev)
         for mode in sp.MODES:
-            dense = mode == "bf16x3"
             out.append(Case(
                 "A", "onehot_segsum", mode, m, n,
                 call=partial(sp.onehot_segsum, idx2d, vals_t, m, mode),
                 plain=partial(sp.onehot_segsum_ref, idx2d, vals_t, m, mode),
                 want=partial(_cols64, idx2d, vals_t, m),
                 library=partial(tab.index_add_, 1, idx2d.reshape(-1).long(), vals_t),
-                nbytes=n * 16 * 4 + n * 4 + 16 * m * 4, flops=n * 16,
-                design_flops=2 * n * m * 16 * 3 if dense else 0))
+                nbytes=n * 16 * 4 + n * 4 + 16 * m * 4, flops=n * 16))
 
     d = torch.as_tensor(rng.normal(0, 1, (n, 3)).astype(np.float32), device=dev)
     mom = sp.moment_columns16(d)
@@ -141,7 +134,6 @@ def cases(device, n: int = N, sizes=SIZES) -> list:
             want=partial(_moments, idx2d, d.double(), m),
             library=partial(tab.index_add_, 0, idx2d.reshape(-1).long(), mom),
             nbytes=n * 3 * 4 + n * 4 + m * 16 * 4, flops=n * MOMENT_FLOPS,
-            design_flops=2 * n * m * 16 * 3,
             baselines={"mom_scatter": partial(_moments, idx2d, d, m),
                        "segsum_moments": partial(
                            segsum.segsum_moments, d, idx2d.reshape(-1), m)}))
@@ -219,9 +211,7 @@ def _human(rec: dict) -> str:
                  f"({rec['device_ms'] * 1e6 / rec['n']:.3f} ns/row), plain "
                  f"{rec['plain_ms']:.4f}, index_add_ "
                  + ("-" if lib is None else f"{lib:.4f} ({lib_dev:.4f} device)")
-                 + f", bound {rec['bound_ms']:.5f} ({rec['bound_by']})"
-                 + ("" if rec["design_ops_ms"] is None
-                    else f", dense design's flops {rec['design_ops_ms']:.4f}"))
+                 + f", bound {rec['bound_ms']:.5f} ({rec['bound_by']})")
     return line
 
 
@@ -239,8 +229,6 @@ def run(device="cuda", n: int = N, sizes=SIZES, reps: int = R, emit=print,
                "mode": case.mode, "M": case.m, "n": case.n, "card": card}
         rec.update(check(case))
         rec["bound_ms"], rec["bound_by"] = bound_ms(case.nbytes, case.flops, "float32")
-        rec["design_ops_ms"] = (case.design_flops / H100_PEAK_FLOPS["bf16"] * 1e3
-                                if case.design_flops else None)
         if dev.type == "cuda" and rec["ok"]:
             rec.update(measure(case, reps))
             if with_profile:

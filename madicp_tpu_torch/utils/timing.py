@@ -16,10 +16,10 @@ import torch
 
 PHASES = ("deskew", "build", "leaves", "association", "terms+solve", "rings")
 
-# NVIDIA H100 SXM data sheet: HBM3 bandwidth and dense peak rates
-# (bf16 on the tensor cores; float32 and float64 on the CUDA cores)
+# NVIDIA H100 SXM data sheet: HBM3 bandwidth and peak rates on the CUDA
+# cores
 H100_BYTES_PER_S = 3.35e12
-H100_PEAK_FLOPS = {"bf16": 989e12, "float32": 67e12, "float64": 34e12}
+H100_PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 
 
 def bound_ms(nbytes: float, flops: float, kind: str) -> tuple:

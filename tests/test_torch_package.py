@@ -174,16 +174,47 @@ def _probe_kernel_case(cuda_device, name, m, *args):
     return idx, x, got.cpu()
 
 
+def _held_twice(call, want, **tol):
+    """``call()`` twice, each against the float64 sums ``want`` at ``tol``:
+    the second call finds the workspace as the first left it, zeroed."""
+    for _ in range(2):
+        got = call()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.cpu().double(), want, **tol)
+        assert all(not ws.any() for ws in scatter_probe._workspaces.values())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", scatter_probe.MODES)
-@pytest.mark.parametrize("m", [64, 100, 4096])
+@pytest.mark.parametrize("m", [64, 100, 1024, 4096, 16384])
 def test_onehot_segsum_kernel_matches_plain_on_cuda(cuda_device, mode, m):
-    """Every mode (f32/highest: shared and global scatter; bf16x3: tensor
-    cores, a ragged column tile at m = 100) against the float64 sums at
-    the probe's tolerance, atol 1e-3 (float32 sum order)."""
+    """Every mode is the one float32 scatter (shared tables combined over
+    clusters at m = 64 and 100, a ragged m; vector atomics and a
+    transposing second kernel from 1024) against the float64 sums at the
+    probe's tolerance, atol 1e-3 (float32 sum order); twice, with the
+    workspace left zeroed."""
     idx, x, got = _probe_kernel_case(cuda_device, "onehot_segsum", m, mode)
     want = scatter_probe.segsum16_ref(idx, x.double().T, m).T
     torch.testing.assert_close(got.double(), want, rtol=0, atol=1e-3)
+    idx, x = idx.to(cuda_device), x.to(cuda_device)
+    _held_twice(lambda: scatter_probe.onehot_segsum(idx, x, m, mode), want, rtol=0, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", scatter_probe.MODES)
+@pytest.mark.parametrize("m", [8, 2048, 16384])
+def test_onehot_segsum_kernel_holds_at_large_n_on_cuda(cuda_device, mode, m):
+    """At N = 2^22 - 5 every accumulator keeps its float32 sums short:
+    shared tables with more blocks than two an SM (m = 8, ~5e5 terms an
+    entry), with the largest table (2048) and vector atomics (16384, ~256
+    terms). Held to the float64 sums at atol 1e-3 plus one float32 ulp of
+    the sum, which the float32 output cannot beat where the sums are
+    large; twice, with the workspace left zeroed."""
+    n = 2**22 - 5
+    idx, x = (t.to(cuda_device) for t in _probe_inputs("onehot_segsum", n, m, seed=m))
+    want = scatter_probe.segsum16_ref(idx, x.double().T, m).T
+    _held_twice(lambda: scatter_probe.onehot_segsum(idx, x, m, mode), want.cpu(),
+                rtol=2.0**-23, atol=1e-3)
 
 
 @pytest.mark.cuda
@@ -252,11 +283,37 @@ def test_rmw_segsum_kernel_is_bitwise_at_its_edges_on_cuda(cuda_device, q, mq, d
 @pytest.mark.cuda
 @pytest.mark.parametrize("m", [256, 4096])
 def test_scatter_segsum_kernel_matches_plain_on_cuda(cuda_device, m):
-    """Shared-table (m = 256) and global (m = 4096) paths against the
-    float64 sums at atol 1e-3."""
+    """Shared tables over many clusters (m = 256) and vector atomics
+    (m = 4096) against the float64 sums at atol 1e-3."""
     idx, vals, got = _probe_kernel_case(cuda_device, "scatter_segsum", m)
     want = scatter_probe.segsum16_ref(idx, vals.double(), m)
     torch.testing.assert_close(got.double(), want, rtol=0, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q,mq,drop_all", [
+    (8192, 256, False),  # the probe's shape: memset and vector atomics
+    (8195, 256, False),  # the same with Q not a multiple of 32
+    (3 * 8192 + 77, 1, False),  # one table row: shared tables, the ticket
+    (8192, 256, True),  # every id out of range, vector atomics
+    (8192, 16, True),  # every id out of range, shared tables
+])
+def test_scatter_segsum_kernel_at_its_edges_on_cuda(cuda_device, q, mq, drop_all):
+    """Each accumulator of the unordered segment sum against the float64
+    sums at atol 1e-3, twice, with the workspace left zeroed; the caller
+    never zeroes the output, so dropped ids must still give 0."""
+    rng = np.random.default_rng(q + mq)
+    ids = rng.integers(-2, mq + 3, q)
+    if drop_all:
+        ids = np.where(rng.random(q) < 0.5, -1 - ids % 7, mq + ids % 7)
+    idx = torch.from_numpy(ids.astype(np.int32))
+    vals = torch.from_numpy(rng.normal(0, 1, (q, 16)).astype(np.float32))
+    want = scatter_probe.segsum16_ref(idx, vals.double(), mq)
+    assert bool(want.any()) != drop_all
+    idx, vals = idx.to(cuda_device), vals.to(cuda_device)
+    before = scatter_probe.launches["scatter_segsum"]
+    _held_twice(lambda: scatter_probe.scatter_segsum(idx, vals, mq), want, rtol=0, atol=1e-3)
+    assert scatter_probe.launches["scatter_segsum"] == before + 2
 
 
 def _write_kitti(dirpath: Path, scans):

@@ -10,8 +10,9 @@ script exits non-zero without the final line):
 2. build      nvcc builds every CUDA kernel from csrc/, all at once;
 3. kernels    segsum_moments against its plain PyTorch version on the
               card, at the shapes and on the data of a flagship tree
-              build (all 17 levels, float32 and float64), with kernel
-              and library (each eager and in a CUDA graph), plain and bound
+              build (all 17 levels, float32 and float64), with the path
+              and launches the plan chose at each level, kernel and
+              library (each eager and in a CUDA graph), plain and bound
               times;
 3b. probe     one run of the probe entry point (python -m
               madicp_tpu_torch.probes.scatter_probe), its launches counted
@@ -108,38 +109,6 @@ def two_way_world(rng):
     return np.concatenate(pts)
 
 
-def kitti_like_world(rng, n_points=120000):
-    """KITTI-ish geometry of the JAX bench (bench.py:66-93): ground, eight
-    walls parallel to x, poles/clutter."""
-    n_ground, n_walls = n_points // 2, n_points // 3
-    n_rest = n_points - n_ground - n_walls
-    r = rng.uniform(2.0, 60.0, n_ground)
-    th = rng.uniform(-np.pi, np.pi, n_ground)
-    ground = np.column_stack(
-        [r * np.cos(th), r * np.sin(th), -1.7 + rng.normal(0, 0.02, n_ground)]
-    )
-    walls = []
-    for i in range(8):
-        d = 8.0 + 6.0 * i
-        side = 1 if i % 2 == 0 else -1
-        m = n_walls // 8
-        walls.append(np.column_stack([
-            rng.uniform(-40, 40, m), side * d + rng.normal(0, 0.01, m),
-            rng.uniform(-1.5, 3.0, m),
-        ]))
-    rest = np.column_stack([
-        rng.uniform(-30, 30, n_rest), rng.uniform(-30, 30, n_rest),
-        rng.uniform(-1.5, 2.0, n_rest),
-    ])
-    return np.vstack([ground, np.vstack(walls)[:n_walls], rest])
-
-
-def bench_pose(i: float):
-    """Sensor pose of scan i on the bench drive: 1.4 m/scan, mild yaw."""
-    c, s = np.cos(0.004 * i), np.sin(0.004 * i)
-    return np.array([[c, -s, 0], [s, c, 0], [0, 0, 1.0]]), np.array([1.4 * i, 0.05 * i, 0.0])
-
-
 def pipeline(**kw):
     from madicp_tpu_torch.models.pipeline import Pipeline
 
@@ -170,41 +139,15 @@ def phase_build() -> None:
           "libraries": {k: str(v.relative_to(ROOT)) for k, v in libs.items()}})
 
 
-def capture_levels(points, valid):
-    """(d, idx, sz) of every level of one build, as build_tree hands them
-    to the segment-sum."""
-    import madicp_tpu_torch.ops.tree as tree_mod
-
-    seen = []
-    real = tree_mod.segsum_moments
-
-    def record(d, idx, sz):
-        seen.append((d.clone(), idx.clone(), sz))
-        return real(d, idx, sz)
-
-    tree_mod.segsum_moments = record
-    try:
-        tree_mod.build_tree(points, valid, depth=DEPTH, b_max=0.2, b_min=0.1)
-    finally:
-        tree_mod.segsum_moments = real
-    return seen
-
-
 def phase_kernels(torch) -> dict:
     from madicp_tpu_torch.kernels import segsum
+    from madicp_tpu_torch.probes.segsum_levels import flagship_levels, library_call
     from madicp_tpu_torch.utils.timing import bound_ms, event_ms, graph_ms
 
-    rng = np.random.default_rng(0)
-    R, t = bench_pose(3)
-    scan = ((kitti_like_world(rng) - t) @ R)[:N_POINTS]
-    pts = np.zeros((N_POINTS, 3))
-    pts[: len(scan)] = scan
-    valid = torch.zeros(N_POINTS, dtype=torch.bool, device=DEV)
-    valid[: len(scan)] = True
     summary = {}
     for dtype in (torch.float32, torch.float64):
         dname = str(dtype).split(".")[1]
-        levels = capture_levels(torch.as_tensor(pts, dtype=dtype, device=DEV), valid)
+        levels = flagship_levels(dtype, torch.device(DEV), N_POINTS, DEPTH)
         check(len(levels) == DEPTH + 1, f"expected {DEPTH + 1} levels, got {len(levels)}")
         esize = torch.finfo(dtype).bits // 8
         rows, tot = [], dict(ms=0.0, device_ms=0.0, plain_ms=0.0, library_ms=0.0,
@@ -223,19 +166,19 @@ def phase_kernels(torch) -> dict:
             err = (got.double() - want).abs()
             max_abs = max(max_abs, float(err.max()))
             max_rel = max(max_rel, float((err / want.abs().clamp_min(1e-30)).max()))
-            ids = torch.where((idx >= 0) & (idx < sz), idx.long(), sz)
-            mom = segsum._moment_columns(d)
-            tab = torch.zeros((sz + 1, 10), dtype=dtype, device=DEV)
+            library = library_call(d, idx, sz)
             ms = event_ms(lambda: segsum.segsum_moments(d, idx, sz), 20)
             device_ms = graph_ms(lambda: segsum.segsum_moments(d, idx, sz), 20)
             plain_ms = event_ms(lambda: segsum.segsum_moments_ref(d, idx, sz), 20)
-            library_ms = event_ms(lambda: tab.index_add_(0, ids, mom), 20)
-            library_device_ms = graph_ms(lambda: tab.index_add_(0, ids, mom), 20)
+            library_ms = event_ms(library, 20)
+            library_device_ms = graph_ms(library, 20)
             n = d.shape[0]
+            pl = segsum.plan(n, sz, segsum.sm_count(d.device))
             bound, by = bound_ms(n * (3 * esize + 4) + sz * 10 * esize,
                                  n * SEGSUM_FLOPS_PER_POINT, dname)
             bound_by.add(by)
-            row = {"sz": sz, "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+            row = {"sz": sz, "path": pl.path, "launches": pl.launches,
+                   "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
                    "library_ms": library_ms, "library_device_ms": library_device_ms,
                    "bound_ms": bound}
             for k in tot:
@@ -385,6 +328,7 @@ def profile_window(run, n_scans: int) -> dict:
 def phase_steady(torch) -> dict:
     from madicp_tpu_torch.kernels import segsum
     from madicp_tpu_torch.ops.tree import build_tree, transform_tree
+    from madicp_tpu_torch.probes.segsum_levels import bench_pose, kitti_like_world
     from madicp_tpu_torch.utils.timing import PHASES, PhaseTimer
 
     rng = np.random.default_rng(0)

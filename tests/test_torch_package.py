@@ -37,6 +37,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         "import madicp_tpu_torch.apps.cli, chip_smoke\n"
         "import madicp_tpu_torch.kernels.scatter_probe\n"
         "import madicp_tpu_torch.probes.scatter_probe\n"
+        "import madicp_tpu_torch.probes.segsum_levels\n"
         "bad = [m for m in sys.modules if m in ('jax', 'madicp_tpu')\n"
         "       or m.startswith(('jax.', 'madicp_tpu.'))]\n"
         "print(bad)\n"
@@ -143,24 +144,124 @@ def cuda_device():
     return torch.device("cuda")
 
 
+FLAGSHIP_N, FLAGSHIP_DEPTH, H100_SMS = 131072, 16, 132
+
+
+@pytest.mark.parametrize("level", range(FLAGSHIP_DEPTH + 1))
+def test_segsum_plan_fills_the_card_at_the_flagship_levels(level):
+    """The host plan of each flagship level (n = 131072 into 2^level
+    nodes on an H100's 132 SMs): every grid fills the SMs as far as its
+    work allows, at most two launches a level, a workspace of 2 + 10 sz
+    doubles. Forcing a path the level cannot take gives None."""
+    sz = 1 << level
+    pl = segsum.plan(FLAGSHIP_N, sz, H100_SMS)
+    assert pl.path == ("warp" if sz <= segsum.WARP_MAX_NODES else
+                       "sort" if FLAGSHIP_N >= segsum.CONTENDED_POINTS * sz else "point")
+    assert pl.blocks >= H100_SMS
+    assert pl.launches <= 2 and pl.launches == 1 + (10 * sz > segsum.TICKET_MAX_ENTRIES)
+    if pl.round_blocks:
+        assert pl.round_blocks >= min(H100_SMS, -(-10 * sz // segsum.THREADS))
+    assert pl.workspace == 2 + 10 * sz
+    assert pl.threads % 32 == 0
+    if pl.tile:
+        assert pl.tile * pl.blocks >= FLAGSHIP_N > pl.tile * (pl.blocks - 1)
+    for path in segsum.PATHS:
+        forced = segsum.plan(FLAGSHIP_N, sz, H100_SMS, path)
+        admissible = {"point": True, "sort": sz <= segsum.SORT_MAX_NODES,
+                      "warp": 80 * sz <= segsum.MAX_SMEM}[path]
+        assert (forced is not None) == admissible
+        if forced is not None:
+            assert forced.path == path
+    with pytest.raises(ValueError, match="path must be"):
+        segsum.plan(FLAGSHIP_N, sz, H100_SMS, "slab")
+
+
+def _segsum_inputs(n: int, sz: int, ids: str = "spread", seed: int = 0):
+    """(d (n, 3) float64, idx (n,) int32): ``ids`` "spread" draws ids in
+    [-2, sz + 2) (both sides drop), "negative" in [-sz - 2, 0) and sz
+    (every id drops, negatives most), "dropped" sz .. sz + 6 (every id
+    drops)."""
+    rng = np.random.default_rng(seed)
+    d = rng.normal(0, 3, (n, 3))
+    lo, hi = {"spread": (-2, sz + 2), "negative": (-sz - 2, 1),
+              "dropped": (sz, sz + 7)}[ids]
+    idx = rng.integers(lo, hi, n)
+    if ids == "negative":
+        idx = np.where(idx == 0, sz, idx)
+    return torch.from_numpy(d), torch.from_numpy(idx.astype(np.int32))
+
+
+def _segsum_held_twice(cuda_device, d, idx, sz, dtype):
+    """The kernel twice on the card against the plain version in float64:
+    rtol 1e-5/atol 5e-3 in float32 (atomic sum order, one rounding),
+    1e-9 in float64; one launch counted a call, and the workspace left
+    zeroed for the next call."""
+    dc, ic = d.to(dtype).to(cuda_device), idx.to(cuda_device)
+    want = segsum.segsum_moments_ref(dc.cpu().double(), idx, sz)
+    tol = dict(rtol=1e-5, atol=5e-3) if dtype == torch.float32 else dict(rtol=1e-9, atol=1e-9)
+    for _ in range(2):
+        before = segsum.counter.launches
+        got = segsum.segsum_moments(dc, ic, sz)
+        torch.cuda.synchronize()
+        assert segsum.counter.launches == before + 1
+        torch.testing.assert_close(got.cpu().double(), want, **tol)
+        assert all(not ws.any() for ws in segsum._workspaces.values())
+    return want
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("sz", [1, 32, 512, 4096])
+@pytest.mark.parametrize("sz", [1, 32, 33, 512, 513, 1024, 1025, 65536])
 def test_segsum_kernel_matches_plain_on_cuda(cuda_device, dtype, sz):
-    """Every path of the kernel (warp-aggregated, shared table, global
-    atomics) against the plain version in float64: rtol 1e-5/atol 5e-3
-    in float32 (atomic sum order), 1e-9 relative in float64."""
-    g = torch.Generator().manual_seed(sz)
-    n = 131072
-    d = (torch.randn(n, 3, generator=g, dtype=torch.float64) * 3).to(dtype)
-    idx = torch.randint(-2, sz + 2, (n,), generator=g, dtype=torch.int32)
-    before = segsum.counter.launches
-    got = segsum.segsum_moments(d.to(cuda_device), idx.to(cuda_device), sz)
+    """Each path of the kernel at and around its boundaries at n = 131072:
+    warp tables (sz <= 32), the block sort (33-1024), one atomic a point
+    and column (1025 up), the last block rounding (sz <= 512) or a
+    second kernel (513 up); ids drop on both sides."""
+    d, idx = _segsum_inputs(131072, sz, seed=sz)
+    _segsum_held_twice(cuda_device, d, idx, sz, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,sz,ids", [
+    (131072, 8, "dropped"),  # warp path, every id out of range
+    (131072, 1024, "dropped"),  # sort path and the rounding kernel
+    (131072, 65536, "dropped"),  # one atomic a point
+    (131072, 256, "negative"),  # negative ids only
+    (131072 - 5, 1, "spread"),  # ragged: the last warp step of the last block
+    (131072 - 5, 300, "spread"),  # ragged tile of the sort path
+    (131072 - 5, 4096, "spread"),  # ragged grid of the point path
+    (2**22 - 5, 8, "spread"),  # contended: ~5e5 points a node, 2048 blocks
+    (2**22 - 5, 131072, "spread"),  # uncontended: ~32 points a node
+])
+def test_segsum_kernel_at_its_edges_on_cuda(cuda_device, dtype, n, sz, ids):
+    """Empty tables, negative ids, ragged point counts and N = 2^22 - 5 on
+    a contended and an uncontended level, both dtypes, each twice."""
+    d, idx = _segsum_inputs(n, sz, ids, seed=n + sz)
+    want = _segsum_held_twice(cuda_device, d, idx, sz, dtype)
+    assert bool(want.any()) != (ids != "spread")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sz", [16, 1024, 65536])
+def test_segsum_kernel_replays_in_a_cuda_graph(cuda_device, sz):
+    """A warm call captured in a CUDA graph and replayed three times gives
+    the plain version's sums each time: no allocation or host work at
+    replay, and every replay leaves the workspace zeroed for the next."""
+    d, idx = _segsum_inputs(131072, sz, seed=7)
+    dc, ic = d.float().to(cuda_device), idx.to(cuda_device)
+    want = segsum.segsum_moments_ref(dc.cpu().double(), idx, sz)
+    segsum.segsum_moments(dc, ic, sz)  # sizes the workspace
     torch.cuda.synchronize()
-    assert segsum.counter.launches == before + 1
-    want = segsum.segsum_moments_ref(d.double(), idx, sz)
-    tol = dict(rtol=1e-5, atol=5e-3) if dtype == torch.float32 else dict(rtol=1e-9, atol=1e-9)
-    torch.testing.assert_close(got.cpu().double(), want, **tol)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = segsum.segsum_moments(dc, ic, sz)
+    for _ in range(3):
+        got.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.cpu().double(), want, rtol=1e-5, atol=5e-3)
+        assert all(not ws.any() for ws in segsum._workspaces.values())
 
 
 def _probe_kernel_case(cuda_device, name, m, *args):

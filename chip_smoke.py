@@ -32,8 +32,19 @@ script exits non-zero without the final line):
               exact) on a world with walls in both orientations, 0.3 m a
               scan along x: per-scan x error <= 1 cm;
 7. steady     the same configuration with the keyframe ring prefilled
-              with 16 trees: steady-state scans/s, per-phase ms from CUDA
-              events, descents, kernel launches per scan.
+              with 16 trees (the bench module's BenchSetup): steady-state
+              scans/s, per-phase ms from CUDA events, descents, kernel
+              launches per scan;
+8. schedules  the schedules beside certified exact: the float64 golden
+              drive under compact (U = 16, 2048) and prefix (U = 16, 2048)
+              within 1e-9 of plain exact on the card, with certified's
+              descents (compact) or the CPU run's (prefix); fast (every
+              2 and 7, and 2 warm-started 6 levels up) within 5e-3 m and
+              1e-3 rad of exact; compute_batch over 4 scans within 1e-6 m
+              of 4 compute_device calls; then all five schedules at the
+              flagship configuration through the bench module
+              (python -m madicp_tpu_torch.bench) in short windows: scans/s,
+              descents, phase ms, peak memory, segment-sum launches.
 
 Then the line {"kernels": [...]} (all five kernels: segsum_moments per
 flagship build with its main-path launches, the probe kernels summed
@@ -59,6 +70,8 @@ DEV = "cuda"
 
 # flagship configuration of the JAX package's bench (bench.py:100-169)
 N_POINTS, DEPTH, KEYFRAMES, MAX_LEAVES = 131072, 16, 16, 32768
+# the golden four-walls drive's configuration (tests/test_golden.py)
+GOLDEN_KW = dict(num_keyframes=3, n_points=8192, depth=12, max_leaves=4096)
 SEGSUM_FLOPS_PER_POINT = 19  # 9 products + 10 adds
 
 
@@ -260,10 +273,9 @@ def phase_golden(torch) -> None:
     golden = np.load(ROOT / "tests" / "golden_four_walls.npz")
     scans = golden_scans()
     gt = np.stack([np.array([0.05 * i, 0.02 * i, 0.0]) for i in range(10)])
-    kw = dict(num_keyframes=3, n_points=8192, depth=12, max_leaves=4096)
     for dtype in (torch.float64, torch.float32):
         for certify in (True, False):
-            pipe = pipeline(dtype=dtype, certify=certify, **kw)
+            pipe = pipeline(dtype=dtype, certify=certify, **GOLDEN_KW)
             poses, ratios = [], []
             for i, scan in enumerate(scans):
                 pipe.compute(0.1 * i, scan)
@@ -326,31 +338,15 @@ def profile_window(run, n_scans: int) -> dict:
 
 
 def phase_steady(torch) -> dict:
+    from madicp_tpu_torch.bench import BenchSetup
     from madicp_tpu_torch.kernels import segsum
-    from madicp_tpu_torch.ops.tree import build_tree, transform_tree
-    from madicp_tpu_torch.probes.segsum_levels import bench_pose, kitti_like_world
     from madicp_tpu_torch.utils.timing import PHASES, PhaseTimer
 
-    rng = np.random.default_rng(0)
-    world = kitti_like_world(rng)
-
-    def scan_at(i):
-        R, t = bench_pose(i)
-        return ((world - t) @ R + rng.normal(0, 0.008, world.shape)).astype(np.float32)
-
-    pipe = pipeline(num_keyframes=KEYFRAMES, n_points=N_POINTS,
-                    depth=DEPTH, max_leaves=MAX_LEAVES)
-    pipe.compute(0.0, scan_at(0))
+    setup = BenchSetup(DEV, N_POINTS, KEYFRAMES, DEPTH, MAX_LEAVES)
+    scan_at = setup.scan_at
+    pipe = setup.make_pipe("certified")
     # steady state: a full ring of 16 keyframes from staggered viewpoints
-    for k in range(KEYFRAMES):
-        pts, valid, _ = pipe.stage(scan_at(k - KEYFRAMES))
-        tree, _ = build_tree(pts, valid, depth=DEPTH, b_max=0.2, b_min=0.1)
-        R, t = bench_pose(k - KEYFRAMES)
-        moved = transform_tree(tree, torch.as_tensor(R, dtype=torch.float32, device=DEV),
-                               torch.as_tensor(t, dtype=torch.float32, device=DEV))
-        pipe.state.kf_tree.nav[k].copy_(moved.nav)
-    pipe.state = pipe.state._replace(
-        kf_valid=torch.ones(KEYFRAMES, dtype=torch.bool, device=DEV))
+    setup.prime(pipe)
 
     n_warm, n_timed, n_phase = 3, 12, 4
     total = n_warm + n_timed + 2 * n_phase
@@ -410,6 +406,95 @@ def phase_steady(torch) -> dict:
     return out
 
 
+def rotation_angle(Ra, Rb) -> float:
+    """Angle in radians of the rotation between Ra and Rb, from
+    |Ra - Rb|_F = 2 sqrt(2) sin(angle / 2) (exact near zero, where an
+    arccos of the trace rounds to 0)."""
+    s = np.linalg.norm(Ra - Rb) / (2.0 * np.sqrt(2.0))
+    return float(2.0 * np.arcsin(min(s, 1.0)))
+
+
+def phase_schedules(torch) -> dict:
+    """The schedules beside certified exact, on the card: the float64
+    golden drive under each, compute_batch, and the flagship numbers of
+    all five through the bench module's own functions."""
+    from madicp_tpu_torch import bench
+    from madicp_tpu_torch.kernels import segsum
+
+    t0 = time.perf_counter()
+    scans = golden_scans()
+
+    def drive(device=DEV, **sched):
+        pipe = pipeline(dtype=torch.float64, device=device, **GOLDEN_KW, **sched)
+        poses, descents = [], []
+        for i, scan in enumerate(scans):
+            pipe.compute(0.1 * i, scan)
+            poses.append(pipe.current_pose())
+            descents.append(pipe.descents())
+        return np.stack(poses), descents
+
+    exact, exact_desc = drive(certify=False)
+    _, cert_desc = drive()
+    golden = []
+    for name, sched, tol in (
+        ("compact", dict(certify_compact=16), None), ("compact", dict(certify_compact=2048), None),
+        ("prefix", dict(certify_prefix=16), None), ("prefix", dict(certify_prefix=2048), None),
+        ("fast", dict(assoc_mode="fast", reassoc_every=2), (5e-3, 1e-3)),
+        ("fast", dict(assoc_mode="fast", reassoc_every=7), (5e-3, 1e-3)),
+        ("fast", dict(assoc_mode="fast", reassoc_every=2, reassoc_backup=6), (5e-3, 1e-3)),
+    ):
+        poses, desc = drive(**sched)
+        row = {"schedule": name, **sched, "descents": desc,
+               "max_dev_from_exact": float(np.abs(poses - exact).max()),
+               "max_dt_m": float(np.linalg.norm(poses[:, :3, 3] - exact[:, :3, 3], axis=1).max()),
+               "max_drot_rad": max(rotation_angle(a[:3, :3], b[:3, :3])
+                                   for a, b in zip(poses, exact))}
+        label = f"{name} {sched}"
+        if tol is None:
+            want = cert_desc if name == "compact" else drive(device="cpu", **sched)[1]
+            row["descents_want"] = want
+            check(row["max_dev_from_exact"] <= 1e-9,
+                  f"{label}: {row['max_dev_from_exact']:.2e} from plain exact")
+            check(desc == want, f"{label}: descents {desc}, want {want}")
+        else:
+            check(row["max_dt_m"] <= tol[0] and row["max_drot_rad"] <= tol[1],
+                  f"{label}: {row['max_dt_m']:.2e} m, {row['max_drot_rad']:.2e} rad from exact")
+        golden.append(row)
+    emit({"phase": "schedules", "part": "golden", "dtype": "float64",
+          "exact_descents": exact_desc, "certified_descents": cert_desc, "drives": golden})
+
+    stamps = [0.1 * i for i in range(4)]
+    chunk = pipeline(dtype=torch.float64, **GOLDEN_KW)
+    batch = chunk.compute_batch(stamps, scans[:4])
+    one = pipeline(dtype=torch.float64, **GOLDEN_KW)
+    seq = []
+    for stamp, scan in zip(stamps, scans):
+        one.compute_device(stamp, *one.stage(scan))
+        seq.append(one.current_pose())
+    dt = float(np.linalg.norm(batch[:, :3, 3] - np.stack(seq)[:, :3, 3], axis=1).max())
+    emit({"phase": "schedules", "part": "compute_batch", "scans": 4, "max_dt_m": dt,
+          "bound_m": 1e-6})
+    check(batch.shape == (4, 4, 4) and dt <= 1e-6, f"compute_batch {dt:.2e} m from compute_device")
+
+    setup = bench.BenchSetup(DEV, N_POINTS, KEYFRAMES, DEPTH, MAX_LEAVES)
+    n_windows, n_steps = 3, 4
+    flagship = {}
+    for spec in ["certified"] + [s for s in bench.SCHEDULES if s != "certified"]:
+        r = bench.run_schedule(setup, spec, n_warmup=2, n_steps=n_steps, n_windows=n_windows)
+        flagship[spec] = r
+        want = n_windows * n_steps * (DEPTH + 1)
+        check(r["segsum_launches"] == want,
+              f"{spec}: segsum launched {r['segsum_launches']} times, want {want}")
+        torch.cuda.empty_cache()
+    out = {"phase": "schedules", "part": "flagship", "config": {
+        "n_points": N_POINTS, "depth": DEPTH, "keyframes": KEYFRAMES,
+        "max_leaves": MAX_LEAVES, "rounds": 15, "dtype": "float32",
+        "windows": n_windows, "scans_a_window": n_steps},
+        "schedules": flagship, "seconds": time.perf_counter() - t0}
+    emit(out)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -429,6 +514,7 @@ def main() -> int:
     phase_golden(torch)
     phase_accuracy(torch)
     steady = phase_steady(torch)
+    phase_schedules(torch)
 
     f32 = ksum["float32"]
     rows = [{

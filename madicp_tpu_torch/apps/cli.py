@@ -52,15 +52,19 @@ def build_parser() -> argparse.ArgumentParser:
                    help="moving-leaf capacity (0 = n_points)")
     p.add_argument("--assoc-mode", type=str, default="exact",
                    choices=("exact", "fast"),
-                   help="ICP association schedule ('fast' is not ported yet)")
+                   help="ICP association schedule")
     p.add_argument("--reassoc-every", type=int, default=7,
                    help="fast mode: rounds between full re-descents")
     p.add_argument("--no-certify", action="store_true",
                    help="exact mode: disable the certified re-association")
     p.add_argument("--certify-compact", type=int, default=0,
-                   help="not ported yet (0 = off)")
+                   help="experimental: certified rounds descend each "
+                        "keyframe's uncertified leaves through a buffer of "
+                        "this size (0 = off)")
     p.add_argument("--certify-prefix", type=int, default=0,
-                   help="not ported yet (0 = off)")
+                   help="experimental: prefix-certified rounds with a "
+                        "prefix buffer of this size (0 = off; exclusive "
+                        "with --certify-compact)")
     p.add_argument("--assoc-ladder", type=int, default=3,
                    help="accepted for parity; the TPU select ladder is a "
                         "no-op here")

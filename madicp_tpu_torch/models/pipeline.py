@@ -22,11 +22,13 @@ Differences of form, not of function:
 - the promotion branch reads one boolean on the host — the only host
   synchronisation of a scan; the GN round loop has none.
 
-Schedules: the plain exact and the certified exact schedules are ported
-(the shipped default is certified exact). The fast and the prefix /
-compact certified schedules and ``compute_batch`` are still to be ported
-(ROADMAP A11, A12); a configuration that asks for them raises
-``NotImplementedError``.
+Schedules: every schedule of the JAX package is ported — plain exact,
+certified exact (the shipped default) with its compacted variant
+(``certify_compact``), prefix-certified exact (``certify_prefix``,
+``models/schedules_experimental.py``) and fast (``assoc_mode="fast"``).
+Where the JAX package branches on device data inside a round
+(``lax.cond``), the port computes both branches batched and selects, so
+no schedule adds a host read.
 """
 
 from __future__ import annotations
@@ -44,7 +46,7 @@ from madicp_tpu_torch.models.vel_estimator import estimate_velocity
 from madicp_tpu_torch.ops.constants import FRAME_WINDOW, MAX_ICP_ITS, SMOOTHING_T
 from madicp_tpu_torch.ops.deskew import deskew_cloud
 from madicp_tpu_torch.ops.icp_core import (
-    associate_packed,
+    associate_ring,
     gn_se3_step,
     neg_logdet,
     terms_from_payload,
@@ -111,12 +113,6 @@ class PipelineConfig:
             raise ValueError("certify_prefix and certify_compact are mutually exclusive")
         if self.dtype not in (torch.float32, torch.float64):
             raise ValueError(f"dtype must be torch.float32 or float64, got {self.dtype}")
-        if self.assoc_mode == "fast":
-            raise NotImplementedError(
-                "assoc_mode='fast' is not ported yet (ROADMAP A11)")
-        if self.certify_compact or self.certify_prefix:
-            raise NotImplementedError(
-                "certify_compact/certify_prefix are not ported yet (ROADMAP A12)")
 
     @property
     def leaves_cap(self) -> int:
@@ -236,35 +232,38 @@ def icp_rounds(
     timer=None,
 ):
     """The GN round schedule over the keyframe ring (``pipeline.cpp:
-    166-193``): plain exact (``certify=False``) or certified exact.
+    166-193``): plain exact (``certify=False``), certified exact (with
+    ``certify_compact`` its compacted variant), prefix-certified exact
+    (``certify_prefix``) or fast (``assoc_mode="fast"``), as selected by
+    the JAX package's ``icp_rounds``.
 
     Every (keyframe, leaf) pair descends in one batched call over the
     flat ``(K*M, 56)`` view of the ring. Returns ``(X, H_last, matched,
     n_descents)``; ``matched`` comes from the final round only, like the
     reference; ``n_descents`` counts the (valid-keyframe, valid-leaf)
-    descents actually walked (empty ring slots excluded).
+    descents actually walked (empty ring slots excluded). No schedule
+    reads the device from the host: where the JAX package branches on
+    device data, both branches are computed batched and selected.
     """
     dtype, dev = cfg.dtype, X0.device
     K = kf_valid_f.shape[0]
     L = leaves_pts.shape[0]
-    M = kf_tree.nav.shape[-2]
-    nav = kf_tree.nav.reshape(K * M, NAV_WIDTH)
-    base = (torch.arange(K, device=dev) * M).repeat_interleave(L)  # (K*L,)
     nv = leaves_valid.sum()  # valid moving leaves
     kv = (kf_valid_f > 0).sum()  # valid keyframes
     kf_live = kf_valid_f > 0  # (K,)
     terms_kw = dict(b_max=cfg.b_max, b_ratio=cfg.b_ratio, rho_ker=cfg.rho_ker)
 
-    def descend(X, need, margin: bool):
-        """Descend every (keyframe, leaf) entry with ``need`` (K, L);
-        the others park on row 0 of their keyframe's arena."""
+    def descend(X, need, margin: bool, pts=None, start=None, n_gathers=None):
+        """Descend every (keyframe, query) entry with ``need`` (K, Q);
+        the others park on row 0 of their keyframe's arena. ``pts``: the
+        queries in the scan frame, (Q, 3) or (K, Q, 3); the leaves by
+        default."""
+        pts = leaves_pts if pts is None else pts
         with phase(timer, "association"):
-            ml = leaves_pts @ X[:3, :3].T + X[:3, 3]
-            out = associate_packed(
-                nav, base, cfg.depth, ml.repeat(K, 1), need.reshape(K * L),
-                return_margin=margin,
+            return associate_ring(
+                kf_tree.nav, cfg.depth, pts @ X[:3, :3].T + X[:3, 3], need,
+                start=start, n_gathers=n_gathers, return_margin=margin,
             )
-        return tuple(o.reshape((K, L) + o.shape[1:]) for o in out)
 
     def terms_scan(X, payload, with_matched: bool):
         """H/b (+ matched) over all keyframes from (K, L, 8) payloads."""
@@ -289,6 +288,41 @@ def icp_rounds(
             torch.zeros((), dtype=torch.int64, device=dev),
         )
 
+    if cfg.assoc_mode == "fast":
+        # ---- fast schedule (JAX models/pipeline.py:390-482) ----
+        # round 0 and the final round descend in full; in between a
+        # re-descent runs every reassoc_every-th round (warm-started
+        # reassoc_backup levels above the previous leaf when > 0) and the
+        # other rounds reuse the cached payloads. Like the JAX package,
+        # its descents mask only invalid leaves, not empty ring slots,
+        # and its descent count is static.
+        need = leaves_valid.expand(K, L)
+        warm = cfg.reassoc_backup > 0
+        warm_gathers = -(-cfg.reassoc_backup // 3) + 1
+
+        def assoc(X, prev_ids=None):
+            if prev_ids is None or not warm:
+                return descend(X, need, False)
+            return descend(X, need, False, start=prev_ids >> cfg.reassoc_backup,
+                           n_gathers=warm_gathers)
+
+        n_redesc = sum(1 for r in range(1, n_its - 1) if r % cfg.reassoc_every == 0)
+        n_descents = (1 if n_its == 1 else 2 + n_redesc) * kv * nv
+        ids, payload = assoc(X0)
+        if n_its == 1:
+            X, H_last, _, matched = step(X0, payload, True)
+            return X, H_last, matched, n_descents
+        X = step(X0, payload)[0]
+        for r in range(1, n_its - 1):
+            if r % cfg.reassoc_every == 0:
+                ids, payload = assoc(X, ids)
+            X = step(X, payload)[0]
+        # final round: a FULL re-descent even after warm-started rounds, so
+        # the matched flags and H_last carry no warm-descent truncation
+        _, payload = assoc(X)
+        X, H_last, _, matched = step(X, payload, True)
+        return X, H_last, matched, n_descents
+
     if not cfg.certify:
         # plain exact: every round re-descends every leaf against every
         # keyframe (empty slots descend an all-zero arena and add nothing)
@@ -300,6 +334,15 @@ def icp_rounds(
         _, payload = descend(X, need, False)
         X, H_last, _, matched = step(X, payload, True)
         return X, H_last, matched, n_its * kv * nv
+
+    if cfg.certify_prefix:
+        from madicp_tpu_torch.models.schedules_experimental import (
+            prefix_certified_rounds,
+        )
+
+        return prefix_certified_rounds(
+            cfg, kf_valid_f, leaves_pts, leaves_valid, X0, descend=descend, terms_scan=terms_scan, kv=kv, nv=nv, timer=timer,
+        )
 
     # ---- certified exact schedule (JAX PipelineConfig.certify) ----
     # Every round is a full re-association; an entry whose accumulated
@@ -325,9 +368,40 @@ def icp_rounds(
         t_norm = torch.sqrt(torch.sum(X[:3, 3] * X[:3, 3]))
         return 64.0 * dinfo.eps * (1.0 + t_norm + r_norm)  # (L,)
 
+    U = min(cfg.certify_compact, L)
+    if U:
+        slots = torch.arange(1, U + 1, device=dev).expand(K, U).contiguous()
+        sweep_col = U + torch.arange(L, device=dev)  # (L,)
+
+    def descend_need(X, need):
+        """Fresh (ids, payload, margin) (K, L) for the ``need`` entries.
+
+        With ``certify_compact`` = U (JAX models/pipeline.py:567-632): a
+        keyframe whose live uncertified count fits compacts those leaves
+        into its row of a (K, U) buffer, by a cumulative-sum rank; one
+        that overflows takes its full parked sweep. Which keyframes
+        overflow is device data, so both the buffer and the sweep descend
+        in one call and each entry reads its own branch's result."""
+        if not U:
+            return descend(X, need, True)
+        rank = torch.cumsum(need, dim=1)  # (K, L): 1-based rank of need entries
+        fits = rank[:, -1] <= U  # (K,)
+        leaf_of_slot = torch.searchsorted(rank, slots)  # (K, U); L = empty
+        in_buf = (leaf_of_slot < L) & fits[:, None]
+        pts = torch.cat([
+            leaves_pts[torch.clamp(leaf_of_slot, max=L - 1)],
+            leaves_pts.expand(K, L, 3),
+        ], dim=1)  # (K, U + L, 3)
+        out = descend(X, torch.cat([in_buf, need & ~fits[:, None]], dim=1), True, pts=pts)
+        col = torch.where(fits[:, None], torch.clamp(rank - 1, min=0), sweep_col)
+        return tuple(
+            torch.take_along_dim(o, col.reshape(col.shape + (1,) * (o.dim() - 2)), dim=1)
+            for o in out
+        )
+
     def reassociate(X, uncert, ids, payload, slack):
         need = uncert & live_kl
-        ids2, payload2, margin2 = descend(X, need, True)
+        ids2, payload2, margin2 = descend_need(X, need)
         return (
             torch.where(need, ids2, ids),
             torch.where(need[..., None], payload2, payload),
@@ -638,10 +712,38 @@ class Pipeline:
             self._initialized = True
 
     def compute_batch(self, stamps, clouds) -> np.ndarray:
-        raise NotImplementedError(
-            "Pipeline.compute_batch is not ported yet (ROADMAP A11); "
-            "call compute() per scan"
-        )
+        """Process a chunk of scans; returns the (C, 4, 4) chunk poses.
+
+        ``stamps`` is a length-C sequence of floats, ``clouds`` a length-C
+        sequence of (Ni, 3) arrays. The JAX package runs the chunk as one
+        compiled ``lax.scan``; here the scans are staged, then stepped in
+        order (the step branches on the host and updates the rings in
+        place), with one host copy of the poses at the end. The accessors
+        hold the chunk's LAST scan; :meth:`points_dropped` sums the
+        chunk's truncated points. A chunk may start on an uninitialised
+        pipeline (its first scan bootstraps). Not a throughput mode.
+
+        With ``realtime=True`` the anytime budget is a per-scan host
+        decision, so chunking is refused until the calibration has run
+        (a few scans through :meth:`compute` first); within a chunk the
+        iteration count stays fixed.
+        """
+        if self.realtime and not self._rt_calibrated:
+            raise RuntimeError(
+                "compute_batch is an offline/throughput API; "
+                "realtime mode processes scan-by-scan via compute()"
+            )
+        C = len(stamps)
+        if len(clouds) != C or C < 1:
+            raise ValueError(f"need C >= 1 stamps and as many clouds, got {C} and {len(clouds)}")
+        staged = [self.stage(cloud) for cloud in clouds]
+        poses = []
+        for stamp, (pts, valid, _) in zip(stamps, staged):
+            self._dispatch_step(pts, valid, float(stamp))
+            poses.append(self._last.pose)
+        self._n_points_dropped = sum(n for _, _, n in staged)
+        self._rt_scans += C
+        return torch.stack(poses).cpu().numpy()
 
     def _calibrate_realtime(self, pts, valid, stamp) -> None:
         """Rolling anytime-budget calibration: time one synchronised

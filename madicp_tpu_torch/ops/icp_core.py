@@ -56,6 +56,38 @@ def associate_packed(
     )
 
 
+def associate_ring(
+    nav: torch.Tensor,
+    depth: int,
+    moving_pts_map: torch.Tensor,
+    need: torch.Tensor,
+    start: torch.Tensor = None,
+    n_gathers: int = None,
+    return_margin: bool = False,
+):
+    """Descend every (keyframe, query) entry of a keyframe ring in ONE
+    batched call over its flat ``(K*M, 56)`` view, each query offset to
+    its keyframe's rows.
+
+    ``nav`` (K, M, 56); ``moving_pts_map`` (Q, 3) shared by every keyframe
+    or (K, Q, 3), already in the map frame; ``need`` (K, Q) — entries
+    without it park on row 0 of their keyframe's arena. ``start`` (K, Q)
+    holds LOCAL node ids. Returns ``(leaf_ids, payload[, margin])`` shaped
+    (K, Q, ...), as :func:`associate_packed`.
+    """
+    K, M = nav.shape[0], nav.shape[1]
+    Q = need.shape[1]
+    dev = nav.device
+    base = (torch.arange(K, device=dev) * M)[:, None].expand(K, Q).reshape(K * Q)
+    out = associate_packed(
+        nav.reshape(K * M, nav.shape[2]), base, depth,
+        moving_pts_map.expand(K, Q, 3).reshape(K * Q, 3), need.reshape(K * Q),
+        start=None if start is None else start.reshape(K * Q),
+        n_gathers=n_gathers, return_margin=return_margin,
+    )
+    return tuple(o.reshape((K, Q) + o.shape[1:]) for o in out)
+
+
 def terms_from_payload(
     payload: torch.Tensor,
     moving_pts: torch.Tensor,
@@ -68,16 +100,21 @@ def terms_from_payload(
 ) -> IcpTerms:
     """Gate + residual/Jacobian/weights + normal equations from an
     association payload ``(..., L, 8)`` — no tree access. Leading axes
-    (e.g. keyframes) give one ``(H, b, matched)`` each. The gate is
-    evaluated under the CURRENT ``X`` (``mad_icp.cpp:81-83``)."""
+    (e.g. keyframes) give one ``(H, b, matched)`` each; ``moving_pts``
+    (L, 3) and ``moving_valid`` (L,) are shared by them, or carry the same
+    leading axes (a per-keyframe leaf order). The gate is evaluated under
+    the CURRENT ``X`` (``mad_icp.cpp:81-83``)."""
     dtype = moving_pts.dtype
     R = X[:3, :3]
     t = X[:3, 3]
-    rho = torch.sqrt(torch.as_tensor(rho_ker, dtype=dtype, device=X.device))
+    # the dtype's own square root, filled in on the device: a tensor copied
+    # there from a host scalar would synchronise every GN round
+    rho = torch.full((), torch.sqrt(torch.tensor(rho_ker, dtype=dtype)).item(),
+                     dtype=dtype, device=X.device)
 
     ml = moving_pts @ R.T + t
-    mlx, mly, mlz = ml[:, 0], ml[:, 1], ml[:, 2]
-    mx, my, mz = moving_pts[:, 0], moving_pts[:, 1], moving_pts[:, 2]
+    mlx, mly, mlz = ml[..., 0], ml[..., 1], ml[..., 2]
+    mx, my, mz = moving_pts[..., 0], moving_pts[..., 1], moving_pts[..., 2]
     fx, fy, fz = payload[..., 0], payload[..., 1], payload[..., 2]
     nx, ny, nz = payload[..., 3], payload[..., 4], payload[..., 5]
     f_bbox0 = payload[..., 6]

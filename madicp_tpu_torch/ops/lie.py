@@ -125,9 +125,10 @@ def se3_matrix(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     R = R.expand(batch + (3, 3))
     t = t.expand(batch + (3,))
     top = torch.cat([R, t[..., :, None]], dim=-1)
-    bottom = torch.tensor(
-        [0.0, 0.0, 0.0, 1.0], dtype=R.dtype, device=R.device
-    ).expand(batch + (4,))[..., None, :]
+    # [0, 0, 0, 1] made on the device: no host-to-device copy, which
+    # would synchronise every GN round
+    bottom = torch.eye(4, dtype=R.dtype, device=R.device)[3].expand(
+        batch + (4,))[..., None, :]
     return torch.cat([top, bottom], dim=-2)
 
 

@@ -15,9 +15,10 @@ import madicp_tpu_torch  # noqa: F401  (pins the matmul precision)
 from madicp_tpu_torch.apps import cli
 from madicp_tpu_torch.kernels import build, scatter_probe, segsum
 from madicp_tpu_torch.models.nn import MADtree
-from madicp_tpu_torch.models.pipeline import Pipeline
+from madicp_tpu_torch.models.pipeline import Pipeline, icp_rounds
 from madicp_tpu_torch.models.registration import MADicp
 from madicp_tpu_torch.models.vel_estimator import VelEstimator
+from madicp_tpu_torch.ops.tree import build_tree, get_leaves
 
 # keeps a test process that runs many JAX pipeline tests under the kernel's
 # limit on memory mappings; only processes that collect this file load it
@@ -38,6 +39,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         "import madicp_tpu_torch.kernels.scatter_probe\n"
         "import madicp_tpu_torch.probes.scatter_probe\n"
         "import madicp_tpu_torch.probes.segsum_levels\n"
+        "import madicp_tpu_torch.bench\n"
+        "import madicp_tpu_torch.models.schedules_experimental\n"
         "bad = [m for m in sys.modules if m in ('jax', 'madicp_tpu')\n"
         "       or m.startswith(('jax.', 'madicp_tpu.'))]\n"
         "print(bad)\n"
@@ -142,6 +145,47 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     return torch.device("cuda")
+
+
+SCHEDULES = {
+    "exact": dict(certify=False),
+    "certified": dict(),
+    "compact": dict(certify_compact=64),
+    "prefix": dict(certify_prefix=64),
+    "fast": dict(assoc_mode="fast", reassoc_every=2, reassoc_backup=6),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("schedule", list(SCHEDULES))
+def test_icp_rounds_never_syncs_the_host_on_cuda(cuda_device, schedule):
+    """Every schedule's GN rounds run with no host synchronisation (the
+    step's one host read stays the promotion): a keyframe ring of two
+    room scans, a third scan's leaves, 6 rounds under
+    ``set_sync_debug_mode("error")``."""
+    rng = np.random.default_rng(5)
+    walls = [rng.uniform([0, 0, 0], [4, 0.01, 2], (600, 3)),
+             rng.uniform([0, 0, 0], [0.01, 4, 2], (600, 3)),
+             rng.uniform([0, 3.99, 0], [4, 4, 2], (600, 3)),
+             rng.uniform([0, 0, 0], [4, 4, 0.01], (600, 3))]
+    room = np.concatenate(walls)
+    pipe = Pipeline(**PIPE_KW, n_points=4096, depth=10, max_leaves=1024,
+                    max_icp_iterations=6, dtype=torch.float64, device=cuda_device,
+                    **SCHEDULES[schedule])
+    for i in range(2):
+        pipe.compute(0.1 * i, room - [0.05 * i, 0.02 * i, 0.0])
+    pts, valid, _ = pipe.stage(room - [0.1, 0.04, 0.0])
+    tree, _ = build_tree(pts, valid, depth=10, b_max=0.2, b_min=0.1)
+    leaves = get_leaves(tree, pipe.cfg.leaves_cap)
+    kf_valid_f = pipe.state.kf_valid.to(torch.float64)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        X, H, matched, n_desc = icp_rounds(pipe.cfg, pipe.state.kf_tree, kf_valid_f,
+                                           leaves.pts, leaves.valid, pipe.state.X)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.isfinite(X).all() and matched.any() and int(n_desc) > 0
 
 
 FLAGSHIP_N, FLAGSHIP_DEPTH, H100_SMS = 131072, 16, 132

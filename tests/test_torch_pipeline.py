@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from madicp_tpu.models.pipeline import Pipeline as JaxPipeline
+from madicp_tpu.models.pipeline import PipelineConfig as JaxPipelineConfig
 from madicp_tpu_torch.kernels.segsum import counter
 from madicp_tpu_torch.models.pipeline import Pipeline, PipelineConfig
 from madicp_tpu_torch.utils.convert import state_from_numpy
@@ -157,16 +158,30 @@ def test_deskew_drive_matches_jax():
         np.testing.assert_allclose(port.current_pose(), ref.current_pose(), atol=1e-9)
 
 
-def test_unported_schedules_raise():
-    for kw in (dict(assoc_mode="fast"), dict(certify_compact=64),
-               dict(certify_prefix=64)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            PipelineConfig(**kw)
+@pytest.mark.parametrize("kw,ok", [
+    (dict(assoc_mode="fast", reassoc_every=3, reassoc_backup=6), True),
+    (dict(certify_compact=64), True),
+    (dict(certify_prefix=64), True),
+    (dict(assoc_mode="bogus"), False),
+    (dict(certify_compact=64, certify_prefix=64), False),
+    (dict(reassoc_every=0), False),
+    (dict(reassoc_backup=-1), False),
+    (dict(certify_compact=-1), False),
+    (dict(certify_prefix=-1), False),
+    (dict(assoc_ladder=-1), False),
+    (dict(deskew_mode="bogus"), False),
+])
+def test_config_accepts_and_rejects_what_jax_does(kw, ok):
+    """Every schedule of the JAX config constructs, and the port's config
+    rejects what the JAX config rejects."""
+    if ok:
+        JaxPipelineConfig(**kw)
+        PipelineConfig(**kw)
+        return
     with pytest.raises(ValueError):
-        PipelineConfig(assoc_mode="bogus")
-    pipe = Pipeline(**GOLDEN_KW, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pipe.compute_batch([0.0], [np.zeros((10, 3))])
+        JaxPipelineConfig(**kw)
+    with pytest.raises(ValueError):
+        PipelineConfig(**kw)
 
 
 def test_realtime_budget_degrades_and_recovers(four_walls):

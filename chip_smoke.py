@@ -44,7 +44,19 @@ script exits non-zero without the final line):
               of 4 compute_device calls; then all five schedules at the
               flagship configuration through the bench module
               (python -m madicp_tpu_torch.bench) in short windows: scans/s,
-              descents, phase ms, peak memory, segment-sum launches.
+              descents, phase ms, peak memory, segment-sum launches;
+9. apps       the CLI, checkpoints, evaluator, demos and native loader at
+              the CLI's defaults (131072 points, depth 16, 4 keyframes) on
+              10 KITTI .bin scans of the two-orientation world (~122k
+              points a scan, 0.3 m a scan): a run under --profile whose
+              trace must hold one segsum_moments accumulating kernel a
+              launch; --checkpoint-every 4 --max-scans 6, then --resume,
+              within 1e-6 m of the uninterrupted run; the checkpoint's
+              snapshot ms and background write seconds; evaluate against
+              the ground truth (<= 1 cm a scan); nn_search (every point
+              matches itself) and mad_registration (identity within
+              5e-3); the native loader bitwise equal to numpy. Every run
+              counts its segment-sum launches from 0 and needs some.
 
 Then the line {"kernels": [...]} (all five kernels: segsum_moments per
 flagship build with its main-path launches, the probe kernels summed
@@ -109,16 +121,17 @@ def golden_scans():
     return scans
 
 
-def two_way_world(rng):
+def two_way_world(rng, density: int = 1):
     """Ground plus walls in BOTH orientations (scripts/accuracy_probe.py):
-    x translation is observable, unlike in kitti_like_world."""
-    pts = [rng.uniform([-40, -40, -0.05], [40, 40, 0.05], (12000, 3))]
+    x translation is observable, unlike in kitti_like_world. 40,800
+    points times ``density``."""
+    pts = [rng.uniform([-40, -40, -0.05], [40, 40, 0.05], (12000 * density, 3))]
     for i in range(8):
         y = -35 + 10 * i + rng.uniform(-2, 2)
-        pts.append(rng.uniform([-40, y - 0.03, 0], [40, y + 0.03, 6], (1800, 3)))
+        pts.append(rng.uniform([-40, y - 0.03, 0], [40, y + 0.03, 6], (1800 * density, 3)))
     for i in range(8):
         x = -35 + 10 * i + rng.uniform(-2, 2)
-        pts.append(rng.uniform([x - 0.03, -40, 0], [x + 0.03, 40, 6], (1800, 3)))
+        pts.append(rng.uniform([x - 0.03, -40, 0], [x + 0.03, 40, 6], (1800 * density, 3)))
     return np.concatenate(pts)
 
 
@@ -495,6 +508,211 @@ def phase_schedules(torch) -> dict:
     return out
 
 
+APPS_SCANS, APPS_STEP_M, APPS_DENSITY = 10, 0.3, 3
+APPS_CLI = []  # extra CLI options: none, the CLI's defaults
+
+
+def segsum_kernel_names() -> set:
+    """The ``__global__`` functions of kernel #1's source, as a CUDA
+    trace names them (``...::warp_kernel<float, true>(...)``)."""
+    import re
+
+    src = (ROOT / "madicp_tpu_torch/kernels/csrc/segsum_moments.cu").read_text()
+    return set(re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)", src))
+
+
+def trace_kernel_counts(trace: Path, names) -> dict:
+    """How many kernel events of a chrome trace (torch.profiler's
+    ``export_chrome_trace``) each name has. A regex over the text: the
+    trace of a flagship run holds about a million events, too many to
+    parse as JSON in the phase's time."""
+    import re
+
+    counts = dict.fromkeys(names, 0)
+    text = trace.read_text()
+    for m in re.finditer(r'"cat":\s*"kernel",\s*"name":\s*"([^"]*)"', text):
+        for n in names:
+            counts[n] += f"::{n}<" in m.group(1)
+    return counts
+
+
+def run_cli(argv) -> dict:
+    """One run of the port's CLI ``main()``: its segment-sum launches
+    (counted from 0), its per-scan read and odometry ms (parsed from its
+    scan lines), its scans/s on the wall clock after the first scan (its
+    last line: checkpoints and prints included), and the call's wall
+    time."""
+    import contextlib
+    import io
+    import re
+
+    from madicp_tpu_torch.apps import cli
+    from madicp_tpu_torch.kernels import segsum
+
+    out = io.StringIO()
+    segsum.counter.launches = 0  # this run starts here
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main([str(a) for a in argv])
+    seconds = time.perf_counter() - t0
+    launches = segsum.counter.launches  # read right after the run
+    check(rc == 0, f"cli {argv} returned {rc}:\n{out.getvalue()[-2000:]}")
+    scans = [(float(r), float(o)) for r, o in re.findall(
+        r"^scan +\d+ +read +([\d.]+) ms +odometry +([\d.]+) ms", out.getvalue(), re.M)]
+    check(launches > 0, f"cli {argv}: no segment-sum launch")
+    rate = re.search(r"^(\d+) scans after the first in ([\d.]+) s: ([\d.]+) scans/s$",
+                     out.getvalue(), re.M)
+    check(rate is not None and int(rate.group(1)) == len(scans) - 1,
+          f"cli {argv}: no rate line for its {len(scans)} scans")
+    # the first scan of a run bootstraps (or resumes) and warms up
+    steady = scans[1:]
+    return {"scans": len(scans), "seconds": seconds, "segsum_launches": launches,
+            "odometry_ms": [o for _, o in scans],
+            "read_ms_median": float(np.median([r for r, _ in steady])),
+            "odometry_ms_median": float(np.median([o for _, o in steady])),
+            "scans_per_s": float(rate.group(3)),
+            "wall_s_after_first": float(rate.group(2))}
+
+
+def phase_apps(torch, nvidia_smi: str) -> dict:
+    """The CLI, the checkpoint, the evaluator, the demos and the native
+    loader on the card, at the CLI's defaults (131072 points, depth 16,
+    4 keyframes, float32, certified exact)."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from madicp_tpu_torch.apps import evaluate, mad_registration, nn_search
+    from madicp_tpu_torch.kernels import segsum
+    from madicp_tpu_torch.native import loader
+    from madicp_tpu_torch.utils.checkpoint import checkpoint_path, load_pipeline, save_pipeline
+    from madicp_tpu_torch.utils.config import DATASET_CONFIGS, dump_yaml
+    from madicp_tpu_torch.utils.device import synchronize
+    from madicp_tpu_torch.utils.fixtures import generate_four_walls_pointcloud
+    from madicp_tpu_torch.utils.kitti import read_bin_numpy
+    from madicp_tpu_torch.utils.trajectory import load_kitti_poses, save_kitti_poses
+
+    t_phase = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_apps_"))
+    try:
+        # a KITTI .bin sequence of the two-orientation world, 0.3 m a scan
+        world = two_way_world(np.random.default_rng(11), density=APPS_DENSITY)
+        data = work / "data"
+        data.mkdir()
+        gt = []
+        for k in range(APPS_SCANS):
+            p = world - np.array([APPS_STEP_M * k, 0.0, 0.0])
+            rec = np.concatenate([p, np.ones((len(p), 1))], axis=1).astype(np.float32)
+            rec.tofile(data / f"{k:06d}.bin")
+            T = np.eye(4)
+            T[0, 3] = APPS_STEP_M * k
+            gt.append(T)
+        save_kitti_poses(work / "gt.txt", gt)
+        cfg = work / "dataset.yaml"  # identity extrinsics, no correction
+        dump_yaml(dataclasses.replace(DATASET_CONFIGS["vbr_os0"], min_range=1.0,
+                                      max_range=80.0), cfg)
+        base = ["--dataset-config", cfg, "--noviz", "--device", DEV, *APPS_CLI]
+
+        # 6. the native loader (the CLI's reader uses it)
+        check(loader.available(), "native loader did not build")
+        for f in sorted(data.glob("*.bin")):
+            for corr in (False, True):
+                got = loader.read_bin(f, 1.0, 80.0, apply_correction=corr)
+                want = read_bin_numpy(f, np.float32, 1.0, 80.0, corr)
+                check(got.shape == want.shape and np.array_equal(got, want),
+                      f"native loader differs from numpy on {f.name} (correction {corr})")
+        points_a_scan = len(loader.read_bin(data / "000000.bin", 1.0, 80.0))
+
+        # 1. uninterrupted, profiled
+        out1, prof = work / "out1", work / "prof"
+        runs = {"profiled": run_cli(["--data-path", data, "--estimate-path", out1,
+                                     "--profile", prof, *base])}
+        trace = prof / "trace.json"
+        check(trace.exists(), "--profile wrote no trace.json")
+        in_trace = trace_kernel_counts(trace, segsum_kernel_names())
+        trace_mb = trace.stat().st_size / 1e6
+        trace.unlink()
+        accumulating = sum(v for k, v in in_trace.items() if k != "round_kernel")
+        check(accumulating == runs["profiled"]["segsum_launches"],
+              f"the trace has {in_trace} segsum_moments kernels for "
+              f"{runs['profiled']['segsum_launches']} launches")
+        est1 = load_kitti_poses(out1 / "estimate.txt")
+        check(est1.shape == (APPS_SCANS, 4, 4), f"estimate has shape {est1.shape}")
+
+        # 2. checkpoint every 4 scans, stop after 6, resume
+        out2 = work / "out2"
+        runs["checkpointed"] = run_cli(["--data-path", data, "--estimate-path", out2,
+                                        "--checkpoint-every", 4, "--max-scans", 6, *base])
+        ckpt = checkpoint_path(out2)
+        check(ckpt.exists(), "--checkpoint-every wrote no checkpoint")
+        ckpt_gb = ckpt.stat().st_size / 1e9
+        runs["resumed"] = run_cli(["--data-path", data, "--estimate-path", out2,
+                                   "--resume", *base])
+        est2 = load_kitti_poses(out2 / "estimate.txt")
+        check(est2.shape == est1.shape, f"resumed estimate has shape {est2.shape}")
+        resume_dev = float(np.abs(est2 - est1).max())
+        check(resume_dev <= 1e-6, f"resumed run is {resume_dev:.2e} m from the uninterrupted one")
+
+        # the checkpoint's cost: a synchronous snapshot, a background write
+        pipe = load_pipeline(ckpt, device=DEV)
+        check(pipe.current_id() == 4, f"checkpoint at scan {pipe.current_id()}, want 4")
+        synchronize(pipe.device)
+        t0 = time.perf_counter()
+        writer = save_pipeline(work / "again.npz", pipe, background=True)
+        snapshot_ms = (time.perf_counter() - t0) * 1e3
+        writer.join()
+        write_s = time.perf_counter() - t0 - snapshot_ms / 1e3
+        del pipe
+        ckpt.unlink()
+        (work / "again.npz").unlink()
+
+        # 3. evaluate the uninterrupted run against the ground truth
+        metrics = evaluate.evaluate(out1 / "estimate.txt", work / "gt.txt",
+                                    lengths=[0.6, 1.2])
+        per_scan = np.linalg.norm(est1[:, :3, 3] - np.stack(gt)[:, :3, 3], axis=1)
+        check(per_scan.max() <= 0.01, f"per-scan error {per_scan.max() * 1e3:.2f} mm > 10 mm")
+        check(metrics["ate_rmse_m"] <= 0.01, f"ATE {metrics['ate_rmse_m']:.4f} m > 1 cm")
+
+        # 4.-5. the demos
+        demos = {}
+        segsum.counter.launches = 0
+        nn_err = nn_search.main(device=DEV)
+        demos["nn_search"] = {"segsum_launches": segsum.counter.launches}
+        np.random.seed(42)  # the demo's cloud, rounded as its float32 tree holds it
+        cloud = generate_four_walls_pointcloud(points_per_wall=2000)
+        rounding = float(np.sum(np.linalg.norm(
+            cloud.astype(np.float32).astype(np.float64) - cloud, axis=1)))
+        demos["nn_search"].update(error=nn_err, float32_rounding=rounding)
+        check(nn_err == rounding, f"nn_search: error {nn_err} is not the cloud's "
+              f"float32 rounding {rounding}: a query matched another point")
+        segsum.counter.launches = 0
+        T = mad_registration.main(device=DEV)
+        demos["mad_registration"] = {"segsum_launches": segsum.counter.launches,
+                                     "max_abs_dev_from_identity": float(np.abs(T - np.eye(4)).max())}
+        check(np.allclose(T, np.eye(4), atol=5e-3), f"mad_registration: {T}")
+        for name, d in demos.items():
+            check(d["segsum_launches"] > 0, f"{name}: no segment-sum launch")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    out = {"phase": "apps", "nvidia_smi": nvidia_smi,
+           "config": {"cli_options": [str(a) for a in APPS_CLI] or "defaults: "
+                      "131072 points, depth 16, 4 keyframes, float32, certified exact",
+                      "scans": APPS_SCANS, "points_a_scan": points_a_scan},
+           "runs": runs,
+           "trace": {"mb": trace_mb, "segsum_kernels": in_trace},
+           "resume": {"max_abs_dev_m": resume_dev, "bitwise": resume_dev == 0.0,
+                      "bound_m": 1e-6},
+           "checkpoint": {"gb": ckpt_gb, "snapshot_ms": snapshot_ms,
+                          "background_write_s": write_s},
+           "evaluate": {**metrics, "max_per_scan_err_m": float(per_scan.max()),
+                        "bound_m": 0.01},
+           "demos": demos, "native_loader": "bitwise equal to numpy",
+           "seconds": time.perf_counter() - t_phase}
+    emit(out)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -515,6 +733,7 @@ def main() -> int:
     phase_accuracy(torch)
     steady = phase_steady(torch)
     phase_schedules(torch)
+    phase_apps(torch, dev["nvidia_smi"])
 
     f32 = ksum["float32"]
     rows = [{

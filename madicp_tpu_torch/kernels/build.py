@@ -6,7 +6,8 @@ own shared library with a plain C interface and loaded with ``ctypes``
 ``build/madicp_tpu_torch/`` beside the package (listed in
 ``.gitignore``), named by a hash of the source and flags, so an edited
 source rebuilds at its first use and an unchanged one is reused.
-Nothing is compiled at import time.
+``native/loader.py`` builds its C++ loader with ``g++`` through the same
+helpers. Nothing is compiled at import time.
 """
 
 from __future__ import annotations
@@ -47,43 +48,62 @@ def nvcc() -> str:
     )
 
 
-def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}_{h}.so"
+def hashed_library(src: Path, flags) -> Path:
+    """The library built from ``src`` with ``flags``: under ``BUILD_DIR``,
+    named by the source's stem and a hash of the source and flags."""
+    h = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{src.stem}_{h}.so"
 
 
-def _start_build(name: str):
-    """Start nvcc for one source into a temporary file; None when the
-    library for this source hash already exists."""
-    out = library_path(name)
+def start_build(src: Path, compiler: str, flags):
+    """Start ``compiler flags -o <tmp> src`` into a temporary file in
+    ``BUILD_DIR``; None when the library for this hash already exists."""
+    out = hashed_library(src, flags)
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
-    proc = subprocess.Popen(
-        cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-    )
+    try:
+        proc = subprocess.Popen(
+            [compiler, *flags, "-o", tmp, str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+    except OSError:
+        os.unlink(tmp)
+        raise
     return proc, tmp, out
 
 
-def _finish_build(name: str, started) -> None:
+def finish_build(started) -> Path:
+    """Wait for a build of ``start_build`` and move its library into
+    place (atomic: a concurrent build never sees a partial file)."""
     proc, tmp, out = started
     log, _ = proc.communicate()
     if proc.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
-    os.replace(tmp, out)  # atomic: a concurrent build never sees a partial file
+        raise RuntimeError(f"{proc.args[0]} failed for {proc.args[-1]}:\n{log}")
+    os.replace(tmp, out)
+    return out
+
+
+def build_library(src: Path, compiler: str, flags) -> Path:
+    """Build ``src`` at first use; the hashed library's path."""
+    started = start_build(src, compiler, flags)
+    return hashed_library(src, flags) if started is None else finish_build(started)
+
+
+def library_path(name: str) -> Path:
+    return hashed_library(CSRC / f"{name}.cu", NVCC_FLAGS)
 
 
 def build_all(names=SOURCES) -> dict[str, Path]:
     """Compile every listed source, all ``nvcc`` processes at once."""
-    started = {name: _start_build(name) for name in names}
-    for name, s in started.items():
+    todo = [name for name in names if not library_path(name).exists()]
+    started = [start_build(CSRC / f"{name}.cu", nvcc(), NVCC_FLAGS) for name in todo]
+    for s in started:
         if s is not None:
-            _finish_build(name, s)
+            finish_build(s)
     return {name: library_path(name) for name in names}
 
 

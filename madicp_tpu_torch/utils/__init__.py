@@ -13,3 +13,4 @@ from madicp_tpu_torch.utils.trajectory import (  # noqa: F401
     ate_rmse,
     kitti_drift,
 )
+from madicp_tpu_torch.utils.fixtures import generate_four_walls_pointcloud  # noqa: F401

@@ -7,7 +7,8 @@ degree vertical-angle correction (the undocumented "KITTI magic",
 ``kitti_reader.py:58,73-79``, ``bin_runner.cpp:55,153-161``), synthetic
 timestamps at the sensor rate.
 
-Reads are pure numpy.
+If the native loader (madicp_tpu_torch.native) builds, reads go through
+its C++ path (bitwise equal to the numpy one); otherwise pure numpy.
 """
 
 from __future__ import annotations
@@ -21,21 +22,39 @@ import numpy as np
 from madicp_tpu_torch.utils.natsort import natsorted
 
 
-def apply_vertical_correction(points: np.ndarray, angle_rad: float = np.radians(0.205)) -> np.ndarray:
+# the native loader's constant (loader.cpp): np.radians(0.205) is one ulp
+# away, and with it the two readers would differ in the last bit
+CORRECTION_RAD = 0.205 * np.pi / 180.0
+
+
+def apply_vertical_correction(points: np.ndarray, angle_rad: float = CORRECTION_RAD) -> np.ndarray:
     """Rotate every point by ``angle_rad`` about ``p x z`` (toward +z).
 
     Rodrigues applied per point, vectorised (reference
-    ``kitti_reader.py:73-79``).
+    ``kitti_reader.py:73-79``). Points on the z axis have no rotation
+    axis and stay as they are, as in the native loader.
     """
     axis = np.cross(points, np.array([0.0, 0.0, 1.0]))
     norms = np.linalg.norm(axis, axis=1, keepdims=True)
-    norms = np.where(norms > 0, norms, 1.0)
-    k = axis / norms
+    on_axis = norms == 0
+    k = axis / np.where(on_axis, 1.0, norms)
     c = np.cos(angle_rad)
     s = np.sin(angle_rad)
     kxp = np.cross(k, points)
     kdp = np.sum(k * points, axis=1, keepdims=True)
-    return points * c + kxp * s + k * kdp * (1.0 - c)
+    return np.where(on_axis, points, points * c + kxp * s + k * kdp * (1.0 - c))
+
+
+def read_bin_numpy(path, cdtype, min_range: float, max_range: float,
+                   apply_correction: bool) -> np.ndarray:
+    """The numpy reader of one ``.bin`` scan: (N, 3) float64 points."""
+    cloud = np.fromfile(path, dtype=cdtype).reshape(-1, 4)[:, :3]
+    cloud = cloud.astype(np.float64)
+    norms = np.linalg.norm(cloud, axis=1)
+    pts = cloud[(norms >= min_range) & (norms <= max_range)]
+    if apply_correction:
+        pts = apply_vertical_correction(pts)
+    return pts
 
 
 class KittiReader:
@@ -62,6 +81,12 @@ class KittiReader:
         if dtype_pkl.exists():
             with open(dtype_pkl, "rb") as f:
                 self.cdtype = pickle.load(f)
+        self._native = None
+        if not dtype_pkl.exists():
+            from madicp_tpu_torch.native import loader as native_loader
+
+            if native_loader.available():
+                self._native = native_loader
 
     def __len__(self):
         return len(self.file_names)
@@ -89,10 +114,11 @@ class KittiReader:
         """Random access by scan index (timestamps are synthetic at the
         sensor rate, so ``reader[k]`` is ``((k+1)/hz, points_k)``)."""
         path = self.file_names[item]
-        cloud = np.fromfile(path, dtype=self.cdtype).reshape(-1, 4)[:, :3]
-        cloud = cloud.astype(np.float64)
-        norms = np.linalg.norm(cloud, axis=1)
-        pts = cloud[(norms >= self.min_range) & (norms <= self.max_range)]
-        if self.apply_correction:
-            pts = apply_vertical_correction(pts)
+        if self._native is not None:
+            pts = self._native.read_bin(
+                path, self.min_range, self.max_range, self.apply_correction
+            )
+        else:
+            pts = read_bin_numpy(path, self.cdtype, self.min_range,
+                                 self.max_range, self.apply_correction)
         return (item + 1) * self.time_inc, pts

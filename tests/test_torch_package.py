@@ -3,6 +3,7 @@ CPU fallback, the import-time precision pins, kernel dispatch and build
 guards, and the KITTI CLI end to end on the CPU. Tests marked ``cuda``
 hold the CUDA kernel to its plain version and skip without a card."""
 
+import json
 import subprocess
 import sys
 from pathlib import Path
@@ -19,6 +20,7 @@ from madicp_tpu_torch.models.pipeline import Pipeline, icp_rounds
 from madicp_tpu_torch.models.registration import MADicp
 from madicp_tpu_torch.models.vel_estimator import VelEstimator
 from madicp_tpu_torch.ops.tree import build_tree, get_leaves
+from test_visualizer import fake_o3d  # noqa: F401  (fixture)
 
 # keeps a test process that runs many JAX pipeline tests under the kernel's
 # limit on memory mappings; only processes that collect this file load it
@@ -41,6 +43,12 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         "import madicp_tpu_torch.probes.segsum_levels\n"
         "import madicp_tpu_torch.bench\n"
         "import madicp_tpu_torch.models.schedules_experimental\n"
+        "import madicp_tpu_torch.native, madicp_tpu_torch.native.loader\n"
+        "import madicp_tpu_torch.native.prefetch\n"
+        "import madicp_tpu_torch.utils.checkpoint, madicp_tpu_torch.utils.rosbag\n"
+        "import madicp_tpu_torch.utils.pointcloud2, madicp_tpu_torch.utils.fixtures\n"
+        "import madicp_tpu_torch.utils.visualizer, madicp_tpu_torch.apps.evaluate\n"
+        "import madicp_tpu_torch.apps.nn_search, madicp_tpu_torch.apps.mad_registration\n"
         "bad = [m for m in sys.modules if m in ('jax', 'madicp_tpu')\n"
         "       or m.startswith(('jax.', 'madicp_tpu.'))]\n"
         "print(bad)\n"
@@ -487,13 +495,32 @@ def test_cli_kitti_end_to_end_on_cpu(tmp_path, four_walls, capsys):
     assert "scan      4" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("extra", [[], ["--noviz", "--resume"],
-                                   ["--noviz", "--profile", "p"],
-                                   ["--noviz", "--checkpoint-every", "5"]])
-def test_cli_refuses_unported_options(tmp_path, capsys, extra):
-    (tmp_path / "seq").mkdir()
-    rc = cli.main(["--data-path", str(tmp_path / "seq"), "--estimate-path",
-                   str(tmp_path / "o"), "--dataset-config", "kitti",
-                   "--device", "cpu", *extra])
-    assert rc == 2
-    assert "not yet ported" in capsys.readouterr().err
+@pytest.mark.parametrize("option", ["viz", "resume", "profile", "checkpoint"])
+def test_cli_runs_the_options_it_once_refused(request, tmp_path, four_walls, option):
+    """The visualizer (under the fake open3d), --resume (no checkpoint
+    yet: a fresh start), --profile and --checkpoint-every each run to the
+    end and leave their artifact."""
+    from madicp_tpu_torch.utils.checkpoint import load_pipeline
+
+    scans = [four_walls - np.array([1.0 + 0.05 * i, 1.0, 0.0]) for i in range(3)]
+    _write_kitti(tmp_path / "seq", scans)
+    out = tmp_path / "o"
+    extra = {"viz": [], "resume": ["--noviz", "--resume"],
+             "profile": ["--noviz", "--profile", str(tmp_path / "p")],
+             "checkpoint": ["--noviz", "--checkpoint-every", "2"]}[option]
+    log = request.getfixturevalue("fake_o3d") if option == "viz" else None
+    rc = cli.main(["--data-path", str(tmp_path / "seq"), "--estimate-path", str(out),
+                   "--dataset-config", "kitti", "--device", "cpu", "--n-points", "4096",
+                   "--depth", "10", "--max-leaves", "2048", *extra])
+    assert rc == 0
+    assert np.loadtxt(out / "estimate.txt").shape == (3, 12)
+    if option == "viz":
+        names = [n for n, _, _ in log]
+        assert names.count("create_sphere") >= 1 and "destroy_window" in names
+    elif option == "profile":
+        trace = json.loads((tmp_path / "p" / "trace.json").read_text())
+        assert any(e.get("name") == "aten::index_add_" for e in trace["traceEvents"])
+    elif option == "checkpoint":
+        assert load_pipeline(out / "pipeline.ckpt.npz", device="cpu").current_id() == 2
+    else:
+        assert not (out / "pipeline.ckpt.npz").exists()

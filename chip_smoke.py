@@ -57,6 +57,18 @@ script exits non-zero without the final line):
               matches itself) and mad_registration (identity within
               5e-3); the native loader bitwise equal to numpy. Every run
               counts its segment-sum launches from 0 and needs some.
+10. fleet     the batched fleet (madicp_tpu_torch.parallel) at the
+              flagship widths (certified exact, float32) with B = 1, 2
+              and 4 sequences: every sequence within 5e-4 of one single
+              Pipeline on the same scans, a step where promotion differs
+              across sequences, fleet scans/s, device busy and kernels a
+              batched scan, 17 segment-sum launches a batched scan;
+              segsum_moments against float64 at every level of a B = 4
+              build (up to 262,144 segments); a fleet on a one-rank NCCL
+              mesh (its keyframe all-reduces issued); fleet_eval on two
+              ranks sharing the card through torch.distributed.run (gloo;
+              keyframe ring split, then the build too) within 5e-4 of
+              one process on both ranks — plumbing, not scaling.
 
 Then the line {"kernels": [...]} (all five kernels: segsum_moments per
 flagship build with its main-path launches, the probe kernels summed
@@ -713,6 +725,327 @@ def phase_apps(torch, nvidia_smi: str) -> dict:
     return out
 
 
+# the fleet phase: flagship widths, certified exact, float32
+FLEET_BATCHES = (1, 2, 4)
+FLEET_SCANS, FLEET_WARM, FLEET_PROFILED = 12, 2, 2
+FLEET_SPEEDS = (0.3, 0.2, 0.25, 0.15)  # m a scan along x: every timed sequence moves
+FLEET_MIXED = dict(speeds=(0.3, 0.0), scans=4)  # a moving and a parked sequence
+FLEET_P_TH = 0.999  # parked sequences match ~every leaf; moving ones do not
+FLEET_BOUND_M = 5e-4  # certified f32 divergence bound (tests/test_pipeline.py:368)
+FLEET_MP = dict(n_points=65536, depth=14, keyframes=2, scans=4)  # two-process check
+
+
+def fleet_world(rng, density: int = 1):
+    """The walls of two_way_world (their positions) and a sampler of its
+    points: each call draws a fresh set on the same surfaces."""
+    ys = [-35 + 10 * i + rng.uniform(-2, 2) for i in range(8)]
+    xs = [-35 + 10 * i + rng.uniform(-2, 2) for i in range(8)]
+
+    def sample(r):
+        pts = [r.uniform([-40, -40, -0.05], [40, 40, 0.05], (12000 * density, 3))]
+        pts += [r.uniform([-40, y - 0.03, 0], [40, y + 0.03, 6], (1800 * density, 3))
+                for y in ys]
+        pts += [r.uniform([x - 0.03, -40, 0], [x + 0.03, 40, 6], (1800 * density, 3))
+                for x in xs]
+        return np.concatenate(pts)
+
+    return sample
+
+
+def fleet_sequences(speeds, n_scans: int, density: int = 3):
+    """Scans of one sequence a speed on one two-orientation world, 1-80
+    m: sequence b starts 1.5 b m off in y, moves ``speeds[b]`` m a scan
+    and draws from a generator of its own (so sequence b is the same in
+    every call). A moving sequence draws a fresh sample of the surfaces
+    each scan, so some of its leaves miss every keyframe and its inlier
+    ratio stays below FLEET_P_TH (it promotes); a parked one (speed 0)
+    sees one fixed point set, every leaf matches itself and it never
+    promotes after the first scan."""
+    sample = fleet_world(np.random.default_rng(21), density)
+    seqs = []
+    for b, speed in enumerate(speeds):
+        rng = np.random.default_rng((21, b))
+        fixed = None if speed else sample(rng)
+        scans = []
+        for k in range(n_scans):
+            p = (sample(rng) if speed else fixed) - [speed * k, 1.5 * b, 0.0]
+            r = np.linalg.norm(p, axis=1)
+            scans.append(p[(r > 1.0) & (r < 80.0)].astype(np.float32))
+        seqs.append(scans)
+    return seqs
+
+
+def single_pipeline_poses(scans):
+    """One single Pipeline over ``scans``: (S, 4, 4) float64 poses and
+    whether each scan promoted."""
+    pipe = pipeline(num_keyframes=KEYFRAMES, n_points=N_POINTS, depth=DEPTH,
+                    max_leaves=MAX_LEAVES, p_th=FLEET_P_TH)
+    poses, promoted = [], []
+    for k, scan in enumerate(scans):
+        pipe.compute(0.1 * k, scan)
+        poses.append(pipe.current_pose().astype(np.float64))
+        promoted.append(pipe.is_map_updated())
+    return np.stack(poses), promoted
+
+
+def fleet_batch(seqs, k: int, n_points: int):
+    """Scan k of every sequence, padded: (B, N, 3) float32, (B, N) bool."""
+    pts = np.zeros((len(seqs), n_points, 3), np.float32)
+    val = np.zeros((len(seqs), n_points), bool)
+    for b, scans in enumerate(seqs):
+        n = min(len(scans[k]), n_points)
+        pts[b, :n], val[b, :n] = scans[k][:n], True
+    return pts, val
+
+
+def fleet_config(torch, **kw):
+    from madicp_tpu_torch.models.pipeline import PipelineConfig
+
+    base = dict(num_keyframes=KEYFRAMES, n_points=N_POINTS, depth=DEPTH,
+                max_leaves=MAX_LEAVES, p_th=FLEET_P_TH, dtype=torch.float32)
+    base.update(kw)
+    return PipelineConfig(**base)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def phase_fleet(torch, nvidia_smi: str) -> dict:
+    """The batched fleet (parallel/fleet.py) on the card: (a) B = 1, 2, 4
+    at flagship widths, every sequence moving, against one single
+    Pipeline per sequence, with its scans/s, device busy and kernels a
+    batched scan, then a moving and a parked sequence as one batch (the
+    masked promotion differs across them); (b) segsum_moments
+    against its float64 plain version at every level of a B = 4 build;
+    (d) a fleet on a one-rank NCCL mesh (the keyframe all-reduce issued
+    for real); (c) fleet_eval on two ranks sharing the card (gloo), kf
+    split, with and without the points split, against one process."""
+    import os
+    import subprocess
+    import tempfile
+
+    from madicp_tpu_torch.kernels import segsum
+    from madicp_tpu_torch.parallel import Fleet, distributed, make_mesh
+    from madicp_tpu_torch.parallel.sharded_icp import counter
+    from madicp_tpu_torch.probes.segsum_levels import capture_levels
+
+    t_phase = time.perf_counter()
+    B_max = max(FLEET_BATCHES)
+    seqs = fleet_sequences(FLEET_SPEEDS[:B_max], FLEET_SCANS)
+    batches = [fleet_batch(seqs, k, N_POINTS) for k in range(FLEET_SCANS)]
+
+    # the reference: one single Pipeline per sequence
+    want, want_promoted = zip(*(single_pipeline_poses(scans) for scans in seqs))
+    torch.cuda.empty_cache()
+
+    # (a) the fleet at B = 1, 2, 4
+    cfg = fleet_config(torch)
+    runs = {}
+    for B in FLEET_BATCHES:
+        staged = [tuple(torch.as_tensor(a[:B], device=DEV) for a in batch)
+                  for batch in batches]
+        fleet = Fleet(cfg, B, device=DEV)
+        poses, promoted = [], []
+
+        def step(k):
+            out = fleet.compute(None, *staged[k])
+            poses.append(fleet.states.X.clone())
+            promoted.append(out.map_updated)
+
+        for k in range(FLEET_WARM):
+            step(k)
+        n_timed = FLEET_SCANS - FLEET_WARM - FLEET_PROFILED
+        torch.cuda.synchronize()
+        segsum.counter.launches = 0  # the fleet's timed run starts here
+        t0 = time.perf_counter()
+        for k in range(FLEET_WARM, FLEET_WARM + n_timed):
+            step(k)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = segsum.counter.launches  # read right after the run
+        prof = profile_window(lambda: [step(k) for k in range(FLEET_WARM + n_timed,
+                                                              FLEET_SCANS)],
+                              FLEET_PROFILED)
+        got = torch.stack(poses).cpu().numpy().astype(np.float64)  # (S, B, 4, 4)
+        got_promoted = torch.stack(promoted).cpu().numpy()  # (S, B)
+        dev_m = float(max(np.abs(got[:, b] - want[b]).max() for b in range(B)))
+        mixed = [k for k in range(FLEET_SCANS) if 0 < got_promoted[k].sum() < B]
+        runs[B] = {
+            "sequences": B, "scans_timed": n_timed,
+            "fleet_scans_per_s": B * n_timed / wall,
+            "batched_scans_per_s": n_timed / wall,
+            "ms_per_batched_scan": wall * 1e3 / n_timed,
+            "segsum_launches": launches,
+            "device_busy_ms_per_batched_scan": prof["device_busy_ms_per_scan"],
+            "device_busy_share": prof["device_busy_share"],
+            "kernels_per_batched_scan": prof["kernels_per_scan"],
+            "wall_ms_per_profiled_scan": prof["wall_ms_per_scan"],
+            "max_dev_from_pipeline_m": dev_m,
+            "promoted": got_promoted.astype(int).tolist(),
+            "mixed_promotion_scans": mixed,
+            "pipeline_promoted": [want_promoted[b] for b in range(B)],
+        }
+        emit({"phase": "fleet", "part": f"B={B}", **runs[B]})
+        check(np.isfinite(got).all(), f"B={B}: non-finite poses")
+        check(dev_m <= FLEET_BOUND_M,
+              f"B={B}: fleet is {dev_m:.2e} m from the single Pipeline")
+        check(launches == n_timed * (DEPTH + 1),
+              f"B={B}: segsum launched {launches} times in {n_timed} batched scans")
+        del fleet, staged
+        torch.cuda.empty_cache()
+
+    # (a) the masked promotion: sequence 0 above beside a parked one
+    n_mixed = FLEET_MIXED["scans"]
+    mixed_seqs = fleet_sequences(FLEET_MIXED["speeds"], n_mixed)
+    mixed_want = [want[0][:n_mixed], single_pipeline_poses(mixed_seqs[1])[0]]
+    fleet = Fleet(cfg, 2, device=DEV)
+    poses, promoted = [], []
+    for k in range(n_mixed):
+        staged = (torch.as_tensor(a, device=DEV) for a in fleet_batch(mixed_seqs, k, N_POINTS))
+        promoted.append(fleet.compute(None, *staged).map_updated)
+        poses.append(fleet.states.X.clone())
+    got = torch.stack(poses).cpu().numpy().astype(np.float64)
+    got_promoted = torch.stack(promoted).cpu().numpy()
+    mixed_dev = float(max(np.abs(got[:, b] - mixed_want[b]).max() for b in range(2)))
+    mixed = [k for k in range(n_mixed) if 0 < got_promoted[k].sum() < 2]
+    runs["moving+parked"] = {"speeds_m": FLEET_MIXED["speeds"], "scans": n_mixed,
+                             "promoted": got_promoted.astype(int).tolist(),
+                             "mixed_promotion_scans": mixed,
+                             "max_dev_from_pipeline_m": mixed_dev}
+    emit({"phase": "fleet", "part": "moving+parked", **runs["moving+parked"]})
+    check(np.isfinite(got).all(), "moving+parked: non-finite poses")
+    check(mixed_dev <= FLEET_BOUND_M,
+          f"moving+parked: fleet is {mixed_dev:.2e} m from the single Pipelines")
+    check(mixed, "moving+parked: no step promoted in one sequence and not the other")
+    del fleet
+    torch.cuda.empty_cache()
+
+    # (b) segsum_moments at the fleet's sizes: every level of a B = 4 build
+    pts, val = (torch.as_tensor(a, device=DEV) for a in batches[1])
+    levels = capture_levels(pts, val, DEPTH)
+    check(len(levels) == DEPTH + 1, f"B=4 build: {len(levels)} levels")
+    rows, seg_err = [], 0.0
+    for d, idx, sz in levels:
+        got = segsum.segsum_moments(d, idx, sz)
+        ref = segsum.segsum_moments_ref(d.double(), idx, sz)
+        torch.testing.assert_close(got.double(), ref, rtol=1e-5, atol=5e-3,
+                                   msg=lambda m, sz=sz: f"B=4 level sz={sz}: {m}")
+        err = float((got.double() - ref).abs().max())
+        seg_err = max(seg_err, err)
+        rows.append({"sz": sz, "n": d.shape[0], "max_abs_err": err,
+                     "path": segsum.plan(d.shape[0], sz, segsum.sm_count(d.device)).path})
+    del levels, pts, val
+
+    # (d) a one-rank NCCL group: the keyframe hook's all-reduces issue on it
+    small = fleet_config(torch, num_keyframes=4)
+    distributed.initialize(f"localhost:{free_port()}", 1, 0, backend="nccl", device=DEV)
+    try:
+        backend = torch.distributed.get_backend()
+        sharded = Fleet(small, 2, mesh=make_mesh(kf=1, seq=1), device=DEV)
+        plain = Fleet(small, 2, device=DEV)
+        before = counter.all_reduces
+        for k in range(3):
+            batch = tuple(torch.as_tensor(a[:2], device=DEV) for a in batches[k])
+            sharded.compute(None, *batch)
+            plain.compute(None, *batch)
+        nccl_reduces = counter.all_reduces - before
+        nccl_dev = float(np.abs(sharded.poses() - plain.poses()).max())
+        del sharded, plain
+    finally:
+        distributed.shutdown()
+    check(backend == "nccl", f"one-rank group backend {backend}")
+    check(nccl_reduces == 2 * (15 + 2), f"{nccl_reduces} all-reduces in 2 odometry scans")
+    check(nccl_dev <= FLEET_BOUND_M, f"NCCL-mesh fleet {nccl_dev:.2e} m from no mesh")
+    torch.cuda.empty_cache()
+
+    # (c) fleet_eval on two ranks sharing the card: collective plumbing only
+    import dataclasses
+    import shutil
+
+    from madicp_tpu_torch.apps import fleet_eval
+    from madicp_tpu_torch.utils.config import DATASET_CONFIGS, MADParams, dump_yaml
+    from madicp_tpu_torch.utils.trajectory import load_kitti_poses
+
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_fleet_"))
+    try:
+        data = work / "seq0"
+        data.mkdir()
+        for k, p in enumerate(fleet_sequences(FLEET_SPEEDS[:1], FLEET_MP["scans"],
+                                              density=1)[0]):
+            rec = np.concatenate([p, np.ones((len(p), 1), np.float32)], axis=1)
+            rec.tofile(data / f"{k:06d}.bin")
+        dump_yaml(dataclasses.replace(DATASET_CONFIGS["vbr_os0"], min_range=1.0,
+                                      max_range=80.0), work / "dataset.yaml")
+        dump_yaml(MADParams(p_th=FLEET_P_TH), work / "mad.yaml")
+        base = ["--data-paths", str(data), "--dataset-config", str(work / "dataset.yaml"),
+                "--mad-icp-params", str(work / "mad.yaml"),
+                "--num-keyframes", str(FLEET_MP["keyframes"]),
+                "--n-points", str(FLEET_MP["n_points"]), "--depth", str(FLEET_MP["depth"]),
+                "--device", DEV, "--json"]
+        check(fleet_eval.main(base + ["--estimate-path", str(work / "one")]) == 0,
+              "fleet_eval on one process failed")
+        one = load_kitti_poses(work / "one" / "seq0" / "estimate.txt")
+        # both launches at once (four processes on the card): each pays
+        # its processes' start-up, which the other overlaps
+        variants = {"kf": [], "kf+points": ["--shard-points"]}
+        t0 = time.perf_counter()
+        procs = {name: subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc-per-node", "2", "-m", "madicp_tpu_torch.apps.fleet_eval",
+             *base, "--estimate-path", str(work / name), "--seq-axis", "1",
+             "--kf-axis", "2", *extra],
+            cwd=ROOT, env=dict(os.environ, OMP_NUM_THREADS="1"), text=True,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE) for name, extra in variants.items()}
+        two = {}
+        try:
+            for name, proc in procs.items():
+                stdout, stderr = proc.communicate(timeout=600)
+                check(proc.returncode == 0, f"fleet_eval {name} on two ranks failed:\n"
+                      f"{stdout[-2000:]}\n{stderr[-3000:]}")
+                summary = json.loads(stdout.strip().splitlines()[-1])
+                ranks = [load_kitti_poses(work / name / "seq0" / f)
+                         for f in ("estimate.txt", "estimate.rank1.txt")]
+                devs = [float(np.abs(r - one).max()) for r in ranks]
+                two[name] = {"processes": summary["processes"],
+                             "backend": summary["backend"],
+                             "max_dev_from_one_process_m": devs}
+                check(summary["backend"] == "gloo" and summary["processes"] == 2,
+                      f"{name}: {summary['processes']} ranks on {summary['backend']}")
+                check(max(devs) <= FLEET_BOUND_M, f"{name}: ranks {devs} m from one process")
+        finally:
+            for proc in procs.values():  # torchrun passes SIGTERM to its ranks
+                if proc.poll() is None:
+                    proc.terminate()
+                    try:
+                        proc.wait(timeout=30)
+                    except subprocess.TimeoutExpired:
+                        proc.kill()
+                        proc.wait()
+        two["seconds_both"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    out = {"phase": "fleet", "nvidia_smi": nvidia_smi,
+           "config": {"n_points": N_POINTS, "depth": DEPTH, "keyframes": KEYFRAMES,
+                      "max_leaves": MAX_LEAVES, "rounds": 15, "dtype": "float32",
+                      "schedule": "certified exact", "p_th": FLEET_P_TH,
+                      "scans": FLEET_SCANS, "speeds_m": FLEET_SPEEDS},
+           "batches": runs,
+           "segsum_b4_build": {"levels": rows, "max_abs_err": seg_err,
+                               "max_sz": max(r["sz"] for r in rows)},
+           "nccl_one_rank": {"all_reduces": nccl_reduces, "max_dev_m": nccl_dev},
+           "two_ranks_one_card": dict(two, config=FLEET_MP,
+                                      note="checks plumbing; times nothing"),
+           "bound_m": FLEET_BOUND_M, "seconds": time.perf_counter() - t_phase}
+    emit(out)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -734,6 +1067,7 @@ def main() -> int:
     steady = phase_steady(torch)
     phase_schedules(torch)
     phase_apps(torch, dev["nvidia_smi"])
+    phase_fleet(torch, dev["nvidia_smi"])
 
     f32 = ksum["float32"]
     rows = [{

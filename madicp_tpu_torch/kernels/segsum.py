@@ -177,6 +177,14 @@ def _workspace(device: torch.device, doubles: int) -> torch.Tensor:
     return ws
 
 
+def reserve(device: torch.device, n: int, sz: int) -> None:
+    """Allocate ``device``'s workspace now for calls of up to ``n`` points
+    into ``sz`` nodes, so that no later call at those sizes allocates
+    (and none may then be under CUDA graph capture). No-op off CUDA."""
+    if device.type == "cuda":
+        _workspace(device, plan(n, sz, sm_count(device)).workspace)
+
+
 def launch(d: torch.Tensor, idx: torch.Tensor, sz: int, pl: Plan) -> torch.Tensor:
     """Run the kernel on checked CUDA tensors as ``pl`` says; one count."""
     dev = d.device

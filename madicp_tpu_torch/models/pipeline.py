@@ -20,7 +20,12 @@ Differences of form, not of function:
   buffer donation: ``odometry_step`` mutates ``state.kf_tree`` and
   ``state.fr_tree`` and returns them in the new state;
 - the promotion branch reads one boolean on the host — the only host
-  synchronisation of a scan; the GN round loop has none.
+  synchronisation of a scan; the GN round loop has none;
+- the step also takes a batch of B sequences, a leading axis on every
+  state field (the JAX package's fleet is ``jax.vmap`` of its step):
+  the batch folds into the flat axes the step already has, so a batched
+  scan issues the kernels of one; its promotions are masked per
+  sequence, with no host read. A single state runs as a batch of one.
 
 Schedules: every schedule of the JAX package is ported — plain exact,
 certified exact (the shipped default) with its compacted variant
@@ -54,6 +59,7 @@ from madicp_tpu_torch.ops.icp_core import (
 from madicp_tpu_torch.ops.lie import exp_se3_split
 from madicp_tpu_torch.ops.tree import (
     NAV_WIDTH,
+    PointShard,
     SearchTree,
     build_tree,
     get_leaves,
@@ -155,71 +161,121 @@ class StepOutput(NamedTuple):
     n_descents: torch.Tensor     # ()
 
 
-def init_state(cfg: PipelineConfig, device) -> PipelineState:
+def init_state(cfg: PipelineConfig, device, batch: Optional[int] = None,
+               num_keyframes: Optional[int] = None) -> PipelineState:
+    """A fresh state; with ``batch`` = B every field gains a leading axis
+    of B sequences. ``num_keyframes`` sizes the keyframe ring held here
+    (one process's shard of a ring split over processes; default
+    ``cfg.num_keyframes``)."""
     dev = torch.device(device)
+    lead = () if batch is None else (batch,)
     f = dict(dtype=cfg.dtype, device=dev)
     i32 = dict(dtype=torch.int32, device=dev)
     eye = torch.eye(4, **f)
-    M, K, F = cfg.arena, cfg.num_keyframes, FRAME_WINDOW
+    M, F = cfg.arena, FRAME_WINDOW
+    K = cfg.num_keyframes if num_keyframes is None else num_keyframes
     return PipelineState(
-        X=eye.clone(),
-        velocity=torch.zeros(6, **f),
-        traj=eye.repeat(SMOOTHING_T, 1, 1),
-        traj_count=torch.zeros((), **i32),
-        kf_tree=SearchTree(nav=torch.zeros((K, M, NAV_WIDTH), **f)),
-        kf_valid=torch.zeros(K, dtype=torch.bool, device=dev),
-        kf_head=torch.zeros((), **i32),
-        keyframe_to_map=eye.clone(),
-        fr_tree=SearchTree(nav=torch.zeros((F, M, NAV_WIDTH), **f)),
-        fr_valid=torch.zeros(F, dtype=torch.bool, device=dev),
-        fr_weight=torch.full((F,), float("inf"), **f),
-        fr_seq=torch.zeros(F, **i32),
-        fr_pose=eye.repeat(F, 1, 1),
-        fr_head=torch.zeros((), **i32),
-        seq=torch.zeros((), **i32),
-        seq_keyframe=torch.zeros((), **i32),
+        X=eye.repeat(lead + (1, 1)),
+        velocity=torch.zeros(lead + (6,), **f),
+        traj=eye.repeat(lead + (SMOOTHING_T, 1, 1)),
+        traj_count=torch.zeros(lead, **i32),
+        kf_tree=SearchTree(nav=torch.zeros(lead + (K, M, NAV_WIDTH), **f)),
+        kf_valid=torch.zeros(lead + (K,), dtype=torch.bool, device=dev),
+        kf_head=torch.zeros(lead, **i32),
+        keyframe_to_map=eye.repeat(lead + (1, 1)),
+        fr_tree=SearchTree(nav=torch.zeros(lead + (F, M, NAV_WIDTH), **f)),
+        fr_valid=torch.zeros(lead + (F,), dtype=torch.bool, device=dev),
+        fr_weight=torch.full(lead + (F,), float("inf"), **f),
+        fr_seq=torch.zeros(lead + (F,), **i32),
+        fr_pose=eye.repeat(lead + (F, 1, 1)),
+        fr_head=torch.zeros(lead, **i32),
+        seq=torch.zeros(lead, **i32),
+        seq_keyframe=torch.zeros(lead, **i32),
     )
 
 
-def _slot_mask(n: int, slot: torch.Tensor) -> torch.Tensor:
-    return torch.arange(n, device=slot.device) == slot
+def _map(fn, nt):
+    """Apply ``fn`` to every tensor of a state or output (trees by their
+    ``nav``)."""
+    return type(nt)(*(SearchTree(nav=fn(v.nav)) if isinstance(v, SearchTree) else fn(v)
+                      for v in nt))
+
+
+def _lift(nt):
+    """A single sequence's state or output as a batch of one (views)."""
+    return _map(lambda t: t[None], nt)
+
+
+def _drop(nt):
+    """The only sequence of a batch of one (views)."""
+    return _map(lambda t: t[0], nt)
+
+
+def _rows(i: torch.Tensor, n: int) -> torch.Tensor:
+    """Flat row ``b * n + i[b]`` of each sequence's slot ``i`` (B,) in a
+    ``(B * n, ...)`` view of per-sequence rings."""
+    i = i.long()
+    if i.shape[0] == 1:
+        return i
+    return i + torch.arange(i.shape[0], device=i.device) * n
 
 
 def initialize_step(
-    cfg: PipelineConfig, state: PipelineState, points, valid, stamp, timer=None
+    cfg: PipelineConfig, state: PipelineState, points, valid, stamp, timer=None,
+    *, kf_offset: int = 0, points_shard: Optional[PointShard] = None,
 ) -> tuple[PipelineState, StepOutput]:
     """First-scan bootstrap (reference ``pipeline.cpp:267-284``): the scan
     becomes keyframe 0 at identity; no deskew, no ICP. Writes keyframe
-    slot 0 of ``state.kf_tree`` in place."""
+    slot 0 of ``state.kf_tree`` in place.
+
+    A batched state (leading B on every field, points (B, N, 3)) steps
+    every sequence at once. ``kf_offset`` is the global slot of this
+    state's first keyframe when the ring is split over processes (only
+    the holder of slot 0 writes it); ``points_shard`` builds from this
+    process's share of the points (see :func:`odometry_step`)."""
     del stamp
+    if state.X.dim() == 2:
+        state, out = initialize_step(cfg, _lift(state), points[None], valid[None], None,
+                                     timer, kf_offset=kf_offset, points_shard=points_shard)
+        return _drop(state), _drop(out)
+    B = points.shape[0]
+    if points_shard is not None:
+        points, valid = points_shard.take(points), points_shard.take(valid)
     with phase(timer, "build"):
         tree, _ = build_tree(
-            points, valid, depth=cfg.depth, b_max=cfg.b_max, b_min=cfg.b_min
+            points, valid, depth=cfg.depth, b_max=cfg.b_max, b_min=cfg.b_min,
+            shard=points_shard,
         )
     with phase(timer, "leaves"):
         leaves = get_leaves(tree, cfg.leaves_cap)
     dev = points.device
     eye = torch.eye(4, dtype=cfg.dtype, device=dev)
+    K_l = state.kf_valid.shape[1]
     with phase(timer, "rings"):
-        state.kf_tree.nav[0].copy_(tree.nav)
+        if kf_offset == 0:
+            state.kf_tree.nav[:, 0].copy_(tree.nav)
         state = state._replace(
-            kf_valid=state.kf_valid | (torch.arange(cfg.num_keyframes, device=dev) == 0),
-            kf_head=torch.full((), 1 % cfg.num_keyframes, dtype=torch.int32, device=dev),
-            traj=torch.cat([state.traj[:-1], eye[None]], dim=0),
-            traj_count=torch.ones((), dtype=torch.int32, device=dev),
+            kf_valid=state.kf_valid | (torch.arange(K_l, device=dev) == -kf_offset),
+            kf_head=torch.full((B,), 1 % cfg.num_keyframes, dtype=torch.int32, device=dev),
+            traj=torch.cat([state.traj[:, :-1], eye.expand(B, 1, 4, 4)], dim=1),
+            traj_count=torch.ones((B,), dtype=torch.int32, device=dev),
             seq=state.seq + 1,
         )
     out = StepOutput(
-        pose=eye,
-        inlier_ratio=torch.ones((), dtype=cfg.dtype, device=dev),
-        map_updated=torch.ones((), dtype=torch.bool, device=dev),
-        n_leaves=leaves.valid.sum(),
+        pose=eye.expand(B, 4, 4),
+        inlier_ratio=torch.ones((B,), dtype=cfg.dtype, device=dev),
+        map_updated=torch.ones((B,), dtype=torch.bool, device=dev),
+        n_leaves=leaves.valid.sum(-1),
         leaves_pts=leaves.pts,
         leaves_valid=leaves.valid,
         n_leaves_dropped=torch.clamp(leaves.total - cfg.leaves_cap, min=0),
-        n_descents=torch.zeros((), dtype=torch.int64, device=dev),
+        n_descents=torch.zeros((B,), dtype=torch.int64, device=dev),
     )
     return state, out
+
+
+def _identity(terms):
+    return terms
 
 
 def icp_rounds(
@@ -230,6 +286,7 @@ def icp_rounds(
     leaves_valid: torch.Tensor,
     X0: torch.Tensor,
     timer=None,
+    reduce_terms=None,
 ):
     """The GN round schedule over the keyframe ring (``pipeline.cpp:
     166-193``): plain exact (``certify=False``), certified exact (with
@@ -237,42 +294,70 @@ def icp_rounds(
     (``certify_prefix``) or fast (``assoc_mode="fast"``), as selected by
     the JAX package's ``icp_rounds``.
 
-    Every (keyframe, leaf) pair descends in one batched call over the
-    flat ``(K*M, 56)`` view of the ring. Returns ``(X, H_last, matched,
-    n_descents)``; ``matched`` comes from the final round only, like the
-    reference; ``n_descents`` counts the (valid-keyframe, valid-leaf)
-    descents actually walked (empty ring slots excluded). No schedule
-    reads the device from the host: where the JAX package branches on
-    device data, both branches are computed batched and selected.
+    Every (sequence, keyframe, leaf) entry descends in one batched call
+    over the flat ``(B*K*M, 56)`` view of the rings. Shapes: ``kf_tree``
+    (K, M, 56), ``kf_valid_f`` (K,), leaves (L, 3) / (L,), ``X0`` (4, 4);
+    or each with a leading batch of B sequences, every one with its own
+    ring, leaves and pose. Returns ``(X, H_last, matched, n_descents)``
+    (leading B where the inputs have it); ``matched`` comes from the
+    final round only, like the reference; ``n_descents`` counts the
+    (valid-keyframe, valid-leaf) descents actually walked (empty ring
+    slots excluded). No schedule reads the device from the host: where
+    the JAX package branches on device data, both branches are computed
+    batched and selected.
+
+    ``reduce_terms`` completes every round's reduction when the ring is
+    split over processes: it receives the batched ``(H (B,6,6), b
+    (B,6))`` or ``(H, b, matched (B,L))`` of this process's keyframes
+    and returns the reduction over all of them (all-reduce over the
+    keyframe group); identity by default. The keyframe count is taken
+    from the (local) shapes, not from ``cfg.num_keyframes``.
     """
+    if X0.dim() == 2:
+        X, H, matched, n_desc = icp_rounds(
+            cfg, SearchTree(nav=kf_tree.nav[None]), kf_valid_f[None], leaves_pts[None],
+            leaves_valid[None], X0[None], timer=timer, reduce_terms=reduce_terms)
+        return X[0], H[0], matched[0], n_desc[0]
+    if reduce_terms is None:
+        reduce_terms = _identity
     dtype, dev = cfg.dtype, X0.device
-    K = kf_valid_f.shape[0]
-    L = leaves_pts.shape[0]
-    nv = leaves_valid.sum()  # valid moving leaves
-    kv = (kf_valid_f > 0).sum()  # valid keyframes
-    kf_live = kf_valid_f > 0  # (K,)
+    B, K = kf_valid_f.shape
+    L = leaves_pts.shape[1]
+    nv = leaves_valid.sum(-1)  # (B,) valid moving leaves
+    kf_live = kf_valid_f > 0  # (B, K)
+    kv = kf_live.sum(-1)  # (B,) valid keyframes
+    nav = kf_tree.nav.reshape((B * K,) + kf_tree.nav.shape[2:])
     terms_kw = dict(b_max=cfg.b_max, b_ratio=cfg.b_ratio, rho_ker=cfg.rho_ker)
 
     def descend(X, need, margin: bool, pts=None, start=None, n_gathers=None):
-        """Descend every (keyframe, query) entry with ``need`` (K, Q);
-        the others park on row 0 of their keyframe's arena. ``pts``: the
-        queries in the scan frame, (Q, 3) or (K, Q, 3); the leaves by
-        default."""
+        """Descend every (sequence, keyframe, query) entry with ``need``
+        (B, K, Q); the others park on row 0 of their keyframe's arena.
+        ``pts``: the queries in the scan frame, (B, Q, 3) or (B, K, Q, 3);
+        the leaves by default. Results are (B, K, Q, ...)."""
         pts = leaves_pts if pts is None else pts
+        Q = need.shape[-1]
         with phase(timer, "association"):
-            return associate_ring(
-                kf_tree.nav, cfg.depth, pts @ X[:3, :3].T + X[:3, 3], need,
-                start=start, n_gathers=n_gathers, return_margin=margin,
+            if pts.dim() == 3:
+                q = (pts @ X[:, :3, :3].mT + X[:, None, :3, 3])[:, None].expand(B, K, Q, 3)
+            else:
+                q = pts @ X[:, None, :3, :3].mT + X[:, None, None, :3, 3]
+            out = associate_ring(
+                nav.view(B * K, -1, nav.shape[-1]), cfg.depth, q.reshape(B * K, Q, 3),
+                need.reshape(B * K, Q), start=None if start is None else start.reshape(B * K, Q),
+                n_gathers=n_gathers, return_margin=margin,
             )
+            return tuple(o.view((B, K) + o.shape[1:]) for o in out)
 
     def terms_scan(X, payload, with_matched: bool):
-        """H/b (+ matched) over all keyframes from (K, L, 8) payloads."""
-        terms = terms_from_payload(payload, leaves_pts, leaves_valid, X, **terms_kw)
-        H = torch.einsum("k,kij->ij", kf_valid_f, terms.H)
-        b = torch.einsum("k,ki->i", kf_valid_f, terms.b)
+        """H/b (+ matched) of each sequence over its keyframes from
+        (B, K, L, 8) payloads, reduced over the keyframe group."""
+        terms = terms_from_payload(payload, leaves_pts[:, None], leaves_valid[:, None],
+                                   X[:, None], **terms_kw)
+        H = torch.einsum("bk,bkij->bij", kf_valid_f, terms.H)
+        b = torch.einsum("bk,bki->bi", kf_valid_f, terms.b)
         if with_matched:
-            return H, b, torch.any(terms.matched & kf_live[:, None], dim=0)
-        return H, b
+            return reduce_terms((H, b, torch.any(terms.matched & kf_live[..., None], dim=1)))
+        return reduce_terms((H, b))
 
     def step(X, payload, with_matched=False):
         with phase(timer, "terms+solve"):
@@ -283,9 +368,9 @@ def icp_rounds(
     if n_its <= 0:
         return (
             X0,
-            torch.zeros((6, 6), dtype=dtype, device=dev),
-            torch.zeros(L, dtype=torch.bool, device=dev),
-            torch.zeros((), dtype=torch.int64, device=dev),
+            torch.zeros((B, 6, 6), dtype=dtype, device=dev),
+            torch.zeros((B, L), dtype=torch.bool, device=dev),
+            torch.zeros((B,), dtype=torch.int64, device=dev),
         )
 
     if cfg.assoc_mode == "fast":
@@ -296,7 +381,7 @@ def icp_rounds(
         # other rounds reuse the cached payloads. Like the JAX package,
         # its descents mask only invalid leaves, not empty ring slots,
         # and its descent count is static.
-        need = leaves_valid.expand(K, L)
+        need = leaves_valid[:, None, :].expand(B, K, L)
         warm = cfg.reassoc_backup > 0
         warm_gathers = -(-cfg.reassoc_backup // 3) + 1
 
@@ -326,7 +411,7 @@ def icp_rounds(
     if not cfg.certify:
         # plain exact: every round re-descends every leaf against every
         # keyframe (empty slots descend an all-zero arena and add nothing)
-        need = leaves_valid.expand(K, L)
+        need = leaves_valid[:, None, :].expand(B, K, L)
         X = X0
         for _ in range(n_its - 1):
             _, payload = descend(X, need, False)
@@ -341,7 +426,8 @@ def icp_rounds(
         )
 
         return prefix_certified_rounds(
-            cfg, kf_valid_f, leaves_pts, leaves_valid, X0, descend=descend, terms_scan=terms_scan, kv=kv, nv=nv, timer=timer,
+            cfg, kf_valid_f, leaves_pts, leaves_valid, X0, descend=descend,
+            terms_scan=terms_scan, reduce_terms=reduce_terms, kv=kv, nv=nv, timer=timer,
         )
 
     # ---- certified exact schedule (JAX PipelineConfig.certify) ----
@@ -350,8 +436,8 @@ def icp_rounds(
     # provably descends to the same leaf, so its cached payload is kept
     # and its descent parked.
     dinfo = torch.finfo(dtype)
-    r_norm = torch.sqrt(torch.sum(leaves_pts * leaves_pts, dim=-1))  # (L,)
-    live_kl = leaves_valid[None, :] & kf_live[:, None]  # (K, L)
+    r_norm = torch.sqrt(torch.sum(leaves_pts * leaves_pts, dim=-1))  # (B, L)
+    live_kl = leaves_valid[:, None, :] & kf_live[:, :, None]  # (B, K, L)
 
     def motion_bound(Xa, Xb):
         """Exact per-leaf displacement ||Xb m - Xa m|| between rounds.
@@ -359,22 +445,23 @@ def icp_rounds(
         differences — an arccos angle bound carries ~sqrt(eps) error and
         certifies near-zero-slack entries unsoundly (JAX package,
         models/pipeline.py:531-558)."""
-        d = leaves_pts @ (Xb[:3, :3] - Xa[:3, :3]).T + (Xb[:3, 3] - Xa[:3, 3])
-        return torch.sqrt(torch.sum(d * d, dim=-1))
+        d = (leaves_pts @ (Xb[:, :3, :3] - Xa[:, :3, :3]).mT
+             + (Xb[:, :3, 3] - Xa[:, :3, 3])[:, None])
+        return torch.sqrt(torch.sum(d * d, dim=-1))  # (B, L)
 
     def eps_cert(X):
         """fp-safety floor: the side dot-product's rounding noise scales
         with the map-frame coordinate magnitude."""
-        t_norm = torch.sqrt(torch.sum(X[:3, 3] * X[:3, 3]))
-        return 64.0 * dinfo.eps * (1.0 + t_norm + r_norm)  # (L,)
+        t_norm = torch.sqrt(torch.sum(X[:, :3, 3] * X[:, :3, 3], dim=-1))
+        return 64.0 * dinfo.eps * (1.0 + t_norm[:, None] + r_norm)  # (B, L)
 
     U = min(cfg.certify_compact, L)
     if U:
-        slots = torch.arange(1, U + 1, device=dev).expand(K, U).contiguous()
+        slots = torch.arange(1, U + 1, device=dev).expand(B, K, U).contiguous()
         sweep_col = U + torch.arange(L, device=dev)  # (L,)
 
     def descend_need(X, need):
-        """Fresh (ids, payload, margin) (K, L) for the ``need`` entries.
+        """Fresh (ids, payload, margin) (B, K, L) for the ``need`` entries.
 
         With ``certify_compact`` = U (JAX models/pipeline.py:567-632): a
         keyframe whose live uncertified count fits compacts those leaves
@@ -384,18 +471,19 @@ def icp_rounds(
         in one call and each entry reads its own branch's result."""
         if not U:
             return descend(X, need, True)
-        rank = torch.cumsum(need, dim=1)  # (K, L): 1-based rank of need entries
-        fits = rank[:, -1] <= U  # (K,)
-        leaf_of_slot = torch.searchsorted(rank, slots)  # (K, U); L = empty
-        in_buf = (leaf_of_slot < L) & fits[:, None]
+        rank = torch.cumsum(need, dim=-1)  # (B, K, L): 1-based rank of need entries
+        fits = rank[..., -1] <= U  # (B, K)
+        leaf_of_slot = torch.searchsorted(rank, slots)  # (B, K, U); L = empty
+        in_buf = (leaf_of_slot < L) & fits[..., None]
         pts = torch.cat([
-            leaves_pts[torch.clamp(leaf_of_slot, max=L - 1)],
-            leaves_pts.expand(K, L, 3),
-        ], dim=1)  # (K, U + L, 3)
-        out = descend(X, torch.cat([in_buf, need & ~fits[:, None]], dim=1), True, pts=pts)
-        col = torch.where(fits[:, None], torch.clamp(rank - 1, min=0), sweep_col)
+            torch.take_along_dim(leaves_pts[:, None],
+                                 torch.clamp(leaf_of_slot, max=L - 1)[..., None], dim=2),
+            leaves_pts[:, None].expand(B, K, L, 3),
+        ], dim=2)  # (B, K, U + L, 3)
+        out = descend(X, torch.cat([in_buf, need & ~fits[..., None]], dim=-1), True, pts=pts)
+        col = torch.where(fits[..., None], torch.clamp(rank - 1, min=0), sweep_col)
         return tuple(
-            torch.take_along_dim(o, col.reshape(col.shape + (1,) * (o.dim() - 2)), dim=1)
+            torch.take_along_dim(o, col.reshape(col.shape + (1,) * (o.dim() - 3)), dim=2)
             for o in out
         )
 
@@ -416,18 +504,18 @@ def icp_rounds(
 
     Xp, X = X0, step(X0, payload)[0]
     for _ in range(1, n_its - 1):
-        slack = slack - motion_bound(Xp, X)[None, :]
-        uncert = slack <= eps_cert(X)[None, :]
+        slack = slack - motion_bound(Xp, X)[:, None, :]
+        uncert = slack <= eps_cert(X)[:, None, :]
         ids, payload, slack = reassociate(X, uncert, ids, payload, slack)
-        n_descents = n_descents + (uncert & live_kl).sum()
+        n_descents = n_descents + (uncert & live_kl).sum(dim=(1, 2))
         Xp, X = X, step(X, payload)[0]
     # final round: matched flags and H_last from this round's (certified)
     # re-association, like the reference's last-iteration reset
     # (pipeline.cpp:172-176)
-    slack = slack - motion_bound(Xp, X)[None, :]
-    uncert = slack <= eps_cert(X)[None, :]
+    slack = slack - motion_bound(Xp, X)[:, None, :]
+    uncert = slack <= eps_cert(X)[:, None, :]
     _, payload, _ = reassociate(X, uncert, ids, payload, slack)
-    n_descents = n_descents + (uncert & live_kl).sum()
+    n_descents = n_descents + (uncert & live_kl).sum(dim=(1, 2))
     X, H_last, _, matched = step(X, payload, True)
     return X, H_last, matched, n_descents
 
@@ -439,89 +527,158 @@ def odometry_step(
     valid,
     stamp,
     timer=None,
+    *,
+    icp_rounds_fn=None,
+    kf_offset: int = 0,
+    points_shard: Optional[PointShard] = None,
 ) -> tuple[PipelineState, StepOutput]:
     """One full odometry step (reference ``Pipeline::compute``,
     ``pipeline.cpp:125-265``). Updates ``state.fr_tree`` (and, on
-    promotion, ``state.kf_tree``) in place; reads one boolean on the host
-    to decide the promotion. ``timer``: an optional
-    :class:`~madicp_tpu_torch.utils.timing.PhaseTimer`."""
+    promotion, ``state.kf_tree``) in place. ``timer``: an optional
+    :class:`~madicp_tpu_torch.utils.timing.PhaseTimer`.
+
+    A single sequence's state that holds its whole ring steps as a batch
+    of one and decides its promotion with one boolean read on the host
+    (the scan's only synchronisation; a scan that does not promote then
+    touches no ring slot). A batched state (leading B on every field,
+    points (B, N, 3), valid (B, N)), or one holding a share of its ring,
+    promotes per sequence with masks and no host read: the promoted
+    window tree of each sequence overwrites its ring slot through one
+    ``index_copy_`` (a sequence that does not promote, or a process that
+    does not hold the slot, writes the slot's own tree back).
+
+    For a keyframe ring split over processes: ``icp_rounds_fn(kf_tree,
+    kf_valid, leaves, X0) -> (X, H_last, matched, n_descents)`` replaces
+    the round loop (the keyframe-sharded step passes :func:`icp_rounds`
+    with an all-reduce hook), and ``kf_offset`` is the global slot of
+    this state's first keyframe: the promotion writes a slot only where
+    this process holds it. ``points_shard``
+    (:class:`~madicp_tpu_torch.ops.tree.PointShard`) builds the scan's
+    tree from this process's share of the points (``points`` is the
+    whole cloud: the deskew sweep needs every point).
+    """
     del stamp
+    if state.X.dim() == 2:
+        whole_ring = kf_offset == 0 and state.kf_valid.shape[0] == cfg.num_keyframes
+        state, out = _odometry_step(
+            cfg, _lift(state), points[None], valid[None], timer, icp_rounds_fn,
+            kf_offset, points_shard, promote_on_host=whole_ring)
+        return _drop(state), _drop(out)
+    return _odometry_step(cfg, state, points, valid, timer, icp_rounds_fn, kf_offset,
+                          points_shard, promote_on_host=False)
+
+
+def _odometry_step(cfg, state, points, valid, timer, icp_rounds_fn, kf_offset,
+                   points_shard, promote_on_host: bool):
+    """:func:`odometry_step` on a batched state; ``promote_on_host``
+    decides a batch of one's promotion with a host read."""
     dtype, dev = cfg.dtype, points.device
-    hz = torch.tensor(cfg.sensor_hz, dtype=dtype, device=dev)
+    B = points.shape[0]
+    # filled in on the device: a copy from the host would synchronise
+    hz = torch.full((), cfg.sensor_hz, dtype=dtype, device=dev)
 
     # ---- deskew (pipeline.cpp:137-138, 79-123) ----
     if cfg.deskew:
         with phase(timer, "deskew"):
             do = state.traj_count >= 2
             skewed = deskew_cloud(
-                points, state.traj[-2], state.traj[-1], hz,
+                points, state.traj[:, -2], state.traj[:, -1], hz,
                 valid=valid, mode=cfg.deskew_mode,
             )
-            points = torch.where((do & valid)[:, None], skewed, points)
+            points = torch.where((do[:, None] & valid)[..., None], skewed, points)
 
     # ---- current-scan tree (pipeline.cpp:140-144) ----
+    if points_shard is not None:
+        points, valid = points_shard.take(points), points_shard.take(valid)
     with phase(timer, "build"):
         tree, _ = build_tree(
-            points, valid, depth=cfg.depth, b_max=cfg.b_max, b_min=cfg.b_min
+            points, valid, depth=cfg.depth, b_max=cfg.b_max, b_min=cfg.b_min,
+            shard=points_shard,
         )
     with phase(timer, "leaves"):
         leaves = get_leaves(tree, cfg.leaves_cap)
 
     # ---- constant-velocity prediction + ICP (pipeline.cpp:146-193) ----
     X0 = state.X @ exp_se3_split(state.velocity / hz)
-    X, H_last, matched, n_descents = icp_rounds(
-        cfg, state.kf_tree, state.kf_valid.to(dtype),
-        leaves.pts, leaves.valid, X0, timer=timer,
-    )
+    if icp_rounds_fn is None:
+        X, H_last, matched, n_descents = icp_rounds(
+            cfg, state.kf_tree, state.kf_valid.to(dtype),
+            leaves.pts, leaves.valid, X0, timer=timer,
+        )
+    else:
+        X, H_last, matched, n_descents = icp_rounds_fn(
+            state.kf_tree, state.kf_valid, leaves, X0)
 
     with phase(timer, "rings"):
         # ---- inlier ratio over final-round matches (pipeline.cpp:197-204)
-        n_leaves = leaves.valid.sum()
-        ratio = (matched & leaves.valid).sum().to(dtype) / torch.clamp(
+        n_leaves = leaves.valid.sum(-1)
+        ratio = (matched & leaves.valid).sum(-1).to(dtype) / torch.clamp(
             n_leaves, min=1
         ).to(dtype)
 
         # ---- trajectory + velocity smoothing (pipeline.cpp:206-217) ----
-        traj = torch.cat([state.traj[1:], X[None]], dim=0)
+        traj = torch.cat([state.traj[:, 1:], X[:, None]], dim=1)
         traj_count = state.traj_count + 1
         velocity = estimate_velocity(state.velocity, traj, traj_count, 1.0 / hz)
 
         # ---- frame record (pipeline.cpp:219-232), ring slot in place ----
         F, K = FRAME_WINDOW, cfg.num_keyframes
         head = state.fr_head
-        at = _slot_mask(F, head)
-        tree_map_frame = transform_tree(tree, X[:3, :3], X[:3, 3])
-        state.fr_tree.nav.index_copy_(0, head.long().view(1), tree_map_frame.nav[None])
+        at = torch.arange(F, device=dev) == head[:, None]  # (B, F)
+        tree_map_frame = transform_tree(tree, X[:, :3, :3], X[:, :3, 3])
+        fr_nav = state.fr_tree.nav
+        fr_rings = fr_nav.view((B * F,) + fr_nav.shape[2:])
+        fr_rings.index_copy_(0, _rows(head, F), tree_map_frame.nav)
         fr_valid = state.fr_valid | at
-        fr_weight = torch.where(at, neg_logdet(H_last), state.fr_weight)
-        fr_seq = torch.where(at, state.seq, state.fr_seq)
-        fr_pose = torch.where(at[:, None, None], X, state.fr_pose)
+        fr_weight = torch.where(at, neg_logdet(H_last)[:, None], state.fr_weight)
+        fr_seq = torch.where(at, state.seq[:, None], state.fr_seq)
+        fr_pose = torch.where(at[..., None, None], X[:, None], state.fr_pose)
         fr_head = (head + 1) % F
 
         # ---- keyframe promotion (pipeline.cpp:234-262) ----
-        promote = ratio < cfg.p_th
-        best = torch.argmin(torch.where(fr_valid, fr_weight, float("inf")))
-        kf_tree, kf_valid, kf_head = state.kf_tree, state.kf_valid, state.kf_head
+        promote = ratio < cfg.p_th  # (B,)
+        best = torch.argmin(torch.where(fr_valid, fr_weight, float("inf")), dim=-1)
+        kf_nav = state.kf_tree.nav
+        K_l = kf_nav.shape[1]
+        kf_rings = kf_nav.view((B * K_l,) + kf_nav.shape[2:])
+        kf_valid, kf_head = state.kf_valid, state.kf_head
         keyframe_to_map, seq_keyframe = state.keyframe_to_map, state.seq_keyframe
-        if bool(promote):  # the scan's one host synchronisation
-            best_seq = fr_seq[best]
-            kf_tree.nav.index_copy_(
-                0, kf_head.long().view(1), state.fr_tree.nav.index_select(0, best.view(1))
-            )
-            kf_valid = kf_valid | _slot_mask(K, kf_head)
-            kf_head = (kf_head + 1) % K
-            # drop window frames at or before the promoted one
-            # (pipeline.cpp:246-251)
-            fr_valid = fr_valid & (fr_seq > best_seq)
-            keyframe_to_map = fr_pose[best]
-            seq_keyframe = best_seq
+        if promote_on_host:
+            if bool(promote):  # the scan's one host synchronisation
+                best_seq = fr_seq[0, best]
+                kf_rings.index_copy_(0, kf_head.long(), fr_rings.index_select(0, best))
+                kf_valid = kf_valid | (torch.arange(K, device=dev) == kf_head[:, None])
+                kf_head = (kf_head + 1) % K
+                # drop window frames at or before the promoted one
+                # (pipeline.cpp:246-251)
+                fr_valid = fr_valid & (fr_seq > best_seq[:, None])
+                keyframe_to_map = fr_pose[0, best]
+                seq_keyframe = best_seq
+        else:
+            # per sequence, masked: only where it promotes and this
+            # process holds its ring head
+            slot = kf_head.long() - kf_offset
+            write = promote & (slot >= 0) & (slot < K_l)
+            rows = _rows(torch.clamp(slot, 0, K_l - 1), K_l)
+            kf_rings.index_copy_(0, rows, torch.where(
+                write[:, None, None], fr_rings.index_select(0, _rows(best, F)),
+                kf_rings.index_select(0, rows)))
+            kf_valid = kf_valid | (write[:, None]
+                                   & (torch.arange(K_l, device=dev) == slot[:, None]))
+            kf_head = torch.where(promote, (kf_head + 1) % K, kf_head)
+            best_seq = torch.gather(fr_seq, 1, best[:, None])
+            fr_valid = torch.where(promote[:, None], fr_valid & (fr_seq > best_seq), fr_valid)
+            keyframe_to_map = torch.where(
+                promote[:, None, None], fr_pose[torch.arange(B, device=dev), best],
+                keyframe_to_map)
+            seq_keyframe = torch.where(promote, best_seq[:, 0], seq_keyframe)
 
     new_state = PipelineState(
         X=X,
         velocity=velocity,
         traj=traj,
         traj_count=traj_count,
-        kf_tree=kf_tree,
+        kf_tree=state.kf_tree,
         kf_valid=kf_valid,
         kf_head=kf_head,
         keyframe_to_map=keyframe_to_map,
@@ -539,7 +696,7 @@ def odometry_step(
         inlier_ratio=ratio,
         map_updated=promote,
         n_leaves=n_leaves,
-        leaves_pts=leaves.pts @ X[:3, :3].T + X[:3, 3],
+        leaves_pts=leaves.pts @ X[:, :3, :3].mT + X[:, None, :3, 3],
         leaves_valid=leaves.valid,
         n_leaves_dropped=torch.clamp(leaves.total - cfg.leaves_cap, min=0),
         n_descents=n_descents,

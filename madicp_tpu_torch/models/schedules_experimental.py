@@ -45,29 +45,33 @@ def prefix_certified_rounds(
     *,
     descend,
     terms_scan,
+    reduce_terms,
     kv: torch.Tensor,
     nv: torch.Tensor,
     timer=None,
 ):
-    """The prefix-certified exact schedule (``cfg.certify_prefix > 0``).
+    """The prefix-certified exact schedule (``cfg.certify_prefix > 0``)
+    over a batch of B sequences: ``kf_valid_f`` (B, K), leaves (B, L, 3)
+    and (B, L), ``X0`` (B, 4, 4).
 
     ``descend(X, need, margin, pts=...)`` and ``terms_scan(X, payload,
     with_matched)`` are ``icp_rounds``' batched descent over the keyframe
-    ring and its canonical-order terms. Returns ``(X, H_last, matched,
-    n_descents)``.
+    rings and its canonical-order terms; ``reduce_terms`` its reduction
+    over the keyframe group, applied here to the sorted terms. Returns
+    ``(X, H_last, matched, n_descents)``.
     """
     dtype, dev = cfg.dtype, X0.device
-    K = kf_valid_f.shape[0]
-    L = leaves_pts.shape[0]
+    B, K = kf_valid_f.shape
+    L = leaves_pts.shape[1]
     n_its = cfg.max_icp_iterations
     U = min(cfg.certify_prefix, L)
     eps64 = 64.0 * torch.finfo(dtype).eps
-    live = kf_valid_f > 0  # (K,)
+    live = kf_valid_f > 0  # (B, K)
     terms_kw = dict(b_max=cfg.b_max, b_ratio=cfg.b_ratio, rho_ker=cfg.rho_ker)
 
     # round 0: full descent against every live keyframe, recording path
     # margins (X0 is the baseline pose of every certificate)
-    _, payload0, margin0 = descend(X0, leaves_valid[None, :] & live[:, None], True)
+    _, payload0, margin0 = descend(X0, leaves_valid[:, None, :] & live[:, :, None], True)
     n_descents = kv * nv
     if n_its == 1:
         with phase(timer, "terms+solve"):
@@ -80,79 +84,82 @@ def prefix_certified_rounds(
     # for any E0 > 0; the floor of 1.0 keeps the skip guard's fp term above
     # eps_cert on close-range scenes
     E0 = torch.clamp(
-        torch.sum(torch.where(leaves_valid, _norm(leaves_pts), 0.0))
+        torch.sum(torch.where(leaves_valid, _norm(leaves_pts), 0.0), dim=-1)
         / torch.clamp(nv.to(dtype), min=1.0),
         min=1.0,
-    )
+    )[:, None]  # (B, 1)
 
     def sort_kf(margin, payload, lps, lv, order):
         """Each keyframe's certification baseline from a full
         re-association: its entries in ascending ``mu`` (stable, like
         ``jnp.argsort``; masked entries carry the dtype's max margin and
         sort last). ``order`` maps sorted to canonical leaf positions."""
-        mu = margin / (E0 + _norm(lps))
-        perm = torch.argsort(mu, dim=1, stable=True)  # (K, L)
+        mu = margin / (E0[..., None] + _norm(lps))
+        perm = torch.argsort(mu, dim=-1, stable=True)  # (B, K, L)
         take = lambda a: torch.take_along_dim(  # noqa: E731
-            a, perm.reshape(perm.shape + (1,) * (a.dim() - 2)), dim=1)
+            a, perm.reshape(perm.shape + (1,) * (a.dim() - 3)), dim=2)
         return take(payload), take(lps), take(lv), take(mu), take(order)
 
     sstate = sort_kf(
-        margin0, payload0, leaves_pts.expand(K, L, 3), leaves_valid.expand(K, L),
-        torch.arange(L, device=dev).expand(K, L),
+        margin0, payload0, leaves_pts[:, None].expand(B, K, L, 3),
+        leaves_valid[:, None].expand(B, K, L),
+        torch.arange(L, device=dev).expand(B, K, L),
     )
 
     def terms_sorted(X, sstate, with_matched: bool):
         payload, lps, lv, _, order = sstate
-        terms = terms_from_payload(payload, lps, lv, X, **terms_kw)
-        H = torch.einsum("k,kij->ij", kf_valid_f, terms.H)
-        b = torch.einsum("k,ki->i", kf_valid_f, terms.b)
+        terms = terms_from_payload(payload, lps, lv, X[:, None], **terms_kw)
+        H = torch.einsum("bk,bkij->bij", kf_valid_f, terms.H)
+        b = torch.einsum("bk,bki->bi", kf_valid_f, terms.b)
         if with_matched:
             # back to canonical leaf positions (each keyframe's order
-            # differs) before the any over keyframes
-            m = torch.zeros((K, L), dtype=torch.bool, device=dev).scatter_(
-                1, order, terms.matched & live[:, None])
-            return H, b, torch.any(m, dim=0)
-        return H, b
+            # differs) before the any over keyframes and processes
+            m = torch.zeros((B, K, L), dtype=torch.bool, device=dev).scatter_(
+                2, order, terms.matched & live[..., None])
+            return reduce_terms((H, b, torch.any(m, dim=1)))
+        return reduce_terms((H, b))
 
     def motion_budget(Xa, Xb):
-        """Per-round displacement bound components: a query moves
+        """Per-round displacement bound components (B, 1): a query moves
         ``|(Xb - Xa) m| <= |dt| + |dR|_F |m|``. Frobenius, not trig: the
         bound's own rounding must stay under the eps64 floor."""
-        dR = Xb[:3, :3] - Xa[:3, :3]
-        return _norm(Xb[:3, 3] - Xa[:3, 3]), torch.sqrt(torch.sum(dR * dR))
+        dR = Xb[:, :3, :3] - Xa[:, :3, :3]
+        return (_norm(Xb[:, :3, 3] - Xa[:, :3, 3])[:, None],
+                torch.sqrt(torch.sum(dR * dR, dim=(1, 2)))[:, None])
 
     iota_u = torch.arange(U, device=dev)
 
     def reassoc_round(X, sstate, A, C, T, nd):
-        """One round's re-association. ``T`` (K,) is a running max, so
+        """One round's re-association. ``T`` (B, K) is a running max, so
         within an epoch a keyframe's uncertified prefix only grows: a
         skipped entry (mu > T) has margin > A + C r + eps_cert and its
         cache provably holds the epoch's leaf."""
         payload, lps, lv, mu, order = sstate
-        T = torch.maximum(T, torch.maximum(A / E0, C) + eps64 * (1.0 + _norm(X[:3, 3])))
-        n_r = torch.searchsorted(mu, T[:, None], right=True)  # (K, 1)
-        fits = (n_r <= U)[:, 0]  # (K,): the prefix branch, else the reset
-        act_p = lv[:, :U] & (iota_u < n_r) & (live & fits)[:, None]
-        act_r = lv & (live & ~fits)[:, None]
+        T = torch.maximum(
+            T, torch.maximum(A / E0, C) + eps64 * (1.0 + _norm(X[:, :3, 3]))[:, None])
+        n_r = torch.searchsorted(mu, T[..., None], right=True)  # (B, K, 1)
+        fits = (n_r <= U)[..., 0]  # (B, K): the prefix branch, else the reset
+        act_p = lv[..., :U] & (iota_u < n_r) & (live & fits)[..., None]
+        act_r = lv & (live & ~fits)[..., None]
         _, pl, mg = descend(
-            X, torch.cat([act_p, act_r], dim=1), True,
-            pts=torch.cat([lps[:, :U], lps], dim=1),
+            X, torch.cat([act_p, act_r], dim=-1), True,
+            pts=torch.cat([lps[:, :, :U], lps], dim=2),
         )
         # prefix branch: fresh payloads for the active prefix entries
-        head = torch.where(act_p[..., None], pl[:, :U], payload[:, :U])
-        kept = (torch.cat([head, payload[:, U:]], dim=1), lps, lv, mu, order)
+        head = torch.where(act_p[..., None], pl[:, :, :U], payload[:, :, :U])
+        kept = (torch.cat([head, payload[:, :, U:]], dim=2), lps, lv, mu, order)
         # reset branch: the whole leaf set re-descended, re-sorted by its
         # fresh margins; this round's pose is the keyframe's new baseline
         reset = sort_kf(
-            mg[:, U:], torch.where(act_r[..., None], pl[:, U:], payload), lps, lv, order)
+            mg[:, :, U:], torch.where(act_r[..., None], pl[:, :, U:], payload), lps, lv, order)
         sstate = tuple(
-            torch.where(fits.reshape((K,) + (1,) * (a.dim() - 1)), a, b)
+            torch.where(fits.reshape((B, K) + (1,) * (a.dim() - 2)), a, b)
             for a, b in zip(kept, reset)
         )
         A, C, T = (torch.where(fits, v, 0.0) for v in (A, C, T))
-        return sstate, A, C, T, nd + act_p.sum() + act_r.sum()
+        return sstate, A, C, T, nd + act_p.sum(dim=(1, 2)) + act_r.sum(dim=(1, 2))
 
-    zeros_k = torch.zeros(K, dtype=dtype, device=dev)
+    zeros_k = torch.zeros((B, K), dtype=dtype, device=dev)
     A, C, T = zeros_k, zeros_k, zeros_k
     Xp, X = X0, X1
     for _ in range(1, n_its - 1):

@@ -26,10 +26,12 @@ def estimate_velocity(
     """One GN round of the velocity estimate.
 
     Args:
-        v0: (6,) current velocity ``[v_lin, v_ang]``.
-        traj: (W, 4, 4) pose window, newest LAST; older slots may be padding.
+        v0: (6,) current velocity ``[v_lin, v_ang]``, or (B, 6).
+        traj: (W, 4, 4) pose window, newest LAST; older slots may be
+              padding. (B, W, 4, 4) with a batch.
         count: number of valid poses occupying the trailing slots
-               (window length n = min(count, W)); an int or 0-d tensor.
+               (window length n = min(count, W)); an int or a tensor of
+               the batch's shape.
         ts: scan period (1 / sensor_hz).
 
     Slot ``i`` pairs with the newest pose using ``dt = (W-1-i) * ts`` and
@@ -37,22 +39,22 @@ def estimate_velocity(
     (``vel_estimator.cpp:81-97``).
     """
     dtype, dev = traj.dtype, traj.device
-    W = traj.shape[0]
+    W = traj.shape[-3]
     ts = torch.as_tensor(ts, dtype=dtype, device=dev)
-    n = torch.clamp(torch.as_tensor(count, device=dev), max=W).to(dtype)
+    n = torch.clamp(torch.as_tensor(count, device=dev), max=W).to(dtype)[..., None]
 
-    T_now = traj[-1]
-    T_prev = traj[:-1]  # (W-1, 4, 4)
+    T_now = traj[..., -1:, :, :]
+    T_prev = traj[..., :-1, :, :]  # (..., W-1, 4, 4)
     i = torch.arange(W - 1, dtype=dtype, device=dev)
     active = (i >= (W - n)) & (n >= 2)
     dt = (W - 1 - i) * ts
     denom = torch.clamp(n - 1.0, min=1.0)
     weight = 1.0 - (W - 2 - i) / denom
 
-    T_rel = se3_inverse(T_prev) @ T_now  # (W-1, 4, 4)
-    e_t = dt[:, None] * v0[None, :3] - T_rel[:, :3, 3]
-    e_r = dt[:, None] * v0[None, 3:] - euler_xyz(T_rel[:, :3, :3])
-    e = torch.cat([e_t, e_r], dim=-1)  # (W-1, 6)
+    T_rel = se3_inverse(T_prev) @ T_now  # (..., W-1, 4, 4)
+    e_t = dt[:, None] * v0[..., None, :3] - T_rel[..., :3, 3]
+    e_r = dt[:, None] * v0[..., None, 3:] - euler_xyz(T_rel[..., :3, :3])
+    e = torch.cat([e_t, e_r], dim=-1)  # (..., W-1, 6)
 
     chi = torch.sqrt(torch.sum(e * e, dim=-1))
     thr = E_THRESHOLD_VEL
@@ -60,8 +62,8 @@ def estimate_velocity(
     s = scale * weight * active.to(dtype)
 
     # J = dt * I6 -> H is (sum s dt^2) * I6, b = sum s dt e
-    h = torch.sum(s * dt * dt)
-    b = torch.einsum("w,wi->i", s * dt, e)
+    h = torch.sum(s * dt * dt, dim=-1, keepdim=True)
+    b = torch.einsum("...w,...wi->...i", s * dt, e)
     dx = -b / torch.clamp(h, min=1e-30)
     dx = torch.where(h > 0, dx, torch.zeros_like(dx))
     return v0 + dx

@@ -57,8 +57,8 @@ def _eigvec_from_rows(A: torch.Tensor, lam: torch.Tensor, eps: float):
 def _any_perp(v: torch.Tensor, eps: float) -> torch.Tensor:
     """A unit vector orthogonal to unit vector v (batched, branch-free)."""
     # cross with the coordinate axis least aligned with v
-    ex = torch.tensor([1.0, 0.0, 0.0], dtype=v.dtype, device=v.device)
-    ey = torch.tensor([0.0, 1.0, 0.0], dtype=v.dtype, device=v.device)
+    # made on the device: a copy of host values would synchronise
+    ex, ey = torch.eye(3, dtype=v.dtype, device=v.device)[:2]
     use_ex = torch.abs(v[..., 0]) <= torch.abs(v[..., 1])
     axis = torch.where(use_ex[..., None], ex.expand(v.shape), ey.expand(v.shape))
     p, _ = _normalize(_cross(v, axis), eps)

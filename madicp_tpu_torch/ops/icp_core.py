@@ -102,17 +102,19 @@ def terms_from_payload(
     association payload ``(..., L, 8)`` — no tree access. Leading axes
     (e.g. keyframes) give one ``(H, b, matched)`` each; ``moving_pts``
     (L, 3) and ``moving_valid`` (L,) are shared by them, or carry the same
-    leading axes (a per-keyframe leaf order). The gate is evaluated under
-    the CURRENT ``X`` (``mad_icp.cpp:81-83``)."""
+    leading axes (a per-keyframe leaf order). ``X`` (4, 4), or (..., 4, 4)
+    with leading axes that broadcast against the payload's (one pose per
+    sequence of a batch: X (B, 1, 4, 4) against payloads (B, K, L, 8)).
+    The gate is evaluated under the CURRENT ``X`` (``mad_icp.cpp:81-83``)."""
     dtype = moving_pts.dtype
-    R = X[:3, :3]
-    t = X[:3, 3]
+    R = X[..., :3, :3]
+    t = X[..., None, :3, 3]
     # the dtype's own square root, filled in on the device: a tensor copied
     # there from a host scalar would synchronise every GN round
     rho = torch.full((), torch.sqrt(torch.tensor(rho_ker, dtype=dtype)).item(),
                      dtype=dtype, device=X.device)
 
-    ml = moving_pts @ R.T + t
+    ml = moving_pts @ R.mT + t
     mlx, mly, mlz = ml[..., 0], ml[..., 1], ml[..., 2]
     mx, my, mz = moving_pts[..., 0], moving_pts[..., 1], moving_pts[..., 2]
     fx, fy, fz = payload[..., 0], payload[..., 1], payload[..., 2]
@@ -129,9 +131,10 @@ def terms_from_payload(
     # residual and analytic Jacobian: with u = R^T n,
     # J = [u^T, (m x u)^T]  (since -u^T skew(m) = (m x u)^T)
     e = dx * nx + dy * ny + dz * nz
-    ux = nx * R[0, 0] + ny * R[1, 0] + nz * R[2, 0]
-    uy = nx * R[0, 1] + ny * R[1, 1] + nz * R[2, 1]
-    uz = nx * R[0, 2] + ny * R[1, 2] + nz * R[2, 2]
+    r = lambda i, j: R[..., i, j, None]  # noqa: E731  (broadcasts over L)
+    ux = nx * r(0, 0) + ny * r(1, 0) + nz * r(2, 0)
+    uy = nx * r(0, 1) + ny * r(1, 1) + nz * r(2, 1)
+    uz = nx * r(0, 2) + ny * r(1, 2) + nz * r(2, 2)
     J = torch.stack(
         [ux, uy, uz, my * uz - mz * uy, mz * ux - mx * uz, mx * uy - my * ux],
         dim=-1,

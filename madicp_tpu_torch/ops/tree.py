@@ -31,7 +31,7 @@ out-of-range ids are routed to one spare row that is sliced off.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -126,31 +126,52 @@ def _sym_from6(u: torch.Tensor) -> torch.Tensor:
 
 
 def _pack_tree(arena: dict, M: int, dtype) -> SearchTree:
-    """Assemble the ``nav`` layout from per-field arena arrays: panel 0
-    is each row's own block, panels 1-6 strided copies of the block
-    table (children of ``i`` are rows ``2i``/``2i+1``), zero beyond."""
+    """Assemble the ``nav`` layout from per-field ``(B, M, ...)`` arena
+    arrays: panel 0 is each row's own block, panels 1-6 strided copies of
+    the block table (children of ``i`` are rows ``2i``/``2i+1``), zero
+    beyond."""
     leaf = arena["is_leaf"] & arena["is_real"]
+    B = leaf.shape[0]
     flags = leaf.to(dtype) + 2.0 * arena["is_real"].to(dtype)
-    real_pairs = arena["is_real"].to(dtype).reshape(M // 2, 2)
-    kids = torch.zeros((M,), dtype=dtype, device=flags.device)
-    kids[: M // 2] = real_pairs[:, 0] + 2.0 * real_pairs[:, 1]
+    real_pairs = arena["is_real"].to(dtype).reshape(B, M // 2, 2)
+    kids = torch.zeros((B, M), dtype=dtype, device=flags.device)
+    kids[:, : M // 2] = real_pairs[..., 0] + 2.0 * real_pairs[..., 1]
 
-    lf = leaf[:, None]
-    B = torch.cat(
+    lf = leaf[..., None]
+    blk = torch.cat(
         [
             torch.where(lf, arena["repr"], arena["mean"]),
             torch.where(lf, arena["normal"], arena["split"]),
-            torch.where(leaf, arena["bbox0"], kids)[:, None],
-            flags[:, None],
+            torch.where(leaf, arena["bbox0"], kids)[..., None],
+            flags[..., None],
         ],
-        dim=1,
-    )  # (M, 8)
-    nav = torch.zeros((M, NAV_WIDTH), dtype=dtype, device=B.device)
-    nav[:, 0:8] = B
+        dim=-1,
+    )  # (B, M, 8)
+    nav = torch.zeros((B, M, NAV_WIDTH), dtype=dtype, device=blk.device)
+    nav[..., 0:8] = blk
     for panel, (k, j) in enumerate(((2, 0), (2, 1), (4, 0), (4, 1), (4, 2), (4, 3))):
         c = 8 * (panel + 1)
-        nav[: M // k, c:c + 8] = B.view(M // k, k, 8)[:, j]
+        nav[:, : M // k, c:c + 8] = blk.view(B, M // k, k, 8)[:, :, j]
     return SearchTree(nav=nav)
+
+
+class PointShard(NamedTuple):
+    """How a build whose points are split over processes completes its
+    per-level tables: ``all_sum`` / ``all_min`` reduce a tensor over the
+    processes that share the cloud and return the result, and this
+    process holds points ``[offset, offset + n_local)`` of every cloud
+    of ``n_total`` points. The built tree comes out the same on every
+    process."""
+
+    all_sum: Callable[[torch.Tensor], torch.Tensor]
+    all_min: Callable[[torch.Tensor], torch.Tensor]
+    offset: int
+    n_local: int
+    n_total: int
+
+    def take(self, x: torch.Tensor) -> torch.Tensor:
+        """This process's share of per-point data ``(B, n_total, ...)``."""
+        return x[:, self.offset:self.offset + self.n_local]
 
 
 def build_tree(
@@ -160,59 +181,86 @@ def build_tree(
     depth: int,
     b_max: float,
     b_min: float,
+    shard: Optional[PointShard] = None,
 ) -> tuple[SearchTree, torch.Tensor]:
-    """Build a MAD-tree over a padded point cloud.
+    """Build a MAD-tree over a padded point cloud, or one tree per cloud
+    of a batch.
 
     Levels are unrolled in Python; level ``l`` owns arena rows
     ``[2^l, 2^{l+1})``. Per level: the moment segment-sum
-    (:func:`segsum_moments`), node math on the compact ``(2^l, .)``
+    (:func:`segsum_moments`), node math on the compact ``(B 2^l, .)``
     arrays (eigh3, plane predecessor, normal inheritance), a per-point
     gather of its node's pack, the eigenbasis projection and a
     scatter-min of extents; parent fields flow to the children with a
-    ``repeat_interleave``.
+    ``repeat_interleave``. A batch folds into the segment axis: node
+    ``j`` of cloud ``b`` is segment ``b 2^l + j`` of the level, so one
+    segment-sum and one scatter-min serve every cloud.
 
     Args:
-        points: (N, 3) padded point cloud (padding must be finite).
-        valid:  (N,) bool mask of real points.
+        points: (N, 3) or (B, N, 3) padded point clouds (padding must be
+            finite).
+        valid:  (N,) or (B, N) bool masks of real points.
         depth:  static maximum tree depth (forced leaves at the cap).
         b_max:  leaf criterion on the largest oriented extent.
         b_min:  plane-predecessor criterion on the smallest extent.
+        shard:  the points are this process's share of each cloud
+            (:class:`PointShard`): the moment tables are summed and the
+            extents and the leaf pick minimised over the processes.
 
     Returns:
-        (tree, point_leaf): the packed tree and, per input point, the
-        arena id of its leaf (0 for padding points).
+        (tree, point_leaf): the packed tree(s), ``nav`` (M, 56) or
+        (B, M, 56), and per input point the arena id of its leaf (0 for
+        padding points).
     """
+    single = points.dim() == 2
+    if single:
+        points, valid = points[None], valid[None]
     dtype, dev = points.dtype, points.device
-    N = points.shape[0]
+    B, N = valid.shape
+    BN = B * N
+    points = points.reshape(BN, 3)
+    valid = valid.reshape(BN)
     M = tree_arena_size(depth)
     big = torch.finfo(dtype).max
     big_i = 2**31 - 1
-    iota = torch.arange(N, device=dev)
+    # each point's cloud, times the level's node count (kept only when
+    # there is more than one cloud: a single cloud's offsets are 0)
+    seq_sz = torch.arange(B, device=dev).repeat_interleave(N) if B > 1 else None
 
     # per-point state
     node = torch.where(valid, 1, 0)
     frozen = ~valid
-    leaf_of = torch.zeros((N,), dtype=torch.int64, device=dev)
-    frz_dist = torch.full((N,), big, dtype=dtype, device=dev)  # |p - leaf mean| at freeze
-    prev_mean_pt = torch.zeros((N, 3), dtype=dtype, device=dev)  # parent mean: moment shift
+    leaf_of = torch.zeros((BN,), dtype=torch.int64, device=dev)
+    frz_dist = torch.full((BN,), big, dtype=dtype, device=dev)  # |p - leaf mean| at freeze
+    prev_mean_pt = torch.zeros((BN, 3), dtype=dtype, device=dev)  # parent mean: moment shift
 
     # per-node pack handed from a level to its children:
     # [mean(3), pca_n(3), ppn(3), n3(3), bbox0(1), has_pp(1), is_leaf(1)]
-    prev_pack = torch.zeros((1, 15), dtype=dtype, device=dev)
-    prev_pack[0, 12] = big  # level -1 sentinel: shift 0, no pp, no n3
+    prev_pack = torch.zeros((B, 15), dtype=dtype, device=dev)
+    prev_pack[:, 12] = big  # level -1 sentinel: shift 0, no pp, no n3
 
     levels = []
     for level in range(depth + 1):
         lo = sz = 1 << level
+        nseg = B * sz
         force_leaf = level == depth
         live = (~frozen) & valid
-        idx = torch.where(live, node - lo, sz)  # local node index, sz = drop
+        if seq_sz is None:
+            idx = torch.where(live, node - lo, nseg)  # segment, nseg = drop
+        else:
+            if level:
+                seq_sz = seq_sz * 2
+            idx = torch.where(live, node - lo + seq_sz, nseg)
 
         # ---- moments, shifted by the parent mean for f32 stability ----
         d = points - prev_mean_pt
-        node_mom = segsum_moments(d, idx.to(torch.int32), sz)
+        if shard is None:
+            node_mom = segsum_moments(d, idx.to(torch.int32), nseg)
+        else:  # partial tables summed in double, as the kernel sums
+            node_mom = shard.all_sum(
+                segsum_moments(d.double(), idx.to(torch.int32), nseg)).to(dtype)
 
-        # ---- node math on the compact (sz, .) level arrays ----
+        # ---- node math on the compact (B sz, .) level arrays ----
         par = prev_pack if level == 0 else prev_pack.repeat_interleave(2, dim=0)
         par_mean, par_pca = par[:, 0:3], par[:, 3:6]
         par_ppn, par_n3 = par[:, 6:9], par[:, 9:12]
@@ -226,7 +274,7 @@ def build_tree(
         cov6 = node_mom[:, 3:9] / k_safe[:, None] - _outer6(mean_shift)
         bessel = k / torch.clamp(k - 1.0, min=1.0)
         cov6 = torch.where((k >= 2.0)[:, None], cov6 * bessel[:, None], 0.0)
-        _, evecs = eigh3(_sym_from6(cov6))  # (sz,3,3): columns ascending
+        _, evecs = eigh3(_sym_from6(cov6))  # (nseg,3,3): columns ascending
         pca_n = evecs[:, :, 0]
         split_dir = evecs[:, :, 2]
 
@@ -248,9 +296,9 @@ def build_tree(
 
         # ---- per-point: eigenbasis coordinates and oriented bbox ----
         packA = torch.cat(
-            [mean, evecs.reshape(sz, 9), par_leaf.to(dtype)[:, None]], dim=1
-        )  # (sz, 13)
-        ptA = packA.index_select(0, torch.clamp(idx, max=sz - 1))
+            [mean, evecs.reshape(nseg, 9), par_leaf.to(dtype)[:, None]], dim=1
+        )  # (nseg, 13)
+        ptA = packA.index_select(0, torch.clamp(idx, max=nseg - 1))
         mean_pt = ptA[:, 0:3]
         d2 = points - mean_pt
         v = (
@@ -258,11 +306,13 @@ def build_tree(
             + ptA[:, 6:9] * d2[:, 1:2]
             + ptA[:, 9:12] * d2[:, 2:3]
         )  # E^T d2
-        ext = torch.cat([v, -v], dim=1)  # (N, 6)
-        node_ext = torch.full((sz + 1, 6), big, dtype=dtype, device=dev)
-        node_ext.scatter_reduce_(0, idx[:, None].expand(N, 6), ext, "amin")
-        vmin = node_ext[:sz, 0:3]
-        vmax = -node_ext[:sz, 3:6]
+        ext = torch.cat([v, -v], dim=1)  # (BN, 6)
+        node_ext = torch.full((nseg + 1, 6), big, dtype=dtype, device=dev)
+        node_ext.scatter_reduce_(0, idx[:, None].expand(BN, 6), ext, "amin")
+        if shard is not None:
+            node_ext = shard.all_min(node_ext)
+        vmin = node_ext[:nseg, 0:3]
+        vmax = -node_ext[:nseg, 3:6]
         extents = torch.clamp(vmax, min=0.0) - torch.clamp(vmin, max=0.0)
         is_real_node = (k > 0) & ~par_leaf
         is_leaf_node = is_real_node & ((extents[:, 2] < b_max) | force_leaf)
@@ -300,31 +350,60 @@ def build_tree(
 
     arena = {
         key: torch.cat(
-            [torch.zeros((1,) + levels[0][key].shape[1:],
+            [torch.zeros((B, 1) + levels[0][key].shape[1:],
                          dtype=levels[0][key].dtype, device=dev)]
-            + [lv[key] for lv in levels]
+            + [lv[key].reshape((B, 1 << i) + lv[key].shape[1:])
+               for i, lv in enumerate(levels)],
+            dim=1,
         )
         for key in levels[0]
-    }
+    }  # (B, M, ...)
     point_leaf = torch.where(valid, leaf_of, 0)
 
     # ---- leaf representatives (mad_tree.cpp:76-86): the point nearest
     # the leaf mean, distances within a relative tie_tol of the minimum
-    # resolving to the LOWEST ORIGINAL INDEX (the JAX package's rule, so
-    # 2-point leaves pick the same representative in both) ----
-    aid = torch.where(valid, leaf_of, M)
-    dmin = torch.full((M + 1,), big, dtype=dtype, device=dev)
+    # resolving to the LOWEST ORIGINAL INDEX within its cloud (the JAX
+    # package's rule, so 2-point leaves pick the same representative in
+    # both). Leaf ``a`` of cloud ``b`` is row ``b M + a``; a point's index
+    # is ``b N + n``, so within a cloud the order is the cloud's own ----
+    BM = B * M
+    aid = torch.where(valid, leaf_of if seq_sz is None else leaf_of + seq_sz * (M >> depth),
+                      BM)
+    dmin = torch.full((BM + 1,), big, dtype=dtype, device=dev)
     dmin.scatter_reduce_(0, aid, frz_dist, "amin")
+    if shard is not None:
+        dmin = shard.all_min(dmin)
     tie_tol = 1e-9 if dtype == torch.float64 else 1e-4
     is_near = valid & (
-        frz_dist <= dmin.index_select(0, torch.clamp(aid, max=M - 1)) * (1.0 + tie_tol)
+        frz_dist <= dmin.index_select(0, torch.clamp(aid, max=BM - 1)) * (1.0 + tie_tol)
     )
-    near_pos = torch.full((M + 1,), big_i, dtype=torch.int64, device=dev)
-    near_pos.scatter_reduce_(0, torch.where(is_near, aid, M), iota, "amin")
-    near_pt = points.index_select(0, torch.clamp(near_pos[:M], max=N - 1))
-    arena["repr"] = torch.where(arena["is_leaf"][:, None], near_pt, arena["mean"])
+    if shard is None:
+        iota = torch.arange(BN, device=dev)
+    else:  # the point's index in its whole cloud
+        iota = (torch.arange(BN, device=dev).view(B, N)
+                + (torch.arange(B, device=dev) * (shard.n_total - N) + shard.offset)[:, None]
+                ).reshape(BN)
+    near_pos = torch.full((BM + 1,), big_i, dtype=torch.int64, device=dev)
+    near_pos.scatter_reduce_(0, torch.where(is_near, aid, BM), iota, "amin")
+    if shard is None:
+        near_pt = points.index_select(0, torch.clamp(near_pos[:BM], max=BN - 1))
+    else:
+        # the lowest global index over the processes; the process that
+        # holds that point contributes it
+        near_pos = shard.all_min(near_pos)
+        row_b = torch.arange(B, device=dev).repeat_interleave(M)
+        local = near_pos[:BM] - (row_b * shard.n_total + shard.offset)
+        mine = (local >= 0) & (local < N)
+        near_pt = points.index_select(0, row_b * N + torch.clamp(local, 0, N - 1))
+        near_pt = shard.all_sum(torch.where(mine[:, None], near_pt, 0.0))
+    arena["repr"] = torch.where(arena["is_leaf"][..., None], near_pt.view(B, M, 3),
+                                arena["mean"])
 
-    return _pack_tree(arena, M, dtype), point_leaf
+    tree = _pack_tree(arena, M, dtype)
+    point_leaf = point_leaf.view(B, N)
+    if single:
+        return SearchTree(nav=tree.nav[0]), point_leaf[0]
+    return tree, point_leaf
 
 
 def search_forest(
@@ -430,22 +509,34 @@ def search_payload(tree: SearchTree, leaf_ids: torch.Tensor):
 def get_leaves(tree: SearchTree, max_leaves: int) -> Leaves:
     """Compact the tree's leaves into padded fixed-size arrays, in arena
     order; leaves beyond the capacity are dropped. A cumsum and a row
-    scatter into a spare row — no host sync."""
+    scatter into a spare row — no host sync. A batch of trees ``nav``
+    (B, M, 56) gives every field a leading B (each tree compacted on its
+    own)."""
     nav = tree.nav
-    flag = nav[:, 7] == 3.0
-    pos = torch.cumsum(flag.long(), dim=0) - 1
-    idx = torch.where(flag & (pos < max_leaves), pos, max_leaves)
-    out = torch.zeros((max_leaves + 1, 8), dtype=nav.dtype, device=nav.device)
-    out.index_copy_(0, idx, nav[:, 0:8])
-    count = flag.sum()
-    out = out[:max_leaves]
-    return Leaves(
-        pts=out[:, 0:3],
-        normal=out[:, 3:6],
-        bbox0=out[:, 6],
-        valid=torch.arange(max_leaves, device=nav.device) < count,
+    single = nav.dim() == 2
+    if single:
+        nav = nav[None]
+    B, M = nav.shape[0], nav.shape[1]
+    L = max_leaves
+    flag = nav[..., 7] == 3.0  # (B, M)
+    pos = torch.cumsum(flag.long(), dim=-1) - 1
+    idx = torch.where(flag & (pos < L), pos, L)
+    if B > 1:
+        idx = idx + (torch.arange(B, device=nav.device) * (L + 1))[:, None]
+    out = torch.zeros((B * (L + 1), 8), dtype=nav.dtype, device=nav.device)
+    out.index_copy_(0, idx.reshape(B * M), nav.reshape(B * M, NAV_WIDTH)[:, 0:8])
+    count = flag.sum(dim=-1)  # (B,)
+    out = out.view(B, L + 1, 8)[:, :L]
+    leaves = Leaves(
+        pts=out[..., 0:3],
+        normal=out[..., 3:6],
+        bbox0=out[..., 6],
+        valid=torch.arange(L, device=nav.device) < count[:, None],
         total=count,
     )
+    if single:
+        return Leaves(*(f[0] for f in leaves))
+    return leaves
 
 
 def count_leaves(tree: SearchTree) -> torch.Tensor:
@@ -457,11 +548,14 @@ def transform_tree(tree: SearchTree, R: torch.Tensor, t: torch.Tensor) -> Search
     ``applyTransform``, ``mad_tree.cpp:165-172``). Every ``nav`` block is
     ``[position(3), direction(3), scalar(2)]``, so the table moves as one
     affine map per block: positions ``R p + t``, directions ``R n`` (every
-    row, padding included, as in the JAX package's ``nav @ A + c``)."""
+    row, padding included, as in the JAX package's ``nav @ A + c``). A
+    batch of trees (B, M, 56) takes one pose each, R (B, 3, 3) and t
+    (B, 3)."""
     nav = tree.nav
-    blocks = nav.reshape(nav.shape[:-1] + (7, 8))
-    Rt = R.to(nav.dtype).T
-    pos = blocks[..., 0:3] @ Rt + t.to(nav.dtype)
+    blocks = nav.reshape(nav.shape[:-2] + (-1, 8))  # (..., M * 7, 8)
+    Rt = R.to(nav.dtype).mT
+    t = t.to(nav.dtype)[..., None, :]
+    pos = blocks[..., 0:3] @ Rt + t
     dirs = blocks[..., 3:6] @ Rt
     moved = torch.cat([pos, dirs, blocks[..., 6:8]], dim=-1)
     return SearchTree(nav=moved.reshape(nav.shape))

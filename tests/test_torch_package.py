@@ -49,6 +49,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         "import madicp_tpu_torch.utils.pointcloud2, madicp_tpu_torch.utils.fixtures\n"
         "import madicp_tpu_torch.utils.visualizer, madicp_tpu_torch.apps.evaluate\n"
         "import madicp_tpu_torch.apps.nn_search, madicp_tpu_torch.apps.mad_registration\n"
+        "import madicp_tpu_torch.parallel, madicp_tpu_torch.parallel.mesh\n"
+        "import madicp_tpu_torch.parallel.fleet, madicp_tpu_torch.parallel.sharded_icp\n"
+        "import madicp_tpu_torch.parallel.distributed, madicp_tpu_torch.apps.fleet_eval\n"
         "bad = [m for m in sys.modules if m in ('jax', 'madicp_tpu')\n"
         "       or m.startswith(('jax.', 'madicp_tpu.'))]\n"
         "print(bad)\n"
@@ -194,6 +197,87 @@ def test_icp_rounds_never_syncs_the_host_on_cuda(cuda_device, schedule):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert torch.isfinite(X).all() and matched.any() and int(n_desc) > 0
+
+
+def _rooms(shifts):
+    """Two-room scans of the sync tests: the room seen from each shift."""
+    rng = np.random.default_rng(5)
+    walls = [rng.uniform([0, 0, 0], [4, 0.01, 2], (600, 3)),
+             rng.uniform([0, 0, 0], [0.01, 4, 2], (600, 3)),
+             rng.uniform([0, 3.99, 0], [4, 4, 2], (600, 3)),
+             rng.uniform([0, 0, 0], [4, 4, 0.01], (600, 3))]
+    room = np.concatenate(walls)
+    return [room - np.asarray(s) for s in shifts]
+
+
+def _fleet_inputs(cfg, scans, device):
+    pts = np.zeros((len(scans), cfg.n_points, 3))
+    val = np.zeros((len(scans), cfg.n_points), bool)
+    for b, s in enumerate(scans):
+        pts[b, :len(s)], val[b, :len(s)] = s, True
+    return (torch.as_tensor(pts, dtype=cfg.dtype, device=device),
+            torch.as_tensor(val, device=device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("schedule", list(SCHEDULES))
+def test_fleet_step_never_syncs_the_host_on_cuda(cuda_device, schedule):
+    """A B = 2 fleet step (build, rounds, masked per-sequence promotion,
+    ring writes) runs with no host synchronisation, unlike the single
+    Pipeline's one read: two scans, then the third step on staged inputs
+    under ``set_sync_debug_mode("error")``."""
+    from madicp_tpu_torch.models.pipeline import PipelineConfig, odometry_step
+    from madicp_tpu_torch.parallel import Fleet
+
+    cfg = PipelineConfig(**PIPE_KW, n_points=4096, depth=10, max_leaves=1024,
+                         max_icp_iterations=6, dtype=torch.float64, **SCHEDULES[schedule])
+    fleet = Fleet(cfg, 2, device=cuda_device)
+    for i in range(2):
+        fleet.compute(None, *_fleet_inputs(cfg, _rooms([[0.05 * i, 0, 0],
+                                                        [0.2 * i, 0.02 * i, 0]]), cuda_device))
+    pts, val = _fleet_inputs(cfg, _rooms([[0.1, 0, 0], [0.4, 0.04, 0]]), cuda_device)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, out = odometry_step(cfg, fleet.states, pts, val, None)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert out.pose.shape == (2, 4, 4) and torch.isfinite(out.pose).all()
+    assert bool(out.n_descents.gt(0).all())
+
+
+@pytest.mark.cuda
+def test_kf_hook_issues_on_nccl_on_cuda(cuda_device):
+    """A fleet on a (1, 1) mesh of a one-rank NCCL group runs its
+    keyframe all-reduces for real and tracks the fleet without a mesh."""
+    import socket
+
+    from madicp_tpu_torch.models.pipeline import PipelineConfig
+    from madicp_tpu_torch.parallel import Fleet, distributed, make_mesh
+    from madicp_tpu_torch.parallel.sharded_icp import counter
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    topo = distributed.initialize(f"localhost:{port}", 1, 0, backend="nccl",
+                                  device=cuda_device)
+    try:
+        assert topo["backend"] == "nccl"
+        cfg = PipelineConfig(**PIPE_KW, n_points=4096, depth=10, max_leaves=1024,
+                             dtype=torch.float64)
+        sharded = Fleet(cfg, 2, mesh=make_mesh(kf=1, seq=1), device=cuda_device)
+        plain = Fleet(cfg, 2, device=cuda_device)
+        before = counter.all_reduces
+        for i in range(3):
+            inputs = _fleet_inputs(cfg, _rooms([[0.05 * i, 0, 0], [0.2 * i, 0, 0]]),
+                                   cuda_device)
+            sharded.compute(None, *inputs)
+            plain.compute(None, *inputs)
+        # two scans of 15 rounds, (H, b) each, matched and the count once
+        assert counter.all_reduces - before == 2 * (15 + 2)
+        np.testing.assert_allclose(sharded.poses(), plain.poses(), atol=1e-9)
+    finally:
+        distributed.shutdown()
 
 
 FLAGSHIP_N, FLAGSHIP_DEPTH, H100_SMS = 131072, 16, 132

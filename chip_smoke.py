@@ -41,10 +41,19 @@ script exits non-zero without the final line):
               descents (compact) or the CPU run's (prefix); fast (every
               2 and 7, and 2 warm-started 6 levels up) within 5e-3 m and
               1e-3 rad of exact; compute_batch over 4 scans within 1e-6 m
-              of 4 compute_device calls; then all five schedules at the
-              flagship configuration through the bench module
+              of 4 compute_device calls, its 4 poses distinct, through a
+              captured graph; then all five schedules at the flagship
+              configuration through the bench module
               (python -m madicp_tpu_torch.bench) in short windows: scans/s,
               descents, phase ms, peak memory, segment-sum launches;
+8b. graphs    the flagship step graphed against eager for every schedule
+              (two bench pipelines primed alike on the same scans; the
+              eager one runs the captured body, step_in_place): per scan
+              scans/s, host enqueue ms, device busy and kernels, 17
+              segment-sum launches; the graph's capture ms, nodes and pool
+              bytes; poses within 5e-4 m over 15 scans, kernels a scan
+              within 1%; then a realtime pipeline whose budget moves its
+              iteration count: a graph captured for each count;
 9. apps       the CLI, checkpoints, evaluator, demos and native loader at
               the CLI's defaults (131072 points, depth 16, 4 keyframes) on
               10 KITTI .bin scans of the two-orientation world (~122k
@@ -59,10 +68,12 @@ script exits non-zero without the final line):
               counts its segment-sum launches from 0 and needs some.
 10. fleet     the batched fleet (madicp_tpu_torch.parallel) at the
               flagship widths (certified exact, float32) with B = 1, 2
-              and 4 sequences: every sequence within 5e-4 of one single
-              Pipeline on the same scans, a step where promotion differs
-              across sequences, fleet scans/s, device busy and kernels a
-              batched scan, 17 segment-sum launches a batched scan;
+              and 4 sequences, graphed, beside an eager twin on the same
+              scans: every sequence within 5e-4 of one single Pipeline and
+              of the twin, a step where promotion differs across
+              sequences, fleet scans/s, device busy and kernels a batched
+              scan of both, the graph's capture ms, nodes and pool bytes,
+              17 segment-sum launches a batched scan;
               segsum_moments against float64 at every level of a B = 4
               build (up to 262,144 segments); a fleet on a one-rank NCCL
               mesh (its keyframe all-reduces issued); fleet_eval on two
@@ -78,6 +89,10 @@ package; the golden file is read with numpy. Needs one card.
 
 Phase 7 ends with a torch.profiler window of steady-state scans: device
 kernel time by kernel name, and the device's busy share.
+
+Every phase that goes through Pipeline.compute/compute_device/
+compute_batch or Fleet.compute without a mesh replays captured CUDA
+graphs from the second odometry scan on; a capture that fails raises.
 """
 
 from __future__ import annotations
@@ -390,7 +405,7 @@ def phase_steady(torch) -> dict:
         pipe.compute_device(0.1 * i, *staged[i])
         descents.append(pipe._last.n_descents)
         n_leaves.append(pipe._last.n_leaves)
-        poses.append(pipe.state.X)
+        poses.append(pipe._last.pose)  # the scan's own (the state changes in place)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = segsum.counter.launches  # read right after the run
@@ -497,9 +512,13 @@ def phase_schedules(torch) -> dict:
         one.compute_device(stamp, *one.stage(scan))
         seq.append(one.current_pose())
     dt = float(np.linalg.norm(batch[:, :3, 3] - np.stack(seq)[:, :3, 3], axis=1).max())
+    distinct = len({p.tobytes() for p in batch})
     emit({"phase": "schedules", "part": "compute_batch", "scans": 4, "max_dt_m": dt,
-          "bound_m": 1e-6})
+          "bound_m": 1e-6, "distinct_poses": distinct,
+          "graphs": len(chunk._graphs.captured())})
     check(batch.shape == (4, 4, 4) and dt <= 1e-6, f"compute_batch {dt:.2e} m from compute_device")
+    check(distinct == 4, f"compute_batch: {distinct} distinct poses of 4 (aliased outputs)")
+    check(len(chunk._graphs.captured()) == 1, "compute_batch replayed no captured graph")
 
     setup = bench.BenchSetup(DEV, N_POINTS, KEYFRAMES, DEPTH, MAX_LEAVES)
     n_windows, n_steps = 3, 4
@@ -517,6 +536,131 @@ def phase_schedules(torch) -> dict:
         "windows": n_windows, "scans_a_window": n_steps},
         "schedules": flagship, "seconds": time.perf_counter() - t0}
     emit(out)
+    return out
+
+
+GRAPH_SCANS, GRAPH_PROFILED = 12, 3  # timed and profiled scans a side
+GRAPH_BOUND_M = 5e-4  # certified f32 divergence bound (tests/test_pipeline.py:368)
+RT_SCANS, RT_HZ, RT_EVERY = 12, 20.0, 3  # a budget (45 ms) the flagship step overruns
+
+
+def enqueue_run(step, scans) -> tuple:
+    """(host enqueue ms of each ``step(i)`` — until it returns, with no
+    synchronisation — and the window's wall seconds, synchronised)."""
+    import torch
+
+    enq = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in scans:
+        t = time.perf_counter()
+        step(i)
+        enq.append((time.perf_counter() - t) * 1e3)
+    torch.cuda.synchronize()
+    return enq, time.perf_counter() - t0
+
+
+def phase_graphs(torch, nvidia_smi: str) -> dict:
+    """The flagship step graphed against eager, every schedule: two
+    bench pipelines primed alike on the same scans, one through
+    ``compute_device`` (a replay of its captured graph a scan from the
+    second odometry scan on), one running the captured body
+    (``step_in_place``) eagerly; scans/s, host enqueue ms, device busy
+    and kernels a scan of each, the graph's capture ms, nodes and pool
+    bytes, the pose difference. Then a realtime pipeline whose budget
+    moves its iteration count: a graph a count."""
+    from madicp_tpu_torch import bench
+    from madicp_tpu_torch.kernels import segsum
+    from madicp_tpu_torch.models.step_graph import step_in_place
+
+    t_phase = time.perf_counter()
+    n_warm = 2  # graphed: the warm-up, then the capture and first replay
+    rows = {}
+    for spec in ["certified"] + [s for s in bench.SCHEDULES if s != "certified"]:
+        setups = [bench.BenchSetup(DEV, N_POINTS, KEYFRAMES, DEPTH, MAX_LEAVES)
+                  for _ in range(2)]  # one seed: the same world, rings and noise
+        graphed, eager = (st.make_pipe(spec) for st in setups)
+        for st, pipe in zip(setups, (graphed, eager)):
+            st.prime(pipe)
+        total = n_warm + GRAPH_SCANS + GRAPH_PROFILED
+        staged = {i: graphed.stage(setups[0].scan_at(i)) for i in range(1, 1 + total)}
+        poses = {"graphed": {}, "eager": {}}
+
+        def step_graphed(i):
+            graphed.compute_device(0.1 * i, *staged[i])
+            poses["graphed"][i] = graphed._last.pose
+
+        def step_eager(i):
+            pts, val, _ = staged[i]
+            out = step_in_place(eager.cfg, eager._graphs.state, pts[None], val[None])
+            poses["eager"][i] = out.pose[0]
+
+        warm, timed = range(1, 1 + n_warm), range(1 + n_warm, 1 + n_warm + GRAPH_SCANS)
+        profiled = range(1 + n_warm + GRAPH_SCANS, 1 + total)
+        for i in warm:
+            step_graphed(i)
+            step_eager(i)
+        side = {}
+        for name, step in (("graphed", step_graphed), ("eager", step_eager)):
+            segsum.counter.launches = 0  # this window starts here
+            enq, wall = enqueue_run(step, timed)
+            launches = segsum.counter.launches  # read right after the window
+            prof = profile_window(lambda step=step: [step(i) for i in profiled],
+                                  GRAPH_PROFILED)
+            side[name] = {"scans_per_s": GRAPH_SCANS / wall,
+                          "ms_per_scan": wall * 1e3 / GRAPH_SCANS,
+                          "enqueue_ms_median": float(np.median(enq)),
+                          "enqueue_ms_max": max(enq),
+                          "device_busy_ms_per_scan": prof["device_busy_ms_per_scan"],
+                          "device_busy_share": prof["device_busy_share"],
+                          "kernels_per_scan": prof["kernels_per_scan"],
+                          "segsum_launches_per_scan": launches / GRAPH_SCANS}
+        (capture_ms, nodes, replay_launches), = graphed._graphs.captured().values()
+        pool = graphed._graphs.pool_bytes()
+        scans = sorted(poses["eager"])
+        diff = max(float((poses["graphed"][i] - poses["eager"][i]).abs().max()) for i in scans)
+        g, e = side["graphed"], side["eager"]
+        kernels_dev = abs(g["kernels_per_scan"] - e["kernels_per_scan"]) / e["kernels_per_scan"]
+        rows[spec] = dict(side, capture_ms=capture_ms, nodes=nodes, pool_bytes=pool,
+                          segsum_launches_a_replay=replay_launches, scans_compared=len(scans),
+                          max_pose_dev_m=diff, kernels_rel_dev=kernels_dev,
+                          speedup=g["scans_per_s"] / e["scans_per_s"])
+        emit({"phase": "graphs", "part": "flagship", "schedule": spec,
+              "nvidia_smi": nvidia_smi, **rows[spec]})
+        check(diff <= GRAPH_BOUND_M, f"{spec}: graphed pose {diff:.2e} m from eager")
+        check(kernels_dev <= 0.01, f"{spec}: {g['kernels_per_scan']} kernels a graphed scan, "
+              f"{e['kernels_per_scan']} eager")
+        for name in side:
+            check(side[name]["segsum_launches_per_scan"] == DEPTH + 1,
+                  f"{spec} {name}: {side[name]['segsum_launches_per_scan']} segsum launches "
+                  "a scan")
+        del graphed, eager, staged, poses, setups
+        torch.cuda.empty_cache()
+
+    # realtime: the anytime budget moves the iteration count, a key a count
+    world = two_way_world(np.random.default_rng(7))
+    rt = pipeline(realtime=True, sensor_hz=RT_HZ, realtime_recal_every=RT_EVERY,
+                  num_keyframes=KEYFRAMES, n_points=N_POINTS, depth=DEPTH,
+                  max_leaves=MAX_LEAVES)
+    rt_poses, its = [], []
+    for k in range(RT_SCANS):
+        p = world - np.array([0.3 * k, 0.0, 0.0])
+        r = np.linalg.norm(p, axis=1)
+        rt.compute(k / RT_HZ, p[(r > 1.0) & (r < 80.0)])
+        rt_poses.append(rt.current_pose())
+        its.append(rt.cfg.max_icp_iterations)
+    keys = sorted(cfg.max_icp_iterations for cfg in rt._graphs.captured())
+    realtime = {"sensor_hz": RT_HZ, "recal_every": RT_EVERY, "scans": RT_SCANS,
+                "iterations_per_scan": its, "graph_keys_iterations": keys,
+                "pool_bytes": rt._graphs.pool_bytes()}
+    emit({"phase": "graphs", "part": "realtime", **realtime})
+    check(np.isfinite(np.stack(rt_poses)).all(), "realtime: non-finite poses")
+    check(len(keys) >= 2, f"realtime: graphs captured for iteration counts {keys}")
+    del rt
+    torch.cuda.empty_cache()
+    out = {"phase": "graphs", "nvidia_smi": nvidia_smi, "flagship": rows,
+           "realtime": realtime, "seconds": time.perf_counter() - t_phase}
+    emit({"phase": "graphs", "part": "summary", "seconds": out["seconds"]})
     return out
 
 
@@ -727,7 +871,8 @@ def phase_apps(torch, nvidia_smi: str) -> dict:
 
 # the fleet phase: flagship widths, certified exact, float32
 FLEET_BATCHES = (1, 2, 4)
-FLEET_SCANS, FLEET_WARM, FLEET_PROFILED = 12, 2, 2
+# warm: the bootstrap, the warm-up, the capture and first replay
+FLEET_SCANS, FLEET_WARM, FLEET_PROFILED = 13, 3, 2
 FLEET_SPEEDS = (0.3, 0.2, 0.25, 0.15)  # m a scan along x: every timed sequence moves
 FLEET_MIXED = dict(speeds=(0.3, 0.0), scans=4)  # a moving and a parked sequence
 FLEET_P_TH = 0.999  # parked sequences match ~every leaf; moving ones do not
@@ -817,10 +962,11 @@ def free_port() -> int:
 
 def phase_fleet(torch, nvidia_smi: str) -> dict:
     """The batched fleet (parallel/fleet.py) on the card: (a) B = 1, 2, 4
-    at flagship widths, every sequence moving, against one single
-    Pipeline per sequence, with its scans/s, device busy and kernels a
-    batched scan, then a moving and a parked sequence as one batch (the
-    masked promotion differs across them); (b) segsum_moments
+    at flagship widths, every sequence moving, graphed, against one
+    single Pipeline per sequence and an eager twin, with the scans/s,
+    device busy and kernels a batched scan of both, then a moving and a
+    parked sequence as one batch (the masked promotion differs across
+    them); (b) segsum_moments
     against its float64 plain version at every level of a B = 4 build;
     (d) a fleet on a one-rank NCCL mesh (the keyframe all-reduce issued
     for real); (c) fleet_eval on two ranks sharing the card (gloo), kf
@@ -830,6 +976,7 @@ def phase_fleet(torch, nvidia_smi: str) -> dict:
     import tempfile
 
     from madicp_tpu_torch.kernels import segsum
+    from madicp_tpu_torch.models.step_graph import step_in_place
     from madicp_tpu_torch.parallel import Fleet, distributed, make_mesh
     from madicp_tpu_torch.parallel.sharded_icp import counter
     from madicp_tpu_torch.probes.segsum_levels import capture_levels
@@ -843,48 +990,58 @@ def phase_fleet(torch, nvidia_smi: str) -> dict:
     want, want_promoted = zip(*(single_pipeline_poses(scans) for scans in seqs))
     torch.cuda.empty_cache()
 
-    # (a) the fleet at B = 1, 2, 4
+    # (a) the fleet at B = 1, 2, 4, graphed, beside an eager twin that runs
+    # the captured body on the same scans
     cfg = fleet_config(torch)
     runs = {}
+    n_timed = FLEET_SCANS - FLEET_WARM - FLEET_PROFILED
+    timed = range(FLEET_WARM, FLEET_WARM + n_timed)
+    profiled = range(FLEET_WARM + n_timed, FLEET_SCANS)
     for B in FLEET_BATCHES:
         staged = [tuple(torch.as_tensor(a[:B], device=DEV) for a in batch)
                   for batch in batches]
-        fleet = Fleet(cfg, B, device=DEV)
-        poses, promoted = [], []
+        fleet, twin = Fleet(cfg, B, device=DEV), Fleet(cfg, B, device=DEV)
+        poses, promoted, twin_poses = [], [], []
 
         def step(k):
             out = fleet.compute(None, *staged[k])
-            poses.append(fleet.states.X.clone())
+            poses.append(out.pose)
             promoted.append(out.map_updated)
 
+        def step_eager(k):
+            twin_poses.append(step_in_place(cfg, twin.states, *staged[k]).pose)
+
+        twin.compute(None, *staged[0])
         for k in range(FLEET_WARM):
             step(k)
-        n_timed = FLEET_SCANS - FLEET_WARM - FLEET_PROFILED
-        torch.cuda.synchronize()
-        segsum.counter.launches = 0  # the fleet's timed run starts here
-        t0 = time.perf_counter()
-        for k in range(FLEET_WARM, FLEET_WARM + n_timed):
-            step(k)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = segsum.counter.launches  # read right after the run
-        prof = profile_window(lambda: [step(k) for k in range(FLEET_WARM + n_timed,
-                                                              FLEET_SCANS)],
-                              FLEET_PROFILED)
+            if k:
+                step_eager(k)
+        side = {}
+        for name, fn in (("graphed", step), ("eager", step_eager)):
+            segsum.counter.launches = 0  # this timed run starts here
+            _, wall = enqueue_run(fn, timed)
+            launches = segsum.counter.launches  # read right after the run
+            prof = profile_window(lambda fn=fn: [fn(k) for k in profiled], FLEET_PROFILED)
+            side[name] = {"fleet_scans_per_s": B * n_timed / wall,
+                          "ms_per_batched_scan": wall * 1e3 / n_timed,
+                          "segsum_launches": launches,
+                          "device_busy_ms_per_batched_scan": prof["device_busy_ms_per_scan"],
+                          "device_busy_share": prof["device_busy_share"],
+                          "kernels_per_batched_scan": prof["kernels_per_scan"],
+                          "wall_ms_per_profiled_scan": prof["wall_ms_per_scan"]}
         got = torch.stack(poses).cpu().numpy().astype(np.float64)  # (S, B, 4, 4)
         got_promoted = torch.stack(promoted).cpu().numpy()  # (S, B)
         dev_m = float(max(np.abs(got[:, b] - want[b]).max() for b in range(B)))
+        twin_dev = float(np.abs(got[1:] - torch.stack(twin_poses).cpu().numpy()).max())
         mixed = [k for k in range(FLEET_SCANS) if 0 < got_promoted[k].sum() < B]
+        (capture_ms, nodes, _), = fleet._graphs.captured().values()
         runs[B] = {
-            "sequences": B, "scans_timed": n_timed,
-            "fleet_scans_per_s": B * n_timed / wall,
-            "batched_scans_per_s": n_timed / wall,
-            "ms_per_batched_scan": wall * 1e3 / n_timed,
-            "segsum_launches": launches,
-            "device_busy_ms_per_batched_scan": prof["device_busy_ms_per_scan"],
-            "device_busy_share": prof["device_busy_share"],
-            "kernels_per_batched_scan": prof["kernels_per_scan"],
-            "wall_ms_per_profiled_scan": prof["wall_ms_per_scan"],
+            "sequences": B, "scans_timed": n_timed, **side["graphed"],
+            "batched_scans_per_s": side["graphed"]["fleet_scans_per_s"] / B,
+            "eager": side["eager"],
+            "capture_ms": capture_ms, "nodes": nodes,
+            "pool_bytes": fleet._graphs.pool_bytes(),
+            "max_dev_from_eager_m": twin_dev,
             "max_dev_from_pipeline_m": dev_m,
             "promoted": got_promoted.astype(int).tolist(),
             "mixed_promotion_scans": mixed,
@@ -894,9 +1051,12 @@ def phase_fleet(torch, nvidia_smi: str) -> dict:
         check(np.isfinite(got).all(), f"B={B}: non-finite poses")
         check(dev_m <= FLEET_BOUND_M,
               f"B={B}: fleet is {dev_m:.2e} m from the single Pipeline")
-        check(launches == n_timed * (DEPTH + 1),
-              f"B={B}: segsum launched {launches} times in {n_timed} batched scans")
-        del fleet, staged
+        check(twin_dev <= FLEET_BOUND_M, f"B={B}: graphed fleet {twin_dev:.2e} m from eager")
+        for name in side:
+            check(side[name]["segsum_launches"] == n_timed * (DEPTH + 1),
+                  f"B={B} {name}: segsum launched {side[name]['segsum_launches']} times "
+                  f"in {n_timed} batched scans")
+        del fleet, twin, staged
         torch.cuda.empty_cache()
 
     # (a) the masked promotion: sequence 0 above beside a parked one
@@ -1066,6 +1226,7 @@ def main() -> int:
     phase_accuracy(torch)
     steady = phase_steady(torch)
     phase_schedules(torch)
+    phase_graphs(torch, dev["nvidia_smi"])
     phase_apps(torch, dev["nvidia_smi"])
     phase_fleet(torch, dev["nvidia_smi"])
 

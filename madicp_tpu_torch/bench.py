@@ -32,7 +32,8 @@ association calls descend a scan, parked ones included, per-phase ms
 from a short :class:`~madicp_tpu_torch.utils.timing.PhaseTimer` window,
 device busy ms and kernels a scan from a short ``torch.profiler`` window
 (on a card), peak device memory and the segment-sum kernel's launches in
-the timed windows.
+the timed windows. On a card the timed scans replay the step's captured
+CUDA graph (``models/step_graph.py``); the PhaseTimer's scans run eagerly.
 
 Run on the card (``--device cpu`` runs on the CPU; it never falls back to
 it on its own)::
@@ -181,8 +182,10 @@ def run_schedule(setup: BenchSetup, spec: str, n_warmup=3, n_steps=12, n_windows
                  n_phase=2) -> dict:
     """Steady-state numbers of one schedule on a freshly primed pipeline:
     ``n_warmup`` scans, then ``n_windows`` timed windows of ``n_steps``
-    scans (each ending in a device synchronisation), then ``n_phase``
-    scans under a PhaseTimer and, on a card, ``n_phase`` under
+    scans (each ending in a device synchronisation; on a card a timed
+    scan replays the step's captured graph, and with ``n_warmup`` >= 2
+    none pays for the warm-up or the capture), then ``n_phase`` scans
+    under a PhaseTimer (eager) and, on a card, ``n_phase`` under
     ``torch.profiler`` (device busy ms and kernels a scan; the profiler
     slows the host, so its wall time is not the bench's)."""
     pipe = setup.make_pipe(spec)
@@ -204,18 +207,21 @@ def run_schedule(setup: BenchSetup, spec: str, n_warmup=3, n_steps=12, n_windows
     segsum.counter.launches = 0  # the timed run starts here
     rates, descents = [], []
     lo = 1 + n_warmup
-    with counting_descent_queries() as queries:
-        for _ in range(n_windows):
-            t0 = time.perf_counter()
-            for i in range(lo, lo + n_steps):
-                pipe.compute_device(0.1 * i, *staged[i])
-                descents.append(pipe._last.n_descents)
-            synchronize(dev)
-            rates.append(n_steps / (time.perf_counter() - t0))
-            lo += n_steps
+    for _ in range(n_windows):
+        t0 = time.perf_counter()
+        for i in range(lo, lo + n_steps):
+            pipe.compute_device(0.1 * i, *staged[i])
+            descents.append(pipe._last.n_descents)
+        synchronize(dev)
+        rates.append(n_steps / (time.perf_counter() - t0))
+        lo += n_steps
     launches = segsum.counter.launches  # read right after the timed run
+    # the timer's scans run eagerly, so the association calls are counted
+    # there (a replay runs no Python); their shapes are a scan's in every
+    # window
     pipe.timer = timer = PhaseTimer(dev)
-    run(lo, lo + n_phase)
+    with counting_descent_queries() as queries:
+        run(lo, lo + n_phase)
     totals = timer.totals_ms()
     pipe.timer = None
     lo += n_phase
@@ -236,7 +242,7 @@ def run_schedule(setup: BenchSetup, spec: str, n_warmup=3, n_steps=12, n_windows
         "ms_per_scan": 1000.0 / max(rates),
         "descents": descents[-1],
         "descents_mean": statistics.mean(descents),
-        "descent_queries_per_scan": queries[0] / (n_windows * n_steps),
+        "descent_queries_per_scan": queries[0] / n_phase,
         "phase_ms": {k: totals.get(k, 0.0) / n_phase for k in PHASES},
         "peak_mem_gb": (torch.cuda.max_memory_allocated(dev) / 1e9
                         if dev.type == "cuda" else None),

@@ -19,13 +19,16 @@ Differences of form, not of function:
   updated IN PLACE (``index_copy_``), the counterpart of the JAX step's
   buffer donation: ``odometry_step`` mutates ``state.kf_tree`` and
   ``state.fr_tree`` and returns them in the new state;
-- the promotion branch reads one boolean on the host — the only host
-  synchronisation of a scan; the GN round loop has none;
-- the step also takes a batch of B sequences, a leading axis on every
-  state field (the JAX package's fleet is ``jax.vmap`` of its step):
-  the batch folds into the flat axes the step already has, so a batched
-  scan issues the kernels of one; its promotions are masked per
-  sequence, with no host read. A single state runs as a batch of one.
+- the step takes a batch of B sequences, a leading axis on every state
+  field (the JAX package's fleet is ``jax.vmap`` of its step): the batch
+  folds into the flat axes the step already has, so a batched scan
+  issues the kernels of one. A single state steps as a batch of one;
+- the keyframe promotion (a ``lax.cond`` there) is masked per sequence,
+  so no step reads the device from the host;
+- the JAX host API's jitted, donated step is a captured CUDA graph over
+  static buffers (``models/step_graph.py``): :class:`Pipeline` holds a
+  batch-of-one state in those buffers and, on CUDA, replays one graph a
+  scan from its second odometry scan on.
 
 Schedules: every schedule of the JAX package is ported — plain exact,
 certified exact (the shipped default) with its compacted variant
@@ -47,6 +50,7 @@ from typing import Any, NamedTuple, Optional
 import numpy as np
 import torch
 
+from madicp_tpu_torch.kernels import segsum
 from madicp_tpu_torch.models.vel_estimator import estimate_velocity
 from madicp_tpu_torch.ops.constants import FRAME_WINDOW, MAX_ICP_ITS, SMOOTHING_T
 from madicp_tpu_torch.ops.deskew import deskew_cloud
@@ -215,8 +219,6 @@ def _rows(i: torch.Tensor, n: int) -> torch.Tensor:
     """Flat row ``b * n + i[b]`` of each sequence's slot ``i`` (B,) in a
     ``(B * n, ...)`` view of per-sequence rings."""
     i = i.long()
-    if i.shape[0] == 1:
-        return i
     return i + torch.arange(i.shape[0], device=i.device) * n
 
 
@@ -533,16 +535,13 @@ def odometry_step(
     points_shard: Optional[PointShard] = None,
 ) -> tuple[PipelineState, StepOutput]:
     """One full odometry step (reference ``Pipeline::compute``,
-    ``pipeline.cpp:125-265``). Updates ``state.fr_tree`` (and, on
-    promotion, ``state.kf_tree``) in place. ``timer``: an optional
+    ``pipeline.cpp:125-265``). Updates ``state.fr_tree`` and
+    ``state.kf_tree`` in place. ``timer``: an optional
     :class:`~madicp_tpu_torch.utils.timing.PhaseTimer`.
 
-    A single sequence's state that holds its whole ring steps as a batch
-    of one and decides its promotion with one boolean read on the host
-    (the scan's only synchronisation; a scan that does not promote then
-    touches no ring slot). A batched state (leading B on every field,
-    points (B, N, 3), valid (B, N)), or one holding a share of its ring,
-    promotes per sequence with masks and no host read: the promoted
+    The state is batched (leading B on every field, points (B, N, 3),
+    valid (B, N)) or a single sequence's, which steps as a batch of one.
+    Promotion is per sequence, with masks and no host read: the promoted
     window tree of each sequence overwrites its ring slot through one
     ``index_copy_`` (a sequence that does not promote, or a process that
     does not hold the slot, writes the slot's own tree back).
@@ -559,19 +558,16 @@ def odometry_step(
     """
     del stamp
     if state.X.dim() == 2:
-        whole_ring = kf_offset == 0 and state.kf_valid.shape[0] == cfg.num_keyframes
-        state, out = _odometry_step(
-            cfg, _lift(state), points[None], valid[None], timer, icp_rounds_fn,
-            kf_offset, points_shard, promote_on_host=whole_ring)
+        state, out = _odometry_step(cfg, _lift(state), points[None], valid[None], timer,
+                                    icp_rounds_fn, kf_offset, points_shard)
         return _drop(state), _drop(out)
     return _odometry_step(cfg, state, points, valid, timer, icp_rounds_fn, kf_offset,
-                          points_shard, promote_on_host=False)
+                          points_shard)
 
 
 def _odometry_step(cfg, state, points, valid, timer, icp_rounds_fn, kf_offset,
-                   points_shard, promote_on_host: bool):
-    """:func:`odometry_step` on a batched state; ``promote_on_host``
-    decides a batch of one's promotion with a host read."""
+                   points_shard):
+    """:func:`odometry_step` on a batched state."""
     dtype, dev = cfg.dtype, points.device
     B = points.shape[0]
     # filled in on the device: a copy from the host would synchronise
@@ -641,37 +637,26 @@ def _odometry_step(cfg, state, points, valid, timer, icp_rounds_fn, kf_offset,
         kf_nav = state.kf_tree.nav
         K_l = kf_nav.shape[1]
         kf_rings = kf_nav.view((B * K_l,) + kf_nav.shape[2:])
-        kf_valid, kf_head = state.kf_valid, state.kf_head
-        keyframe_to_map, seq_keyframe = state.keyframe_to_map, state.seq_keyframe
-        if promote_on_host:
-            if bool(promote):  # the scan's one host synchronisation
-                best_seq = fr_seq[0, best]
-                kf_rings.index_copy_(0, kf_head.long(), fr_rings.index_select(0, best))
-                kf_valid = kf_valid | (torch.arange(K, device=dev) == kf_head[:, None])
-                kf_head = (kf_head + 1) % K
-                # drop window frames at or before the promoted one
-                # (pipeline.cpp:246-251)
-                fr_valid = fr_valid & (fr_seq > best_seq[:, None])
-                keyframe_to_map = fr_pose[0, best]
-                seq_keyframe = best_seq
-        else:
-            # per sequence, masked: only where it promotes and this
-            # process holds its ring head
-            slot = kf_head.long() - kf_offset
-            write = promote & (slot >= 0) & (slot < K_l)
-            rows = _rows(torch.clamp(slot, 0, K_l - 1), K_l)
-            kf_rings.index_copy_(0, rows, torch.where(
-                write[:, None, None], fr_rings.index_select(0, _rows(best, F)),
-                kf_rings.index_select(0, rows)))
-            kf_valid = kf_valid | (write[:, None]
-                                   & (torch.arange(K_l, device=dev) == slot[:, None]))
-            kf_head = torch.where(promote, (kf_head + 1) % K, kf_head)
-            best_seq = torch.gather(fr_seq, 1, best[:, None])
-            fr_valid = torch.where(promote[:, None], fr_valid & (fr_seq > best_seq), fr_valid)
-            keyframe_to_map = torch.where(
-                promote[:, None, None], fr_pose[torch.arange(B, device=dev), best],
-                keyframe_to_map)
-            seq_keyframe = torch.where(promote, best_seq[:, 0], seq_keyframe)
+        kf_head = state.kf_head
+        # per sequence, masked: only where it promotes and this process
+        # holds its ring head
+        slot = kf_head.long() - kf_offset
+        write = promote & (slot >= 0) & (slot < K_l)
+        rows = _rows(torch.clamp(slot, 0, K_l - 1), K_l)
+        kf_rings.index_copy_(0, rows, torch.where(
+            write[:, None, None], fr_rings.index_select(0, _rows(best, F)),
+            kf_rings.index_select(0, rows)))
+        kf_valid = state.kf_valid | (write[:, None]
+                                     & (torch.arange(K_l, device=dev) == slot[:, None]))
+        kf_head = torch.where(promote, (kf_head + 1) % K, kf_head)
+        # drop window frames at or before the promoted one
+        # (pipeline.cpp:246-251)
+        best_seq = torch.gather(fr_seq, 1, best[:, None])
+        fr_valid = torch.where(promote[:, None], fr_valid & (fr_seq > best_seq), fr_valid)
+        keyframe_to_map = torch.where(
+            promote[:, None, None], fr_pose[torch.arange(B, device=dev), best],
+            state.keyframe_to_map)
+        seq_keyframe = torch.where(promote, best_seq[:, 0], state.seq_keyframe)
 
     new_state = PipelineState(
         X=X,
@@ -733,7 +718,16 @@ def _warn_if_matmul_precision_degraded() -> None:
 class Pipeline:
     """Host-facing odometry engine (API parity with the reference
     ``pypeline.Pipeline``, ``pypeline.cpp:52-75``). Runs on ``device``,
-    CUDA unless the caller passes ``device="cpu"``."""
+    CUDA unless the caller passes ``device="cpu"``.
+
+    The state is a batch of one in static buffers
+    (:class:`~madicp_tpu_torch.models.step_graph.StepGraphs`). On CUDA a
+    scan is the replay of one captured graph a configuration, from the
+    second odometry scan on; eager are the first scan, the first
+    odometry scan (the warm-up), every scan while :attr:`timer` is set,
+    and every scan on the CPU. :attr:`state` reads the buffers as one
+    sequence's state (views, which every scan overwrites in place) and,
+    assigned, copies into them."""
 
     def __init__(
         self,
@@ -790,8 +784,14 @@ class Pipeline:
             certify_prefix=int(certify_prefix),
             assoc_ladder=int(assoc_ladder),
         )
+        from madicp_tpu_torch.models.step_graph import StepGraphs  # imports this module
+
         self.realtime = bool(realtime)
-        self.state = init_state(self.cfg, self.device)
+        self._graphs = StepGraphs(init_state(self.cfg, self.device, batch=1),
+                                  self.cfg.n_points, self.cfg.dtype)
+        # the build's widest level, 2^depth segments: its workspace is
+        # allocated now, before anything could capture the step
+        segsum.reserve(self.device, self.cfg.n_points, 1 << self.cfg.depth)
         self._last: Optional[StepOutput] = None
         self._initialized = False
         # anytime-realtime calibration (see compute())
@@ -800,12 +800,25 @@ class Pipeline:
         self._rt_every = max(1, int(realtime_recal_every))
         self._rt_its_max = int(max_icp_iterations)
         # a recalibration only times an iteration count that has already
-        # run once (the JAX package's warm-only rule)
+        # run once, on CUDA as its graph (the JAX package's warm-only rule)
         self._rt_cfg_warm = False
         self._rt_pending = False
         self._now = None  # injectable clock (tests)
         self._n_points_dropped = 0
-        self.timer = None  # optional utils.timing.PhaseTimer
+        # optional utils.timing.PhaseTimer; while set, every scan is eager
+        self.timer = None
+
+    @property
+    def state(self) -> PipelineState:
+        """The sequence's state: views of the static buffers, which every
+        scan overwrites in place (copy what must outlive a scan)."""
+        return _drop(self._graphs.state)
+
+    @state.setter
+    def state(self, state: PipelineState) -> None:
+        """Copy a single sequence's state of this configuration's shapes
+        into the static buffers; the next scan steps from it."""
+        self._graphs.assign(_lift(state))
 
     # -- main entry ---------------------------------------------------------
     def compute(self, stamp: float, points: np.ndarray) -> None:
@@ -844,41 +857,42 @@ class Pipeline:
             )
         )
         if due and not self._rt_cfg_warm:
-            # this iteration count has never run: run it untimed first and
-            # recalibrate on the next scan
+            # this iteration count has never run: run it untimed first (on
+            # CUDA its graph's capture and first replay) and recalibrate on
+            # the next scan
             self._rt_pending = True
-            self._dispatch_step(pts, valid, stamp)
+            self._dispatch_step(pts, valid)
         elif due:
             self._rt_pending = False
-            self._calibrate_realtime(pts, valid, stamp)
+            self._calibrate_realtime(pts, valid)
         else:
-            self._dispatch_step(pts, valid, stamp)
+            self._dispatch_step(pts, valid)
         self._rt_scans += 1
 
-    def _dispatch_step(self, pts, valid, stamp) -> None:
-        """Host-side first-scan/odometry branch."""
-        self._rt_cfg_warm = True
+    def _dispatch_step(self, pts, valid) -> None:
+        """Host-side first-scan/odometry branch; enqueues the scan and
+        reads nothing on the host."""
         if self._initialized:
-            self.state, self._last = odometry_step(
-                self.cfg, self.state, pts, valid, stamp, timer=self.timer
-            )
+            out = self._graphs.step(self.cfg, pts[None], valid[None], self.timer)
         else:
-            self.state, self._last = initialize_step(
-                self.cfg, self.state, pts, valid, stamp, timer=self.timer
-            )
+            out = self._graphs.initialize(self.cfg, pts[None], valid[None], self.timer)
             self._initialized = True
+        self._rt_cfg_warm = self._graphs.ready(self.cfg)
+        self._last = _drop(out)
 
     def compute_batch(self, stamps, clouds) -> np.ndarray:
         """Process a chunk of scans; returns the (C, 4, 4) chunk poses.
 
         ``stamps`` is a length-C sequence of floats, ``clouds`` a length-C
         sequence of (Ni, 3) arrays. The JAX package runs the chunk as one
-        compiled ``lax.scan``; here the scans are staged, then stepped in
-        order (the step branches on the host and updates the rings in
-        place), with one host copy of the poses at the end. The accessors
-        hold the chunk's LAST scan; :meth:`points_dropped` sums the
-        chunk's truncated points. A chunk may start on an uninitialised
-        pipeline (its first scan bootstraps). Not a throughput mode.
+        compiled ``lax.scan``; here the scans are staged, then enqueued in
+        order with no host read (on CUDA a replay of the step's graph a
+        scan), and the poses come to the host in one copy at the end. Each
+        scan's pose is that step's own output, which no later step
+        changes. The accessors hold the chunk's LAST scan;
+        :meth:`points_dropped` sums the chunk's truncated points. A chunk
+        may start on an uninitialised pipeline (its first scan
+        bootstraps).
 
         With ``realtime=True`` the anytime budget is a per-scan host
         decision, so chunking is refused until the calibration has run
@@ -895,14 +909,14 @@ class Pipeline:
             raise ValueError(f"need C >= 1 stamps and as many clouds, got {C} and {len(clouds)}")
         staged = [self.stage(cloud) for cloud in clouds]
         poses = []
-        for stamp, (pts, valid, _) in zip(stamps, staged):
-            self._dispatch_step(pts, valid, float(stamp))
+        for pts, valid, _ in staged:
+            self._dispatch_step(pts, valid)
             poses.append(self._last.pose)
         self._n_points_dropped = sum(n for _, _, n in staged)
         self._rt_scans += C
         return torch.stack(poses).cpu().numpy()
 
-    def _calibrate_realtime(self, pts, valid, stamp) -> None:
+    def _calibrate_realtime(self, pts, valid) -> None:
         """Rolling anytime-budget calibration: time one synchronised
         steady-state step and rescale the ICP iteration budget to fit.
         The count SHRINKS when the budget is blown and is RESTORED toward
@@ -911,7 +925,7 @@ class Pipeline:
         now = self._now or time.perf_counter
         synchronize(self.device)  # drain the queue
         t0 = now()
-        self._dispatch_step(pts, valid, stamp)
+        self._dispatch_step(pts, valid)
         synchronize(self.device)
         step_s = now() - t0
 
@@ -951,11 +965,13 @@ class Pipeline:
         return pts, valid, n_dropped
 
     # -- accessors (reference pipeline.h:60-71, pipeline.cpp:286-308) -------
+    # (copies: the buffers change in place, and on the CPU .numpy() of
+    # a buffer would share its memory)
     def current_pose(self) -> np.ndarray:
-        return self.state.X.cpu().numpy()
+        return self.state.X.to("cpu", copy=True).numpy()
 
     def keyframe_pose(self) -> np.ndarray:
-        return self.state.keyframe_to_map.cpu().numpy()
+        return self.state.keyframe_to_map.to("cpu", copy=True).numpy()
 
     def current_id(self) -> int:
         return int(self.state.seq)

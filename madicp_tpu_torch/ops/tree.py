@@ -223,9 +223,8 @@ def build_tree(
     M = tree_arena_size(depth)
     big = torch.finfo(dtype).max
     big_i = 2**31 - 1
-    # each point's cloud, times the level's node count (kept only when
-    # there is more than one cloud: a single cloud's offsets are 0)
-    seq_sz = torch.arange(B, device=dev).repeat_interleave(N) if B > 1 else None
+    # each point's cloud, times the level's node count
+    seq_sz = torch.arange(B, device=dev).repeat_interleave(N)
 
     # per-point state
     node = torch.where(valid, 1, 0)
@@ -245,12 +244,9 @@ def build_tree(
         nseg = B * sz
         force_leaf = level == depth
         live = (~frozen) & valid
-        if seq_sz is None:
-            idx = torch.where(live, node - lo, nseg)  # segment, nseg = drop
-        else:
-            if level:
-                seq_sz = seq_sz * 2
-            idx = torch.where(live, node - lo + seq_sz, nseg)
+        if level:
+            seq_sz = seq_sz * 2
+        idx = torch.where(live, node - lo + seq_sz, nseg)  # segment, nseg = drop
 
         # ---- moments, shifted by the parent mean for f32 stability ----
         d = points - prev_mean_pt
@@ -367,8 +363,7 @@ def build_tree(
     # both). Leaf ``a`` of cloud ``b`` is row ``b M + a``; a point's index
     # is ``b N + n``, so within a cloud the order is the cloud's own ----
     BM = B * M
-    aid = torch.where(valid, leaf_of if seq_sz is None else leaf_of + seq_sz * (M >> depth),
-                      BM)
+    aid = torch.where(valid, leaf_of + seq_sz * (M >> depth), BM)
     dmin = torch.full((BM + 1,), big, dtype=dtype, device=dev)
     dmin.scatter_reduce_(0, aid, frz_dist, "amin")
     if shard is not None:
@@ -520,9 +515,8 @@ def get_leaves(tree: SearchTree, max_leaves: int) -> Leaves:
     L = max_leaves
     flag = nav[..., 7] == 3.0  # (B, M)
     pos = torch.cumsum(flag.long(), dim=-1) - 1
-    idx = torch.where(flag & (pos < L), pos, L)
-    if B > 1:
-        idx = idx + (torch.arange(B, device=nav.device) * (L + 1))[:, None]
+    idx = torch.where(flag & (pos < L), pos, L) + (
+        torch.arange(B, device=nav.device) * (L + 1))[:, None]
     out = torch.zeros((B * (L + 1), 8), dtype=nav.dtype, device=nav.device)
     out.index_copy_(0, idx.reshape(B * M), nav.reshape(B * M, NAV_WIDTH)[:, 0:8])
     count = flag.sum(dim=-1)  # (B,)

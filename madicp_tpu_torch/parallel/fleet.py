@@ -13,6 +13,14 @@ With a mesh (:mod:`madicp_tpu_torch.parallel.mesh`) the batch splits over
 the ``seq`` axis (each rank steps its B/seq sequences; nothing crosses
 ``seq`` inside a step) and each sequence's keyframe ring over the ``kf``
 axis (:mod:`madicp_tpu_torch.parallel.sharded_icp`).
+
+The states live in static buffers
+(:class:`~madicp_tpu_torch.models.step_graph.StepGraphs`). Without a mesh,
+on CUDA, a batched scan is the replay of one captured graph from the
+second odometry scan on. With a mesh the step issues
+``torch.distributed`` collectives and runs eagerly (capturing them is
+not done here); so do the first two scans, every scan while
+:attr:`Fleet.timer` is set, and every scan on the CPU.
 """
 
 from __future__ import annotations
@@ -26,9 +34,8 @@ from madicp_tpu_torch.models.pipeline import (
     PipelineState,
     StepOutput,
     init_state,
-    initialize_step,
-    odometry_step,
 )
+from madicp_tpu_torch.models.step_graph import StepGraphs
 from madicp_tpu_torch.parallel.mesh import (
     axis_index,
     axis_size,
@@ -80,15 +87,28 @@ class Fleet:
         self._rounds = None if mesh is None else kf_rounds_fn(cfg, mesh.get_group("kf"))
         self._shard = (points_shard(mesh.get_group("kf"), i_kf, n_kf, cfg.n_points)
                        if shard_points else None)
-        self.states: PipelineState = init_state(
-            cfg, self.device, batch=b, num_keyframes=cfg.num_keyframes // n_kf)
+        self._graphs = StepGraphs(
+            init_state(cfg, self.device, batch=b, num_keyframes=cfg.num_keyframes // n_kf),
+            cfg.n_points, cfg.dtype)
         self._initialized = False
-        self.timer = None  # optional utils.timing.PhaseTimer
+        # optional utils.timing.PhaseTimer; while set, every scan is eager
+        self.timer = None
         if self.device.type == "cuda":
             # the build's widest level: B * 2^depth segments. Its workspace
             # is allocated now, before anything could capture the step
             n_pts = b * (cfg.n_points // n_kf if shard_points else cfg.n_points)
             segsum.reserve(self.device, n_pts, b << cfg.depth)
+
+    @property
+    def states(self) -> PipelineState:
+        """This rank's batched states: the static buffers, which every
+        scan overwrites in place (copy what must outlive a scan)."""
+        return self._graphs.state
+
+    @states.setter
+    def states(self, states: PipelineState) -> None:
+        """Copy batched states of this fleet's shapes into the buffers."""
+        self._graphs.assign(states)
 
     def _local(self, x, dtype):
         """This rank's sequences of a whole batch, on the device."""
@@ -105,23 +125,22 @@ class Fleet:
             points: (B, N, 3) padded clouds.
             valid:  (B, N) masks.
         Every process passes the whole batch. Returns the batched
-        StepOutput of this rank's sequences (:attr:`sequences`).
-        Sequences advance in lockstep, so the first scan's bootstrap is
-        one host-side flag; the step itself reads nothing on the host.
+        StepOutput of this rank's sequences (:attr:`sequences`), the
+        caller's own: no later scan changes it. Sequences advance in
+        lockstep, so the first scan's bootstrap is one host-side flag;
+        the step itself reads nothing on the host.
         """
         del stamps
         pts = self._local(points, self.cfg.dtype)
         val = self._local(valid, torch.bool)
-        kw = dict(kf_offset=self._kf_offset, points_shard=self._shard)
+        kw = {} if self.mesh is None else dict(kf_offset=self._kf_offset,
+                                               points_shard=self._shard)
         if self._initialized:
-            self.states, out = odometry_step(
-                self.cfg, self.states, pts, val, None, self.timer,
-                icp_rounds_fn=self._rounds, **kw)
-        else:
-            self.states, out = initialize_step(
-                self.cfg, self.states, pts, val, None, self.timer, **kw)
-            self._initialized = True
-        return out
+            if self.mesh is not None:
+                kw["icp_rounds_fn"] = self._rounds
+            return self._graphs.step(self.cfg, pts, val, self.timer, **kw)
+        self._initialized = True
+        return self._graphs.initialize(self.cfg, pts, val, self.timer, **kw)
 
     def poses(self) -> np.ndarray:
         """(B, 4, 4) current poses of every sequence (gathered over the

@@ -105,6 +105,6 @@ def make_global(x, spec, mesh):
 def read_replicated(t) -> np.ndarray:
     """This rank's copy of a replicated value, as numpy."""
     if isinstance(t, torch.Tensor):
-        return t.detach().cpu().numpy()
+        return t.detach().to("cpu", copy=True).numpy()
     return np.asarray(t)
 

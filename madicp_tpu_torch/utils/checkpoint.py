@@ -34,9 +34,9 @@ _DTYPE_NAMES = {v: k for k, v in _DTYPES.items()}
 def _snapshot(state) -> dict:
     """The state as host numpy arrays, ``leaf_{i}`` in flatten order.
 
-    Always a copy: the step updates the rings in place, and on the CPU
-    ``Tensor.cpu()`` is the same storage, so a file written from it in
-    the background would race the next step."""
+    Always a copy: every step overwrites the state's buffers in place, and
+    on the CPU ``Tensor.cpu()`` is the same storage, so a file written
+    from it in the background would race the next step."""
     arrays = {}
     for i, name in enumerate(state._fields):
         t = getattr(state, name)
@@ -122,8 +122,9 @@ def load_pipeline(path, device=None):
             pipe._rt_its_max = int(z["__rt_its_max__"])
             pipe._rt_every = int(z["__rt_every__"])
         arrays = {name: z[f"leaf_{i}"] for i, name in enumerate(PipelineState._fields)}
-        pipe.state = None  # free the ctor's state before the restored one
-        pipe.state = state_from_numpy(cfg, arrays, pipe.device)
+        # built on the host and copied into the pipeline's static buffers,
+        # so the device never holds the rings twice
+        pipe.state = state_from_numpy(cfg, arrays, "cpu")
     # restore the host-side first-scan flag from the restored state
     pipe._initialized = pipe.current_id() > 0
     return pipe

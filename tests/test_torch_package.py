@@ -170,10 +170,9 @@ SCHEDULES = {
 @pytest.mark.cuda
 @pytest.mark.parametrize("schedule", list(SCHEDULES))
 def test_icp_rounds_never_syncs_the_host_on_cuda(cuda_device, schedule):
-    """Every schedule's GN rounds run with no host synchronisation (the
-    step's one host read stays the promotion): a keyframe ring of two
-    room scans, a third scan's leaves, 6 rounds under
-    ``set_sync_debug_mode("error")``."""
+    """Every schedule's GN rounds run with no host synchronisation: a
+    keyframe ring of two room scans, a third scan's leaves, 6 rounds
+    under ``set_sync_debug_mode("error")``."""
     rng = np.random.default_rng(5)
     walls = [rng.uniform([0, 0, 0], [4, 0.01, 2], (600, 3)),
              rng.uniform([0, 0, 0], [0.01, 4, 2], (600, 3)),
@@ -223,9 +222,8 @@ def _fleet_inputs(cfg, scans, device):
 @pytest.mark.parametrize("schedule", list(SCHEDULES))
 def test_fleet_step_never_syncs_the_host_on_cuda(cuda_device, schedule):
     """A B = 2 fleet step (build, rounds, masked per-sequence promotion,
-    ring writes) runs with no host synchronisation, unlike the single
-    Pipeline's one read: two scans, then the third step on staged inputs
-    under ``set_sync_debug_mode("error")``."""
+    ring writes) runs with no host synchronisation: two scans, then the
+    third step on staged inputs under ``set_sync_debug_mode("error")``."""
     from madicp_tpu_torch.models.pipeline import PipelineConfig, odometry_step
     from madicp_tpu_torch.parallel import Fleet
 
@@ -278,6 +276,99 @@ def test_kf_hook_issues_on_nccl_on_cuda(cuda_device):
         np.testing.assert_allclose(sharded.poses(), plain.poses(), atol=1e-9)
     finally:
         distributed.shutdown()
+
+
+GRAPH_KW = dict(PIPE_KW, n_points=4096, depth=10, max_leaves=1024, max_icp_iterations=6,
+                dtype=torch.float64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("schedule", list(SCHEDULES))
+def test_graphed_pipeline_matches_eager_on_cuda(cuda_device, schedule):
+    """A Pipeline replays one captured graph a scan from its second
+    odometry scan on, and its poses stay within 1e-9 (float64) of an
+    eager twin that runs the captured body directly (#1's double atomics
+    order sums differently from run to run); the segment-sum counter
+    advances depth + 1 a replayed scan."""
+    from madicp_tpu_torch.models.step_graph import step_in_place
+
+    graphed = Pipeline(**GRAPH_KW, device=cuda_device, **SCHEDULES[schedule])
+    eager = Pipeline(**GRAPH_KW, device=cuda_device, **SCHEDULES[schedule])
+    for i, scan in enumerate(_rooms([[0.05 * i, 0.02 * i, 0] for i in range(6)])):
+        pts, val, _ = graphed.stage(scan)
+        before = segsum.counter.launches
+        graphed.compute_device(0.1 * i, pts, val)
+        launches = segsum.counter.launches - before
+        if i == 0:
+            eager.compute_device(0.0, pts, val)
+        else:
+            step_in_place(eager.cfg, eager._graphs.state, pts[None], val[None])
+        assert launches == GRAPH_KW["depth"] + 1
+        np.testing.assert_allclose(graphed.current_pose(), eager.current_pose(),
+                                   rtol=0, atol=1e-9)
+        assert len(graphed._graphs.captured()) == (i >= 2)
+
+
+@pytest.mark.cuda
+def test_graphed_fleet_matches_eager_on_cuda(cuda_device):
+    """A B = 2 fleet replays its graph from the second odometry scan on;
+    every sequence stays within 1e-9 of an eager twin's, and what a step
+    returned is unchanged by the next."""
+    from madicp_tpu_torch.models.pipeline import PipelineConfig
+    from madicp_tpu_torch.models.step_graph import step_in_place
+    from madicp_tpu_torch.parallel import Fleet
+
+    cfg = PipelineConfig(**GRAPH_KW)
+    graphed, eager = Fleet(cfg, 2, device=cuda_device), Fleet(cfg, 2, device=cuda_device)
+    kept = []
+    for i in range(5):
+        inputs = _fleet_inputs(cfg, _rooms([[0.05 * i, 0, 0], [0.2 * i, 0.02 * i, 0]]),
+                               cuda_device)
+        out = graphed.compute(None, *inputs)
+        kept.append((out, [t.clone() for t in out]))
+        if i == 0:
+            eager.compute(None, *inputs)
+        else:
+            step_in_place(cfg, eager.states, *inputs)
+        np.testing.assert_allclose(graphed.poses(), eager.poses(), rtol=0, atol=1e-9)
+    for out, copy in kept:
+        assert all(torch.equal(t, c) for t, c in zip(out, copy))
+    assert len(graphed._graphs.captured()) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_gn_solve_and_logdet_replay_in_a_cuda_graph(cuda_device, dtype):
+    """The step's 6x6 solve (``linalg.solve_ex``) and log-determinant
+    (``linalg.slogdet``) capture, and a replay on new inputs equals the
+    eager call bit for bit (an empty and a singular system included)."""
+    from madicp_tpu_torch.ops.icp_core import neg_logdet, solve_gn
+
+    def systems(seed):
+        rng = np.random.default_rng(seed)
+        A = rng.normal(size=(4, 6, 6))
+        H = A @ A.transpose(0, 2, 1) + 1e-3 * np.eye(6)
+        H[2] = 0.0  # empty: zeros
+        H[3, :, 5] = H[3, 5, :] = 0.0  # singular
+        return (torch.as_tensor(H, dtype=dtype, device=cuda_device),
+                torch.as_tensor(rng.normal(size=(4, 6)), dtype=dtype, device=cuda_device))
+
+    H, b = systems(0)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        solve_gn(H, b), neg_logdet(H)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        dx, nld = solve_gn(H, b), neg_logdet(H)
+    for seed in (1, 2):
+        H2, b2 = systems(seed)
+        H.copy_(H2)
+        b.copy_(b2)
+        graph.replay()
+        assert torch.equal(dx, solve_gn(H2, b2)) and torch.equal(nld, neg_logdet(H2))
+        assert torch.equal(dx[2], torch.zeros_like(dx[2]))
 
 
 FLAGSHIP_N, FLAGSHIP_DEPTH, H100_SMS = 131072, 16, 132
@@ -608,3 +699,27 @@ def test_cli_runs_the_options_it_once_refused(request, tmp_path, four_walls, opt
         assert load_pipeline(out / "pipeline.ckpt.npz", device="cpu").current_id() == 2
     else:
         assert not (out / "pipeline.ckpt.npz").exists()
+
+
+@pytest.mark.cuda
+def test_a_host_sync_in_the_step_makes_its_capture_raise_on_cuda(cuda_device, monkeypatch):
+    """A step that reads the device from the host cannot be captured: the
+    scan that would capture it raises, and no graph is kept (there is no
+    silent eager fallback). Last in the file: a failed capture may leave
+    torch's capture bookkeeping behind."""
+    import madicp_tpu_torch.models.pipeline as pipeline_mod
+
+    real = pipeline_mod.neg_logdet
+
+    def syncing(H):
+        float(H.sum())  # a host read
+        return real(H)
+
+    pipe = Pipeline(**GRAPH_KW, device=cuda_device)
+    scans = _rooms([[0.05 * i, 0.02 * i, 0] for i in range(3)])
+    for i in range(2):  # the bootstrap and the warm-up run eagerly
+        pipe.compute(0.1 * i, scans[i])
+    monkeypatch.setattr(pipeline_mod, "neg_logdet", syncing)
+    with pytest.raises(RuntimeError):
+        pipe.compute(0.2, scans[2])
+    assert not pipe._graphs.captured()

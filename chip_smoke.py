@@ -14,6 +14,21 @@ script exits non-zero without the final line):
               and launches the plan chose at each level, kernel and
               library (each eager and in a CUDA graph), plain and bound
               times;
+3a. assoc     descend (K6) and icp_terms (K7) against their plain PyTorch
+              versions on the card at flagship shapes (a primed ring of
+              16 trees, 32768 leaves of a bench scan, depth 16), float32
+              and float64: the descent's ids, blocks and margins bit for
+              bit at a certified round 0, a later certified round (most
+              entries parked) and a warm start, with the distinct panels
+              it reads (the bound's bytes); the terms' matched bit for bit
+              and H, b within 1e-5 (1e-12 in float64) relative of a float64
+              sum of the plain version's per-entry terms; eager, graphed
+              and plain ms and bounds. Then the certified flagship drive,
+              graphed, with the kernels and with both functions routed to
+              their plain versions (a patch of this script): scans/s,
+              device busy and kernels a scan of each on the bench's world
+              (y and z within 5e-4 m; x is unobservable there), and the
+              accuracy drive both ways within 5e-4 m;
 3b. probe     one run of the probe entry point (python -m
               madicp_tpu_torch.probes.scatter_probe), its launches counted
               from 0: it holds the four scatter-probe kernels
@@ -81,9 +96,11 @@ script exits non-zero without the final line):
               keyframe ring split, then the build too) within 5e-4 of
               one process on both ranks — plumbing, not scaling.
 
-Then the line {"kernels": [...]} (all five kernels: segsum_moments per
-flagship build with its main-path launches, the probe kernels summed
-over one probe pass with the probe's launches), the nvidia-smi line, and last
+Then the line {"kernels": [...]} (all seven kernels: segsum_moments per
+flagship build, descend at a certified round 0 and icp_terms on its
+payload, each with its launches in the steady phase's main-path run; the
+probe kernels summed over one probe pass with the probe's launches), the
+nvidia-smi line, and last
 {"ok": true, "device": {...}}. Imports nothing of JAX or of the JAX
 package; the golden file is read with numpy. Needs one card.
 
@@ -93,6 +110,9 @@ kernel time by kernel name, and the device's busy share.
 Every phase that goes through Pipeline.compute/compute_device/
 compute_batch or Fleet.compute without a mesh replays captured CUDA
 graphs from the second odometry scan on; a capture that fails raises.
+Every run of the step (every schedule, the fleet, the CLI, the demos)
+counts its kernels' launches from 0 and fails if descend or icp_terms
+was never launched.
 """
 
 from __future__ import annotations
@@ -121,6 +141,33 @@ def emit(obj) -> None:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+ASSOC_KERNELS = ("descend", "icp_terms")  # the association's and the terms' kernels
+# their __global__ functions, as a CUDA trace names them
+ASSOC_KERNEL_NAMES = {"descend": ("descend_kernel",),
+                      "icp_terms": ("terms_kernel", "finish_kernel")}
+
+
+def reset_launches() -> None:
+    """Set the launch counter of every kernel of the step to 0."""
+    from madicp_tpu_torch.models.step_graph import COUNTERS
+
+    for c in COUNTERS.values():
+        c.launches = 0
+
+
+def launches() -> dict:
+    """{kernel name: launches since its counter was reset} of the step's
+    kernels (segsum_moments, descend, icp_terms)."""
+    from madicp_tpu_torch.models.step_graph import COUNTERS
+
+    return {name: c.launches for name, c in COUNTERS.items()}
+
+
+def check_assoc_launched(counts: dict, what: str) -> None:
+    for name in ASSOC_KERNELS:
+        check(counts[name] > 0, f"{what}: {name} was never launched")
 
 
 # ---------------------------------------------------------------- scenes --
@@ -244,6 +291,12 @@ def phase_kernels(torch) -> dict:
     return summary
 
 
+# the association's and the terms' kernels -> the JAX function each
+# counterpart ports (XLA-lowered there), and their sources
+ASSOC_REPLACES = {"descend": "madicp_tpu/ops/tree.py:685",
+                  "icp_terms": "madicp_tpu/ops/icp_core.py:69"}
+ASSOC_SOURCES = {"descend": "descent", "icp_terms": "icp_terms"}
+
 PROBE_KERNELS = {  # wrapper -> the TPU kernel it replaces
     "onehot_segsum": "scripts/pallas_scatter_probe.py:66",
     "fused_moments": "scripts/pallas_scatter_probe.py:155",
@@ -285,6 +338,251 @@ def phase_probe(torch) -> dict:
     emit({"phase": "probe", "seconds": seconds, "tol": probe.TOL,
           "rmw_segsum": "bitwise equal to the in-order plain version",
           "per_probe_pass": out})
+    return out
+
+
+ASSOC_REPS = 20  # calls a timing
+# the live share of a certified round after round 0: a certified flagship
+# scan descends 1.71 M entries, 0.52 M of them in round 0, and the other
+# 14 rounds hand the descent 0.52 M entries each (PERF.md)
+ASSOC_LIVE = 0.16
+ASSOC_DRIVE = dict(warm=2, timed=6, profiled=2)  # scans of each certified drive
+ASSOC_BOUND_M = 5e-4  # certified f32 divergence bound (tests/test_pipeline.py:368)
+DESCENT_FLOPS_PER_PANEL = 8  # the side value: 3 subtractions, 3 products, 2 adds
+TERMS_FLOPS_PER_ENTRY = 114  # gate 17, residual 5, u 15, m x u 9, weight 8, s J 6, sums 54
+
+
+def plain_association():
+    """A context in which ``search_forest`` and ``terms_from_payload`` take
+    their plain versions on the card too (the kernels' counters stand
+    still): the yardstick of the ``assoc`` drive."""
+    import contextlib
+
+    from madicp_tpu_torch.kernels import descent, icp_terms
+
+    @contextlib.contextmanager
+    def patched():
+        real = descent.descend, icp_terms.terms
+        descent.descend, icp_terms.terms = descent.descend_plain, icp_terms.terms_plain
+        try:
+            yield
+        finally:
+            descent.descend, icp_terms.terms = real
+
+    return patched()
+
+
+def pose_gap(a, b) -> dict:
+    """How far two (S, 4, 4) pose sequences are apart: the largest
+    translation difference along x, y and z (m), rotation angle (rad)
+    and matrix entry."""
+    d = np.abs(a[:, :3, 3] - b[:, :3, 3]).max(axis=0)
+    return {"x_m": float(d[0]), "y_m": float(d[1]), "z_m": float(d[2]),
+            "rot_rad": max(rotation_angle(p[:3, :3], q[:3, :3]) for p, q in zip(a, b)),
+            "max_abs": float(np.abs(a - b).max())}
+
+
+def rel_frobenius(got, want, axes) -> float:
+    """Largest relative Frobenius distance over the leading indices."""
+    d = (got.double() - want).square().sum(axes).sqrt()
+    return float((d / want.square().sum(axes).sqrt().clamp_min(1e-300)).max())
+
+
+def certified_drive(torch, plain: bool) -> dict:
+    """The certified flagship drive on the bench's primed ring, graphed:
+    poses, launches, scans/s of the timed scans, and a profiled window;
+    with ``plain`` the association and terms take their plain versions."""
+    import contextlib
+
+    from madicp_tpu_torch import bench
+    from madicp_tpu_torch.probes.segsum_levels import bench_pose
+
+    setup = bench.BenchSetup(DEV, N_POINTS, KEYFRAMES, DEPTH, MAX_LEAVES)
+    n_warm, n_timed, n_prof = (ASSOC_DRIVE[k] for k in ("warm", "timed", "profiled"))
+    with plain_association() if plain else contextlib.nullcontext():
+        pipe = setup.make_pipe("certified")
+        setup.prime(pipe)
+        total = n_warm + n_timed + n_prof
+        staged = {i: pipe.stage(setup.scan_at(i)) for i in range(1, 1 + total)}
+        poses = []
+
+        def step(i):
+            pipe.compute_device(0.1 * i, *staged[i])
+            poses.append(pipe._last.pose)
+
+        for i in range(1, 1 + n_warm):
+            step(i)
+        reset_launches()  # the timed run starts here
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(1 + n_warm, 1 + n_warm + n_timed):
+            step(i)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launches()  # read right after it
+        prof = profile_window(
+            lambda: [step(i) for i in range(1 + n_warm + n_timed, 1 + total)], n_prof)
+        (capture_ms, nodes, _), = pipe._graphs.captured().values()
+    out = {"route": "plain" if plain else "kernels", "scans_per_s": n_timed / wall,
+           "launches_per_scan": {k: v / n_timed for k, v in counts.items()},
+           "capture_ms": capture_ms, "nodes": nodes, "profile": prof,
+           "poses": torch.stack(poses).cpu().numpy().astype(np.float64)}
+    truth = np.stack([np.eye(4) for _ in range(total)])
+    for i in range(total):
+        truth[i, :3, :3], truth[i, :3, 3] = bench_pose(i + 1)
+    out["from_truth"] = pose_gap(out["poses"], truth)
+    del pipe, staged
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_assoc(torch, nvidia_smi: str) -> dict:
+    """The descent (K6) and the terms (K7) kernels against their plain
+    versions on the card at flagship shapes (a primed ring of 16 trees,
+    32768 leaves of a bench scan, depth 16), float32 and float64: the
+    descent's ids, blocks and margins bit for bit at a certified round 0,
+    a later certified round (most entries parked) and a warm start; the
+    terms' matched bit for bit and H, b within 1e-5 (1e-12 in float64)
+    relative of a float64 sum of the plain version's per-entry terms.
+    Eager, graphed and plain ms and the bound of each. Then the certified
+    drive graphed twice, with the kernels and with the plain versions:
+    device busy and kernels a scan of both on the bench's world (y and z
+    within 5e-4 m: x is unobservable there), and the accuracy phase's
+    drive on the two-orientation world both ways, within 5e-4 m."""
+    import contextlib
+
+    from madicp_tpu_torch import bench
+    from madicp_tpu_torch.kernels import descent, icp_terms
+    from madicp_tpu_torch.ops.tree import build_tree, get_leaves
+    from madicp_tpu_torch.probes.segsum_levels import bench_pose
+    from madicp_tpu_torch.utils.timing import bound_ms, event_ms, graph_ms
+
+    t_phase = time.perf_counter()
+    dev = torch.device(DEV)
+    setup = bench.BenchSetup(DEV, N_POINTS, KEYFRAMES, DEPTH, MAX_LEAVES)
+    pipe = setup.make_pipe("certified")
+    setup.prime(pipe)
+    cfg = pipe.cfg
+    pts, val, _ = pipe.stage(setup.scan_at(1))
+    tree, _ = build_tree(pts, val, depth=cfg.depth, b_max=cfg.b_max, b_min=cfg.b_min)
+    leaves = get_leaves(tree, cfg.leaves_cap)
+    R, t = bench_pose(1)
+    X = np.eye(4)
+    X[:3, :3], X[:3, 3] = R, t + np.array([0.02, -0.01, 0.0])  # a GN round near scan 1
+    ring = pipe.state.kf_tree.nav.clone()  # (K, M, 56) float32
+    del pipe, tree
+    K, M = ring.shape[0], ring.shape[1]
+    L = leaves.pts.shape[0]
+    Q = K * L
+    later = torch.from_numpy(np.random.default_rng(5).random((K, L)) < ASSOC_LIVE).to(dev)
+    base = (torch.arange(K, device=dev) * M)[:, None].expand(K, L).reshape(Q)
+    need = leaves.valid[None].expand(K, L)
+    terms_kw = dict(b_max=cfg.b_max, b_ratio=cfg.b_ratio, rho_ker=cfg.rho_ker)
+    out = {"phase": "assoc", "nvidia_smi": nvidia_smi,
+           "config": {"keyframes": K, "arena_rows": M, "leaves": L,
+                      "valid_leaves": int(leaves.valid.sum()), "depth": DEPTH,
+                      "later_round_live_share": ASSOC_LIVE}, "descend": {}, "icp_terms": {}}
+    for dtype in (torch.float32, torch.float64):
+        dname = str(dtype).split(".")[1]
+        esize = torch.finfo(dtype).bits // 8
+        nav = ring.reshape(K * M, 56).to(dtype)
+        lp = leaves.pts.to(dtype)
+        Xt = torch.as_tensor(X, dtype=dtype, device=dev)
+        q = (lp @ Xt[:3, :3].mT + Xt[:3, 3]).expand(K, L, 3).reshape(Q, 3)
+        full = dict(valid=need.reshape(Q), return_blocks=True, return_margin=True)
+        ids0, payload0, _ = descent.descend_plain(nav, q, base, DEPTH, **full)
+        cases = {
+            "round0": full,
+            "later_round": dict(full, valid=(need & later).reshape(Q)),
+            "warm": dict(valid=need.reshape(Q), start=ids0 >> 6, n_gathers=3,
+                         return_blocks=True),
+        }
+        for case, kw in cases.items():
+            got = descent.descend(nav, q, base, DEPTH, **kw)
+            want = descent.descend_plain(nav, q, base, DEPTH, **kw)
+            for name, a, b in zip(("ids", "blocks", "margins"), got, want):
+                check(a.dtype == b.dtype and torch.equal(a, b),
+                      f"descend {dname} {case}: {name} differ from the plain version in "
+                      f"{int((a != b).reshape(len(a), -1).any(-1).sum())} queries")
+            node, blk, margin, keys = descent.panel_reads(
+                nav, q, base, DEPTH, kw["valid"], kw.get("start"), kw.get("n_gathers"),
+                kw["return_blocks"])
+            check(torch.equal(node, want[0]) and torch.equal(blk, want[1]),
+                  f"descend {dname} {case}: the read pattern's results differ")
+            distinct, reads = int(torch.unique(keys).numel()), int(keys.numel())
+            nbytes = (distinct * 8 * esize + Q * (3 * esize + 8 + 1 + 8 + 8 * esize)
+                      + (Q * 8 if "start" in kw else 0)
+                      + (Q * esize if kw.get("return_margin") else 0))
+            bound, by = bound_ms(nbytes, reads * DESCENT_FLOPS_PER_PANEL, dname)
+            call = lambda kw=kw: descent.descend(nav, q, base, DEPTH, **kw)  # noqa: E731
+            out["descend"].setdefault(dname, {})[case] = {
+                "queries": Q, "live": int(kw["valid"].sum()), "panel_reads": reads,
+                "distinct_panels": distinct, "plain_rows_read": Q * (
+                    kw.get("n_gathers") or descent.default_gathers(DEPTH, True)),
+                "ms": event_ms(call, ASSOC_REPS), "device_ms": graph_ms(call, ASSOC_REPS),
+                "plain_ms": event_ms(lambda kw=kw: descent.descend_plain(
+                    nav, q, base, DEPTH, **kw), ASSOC_REPS),
+                "bound_ms": bound, "bound_by": by, "max_abs_err": 0.0,
+                "library_ms": None}
+
+        # K7 on the round-0 payload, shaped as the pipeline hands it over
+        args = (payload0.view(1, K, L, 8), lp[None, None], leaves.valid[None, None],
+                Xt[None, None])
+        H, b, matched = icp_terms.terms(*args, **terms_kw)
+        Hp, bp, mp = icp_terms.terms_plain(*args, **terms_kw)
+        J, s, e, _ = icp_terms.entry_terms(*args, **terms_kw)
+        Js = (J * s[..., None]).double()
+        H_ref, b_ref = Js.mT @ J.double(), torch.sum(Js * e.double()[..., None], dim=-2)
+        tol = 1e-5 if dtype == torch.float32 else 1e-12
+        errs = {"H": rel_frobenius(H, H_ref, (-2, -1)), "b": rel_frobenius(b, b_ref, (-1,)),
+                "plain_H": rel_frobenius(Hp, H_ref, (-2, -1)),
+                "plain_b": rel_frobenius(bp, b_ref, (-1,))}
+        check(torch.equal(matched, mp), f"icp_terms {dname}: matched differs from the plain "
+              f"version in {int((matched != mp).sum())} entries")
+        check(errs["H"] <= tol and errs["b"] <= tol,
+              f"icp_terms {dname}: H, b {errs} from the float64 sum, tolerance {tol}")
+        nbytes = (K * L * (8 * esize + 1) + L * (3 * esize + 1) + 16 * esize
+                  + K * 42 * esize)
+        bound, by = bound_ms(nbytes, K * L * TERMS_FLOPS_PER_ENTRY, dname)
+        call = lambda: icp_terms.terms(*args, **terms_kw)  # noqa: E731
+        out["icp_terms"][dname] = {
+            "entries": K * L, "matched": int(matched.sum()), "rel_err": errs, "tol": tol,
+            "max_abs_err": max(float((H.double() - H_ref).abs().max()),
+                               float((b.double() - b_ref).abs().max())),
+            "ms": event_ms(call, ASSOC_REPS), "device_ms": graph_ms(call, ASSOC_REPS),
+            "plain_ms": event_ms(lambda: icp_terms.terms_plain(*args, **terms_kw),
+                                 ASSOC_REPS),
+            "bound_ms": bound, "bound_by": by, "library_ms": None}
+        del nav, q, ids0, payload0, args, H, b, matched, Hp, bp, mp, J, s, e, Js
+        torch.cuda.empty_cache()
+    del ring, leaves
+    torch.cuda.empty_cache()
+
+    # the certified drive with the kernels, then with the plain versions:
+    # on the bench's world (timed) and on the two-orientation world
+    drives = [certified_drive(torch, plain) for plain in (False, True)]
+    bench_gap = pose_gap(drives[0].pop("poses"), drives[1].pop("poses"))
+    two_way = []
+    for plain in (False, True):
+        with plain_association() if plain else contextlib.nullcontext():
+            two_way.append(two_way_drive()[0])
+        torch.cuda.empty_cache()
+    two_way_gap = pose_gap(*two_way)
+    out["drive"] = {"schedule": "certified", "graphed": True, **ASSOC_DRIVE,
+                    "kernels": drives[0], "plain": drives[1], "bench_world_gap": bench_gap,
+                    "two_way_world_gap": two_way_gap, "bound_m": ASSOC_BOUND_M}
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    check(two_way_gap["max_abs"] <= ASSOC_BOUND_M,
+          f"assoc: kernel and plain drives {two_way_gap} apart on the two-orientation world")
+    # the bench's world has no wall across x (x is unobservable there: both
+    # drives stay ~10 m behind the truth along it), so only y and z hold
+    check(max(bench_gap["y_m"], bench_gap["z_m"]) <= ASSOC_BOUND_M,
+          f"assoc: kernel and plain drives {bench_gap} apart on the bench's world")
+    check_assoc_launched(drives[0]["launches_per_scan"], "assoc drive")
+    for name in ASSOC_KERNELS:
+        check(drives[1]["launches_per_scan"][name] == 0,
+              f"assoc plain drive: {name} was launched")
     return out
 
 
@@ -334,27 +632,34 @@ def phase_golden(torch) -> None:
                 check(min(ratios) > 0.95, f"f32 inlier ratio {min(ratios):.3f}")
 
 
-def phase_accuracy(torch) -> None:
-    from madicp_tpu_torch.kernels import segsum
-
-    rng = np.random.default_rng(7)
-    world = two_way_world(rng)
+def two_way_drive():
+    """The flagship main path over 12 scans of the two-orientation world,
+    0.3 m a scan along x: ((12, 4, 4) float64 poses, the pipeline)."""
+    world = two_way_world(np.random.default_rng(7))
     pipe = pipeline(num_keyframes=KEYFRAMES, n_points=N_POINTS,
                     depth=DEPTH, max_leaves=MAX_LEAVES)
-    errs = []
-    segsum.counter.launches = 0
+    poses = []
     for k in range(12):
         p = world - np.array([0.3 * k, 0.0, 0.0])
         r = np.linalg.norm(p, axis=1)
         pipe.compute(0.1 * k, p[(r > 1.0) & (r < 80.0)])
-        errs.append(abs(float(pipe.current_pose()[0, 3]) - 0.3 * k))
-    launches = segsum.counter.launches
+        poses.append(pipe.current_pose().astype(np.float64))
+    return np.stack(poses), pipe
+
+
+def phase_accuracy(torch) -> None:
+    reset_launches()
+    poses, pipe = two_way_drive()
+    counts = launches()
+    errs = [abs(float(T[0, 3]) - 0.3 * k) for k, T in enumerate(poses)]
     worst = max(errs[1:])  # scan 0 is the identity bootstrap
     emit({"phase": "accuracy", "scans": 12, "step_m": 0.3,
           "per_scan_x_err_mm": [e * 1e3 for e in errs], "max_err_mm": worst * 1e3,
           "bound_mm": 10.0, "inlier_ratio": pipe.inlier_ratio(),
-          "segsum_launches": launches})
-    check(launches == 12 * (DEPTH + 1), f"segsum launched {launches} times in 12 scans")
+          "segsum_launches": counts["segsum_moments"], "launches": counts})
+    check(counts["segsum_moments"] == 12 * (DEPTH + 1),
+          f"segsum launched {counts['segsum_moments']} times in 12 scans")
+    check_assoc_launched(counts, "accuracy")
     check(worst <= 0.01, f"flagship motion error {worst * 1e3:.2f} mm > 10 mm")
 
 
@@ -367,11 +672,15 @@ def profile_window(run, n_scans: int) -> dict:
     by_name = {k: (us / 1e3, cnt) for k, (us, cnt) in by_us.items()}
     busy_ms = sum(ms for ms, _ in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:25]
+    assoc = {k: sum(ms for name, (ms, _) in by_name.items()
+                    if any(f"::{p}<" in name for p in pats)) / n_scans
+             for k, pats in ASSOC_KERNEL_NAMES.items()}
     return {
         "wall_ms_per_scan": wall_ms / n_scans,
         "device_busy_ms_per_scan": busy_ms / n_scans,
         "device_busy_share": busy_ms / wall_ms,
         "kernels_per_scan": sum(c for _, c in by_name.values()) / n_scans,
+        "assoc_kernel_ms_per_scan": assoc,
         "top_kernels": [{"name": k[:120], "ms_per_scan": ms / n_scans,
                          "launches_per_scan": c / n_scans} for k, (ms, c) in top],
     }
@@ -379,7 +688,6 @@ def profile_window(run, n_scans: int) -> dict:
 
 def phase_steady(torch) -> dict:
     from madicp_tpu_torch.bench import BenchSetup
-    from madicp_tpu_torch.kernels import segsum
     from madicp_tpu_torch.utils.timing import PHASES, PhaseTimer
 
     setup = BenchSetup(DEV, N_POINTS, KEYFRAMES, DEPTH, MAX_LEAVES)
@@ -396,7 +704,7 @@ def phase_steady(torch) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    segsum.counter.launches = 0  # the main path's run starts here
+    reset_launches()  # the main path's run starts here
     lo = 1 + n_warm
     poses, descents, n_leaves = [], [], []
     torch.cuda.synchronize()
@@ -408,7 +716,7 @@ def phase_steady(torch) -> dict:
         poses.append(pipe._last.pose)  # the scan's own (the state changes in place)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = segsum.counter.launches  # read right after the run
+    counts = launches()  # read right after the run
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     timer = PhaseTimer(torch.device(DEV))
@@ -435,14 +743,17 @@ def phase_steady(torch) -> dict:
            "ms_per_scan": wall * 1e3 / n_timed,
            "phase_ms_per_scan": {k: per_phase.get(k, 0.0) for k in PHASES},
            "descents_per_scan": descents, "n_leaves": n_leaves,
-           "segsum_launches": launches, "peak_mem_gb": peak_gb,
+           "segsum_launches": counts["segsum_moments"], "launches": counts,
+           "peak_mem_gb": peak_gb,
            "profile": prof}
     emit(out)
     check(np.isfinite(poses).all(), "non-finite poses")
     check(all(d < 15 * KEYFRAMES * n for d, n in zip(descents, n_leaves)),
           "certified schedule walked every descent: the certificate did nothing")
-    check(launches == n_timed * (DEPTH + 1),
-          f"segsum launched {launches} times in {n_timed} scans, want {DEPTH + 1} a scan")
+    check(counts["segsum_moments"] == n_timed * (DEPTH + 1),
+          f"segsum launched {counts['segsum_moments']} times in {n_timed} scans, "
+          f"want {DEPTH + 1} a scan")
+    check_assoc_launched(counts, "steady")
     return out
 
 
@@ -459,7 +770,6 @@ def phase_schedules(torch) -> dict:
     golden drive under each, compute_batch, and the flagship numbers of
     all five through the bench module's own functions."""
     from madicp_tpu_torch import bench
-    from madicp_tpu_torch.kernels import segsum
 
     t0 = time.perf_counter()
     scans = golden_scans()
@@ -529,6 +839,7 @@ def phase_schedules(torch) -> dict:
         want = n_windows * n_steps * (DEPTH + 1)
         check(r["segsum_launches"] == want,
               f"{spec}: segsum launched {r['segsum_launches']} times, want {want}")
+        check_assoc_launched(r["kernel_launches"], spec)
         torch.cuda.empty_cache()
     out = {"phase": "schedules", "part": "flagship", "config": {
         "n_points": N_POINTS, "depth": DEPTH, "keyframes": KEYFRAMES,
@@ -541,7 +852,7 @@ def phase_schedules(torch) -> dict:
 
 GRAPH_SCANS, GRAPH_PROFILED = 12, 3  # timed and profiled scans a side
 GRAPH_BOUND_M = 5e-4  # certified f32 divergence bound (tests/test_pipeline.py:368)
-RT_SCANS, RT_HZ, RT_EVERY = 12, 20.0, 3  # a budget (45 ms) the flagship step overruns
+RT_SCANS, RT_HZ, RT_EVERY = 12, 100.0, 3  # a budget (5 ms) the flagship step overruns
 
 
 def enqueue_run(step, scans) -> tuple:
@@ -570,7 +881,6 @@ def phase_graphs(torch, nvidia_smi: str) -> dict:
     bytes, the pose difference. Then a realtime pipeline whose budget
     moves its iteration count: a graph a count."""
     from madicp_tpu_torch import bench
-    from madicp_tpu_torch.kernels import segsum
     from madicp_tpu_torch.models.step_graph import step_in_place
 
     t_phase = time.perf_counter()
@@ -602,9 +912,9 @@ def phase_graphs(torch, nvidia_smi: str) -> dict:
             step_eager(i)
         side = {}
         for name, step in (("graphed", step_graphed), ("eager", step_eager)):
-            segsum.counter.launches = 0  # this window starts here
+            reset_launches()  # this window starts here
             enq, wall = enqueue_run(step, timed)
-            launches = segsum.counter.launches  # read right after the window
+            counts = launches()  # read right after the window
             prof = profile_window(lambda step=step: [step(i) for i in profiled],
                                   GRAPH_PROFILED)
             side[name] = {"scans_per_s": GRAPH_SCANS / wall,
@@ -614,7 +924,9 @@ def phase_graphs(torch, nvidia_smi: str) -> dict:
                           "device_busy_ms_per_scan": prof["device_busy_ms_per_scan"],
                           "device_busy_share": prof["device_busy_share"],
                           "kernels_per_scan": prof["kernels_per_scan"],
-                          "segsum_launches_per_scan": launches / GRAPH_SCANS}
+                          "segsum_launches_per_scan": counts["segsum_moments"] / GRAPH_SCANS,
+                          "launches_per_scan": {k: v / GRAPH_SCANS
+                                                for k, v in counts.items()}}
         (capture_ms, nodes, replay_launches), = graphed._graphs.captured().values()
         pool = graphed._graphs.pool_bytes()
         scans = sorted(poses["eager"])
@@ -622,7 +934,7 @@ def phase_graphs(torch, nvidia_smi: str) -> dict:
         g, e = side["graphed"], side["eager"]
         kernels_dev = abs(g["kernels_per_scan"] - e["kernels_per_scan"]) / e["kernels_per_scan"]
         rows[spec] = dict(side, capture_ms=capture_ms, nodes=nodes, pool_bytes=pool,
-                          segsum_launches_a_replay=replay_launches, scans_compared=len(scans),
+                          launches_a_replay=replay_launches, scans_compared=len(scans),
                           max_pose_dev_m=diff, kernels_rel_dev=kernels_dev,
                           speedup=g["scans_per_s"] / e["scans_per_s"])
         emit({"phase": "graphs", "part": "flagship", "schedule": spec,
@@ -634,6 +946,7 @@ def phase_graphs(torch, nvidia_smi: str) -> dict:
             check(side[name]["segsum_launches_per_scan"] == DEPTH + 1,
                   f"{spec} {name}: {side[name]['segsum_launches_per_scan']} segsum launches "
                   "a scan")
+            check_assoc_launched(side[name]["launches_per_scan"], f"{spec} {name}")
         del graphed, eager, staged, poses, setups
         torch.cuda.empty_cache()
 
@@ -703,26 +1016,27 @@ def run_cli(argv) -> dict:
     import re
 
     from madicp_tpu_torch.apps import cli
-    from madicp_tpu_torch.kernels import segsum
 
     out = io.StringIO()
-    segsum.counter.launches = 0  # this run starts here
+    reset_launches()  # this run starts here
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
         rc = cli.main([str(a) for a in argv])
     seconds = time.perf_counter() - t0
-    launches = segsum.counter.launches  # read right after the run
+    counts = launches()  # read right after the run
     check(rc == 0, f"cli {argv} returned {rc}:\n{out.getvalue()[-2000:]}")
     scans = [(float(r), float(o)) for r, o in re.findall(
         r"^scan +\d+ +read +([\d.]+) ms +odometry +([\d.]+) ms", out.getvalue(), re.M)]
-    check(launches > 0, f"cli {argv}: no segment-sum launch")
+    check(counts["segsum_moments"] > 0, f"cli {argv}: no segment-sum launch")
+    check_assoc_launched(counts, f"cli {argv}")
     rate = re.search(r"^(\d+) scans after the first in ([\d.]+) s: ([\d.]+) scans/s$",
                      out.getvalue(), re.M)
     check(rate is not None and int(rate.group(1)) == len(scans) - 1,
           f"cli {argv}: no rate line for its {len(scans)} scans")
     # the first scan of a run bootstraps (or resumes) and warms up
     steady = scans[1:]
-    return {"scans": len(scans), "seconds": seconds, "segsum_launches": launches,
+    return {"scans": len(scans), "seconds": seconds,
+            "segsum_launches": counts["segsum_moments"], "launches": counts,
             "odometry_ms": [o for _, o in scans],
             "read_ms_median": float(np.median([r for r, _ in steady])),
             "odometry_ms_median": float(np.median([o for _, o in steady])),
@@ -739,7 +1053,6 @@ def phase_apps(torch, nvidia_smi: str) -> dict:
     import tempfile
 
     from madicp_tpu_torch.apps import evaluate, mad_registration, nn_search
-    from madicp_tpu_torch.kernels import segsum
     from madicp_tpu_torch.native import loader
     from madicp_tpu_torch.utils.checkpoint import checkpoint_path, load_pipeline, save_pipeline
     from madicp_tpu_torch.utils.config import DATASET_CONFIGS, dump_yaml
@@ -831,9 +1144,9 @@ def phase_apps(torch, nvidia_smi: str) -> dict:
 
         # 4.-5. the demos
         demos = {}
-        segsum.counter.launches = 0
+        reset_launches()
         nn_err = nn_search.main(device=DEV)
-        demos["nn_search"] = {"segsum_launches": segsum.counter.launches}
+        demos["nn_search"] = {"launches": launches()}
         np.random.seed(42)  # the demo's cloud, rounded as its float32 tree holds it
         cloud = generate_four_walls_pointcloud(points_per_wall=2000)
         rounding = float(np.sum(np.linalg.norm(
@@ -841,13 +1154,15 @@ def phase_apps(torch, nvidia_smi: str) -> dict:
         demos["nn_search"].update(error=nn_err, float32_rounding=rounding)
         check(nn_err == rounding, f"nn_search: error {nn_err} is not the cloud's "
               f"float32 rounding {rounding}: a query matched another point")
-        segsum.counter.launches = 0
+        reset_launches()
         T = mad_registration.main(device=DEV)
-        demos["mad_registration"] = {"segsum_launches": segsum.counter.launches,
+        demos["mad_registration"] = {"launches": launches(),
                                      "max_abs_dev_from_identity": float(np.abs(T - np.eye(4)).max())}
         check(np.allclose(T, np.eye(4), atol=5e-3), f"mad_registration: {T}")
         for name, d in demos.items():
-            check(d["segsum_launches"] > 0, f"{name}: no segment-sum launch")
+            check(d["launches"]["segsum_moments"] > 0, f"{name}: no segment-sum launch")
+        check(demos["nn_search"]["launches"]["descend"] > 0, "nn_search: no descent launch")
+        check_assoc_launched(demos["mad_registration"]["launches"], "mad_registration")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1018,13 +1333,14 @@ def phase_fleet(torch, nvidia_smi: str) -> dict:
                 step_eager(k)
         side = {}
         for name, fn in (("graphed", step), ("eager", step_eager)):
-            segsum.counter.launches = 0  # this timed run starts here
+            reset_launches()  # this timed run starts here
             _, wall = enqueue_run(fn, timed)
-            launches = segsum.counter.launches  # read right after the run
+            counts = launches()  # read right after the run
             prof = profile_window(lambda fn=fn: [fn(k) for k in profiled], FLEET_PROFILED)
             side[name] = {"fleet_scans_per_s": B * n_timed / wall,
                           "ms_per_batched_scan": wall * 1e3 / n_timed,
-                          "segsum_launches": launches,
+                          "segsum_launches": counts["segsum_moments"],
+                          "launches": counts,
                           "device_busy_ms_per_batched_scan": prof["device_busy_ms_per_scan"],
                           "device_busy_share": prof["device_busy_share"],
                           "kernels_per_batched_scan": prof["kernels_per_scan"],
@@ -1056,6 +1372,7 @@ def phase_fleet(torch, nvidia_smi: str) -> dict:
             check(side[name]["segsum_launches"] == n_timed * (DEPTH + 1),
                   f"B={B} {name}: segsum launched {side[name]['segsum_launches']} times "
                   f"in {n_timed} batched scans")
+            check_assoc_launched(side[name]["launches"], f"B={B} {name}")
         del fleet, twin, staged
         torch.cuda.empty_cache()
 
@@ -1220,6 +1537,7 @@ def main() -> int:
     dev = phase_device(torch)
     phase_build()
     ksum = phase_kernels(torch)
+    assoc = phase_assoc(torch, dev["nvidia_smi"])
     probe = phase_probe(torch)
     phase_precision(torch)
     phase_golden(torch)
@@ -1246,6 +1564,18 @@ def main() -> int:
         "library_ms": f32["library_ms"],
         "library_device_ms": f32["library_device_ms"],
     }]
+    for name, replaces in ASSOC_REPLACES.items():
+        k = assoc[name]["float32"]
+        if name == "descend":
+            k = k["round0"]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"madicp_tpu_torch/kernels/csrc/{ASSOC_SOURCES[name]}.cu",
+            "replaces": replaces, "launches": steady["launches"][name],
+            **{key: k[key] for key in ("max_abs_err", "ms", "device_ms", "plain_ms",
+                                       "bound_ms", "bound_by", "library_ms")},
+            "library_device_ms": None,
+        })
     for name, replaces in PROBE_KERNELS.items():
         k = probe[name]
         rows.append({

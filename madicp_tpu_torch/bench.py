@@ -31,9 +31,10 @@ JSON ``value``, as in ``bench.py``), its descents (the last scan's, as in
 association calls descend a scan, parked ones included, per-phase ms
 from a short :class:`~madicp_tpu_torch.utils.timing.PhaseTimer` window,
 device busy ms and kernels a scan from a short ``torch.profiler`` window
-(on a card), peak device memory and the segment-sum kernel's launches in
-the timed windows. On a card the timed scans replay the step's captured
-CUDA graph (``models/step_graph.py``); the PhaseTimer's scans run eagerly.
+(on a card), peak device memory and the launches of the step's kernels
+(segment-sum, descent, ICP terms) in the timed windows. On a card the
+timed scans replay the step's captured CUDA graph
+(``models/step_graph.py``); the PhaseTimer's scans run eagerly.
 
 Run on the card (``--device cpu`` runs on the CPU; it never falls back to
 it on its own)::
@@ -66,8 +67,8 @@ import numpy as np
 import torch
 
 import madicp_tpu_torch.models.pipeline as pipeline_mod
-from madicp_tpu_torch.kernels import segsum
 from madicp_tpu_torch.models.pipeline import Pipeline, PipelineConfig
+from madicp_tpu_torch.models.step_graph import COUNTERS
 from madicp_tpu_torch.ops.tree import build_tree, transform_tree
 from madicp_tpu_torch.probes.segsum_levels import bench_pose, kitti_like_world
 from madicp_tpu_torch.utils.device import card_name, resolve_device, synchronize
@@ -162,9 +163,11 @@ class BenchSetup:
 @contextlib.contextmanager
 def counting_descent_queries():
     """Count the (keyframe, query) entries every ``associate_ring`` call of
-    the pipeline descends, parked ones included (a list holding the
-    running total): each costs the descent's row gathers whether or not
-    it is certified. Shapes only; no device read."""
+    the pipeline hands the descent, parked ones included (a list holding
+    the running total). On the card a parked entry costs the descent
+    kernel one panel read of its tree's row 0 and a certified-live one up
+    to three panels a row; on the CPU every entry gathers whole rows.
+    Shapes only; no device read."""
     real, total = pipeline_mod.associate_ring, [0]
 
     def counted(nav, depth, pts, need, **kw):
@@ -204,7 +207,8 @@ def run_schedule(setup: BenchSetup, spec: str, n_warmup=3, n_steps=12, n_windows
     synchronize(dev)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    segsum.counter.launches = 0  # the timed run starts here
+    for c in COUNTERS.values():
+        c.launches = 0  # the timed run starts here
     rates, descents = [], []
     lo = 1 + n_warmup
     for _ in range(n_windows):
@@ -215,7 +219,7 @@ def run_schedule(setup: BenchSetup, spec: str, n_warmup=3, n_steps=12, n_windows
         synchronize(dev)
         rates.append(n_steps / (time.perf_counter() - t0))
         lo += n_steps
-    launches = segsum.counter.launches  # read right after the timed run
+    launches = {name: c.launches for name, c in COUNTERS.items()}  # right after it
     # the timer's scans run eagerly, so the association calls are counted
     # there (a replay runs no Python); their shapes are a scan's in every
     # window
@@ -246,7 +250,8 @@ def run_schedule(setup: BenchSetup, spec: str, n_warmup=3, n_steps=12, n_windows
         "phase_ms": {k: totals.get(k, 0.0) / n_phase for k in PHASES},
         "peak_mem_gb": (torch.cuda.max_memory_allocated(dev) / 1e9
                         if dev.type == "cuda" else None),
-        "segsum_launches": launches,
+        "segsum_launches": launches["segsum_moments"],
+        "kernel_launches": launches,
         "scans_timed": n_windows * n_steps,
         "profile": busy,
     }

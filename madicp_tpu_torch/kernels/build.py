@@ -30,9 +30,17 @@ NVCC_FLAGS = (
     "-Xcompiler",
     "-fPIC",
 )
-SOURCES = ("segsum_moments", "scatter_probe")
+SOURCES = ("segsum_moments", "scatter_probe", "descent", "icp_terms")
 
 _loaded: dict[str, ctypes.CDLL] = {}
+
+
+class LaunchCounter:
+    """A kernel's launch count: a plain integer its wrapper advances by one
+    a launch and callers reset."""
+
+    def __init__(self):
+        self.launches = 0
 
 
 def nvcc() -> str:

@@ -108,14 +108,7 @@ def plan(n: int, sz: int, sm_count: int, path: str | None = None) -> Plan | None
     return Plan(path, blocks, threads, tile, round_blocks, _WS_HEAD + entries)
 
 
-class _Counter:
-    """Launch count of the kernel (a plain integer, reset by callers)."""
-
-    def __init__(self):
-        self.launches = 0
-
-
-counter = _Counter()
+counter = build.LaunchCounter()
 _symbols: dict = {}  # dtype -> the C launch function, argtypes set
 _sm_counts: dict = {}  # device -> SM count
 _workspaces: dict = {}  # device -> the double workspace

@@ -26,9 +26,10 @@ buffers and leaves the new state in the state's own tensors.
   configuration first met later (the realtime budget's new iteration
   count) is captured at its first scan. A capture that fails raises:
   nothing falls back to an eager step.
-- A replay launches the segment-sum kernel without passing through its
-  wrapper, so each graph adds the launches its capture recorded to
-  ``segsum.counter`` on every replay.
+- A replay launches the step's kernels (the segment-sum, the descent and
+  the ICP terms) without passing through their wrappers, so each graph
+  adds the launches its capture recorded to each kernel's counter on
+  every replay.
 """
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ from typing import NamedTuple
 
 import torch
 
-from madicp_tpu_torch.kernels import segsum
+from madicp_tpu_torch.kernels import descent, icp_terms, segsum
 from madicp_tpu_torch.models.pipeline import (
     PipelineState,
     StepOutput,
@@ -48,6 +49,11 @@ from madicp_tpu_torch.models.pipeline import (
     odometry_step,
 )
 from madicp_tpu_torch.ops.tree import SearchTree
+
+
+# the launch counter of every kernel the step runs, by wrapper name
+COUNTERS = {"segsum_moments": segsum.counter, "descend": descent.counter,
+            "icp_terms": icp_terms.counter}
 
 
 def _tensors(state: PipelineState):
@@ -82,7 +88,7 @@ def step_in_place(cfg, state: PipelineState, points, valid, timer=None,
 class _Graph(NamedTuple):
     graph: torch.cuda.CUDAGraph
     out: StepOutput  # in the pool: cloned after every replay
-    launches: int  # segment-sum launches a replay
+    launches: dict  # kernel name -> its launches a replay
     capture_ms: float
     nodes: int
 
@@ -147,7 +153,8 @@ class StepGraphs:
         if g is None:
             g = self._graphs[cfg] = self._capture(cfg)
         g.graph.replay()
-        segsum.counter.launches += g.launches
+        for name, n in g.launches.items():
+            COUNTERS[name].launches += n
         return _map(torch.clone, g.out)
 
     def _warm_up(self, cfg, points, valid) -> StepOutput:
@@ -165,7 +172,7 @@ class StepGraphs:
 
     def _capture(self, cfg) -> _Graph:
         graph = torch.cuda.CUDAGraph(keep_graph=True)
-        before = segsum.counter.launches
+        before = {name: c.launches for name, c in COUNTERS.items()}
         t0 = time.perf_counter()
         # thread_local: a thread that stages the next scan (the CLI's
         # prefetcher copies to the card) does not break the capture
@@ -173,8 +180,10 @@ class StepGraphs:
             out = step_in_place(cfg, self.state, self.points, self.valid)
         graph.instantiate()
         capture_ms = (time.perf_counter() - t0) * 1e3
-        launches = segsum.counter.launches - before
-        segsum.counter.launches = before  # a capture runs nothing
+        launches = {}
+        for name, c in COUNTERS.items():  # a capture runs nothing
+            launches[name] = c.launches - before[name]
+            c.launches = before[name]
         return _Graph(graph, out, launches, capture_ms, graph_nodes(graph))
 
     def ready(self, cfg) -> bool:
@@ -183,8 +192,8 @@ class StepGraphs:
         return not self._cuda or cfg in self._graphs
 
     def captured(self) -> dict:
-        """{configuration: (capture ms, nodes, segment-sum launches a
-        replay)} of every graph captured so far."""
+        """{configuration: (capture ms, nodes, {kernel name: launches a
+        replay})} of every graph captured so far."""
         return {cfg: (g.capture_ms, g.nodes, g.launches) for cfg, g in self._graphs.items()}
 
     def pool_bytes(self) -> int:

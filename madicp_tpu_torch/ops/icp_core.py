@@ -1,9 +1,11 @@
 """Point-to-plane ICP core: association, residuals, normal equations, GN step.
 
 The reference's per-leaf serial loop (``mad_icp.cpp:74-117``) as batched
-tensor math: the whole moving-leaf set descends the fixed tree(s) at
-once, residual/Jacobian/weight are elementwise, and the 6x6 normal
-equations form as one masked ``(s J)^T J`` product per keyframe.
+work: the whole moving-leaf set descends the fixed tree(s) at once,
+residual/Jacobian/weight are per entry, and the 6x6 normal equations
+are one masked ``(s J)^T J`` sum per keyframe. On the card the descent
+and the terms are hand-written kernels (``kernels/descent.py``,
+``kernels/icp_terms.py``); on the CPU, their plain tensor versions.
 
 Contracts (SURVEY.md §2.1.3-6, as in the JAX package):
 - gate: accept a match iff ``|X m - f| <= b_max + b_ratio * |m|``;
@@ -21,6 +23,7 @@ from typing import NamedTuple
 
 import torch
 
+from madicp_tpu_torch.kernels import icp_terms as terms_kernel
 from madicp_tpu_torch.ops.lie import exp_se3_split
 from madicp_tpu_torch.ops.tree import SearchTree, search_forest
 
@@ -105,49 +108,15 @@ def terms_from_payload(
     leading axes (a per-keyframe leaf order). ``X`` (4, 4), or (..., 4, 4)
     with leading axes that broadcast against the payload's (one pose per
     sequence of a batch: X (B, 1, 4, 4) against payloads (B, K, L, 8)).
-    The gate is evaluated under the CURRENT ``X`` (``mad_icp.cpp:81-83``)."""
-    dtype = moving_pts.dtype
-    R = X[..., :3, :3]
-    t = X[..., None, :3, 3]
-    # the dtype's own square root, filled in on the device: a tensor copied
-    # there from a host scalar would synchronise every GN round
-    rho = torch.full((), torch.sqrt(torch.tensor(rho_ker, dtype=dtype)).item(),
-                     dtype=dtype, device=X.device)
+    The gate is evaluated under the CURRENT ``X`` (``mad_icp.cpp:81-83``).
 
-    ml = moving_pts @ R.mT + t
-    mlx, mly, mlz = ml[..., 0], ml[..., 1], ml[..., 2]
-    mx, my, mz = moving_pts[..., 0], moving_pts[..., 1], moving_pts[..., 2]
-    fx, fy, fz = payload[..., 0], payload[..., 1], payload[..., 2]
-    nx, ny, nz = payload[..., 3], payload[..., 4], payload[..., 5]
-    f_bbox0 = payload[..., 6]
-    f_ok = payload[..., 7] == 3.0
-
-    # adaptive-radius gate (radius grows with point range)
-    dx, dy, dz = mlx - fx, mly - fy, mlz - fz
-    dist = torch.sqrt(dx * dx + dy * dy + dz * dz)
-    src_ball = b_max + b_ratio * torch.sqrt(mx * mx + my * my + mz * mz)
-    matched = (dist <= src_ball) & moving_valid & f_ok
-
-    # residual and analytic Jacobian: with u = R^T n,
-    # J = [u^T, (m x u)^T]  (since -u^T skew(m) = (m x u)^T)
-    e = dx * nx + dy * ny + dz * nz
-    r = lambda i, j: R[..., i, j, None]  # noqa: E731  (broadcasts over L)
-    ux = nx * r(0, 0) + ny * r(1, 0) + nz * r(2, 0)
-    uy = nx * r(0, 1) + ny * r(1, 1) + nz * r(2, 1)
-    uz = nx * r(0, 2) + ny * r(1, 2) + nz * r(2, 2)
-    J = torch.stack(
-        [ux, uy, uz, my * uz - mz * uy, mz * ux - mx * uz, mx * uy - my * ux],
-        dim=-1,
-    )  # (..., L, 6)
-
-    chi = torch.abs(e)
-    scale = torch.where(chi > rho, rho / torch.clamp(chi, min=1e-30), 1.0)
-    w_plan = torch.clamp(1.0 - f_bbox0 / b_max, 0.0, 1.0)
-    s = scale * w_plan * w_plan * matched.to(dtype)
-
-    Js = J * s[..., None]
-    H = Js.transpose(-1, -2) @ J
-    b = torch.sum(Js * e[..., None], dim=-2)
+    CPU tensors take the plain version
+    (:func:`madicp_tpu_torch.kernels.icp_terms.terms_plain`), CUDA tensors
+    the terms kernel (``kernels/csrc/icp_terms.cu``: per-entry values in
+    the plain version's order, so ``matched`` agrees bit for bit; the 27
+    sums in double, in a fixed order)."""
+    H, b, matched = terms_kernel.terms(payload, moving_pts, moving_valid, X,
+                                       b_max=b_max, b_ratio=b_ratio, rho_ker=rho_ker)
     return IcpTerms(H=H, b=b, matched=matched)
 
 

@@ -35,6 +35,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from madicp_tpu_torch.kernels import descent
 from madicp_tpu_torch.kernels.segsum import segsum_moments
 from madicp_tpu_torch.ops.eigh3 import eigh3
 
@@ -430,63 +431,17 @@ def search_forest(
     over every real interior node evaluated — the path-stability
     certificate of the certified schedule.
 
+    CPU tensors take the plain version
+    (:func:`madicp_tpu_torch.kernels.descent.descend_plain`), CUDA tensors
+    the descent kernel (``kernels/csrc/descent.cu``, one thread a query,
+    which stops a query once it can no longer step), bitwise equal to it.
+
     ``ladder`` is accepted and ignored: the JAX package's select ladder
     is a TPU gather workaround pinned bitwise equal to this gather path.
     """
     del ladder
-    Q = queries.shape[0]
-    dev = queries.device
-    known_levels = start is None
-    if n_gathers is None:
-        n_gathers = -(-depth // 3)
-        if return_blocks and depth % 3 == 0:
-            # the deepest leaf is then entered on a third substep, whose
-            # block is not in the gathered row: one more gather fetches it
-            n_gathers += 1
-    if start is None:
-        node = torch.ones((Q,), dtype=torch.int64, device=dev)
-    else:
-        node = torch.clamp(start.long(), min=1)
-    if valid is not None:
-        node = node * valid.long()
-    base = torch.as_tensor(base, dtype=torch.int64, device=dev)
-
-    blk = torch.zeros((Q, 8), dtype=nav.dtype, device=dev)
-    margin = torch.full((Q,), torch.finfo(nav.dtype).max, dtype=nav.dtype, device=dev)
-    for g in range(n_gathers):
-        row = nav.index_select(0, base + node)  # (Q, 56)
-        blk = row[:, 0:8]
-        b1 = None
-        for s in range(3):
-            if known_levels and g * 3 + s >= depth:
-                break  # below the depth cap nothing can step
-            sval = torch.sum((queries - blk[:, 0:3]) * blk[:, 3:6], dim=-1)
-            side = sval >= 0
-            flags = blk[:, 7]
-            kids = blk[:, 6]
-            has = torch.where(side, kids >= 2.0, (kids == 1.0) | (kids == 3.0))
-            # every real interior node evaluated is consequential
-            consider = (flags >= 2.0) & (flags != 3.0)
-            if return_margin:
-                margin = torch.where(
-                    consider, torch.minimum(margin, torch.abs(sval)), margin
-                )
-            step = consider & has
-            node = torch.where(step, 2 * node + side.long(), node)
-            if s == 0:
-                child = torch.where(side[:, None], row[:, 16:24], row[:, 8:16])
-                blk = torch.where(step[:, None], child, blk)
-                b1 = side & step
-            elif s == 1:
-                lo = torch.where(side[:, None], row[:, 32:40], row[:, 24:32])
-                hi = torch.where(side[:, None], row[:, 48:56], row[:, 40:48])
-                blk = torch.where(step[:, None], torch.where(b1[:, None], hi, lo), blk)
-    out = (node,)
-    if return_blocks:
-        out += (blk,)
-    if return_margin:
-        out += (margin,)
-    return out if len(out) > 1 else node
+    return descent.descend(nav, queries, base, depth, valid, start, n_gathers,
+                           return_blocks, return_margin)
 
 
 def search_tree(tree: SearchTree, queries: torch.Tensor, depth: Optional[int] = None) -> torch.Tensor:

@@ -1,0 +1,376 @@
+"""The association and normal-equation kernels of the PyTorch port: the
+descent (``kernels/descent.py``, ``search_forest``'s body) and the ICP
+terms (``kernels/icp_terms.py``, ``terms_from_payload``'s body).
+
+On the CPU: both wrappers' dispatch and argument checks, and their plain
+versions against the JAX package's ``search_forest`` / ``associate_packed``
+and ``terms_from_payload`` at 1e-9 in float64 (parked queries, warm
+starts, ``depth % 3 == 0``, margins, per-query bases, leading keyframe
+axes, per-keyframe points, a fleet-sized batch); the kernel's read
+pattern (``panel_reads``) against the plain version. Tests marked
+``cuda`` hold each kernel to its plain version on the card (descent bit
+for bit; terms' ``matched`` bit for bit and H, b within 1e-5 relative of
+a float64 sum) and in a CUDA graph, and skip without one. JAX is
+imported by the CPU tests only, so a machine with a card needs none."""
+
+import numpy as np
+import pytest
+import torch
+from scipy.spatial.transform import Rotation
+
+from madicp_tpu_torch.kernels import descent, icp_terms
+from madicp_tpu_torch.ops.tree import build_tree, transform_tree
+
+TERMS_KW = dict(b_max=0.2, b_ratio=0.02, rho_ker=0.01)  # rho 0.1: both Huber branches
+
+
+@pytest.fixture(scope="module")
+def jax_ref():
+    """The JAX package's tree and ICP-core modules, on the CPU with x64."""
+    import jax
+
+    jax.config.update("jax_enable_x64", True)
+    import madicp_tpu.ops.icp_core as jax_icp
+    import madicp_tpu.ops.tree as jax_tree
+
+    return jax_tree, jax_icp
+
+
+def _room(rng, n=700):
+    """Floor and four walls of a 4 m room, 5 n points."""
+    return np.concatenate([
+        rng.uniform([0, 0, 0], [4, 0.01, 2], (n, 3)),
+        rng.uniform([0, 0, 0], [0.01, 4, 2], (n, 3)),
+        rng.uniform([0, 3.99, 0], [4, 4, 2], (n, 3)),
+        rng.uniform([3.99, 0, 0], [4, 4, 2], (n, 3)),
+        rng.uniform([0, 0, 0], [4, 4, 0.01], (n, 3)),
+    ])
+
+
+_FORESTS: dict = {}
+
+
+def forest(depth: int, dtype=torch.float64):
+    """Two trees of one room scene (the second moved) as a flat (2 M, 56)
+    table, the scene's points and M; built once per depth on the CPU."""
+    if depth not in _FORESTS:
+        rng = np.random.default_rng(depth)
+        pts = _room(rng)
+        p = torch.from_numpy(pts)
+        tree, _ = build_tree(p, torch.ones(len(pts), dtype=torch.bool), depth=depth,
+                             b_max=0.2, b_min=0.1)
+        R = torch.from_numpy(Rotation.from_rotvec([0.0, 0.02, 0.2]).as_matrix())
+        moved = transform_tree(tree, R, torch.tensor([0.3, -0.1, 0.05], dtype=torch.float64))
+        _FORESTS[depth] = (torch.cat([tree.nav, moved.nav]), pts, tree.nav.shape[0])
+    nav, pts, M = _FORESTS[depth]
+    return nav.to(dtype), pts, M
+
+
+def descent_case(case: str, n: int = 600, seed: int = 0):
+    """(nav, queries, depth, kwargs of search_forest) for one case:
+    ``root`` (per-query base over the two trees, 10% parked, blocks and
+    margins), ``warm`` (restarts 4 levels above the root descent's leaf
+    with 3 gathers), ``depth9`` (depth % 3 == 0: the extra gather of the
+    blocks), ``ids`` (ids only, int base)."""
+    depth = 9 if case == "depth9" else 10
+    nav, pts, M = forest(depth)
+    rng = np.random.default_rng(seed)
+    q = pts[rng.integers(0, len(pts), n)] + rng.normal(0, 0.05, (n, 3))
+    queries = torch.from_numpy(q)
+    valid = torch.from_numpy(rng.random(n) > 0.1)
+    base = torch.from_numpy(rng.integers(0, 2, n) * M)
+    kw = dict(valid=valid, return_blocks=True, return_margin=True)
+    if case == "ids":
+        return nav, queries, depth, 0, {}
+    if case == "warm":
+        ids0 = descent.descend_plain(nav, queries, base, depth)
+        kw.update(start=ids0 >> 4, n_gathers=3)
+    return nav, queries, depth, base, kw
+
+
+DESCENT_CASES = ["root", "warm", "depth9", "ids"]
+
+
+# ------------------------------------------------------------------ CPU --
+def test_descend_dispatch_and_argument_checks():
+    """CPU tensors take the plain version and count no launch; wrong
+    dtypes, shapes and devices raise on every device."""
+    nav, q, depth, base, kw = descent_case("root", n=64)
+    before = descent.counter.launches
+    got = descent.descend(nav, q, base, depth, **kw)
+    want = descent.descend_plain(nav, q, base, depth, **kw)
+    assert descent.counter.launches == before
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="unsupported device"):
+        descent.descend(nav.to("meta"), q.to("meta"), base.to("meta"), depth)
+    with pytest.raises(ValueError, match="different devices"):
+        descent.descend(nav.to("meta"), q, base, depth)
+    with pytest.raises(TypeError, match="queries are"):
+        descent.descend(nav, q.float(), base, depth)
+    with pytest.raises(TypeError, match="float32/float64"):
+        descent.descend(nav.half(), q.half(), base, depth)
+    with pytest.raises(ValueError, match="want nav"):
+        descent.descend(nav[:, :55], q, base, depth)
+    with pytest.raises(ValueError, match="base must be"):
+        descent.descend(nav, q, base[1:], depth)
+    with pytest.raises(TypeError, match="valid must be bool"):
+        descent.descend(nav, q, base, depth, valid=kw["valid"].long())
+    with pytest.raises(TypeError, match="start must be an integer"):
+        descent.descend(nav, q, base, depth, start=q[:, 0])
+    with pytest.raises(ValueError, match="n_gathers >= 0"):
+        descent.descend(nav, q, base, depth, n_gathers=-1)
+
+
+def _terms_inputs(lead_pay, lead_pts, lead_x, L, seed=0, dtype=torch.float64):
+    """Synthetic terms inputs: payload (*lead_pay, L, 8) near the moving
+    points mapped by X, unit normals, bbox0 in [0, 0.3), flags among
+    {3, 2, 0} (mostly leaves); points (*lead_pts, L, 3) at 1-30 m; X
+    (*lead_x, 4, 4) small rigid motions; valid 90% true."""
+    rng = np.random.default_rng(seed)
+    pts = rng.normal(0, 1, tuple(lead_pts) + (L, 3))
+    pts *= rng.uniform(1, 30, tuple(lead_pts) + (L, 1)) / np.linalg.norm(pts, axis=-1,
+                                                                        keepdims=True)
+    X = np.broadcast_to(np.eye(4), tuple(lead_x) + (4, 4)).copy()
+    rot = Rotation.from_rotvec(rng.normal(0, 0.02, (int(np.prod(lead_x, dtype=int)), 3)))
+    X[..., :3, :3] = rot.as_matrix().reshape(tuple(lead_x) + (3, 3))
+    X[..., :3, 3] = rng.normal(0, 0.1, tuple(lead_x) + (3,))
+    ml = pts @ np.swapaxes(X[..., :3, :3], -1, -2) + X[..., None, :3, 3]
+    shape = tuple(np.broadcast_shapes(tuple(lead_pay), ml.shape[:-2])) + (L,)
+    n = rng.normal(0, 1, shape + (3,))
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    payload = np.concatenate([
+        np.broadcast_to(ml, shape + (3,)) + rng.normal(0, 0.15, shape + (3,)), n,
+        rng.uniform(0, 0.3, shape + (1,)),
+        rng.choice([3.0, 3.0, 3.0, 2.0, 0.0], shape + (1,)),
+    ], axis=-1)
+    payload = np.array(np.broadcast_to(payload, tuple(lead_pay) + (L, 8)))
+    valid = rng.random(tuple(lead_pts) + (L,)) > 0.1
+    return tuple(torch.from_numpy(a).to(dtype) if a.dtype != bool else torch.from_numpy(a)
+                 for a in (payload, pts, valid, X))
+
+
+# (payload's lead, points' lead, X's lead): one tree; keyframes sharing
+# points; per-keyframe points (prefix); a fleet-sized batch (B, K, L)
+TERMS_CASES = {
+    "single": ((), (), (), 200),
+    "keyframes": ((4,), (), (), 200),
+    "per_keyframe_points": ((3,), (3,), (), 150),
+    "fleet": ((2, 3), (2, 1), (2, 1), 64),
+}
+
+
+def test_terms_dispatch_and_argument_checks():
+    """CPU tensors take the plain version and count no launch; wrong
+    dtypes, shapes and devices raise on every device."""
+    payload, pts, valid, X = _terms_inputs((2,), (), (), 32)
+    before = icp_terms.counter.launches
+    got = icp_terms.terms(payload, pts, valid, X, **TERMS_KW)
+    want = icp_terms.terms_plain(payload, pts, valid, X, **TERMS_KW)
+    assert icp_terms.counter.launches == before
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="unsupported device"):
+        icp_terms.terms(*(t.to("meta") for t in (payload, pts, valid, X)), **TERMS_KW)
+    with pytest.raises(ValueError, match="different devices"):
+        icp_terms.terms(payload, pts, valid, X.to("meta"), **TERMS_KW)
+    with pytest.raises(TypeError, match="must be the payload's"):
+        icp_terms.terms(payload, pts.float(), valid, X, **TERMS_KW)
+    with pytest.raises(TypeError, match="float32/float64"):
+        icp_terms.terms(payload.half(), pts.half(), valid, X.half(), **TERMS_KW)
+    with pytest.raises(TypeError, match="moving_valid must be bool"):
+        icp_terms.terms(payload, pts, valid.long(), X, **TERMS_KW)
+    with pytest.raises(ValueError, match="want payload"):
+        icp_terms.terms(payload[..., :7], pts, valid, X, **TERMS_KW)
+    with pytest.raises(ValueError, match="payload entries"):
+        icp_terms.terms(payload, pts[1:], valid, X, **TERMS_KW)
+    with pytest.raises(ValueError, match="do not broadcast"):
+        icp_terms.terms(payload, pts, valid, X.expand(3, 4, 4), **TERMS_KW)
+
+
+@pytest.mark.parametrize("case", DESCENT_CASES)
+def test_descend_plain_matches_jax(jax_ref, case):
+    """float64, the same nav table: ids and blocks equal, margins within
+    1e-9 of the JAX package's search_forest (gather path); blocks through
+    ``associate_packed`` too where the root descent gives them."""
+    jax_tree, jax_icp = jax_ref
+    import jax.numpy as jnp
+
+    nav, q, depth, base, kw = descent_case(case)
+    got = descent.descend_plain(nav, q, base, depth, **kw)
+    jkw = {k: (jnp.asarray(v.numpy()) if isinstance(v, torch.Tensor) else v)
+           for k, v in kw.items()}
+    jbase = jnp.asarray(base.numpy()) if isinstance(base, torch.Tensor) else base
+    want = jax_tree.search_forest(jnp.asarray(nav.numpy()), jnp.asarray(q.numpy()), jbase,
+                                  depth, **jkw)
+    if case == "ids":
+        got, want = (got,), (want,)
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    if len(got) > 1:
+        np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+        np.testing.assert_allclose(got[2].numpy(), np.asarray(want[2]), rtol=1e-9, atol=0)
+        assert (got[0] == 0).sum() == (~kw["valid"]).sum()  # parked on row 0
+    if case == "root":
+        ids_j, pay_j = jax_icp.associate_packed(
+            jnp.asarray(nav.numpy()), jbase, depth, jnp.asarray(q.numpy()), jkw["valid"])
+        np.testing.assert_array_equal(got[0].numpy(), np.asarray(ids_j))
+        np.testing.assert_array_equal(got[1].numpy(), np.asarray(pay_j))
+
+
+@pytest.mark.parametrize("case", DESCENT_CASES)
+def test_kernel_read_pattern_keeps_the_plain_results(case):
+    """The kernel's loop (``panel_reads``: panels 0, child, grandchild,
+    a query stopping after its first row without a step) gives the plain
+    version's ids, blocks and margins bit for bit; a parked query reads
+    one panel, and no query reads more than 3 a row."""
+    nav, q, depth, base, kw = descent_case(case)
+    kw = dict(kw, return_blocks=True, return_margin=True)
+    node, blk, margin, keys = descent.panel_reads(
+        nav, q, base, depth, kw.get("valid"), kw.get("start"), kw.get("n_gathers"), True)
+    want = descent.descend_plain(nav, q, base, depth, **kw)
+    for a, b in zip((node, blk, margin), want):
+        assert torch.equal(a, b)
+    n_gathers = kw.get("n_gathers") or descent.default_gathers(depth, True)
+    assert keys.numel() <= 3 * n_gathers * len(q)
+    if "valid" in kw:
+        parked = int((~kw["valid"]).sum())
+        row0 = (keys // 7) % (nav.shape[0] // 2) == 0
+        assert int(row0.sum()) == parked and bool((keys[row0] % 7 == 0).all())
+
+
+@pytest.mark.parametrize("case", list(TERMS_CASES))
+def test_terms_plain_matches_jax(jax_ref, case):
+    """float64: H and b within 1e-9 and matched equal to the JAX
+    package's terms_from_payload, leading index by leading index (one
+    tree; keyframes sharing points; per-keyframe points; a (2, 3, 64)
+    fleet batch with a pose per sequence)."""
+    _, jax_icp = jax_ref
+    import jax.numpy as jnp
+
+    lead_pay, lead_pts, lead_x, L = TERMS_CASES[case]
+    payload, pts, valid, X = _terms_inputs(lead_pay, lead_pts, lead_x, L, seed=L)
+    H, b, matched = icp_terms.terms_plain(payload, pts, valid, X, **TERMS_KW)
+    lead = tuple(torch.broadcast_shapes(payload.shape[:-2], pts.shape[:-2], X.shape[:-2]))
+    assert H.shape == lead + (6, 6) and b.shape == lead + (6,) and matched.shape == lead + (L,)
+    assert 0 < int(matched.sum()) < matched.numel()
+    for idx in np.ndindex(*lead):
+        sel = lambda t, own: t.expand(lead + t.shape[t.dim() - own:])[idx]  # noqa: E731
+        want = jax_icp.terms_from_payload(
+            *(jnp.asarray(sel(t, own).numpy()) for t, own in
+              ((payload, 2), (pts, 2), (valid, 1), (X, 2))), **TERMS_KW)
+        np.testing.assert_allclose(H[idx].numpy(), np.asarray(want.H), rtol=1e-9, atol=1e-9)
+        np.testing.assert_allclose(b[idx].numpy(), np.asarray(want.b), rtol=1e-9, atol=1e-9)
+        np.testing.assert_array_equal(matched[idx].numpy(), np.asarray(want.matched))
+
+
+# ------------------------------------------------------------------ card --
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    return torch.device("cuda")
+
+
+def _to(kw: dict, device) -> dict:
+    return {k: (v.to(device) if isinstance(v, torch.Tensor) else v) for k, v in kw.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", DESCENT_CASES)
+@pytest.mark.parametrize("n", [1000, 4096])
+def test_descend_kernel_is_bitwise_the_plain_version_on_cuda(cuda_device, dtype, case, n):
+    """The kernel against the plain version on the card: ids, blocks and
+    margins bit for bit, float32 and float64, at every case and at a
+    query count that is not a multiple of the block; one launch a call."""
+    nav, q, depth, base, kw = descent_case(case, n=n, seed=n)
+    nav, q = nav.to(dtype).to(cuda_device), q.to(dtype).to(cuda_device)
+    base = base.to(cuda_device) if isinstance(base, torch.Tensor) else base
+    kw = _to(kw, cuda_device)
+    want = descent.descend_plain(nav, q, base, depth, **kw)
+    before = descent.counter.launches
+    got = descent.descend(nav, q, base, depth, **kw)
+    torch.cuda.synchronize()
+    assert descent.counter.launches == before + 1
+    got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_descend_kernel_takes_an_unaligned_table_on_cuda(cuda_device):
+    """A table that starts off a 16-byte boundary takes the scalar loads:
+    still bit for bit."""
+    nav, q, depth, base, kw = descent_case("root", n=777)
+    flat = torch.zeros(nav.numel() + 1, dtype=torch.float32, device=cuda_device)
+    shifted = flat[1:].view(nav.shape)
+    shifted.copy_(nav)
+    q, base, kw = q.float().to(cuda_device), base.to(cuda_device), _to(kw, cuda_device)
+    for a, b in zip(descent.descend(shifted, q, base, depth, **kw),
+                    descent.descend_plain(shifted, q, base, depth, **kw)):
+        assert torch.equal(a, b)
+
+
+def _terms_reference(payload, pts, valid, X):
+    """(H, b) as a float64 sum of the plain version's own per-entry terms
+    (its J, s and e in the working type), and its matched."""
+    J, s, e, matched = icp_terms.entry_terms(payload, pts, valid, X, **TERMS_KW)
+    Js = (J * s[..., None]).double()
+    return Js.mT @ J.double(), torch.sum(Js * e.double()[..., None], dim=-2), matched
+
+
+def _rel_frobenius(got, want, axes):
+    return ((got.double() - want).square().sum(axes).sqrt()
+            / want.square().sum(axes).sqrt().clamp_min(1e-300))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", list(TERMS_CASES) + ["flagship_rows"])
+def test_terms_kernel_matches_the_plain_version_on_cuda(cuda_device, dtype, case):
+    """matched bit for bit; H and b within 1e-5 (float32) or 1e-12
+    (float64) relative, Frobenius per leading index, of a float64 sum of
+    the plain version's per-entry terms; one launch a call. Also a
+    leading (16,) at L = 32768 - 3, the flagship's tile counts."""
+    lead_pay, lead_pts, lead_x, L = TERMS_CASES.get(case, ((16,), (), (), 32765))
+    args = [t.to(cuda_device) for t in _terms_inputs(lead_pay, lead_pts, lead_x, L,
+                                                     seed=L, dtype=dtype)]
+    H_ref, b_ref, m_ref = _terms_reference(*args)
+    before = icp_terms.counter.launches
+    H, b, matched = icp_terms.terms(*args, **TERMS_KW)
+    torch.cuda.synchronize()
+    assert icp_terms.counter.launches == before + 1
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    assert H.dtype == b.dtype == dtype and torch.equal(matched, m_ref)
+    assert torch.equal(H, H.mT)
+    assert float(_rel_frobenius(H, H_ref, (-2, -1)).max()) <= tol
+    assert float(_rel_frobenius(b, b_ref, (-1,)).max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_assoc_kernels_replay_in_a_cuda_graph(cuda_device, dtype):
+    """Both kernels captured in one CUDA graph and replayed twice equal
+    their eager calls bit for bit (no float atomics, no workspace that
+    outlives a call)."""
+    nav, q, depth, base, kw = descent_case("root", n=3000)
+    nav, q = nav.to(dtype).to(cuda_device), q.to(dtype).to(cuda_device)
+    base, kw = base.to(cuda_device), _to(kw, cuda_device)
+    args = [t.to(cuda_device) for t in _terms_inputs((4,), (), (), 3000, dtype=dtype)]
+
+    def call():
+        return (descent.descend(nav, q, base, depth, **kw)
+                + icp_terms.terms(*args, **TERMS_KW))
+
+    eager = [t.clone() for t in call()]
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    for _ in range(2):
+        for t in out:
+            t.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(out, eager):
+            assert torch.equal(a, b)

@@ -139,7 +139,7 @@ def _profiler(device):
     activities = [ProfilerActivity.CPU]
     if device.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
-    return profile(activities=activities)
+    return profile(activities=activities, acc_events=True)  # one cycle, kept whole
 
 
 def main(argv=None) -> int:

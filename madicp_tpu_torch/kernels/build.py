@@ -4,14 +4,17 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its
 own shared library with a plain C interface and loaded with ``ctypes``
 (no PyTorch headers: a build takes seconds, not minutes). Libraries go to
 ``build/madicp_tpu_torch/`` beside the package (listed in
-``.gitignore``), named by a hash of the source and flags, so an edited
-source rebuilds at its first use and an unchanged one is reused.
+``.gitignore``), named by a hash of the source, the headers beside it
+(``csrc/*.cuh``) and the flags, so an edited source or header rebuilds
+at its first use and an unchanged one is reused. :class:`Launcher` calls
+a library's launch functions on the current stream and counts them.
 ``native/loader.py`` builds its C++ loader with ``g++`` through the same
 helpers. Nothing is compiled at import time.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -19,6 +22,8 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "madicp_tpu_torch"
@@ -30,7 +35,8 @@ NVCC_FLAGS = (
     "-Xcompiler",
     "-fPIC",
 )
-SOURCES = ("segsum_moments", "scatter_probe", "descent", "icp_terms")
+SOURCES = ("segsum_moments", "scatter_probe", "descent", "icp_terms", "build_nodes",
+           "build_points")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -58,8 +64,10 @@ def nvcc() -> str:
 
 def hashed_library(src: Path, flags) -> Path:
     """The library built from ``src`` with ``flags``: under ``BUILD_DIR``,
-    named by the source's stem and a hash of the source and flags."""
-    h = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
+    named by the source's stem and a hash of the source, the ``*.cuh``
+    headers beside it and the flags."""
+    headers = b"".join(h.read_bytes() for h in sorted(src.parent.glob("*.cuh")))
+    h = hashlib.sha256(src.read_bytes() + headers + " ".join(flags).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{src.stem}_{h}.so"
 
 
@@ -131,3 +139,33 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build_all((name,))[name]))
         _loaded[name] = lib
     return lib
+
+
+class Launcher:
+    """The launch functions of ``csrc/<name>.cu``: ``launcher(fn, dtype,
+    device, *args)`` calls its ``<fn>_f32`` or ``<fn>_f64`` entry (by
+    ``dtype``) with ``args`` and ``device``'s current stream, on that
+    device; it raises on the CUDA error code the entry returns and
+    counts one launch in ``counter``. ``argtypes`` maps each ``fn`` to
+    the ctypes of its arguments, the stream last."""
+
+    def __init__(self, name: str, argtypes: dict, counter: LaunchCounter):
+        self.name, self.argtypes, self.counter = name, argtypes, counter
+        self._fns: dict = {}
+
+    def _fn(self, fn: str, dtype: torch.dtype):
+        entry = self._fns.get((fn, dtype))
+        if entry is None:
+            entry = getattr(load(self.name), f"{fn}_{'f32' if dtype == torch.float32 else 'f64'}")
+            entry.argtypes = self.argtypes[fn]
+            entry.restype = ctypes.c_int
+            self._fns[(fn, dtype)] = entry
+        return entry
+
+    def __call__(self, fn: str, dtype: torch.dtype, dev: torch.device, *args) -> None:
+        current = dev.index == torch.cuda.current_device()
+        with contextlib.nullcontext() if current else torch.cuda.device(dev):
+            rc = self._fn(fn, dtype)(*args, torch.cuda.current_stream(dev).cuda_stream)
+        if rc:
+            raise_on_error(load(self.name), rc, f"{self.name} {fn}")
+        self.counter.launches += 1

@@ -50,63 +50,47 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "arith.cuh"
+
 namespace {
+
+using madicp::Arith;
 
 constexpr int NAV = 56;
 constexpr int THREADS = 256;
 
-template <typename T>
-struct Arith;
+// a panel of 8 values as 16-byte loads and stores
+__device__ __forceinline__ void load_vec(const float* p, float* out) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+  const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+  out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
+  out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
+}
 
-template <>
-struct Arith<float> {
-  static __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
-  static __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
-  static __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
-  static __device__ __forceinline__ float nan() { return __int_as_float(0x7fc00000); }
-  static __device__ __forceinline__ float max_value() { return 3.40282347e+38f; }
-  // a panel of 8 floats as two 16-byte loads
-  static __device__ __forceinline__ void load_vec(const float* p, float* out) {
-    const float4 a = __ldg(reinterpret_cast<const float4*>(p));
-    const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
-    out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
-    out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
-  }
-  static __device__ __forceinline__ void store_vec(float* p, const float* v) {
-    reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
-    reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
-  }
-};
+__device__ __forceinline__ void store_vec(float* p, const float* v) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
+  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
 
-template <>
-struct Arith<double> {
-  static __device__ __forceinline__ double sub(double a, double b) { return __dsub_rn(a, b); }
-  static __device__ __forceinline__ double mul(double a, double b) { return __dmul_rn(a, b); }
-  static __device__ __forceinline__ double add(double a, double b) { return __dadd_rn(a, b); }
-  static __device__ __forceinline__ double nan() {
-    return __longlong_as_double(0x7ff8000000000000ll);
-  }
-  static __device__ __forceinline__ double max_value() { return 1.7976931348623157e+308; }
-  // a panel of 8 doubles as four 16-byte loads
-  static __device__ __forceinline__ void load_vec(const double* p, double* out) {
+__device__ __forceinline__ void load_vec(const double* p, double* out) {
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const double2 a = __ldg(reinterpret_cast<const double2*>(p) + k);
-      out[2 * k] = a.x;
-      out[2 * k + 1] = a.y;
-    }
+  for (int k = 0; k < 4; ++k) {
+    const double2 a = __ldg(reinterpret_cast<const double2*>(p) + k);
+    out[2 * k] = a.x;
+    out[2 * k + 1] = a.y;
   }
-  static __device__ __forceinline__ void store_vec(double* p, const double* v) {
+}
+
+__device__ __forceinline__ void store_vec(double* p, const double* v) {
 #pragma unroll
-    for (int k = 0; k < 4; ++k)
-      reinterpret_cast<double2*>(p)[k] = make_double2(v[2 * k], v[2 * k + 1]);
-  }
-};
+  for (int k = 0; k < 4; ++k)
+    reinterpret_cast<double2*>(p)[k] = make_double2(v[2 * k], v[2 * k + 1]);
+}
 
 template <typename T, bool VEC>
 __device__ __forceinline__ void load_panel(const T* p, T* out) {
   if (VEC) {
-    Arith<T>::load_vec(p, out);
+    load_vec(p, out);
   } else {
 #pragma unroll
     for (int k = 0; k < 8; ++k) out[k] = __ldg(p + k);
@@ -177,7 +161,7 @@ descend_kernel(const T* __restrict__ nav, const T* __restrict__ queries,
   node_out[i] = node;
   if (blk_out != nullptr) {
     if (VEC) {
-      A::store_vec(blk_out + 8 * static_cast<int64_t>(i), blk);
+      store_vec(blk_out + 8 * static_cast<int64_t>(i), blk);
     } else {
 #pragma unroll
       for (int k = 0; k < 8; ++k) blk_out[8 * static_cast<int64_t>(i) + k] = blk[k];

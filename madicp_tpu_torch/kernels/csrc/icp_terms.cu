@@ -43,7 +43,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "arith.cuh"
+
 namespace {
+
+using madicp::Arith;
 
 constexpr unsigned FULL_MASK = 0xffffffffu;
 constexpr int THREADS = 256;
@@ -66,27 +70,6 @@ struct Params {
 
 __constant__ int H_ROW[21] = {0, 0, 0, 0, 0, 0, 1, 1, 1, 1, 1, 2, 2, 2, 2, 3, 3, 3, 4, 4, 5};
 __constant__ int H_COL[21] = {0, 1, 2, 3, 4, 5, 1, 2, 3, 4, 5, 2, 3, 4, 5, 3, 4, 5, 4, 5, 5};
-
-template <typename T>
-struct Arith;
-
-template <>
-struct Arith<float> {
-  static __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
-  static __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
-  static __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
-  static __device__ __forceinline__ float div(float a, float b) { return __fdiv_rn(a, b); }
-  static __device__ __forceinline__ float sqrt(float a) { return __fsqrt_rn(a); }
-};
-
-template <>
-struct Arith<double> {
-  static __device__ __forceinline__ double sub(double a, double b) { return __dsub_rn(a, b); }
-  static __device__ __forceinline__ double mul(double a, double b) { return __dmul_rn(a, b); }
-  static __device__ __forceinline__ double add(double a, double b) { return __dadd_rn(a, b); }
-  static __device__ __forceinline__ double div(double a, double b) { return __ddiv_rn(a, b); }
-  static __device__ __forceinline__ double sqrt(double a) { return __dsqrt_rn(a); }
-};
 
 // torch.clamp(x, min=lo): NaN passes through
 template <typename T>

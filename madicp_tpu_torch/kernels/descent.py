@@ -19,7 +19,6 @@ and launches on the current stream, so it runs inside CUDA graph capture.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 from typing import Optional
 
@@ -28,9 +27,10 @@ import torch
 from madicp_tpu_torch.kernels import build
 
 counter = build.LaunchCounter()
-_symbols: dict = {}  # dtype -> the C launch function, argtypes set
-_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_void_p] * 2
-             + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4)
+_launch = build.Launcher("descent", {  # the stream last
+    "descend": ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_void_p] * 2
+                + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4),
+}, counter)
 _MAX_QUERIES = 2**31 - 1  # one thread a query, indexed by an int
 
 
@@ -162,17 +162,6 @@ def panel_reads(nav, queries, base, depth, valid=None, start=None, n_gathers=Non
     return node, blk, margin, keys
 
 
-def _symbol(dtype: torch.dtype):
-    fn = _symbols.get(dtype)
-    if fn is None:
-        lib = build.load("descent")
-        fn = lib.descend_f32 if dtype == torch.float32 else lib.descend_f64
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-        _symbols[dtype] = fn
-    return fn
-
-
 def _check(nav, queries, base, depth, valid, start, n_gathers) -> None:
     """Raise on what neither version takes (every device)."""
     dev = queries.device
@@ -237,16 +226,9 @@ def descend(nav, queries, base, depth, valid=None, start=None,
     # blocks out start on 16-byte boundaries
     vec = nav.data_ptr() % 16 == 0 and (blk is None or blk.data_ptr() % 16 == 0)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    current = dev.index == torch.cuda.current_device()
-    with contextlib.nullcontext() if current else torch.cuda.device(dev):
-        rc = _symbol(nav.dtype)(
-            nav.data_ptr(), queries.data_ptr(), ptr(base_t), base0, ptr(valid_t),
-            ptr(start_t), Q, depth, n_gathers, int(known_levels), int(vec),
-            node.data_ptr(), ptr(blk), ptr(margin),
-            torch.cuda.current_stream(dev).cuda_stream)
-    if rc:
-        build.raise_on_error(build.load("descent"), rc, "descend")
-    counter.launches += 1
+    _launch("descend", nav.dtype, dev, nav.data_ptr(), queries.data_ptr(), ptr(base_t), base0,
+            ptr(valid_t), ptr(start_t), Q, depth, n_gathers, int(known_levels), int(vec),
+            node.data_ptr(), ptr(blk), ptr(margin))
     out = (node,)
     if return_blocks:
         out += (blk,)

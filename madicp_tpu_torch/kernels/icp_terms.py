@@ -23,7 +23,6 @@ inside CUDA graph capture.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import math
 
@@ -37,9 +36,10 @@ NSUM = 27  # 21 sums of H's upper triangle and 6 of b
 THREADS = 256
 BLOCKS_PER_SM = 4  # tiles a leading index gets, as far as L allows
 MAX_LEAD_AXES = 4
-_symbols: dict = {}  # dtype -> the C launch function, argtypes set
-_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_double] * 3 + [ctypes.c_int]
-             + [ctypes.c_void_p] * 5)
+_launch = build.Launcher("icp_terms", {  # the stream last
+    "icp_terms": ([ctypes.c_void_p] * 6 + [ctypes.c_double] * 3 + [ctypes.c_int]
+                  + [ctypes.c_void_p] * 5),
+}, counter)
 _MAX_ENTRIES = 2**31 - 1
 
 
@@ -101,17 +101,6 @@ def terms_plain(payload, moving_pts, moving_valid, X, *, b_max, b_ratio, rho_ker
     H = Js.transpose(-1, -2) @ J
     b = torch.sum(Js * e[..., None], dim=-2)
     return H, b, matched
-
-
-def _symbol(dtype: torch.dtype):
-    fn = _symbols.get(dtype)
-    if fn is None:
-        lib = build.load("icp_terms")
-        fn = lib.icp_terms_f32 if dtype == torch.float32 else lib.icp_terms_f64
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-        _symbols[dtype] = fn
-    return fn
 
 
 def _lead(payload, moving_pts, moving_valid, X) -> tuple:
@@ -183,14 +172,8 @@ def terms(payload, moving_pts, moving_valid, X, *, b_max, b_ratio, rho_ker):
     matched = torch.empty(lead + (L,), dtype=torch.bool, device=dev)
     H = torch.empty(lead + (6, 6), dtype=dtype, device=dev)
     b = torch.empty(lead + (6,), dtype=dtype, device=dev)
-    current = dev.index == torch.cuda.current_device()
-    with contextlib.nullcontext() if current else torch.cuda.device(dev):
-        rc = _symbol(dtype)(
-            meta, payload.data_ptr(), ml.data_ptr(), moving_pts.data_ptr(),
-            moving_valid.data_ptr(), X.data_ptr(), float(b_max), float(b_ratio), rho,
-            n_lead, ws.data_ptr(), matched.data_ptr(), H.data_ptr(), b.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-    if rc:
-        build.raise_on_error(build.load("icp_terms"), rc, "icp_terms")
-    counter.launches += 1
+    _launch("icp_terms", dtype, dev, meta, payload.data_ptr(), ml.data_ptr(),
+            moving_pts.data_ptr(), moving_valid.data_ptr(), X.data_ptr(), float(b_max),
+            float(b_ratio), rho, n_lead, ws.data_ptr(), matched.data_ptr(), H.data_ptr(),
+            b.data_ptr())
     return H, b, matched

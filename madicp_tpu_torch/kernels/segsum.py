@@ -22,7 +22,6 @@ the plain version, CUDA tensors take the kernel or the call raises.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 from typing import NamedTuple
 
@@ -109,11 +108,12 @@ def plan(n: int, sz: int, sm_count: int, path: str | None = None) -> Plan | None
 
 
 counter = build.LaunchCounter()
-_symbols: dict = {}  # dtype -> the C launch function, argtypes set
 _sm_counts: dict = {}  # device -> SM count
 _workspaces: dict = {}  # device -> the double workspace
 _retired: list = []  # outgrown workspaces, kept for graphs captured with them
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 3
+_launch = build.Launcher("segsum_moments", {  # the stream last
+    "segsum_moments": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 3,
+}, counter)
 
 
 def _moment_columns(d: torch.Tensor) -> torch.Tensor:
@@ -144,17 +144,6 @@ def sm_count(device: torch.device) -> int:
     return sms
 
 
-def _symbol(dtype: torch.dtype):
-    fn = _symbols.get(dtype)
-    if fn is None:
-        lib = build.load("segsum_moments")
-        fn = lib.segsum_moments_f32 if dtype == torch.float32 else lib.segsum_moments_f64
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-        _symbols[dtype] = fn
-    return fn
-
-
 def _workspace(device: torch.device, doubles: int) -> torch.Tensor:
     """The device's double workspace, at least ``doubles`` long: zeroed
     here when it is made or grown, left zeroed by every launch."""
@@ -183,15 +172,9 @@ def launch(d: torch.Tensor, idx: torch.Tensor, sz: int, pl: Plan) -> torch.Tenso
     dev = d.device
     out = torch.empty((sz, NCOL), dtype=d.dtype, device=dev)
     ws = _workspace(dev, pl.workspace)
-    current = dev.index == torch.cuda.current_device()
-    with contextlib.nullcontext() if current else torch.cuda.device(dev):
-        rc = _symbol(d.dtype)(
-            d.data_ptr(), idx.data_ptr(), d.shape[0], sz, PATHS.index(pl.path), pl.blocks,
-            pl.threads, pl.tile, pl.round_blocks, ws.data_ptr(), out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-    if rc:
-        build.raise_on_error(build.load("segsum_moments"), rc, "segsum_moments")
-    counter.launches += 1
+    _launch("segsum_moments", d.dtype, dev, d.data_ptr(), idx.data_ptr(), d.shape[0], sz,
+            PATHS.index(pl.path), pl.blocks, pl.threads, pl.tile, pl.round_blocks,
+            ws.data_ptr(), out.data_ptr())
     return out
 
 

@@ -26,8 +26,9 @@ buffers and leaves the new state in the state's own tensors.
   configuration first met later (the realtime budget's new iteration
   count) is captured at its first scan. A capture that fails raises:
   nothing falls back to an eager step.
-- A replay launches the step's kernels (the segment-sum, the descent and
-  the ICP terms) without passing through their wrappers, so each graph
+- A replay launches the step's kernels (the segment-sum, the build's node
+  and point passes, the descent and the ICP terms) without passing
+  through their wrappers, so each graph
   adds the launches its capture recorded to each kernel's counter on
   every replay.
 """
@@ -40,7 +41,7 @@ from typing import NamedTuple
 
 import torch
 
-from madicp_tpu_torch.kernels import descent, icp_terms, segsum
+from madicp_tpu_torch.kernels import build_nodes, build_points, descent, icp_terms, segsum
 from madicp_tpu_torch.models.pipeline import (
     PipelineState,
     StepOutput,
@@ -53,7 +54,8 @@ from madicp_tpu_torch.ops.tree import SearchTree
 
 # the launch counter of every kernel the step runs, by wrapper name
 COUNTERS = {"segsum_moments": segsum.counter, "descend": descent.counter,
-            "icp_terms": icp_terms.counter}
+            "icp_terms": icp_terms.counter, "build_nodes": build_nodes.counter,
+            "build_points": build_points.counter}
 
 
 def _tensors(state: PipelineState):

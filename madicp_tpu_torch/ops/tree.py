@@ -2,10 +2,13 @@
 
 The tree is an implicit heap-indexed arena (root at row 1, children of
 ``i`` at ``2i``/``2i+1``) built level by level: each point carries its
-node id, and per level one moment segment-sum (the CUDA kernel of
-:mod:`madicp_tpu_torch.kernels.segsum` on the card) plus one scatter-min
-of eigenbasis extents give every node of the level its mean, covariance,
-eigenbasis, oriented extents and leaf decision at once.
+segment id, and per level three steps give every node of the level its
+mean, covariance, eigenbasis, oriented extents and leaf decision at once:
+the moment segment-sum (:mod:`madicp_tpu_torch.kernels.segsum`), the node
+math (:mod:`madicp_tpu_torch.kernels.build_nodes`, K9) and the per-point
+pass with its min-reduction of extents
+(:mod:`madicp_tpu_torch.kernels.build_points`, K8); on the card each is a
+hand-written CUDA kernel, on the CPU its plain version.
 
 Storage is the JAX package's gather-optimised ``nav`` layout, unchanged
 so the two packages compare row for row: ``nav`` (M, 56) holds, per
@@ -25,7 +28,8 @@ with the k/(k-1) correction; ``>= 0`` on the split direction goes right;
 search is pure descent without backtracking.
 
 JAX's ``.at[i].add/min(..., mode="drop")`` has no torch counterpart:
-out-of-range ids are routed to one spare row that is sliced off.
+the plain versions route out-of-range ids to one spare row that is
+sliced off.
 """
 
 from __future__ import annotations
@@ -35,9 +39,8 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from madicp_tpu_torch.kernels import descent
+from madicp_tpu_torch.kernels import build_nodes, build_points, descent
 from madicp_tpu_torch.kernels.segsum import segsum_moments
-from madicp_tpu_torch.ops.eigh3 import eigh3
 
 
 class SearchTree(NamedTuple):
@@ -100,30 +103,6 @@ NAV_WIDTH = 56  # 7 blocks x 8 floats (self, 2 children, 4 grandchildren)
 
 def tree_arena_size(depth: int) -> int:
     return 2 ** (depth + 1)
-
-
-def _norm(x: torch.Tensor) -> torch.Tensor:
-    """Euclidean norm over the last axis, as ``sqrt(sum(x * x))``."""
-    return torch.sqrt(torch.sum(x * x, dim=-1))
-
-
-def _outer6(d: torch.Tensor) -> torch.Tensor:
-    """Upper-triangular entries of d d^T: (N,3) -> (N,6)."""
-    x, y, z = d[:, 0], d[:, 1], d[:, 2]
-    return torch.stack([x * x, x * y, x * z, y * y, y * z, z * z], dim=-1)
-
-
-def _sym_from6(u: torch.Tensor) -> torch.Tensor:
-    """(N,6) upper-triangular -> (N,3,3) symmetric."""
-    xx, xy, xz, yy, yz, zz = (u[:, i] for i in range(6))
-    return torch.stack(
-        [
-            torch.stack([xx, xy, xz], -1),
-            torch.stack([xy, yy, yz], -1),
-            torch.stack([xz, yz, zz], -1),
-        ],
-        dim=-2,
-    )
 
 
 def _pack_tree(arena: dict, M: int, dtype) -> SearchTree:
@@ -189,13 +168,15 @@ def build_tree(
 
     Levels are unrolled in Python; level ``l`` owns arena rows
     ``[2^l, 2^{l+1})``. Per level: the moment segment-sum
-    (:func:`segsum_moments`), node math on the compact ``(B 2^l, .)``
-    arrays (eigh3, plane predecessor, normal inheritance), a per-point
-    gather of its node's pack, the eigenbasis projection and a
-    scatter-min of extents; parent fields flow to the children with a
-    ``repeat_interleave``. A batch folds into the segment axis: node
-    ``j`` of cloud ``b`` is segment ``b 2^l + j`` of the level, so one
-    segment-sum and one scatter-min serve every cloud.
+    (:func:`segsum_moments`); the node math on the compact ``(B 2^l, .)``
+    level tables (eigh3, plane predecessor, normal inheritance), which
+    also closes the previous level from its extents
+    (:func:`build_nodes.build_nodes`); the per-point pass: each point's
+    node pack, the eigenbasis projection, the min of extents and the
+    advance (:func:`build_points.build_points`). One more launch closes
+    the last level, two pick the leaf representatives. A batch folds into
+    the segment axis: node ``j`` of cloud ``b`` is segment ``b 2^l + j``
+    of the level, so each launch serves every cloud.
 
     Args:
         points: (N, 3) or (B, N, 3) padded point clouds (padding must be
@@ -219,143 +200,35 @@ def build_tree(
     dtype, dev = points.dtype, points.device
     B, N = valid.shape
     BN = B * N
-    points = points.reshape(BN, 3)
-    valid = valid.reshape(BN)
+    points = points.reshape(BN, 3).contiguous()
+    valid = valid.contiguous()
     M = tree_arena_size(depth)
-    big = torch.finfo(dtype).max
-    big_i = 2**31 - 1
-    # each point's cloud, times the level's node count
-    seq_sz = torch.arange(B, device=dev).repeat_interleave(N)
 
-    # per-point state
-    node = torch.where(valid, 1, 0)
-    frozen = ~valid
+    # per-point state: the level's shifted deltas (level 0's shift is 0)
+    # and segment ids, and the leaf and freeze distance of retired points
+    d = points
+    idx = torch.where(valid.reshape(BN),
+                      torch.arange(B, dtype=torch.int32, device=dev).repeat_interleave(N),
+                      build_points.DROP)
     leaf_of = torch.zeros((BN,), dtype=torch.int64, device=dev)
-    frz_dist = torch.full((BN,), big, dtype=dtype, device=dev)  # |p - leaf mean| at freeze
-    prev_mean_pt = torch.zeros((BN, 3), dtype=dtype, device=dev)  # parent mean: moment shift
+    frz_dist = torch.full((BN,), torch.finfo(dtype).max, dtype=dtype, device=dev)
 
-    # per-node pack handed from a level to its children:
-    # [mean(3), pca_n(3), ppn(3), n3(3), bbox0(1), has_pp(1), is_leaf(1)]
-    prev_pack = torch.zeros((B, 15), dtype=dtype, device=dev)
-    prev_pack[:, 12] = big  # level -1 sentinel: shift 0, no pp, no n3
-
-    levels = []
+    arena = torch.empty((B, M, build_nodes.ARENA_COLS), dtype=dtype, device=dev)
+    prev = None
     for level in range(depth + 1):
-        lo = sz = 1 << level
-        nseg = B * sz
-        force_leaf = level == depth
-        live = (~frozen) & valid
-        if level:
-            seq_sz = seq_sz * 2
-        idx = torch.where(live, node - lo + seq_sz, nseg)  # segment, nseg = drop
-
-        # ---- moments, shifted by the parent mean for f32 stability ----
-        d = points - prev_mean_pt
+        nseg = B << level
         if shard is None:
-            node_mom = segsum_moments(d, idx.to(torch.int32), nseg)
+            mom = segsum_moments(d, idx, nseg)
         else:  # partial tables summed in double, as the kernel sums
-            node_mom = shard.all_sum(
-                segsum_moments(d.double(), idx.to(torch.int32), nseg)).to(dtype)
-
-        # ---- node math on the compact (B sz, .) level arrays ----
-        par = prev_pack if level == 0 else prev_pack.repeat_interleave(2, dim=0)
-        par_mean, par_pca = par[:, 0:3], par[:, 3:6]
-        par_ppn, par_n3 = par[:, 6:9], par[:, 9:12]
-        par_bbox0, par_has_pp = par[:, 12], par[:, 13] > 0
-        par_leaf = par[:, 14] > 0
-
-        k = node_mom[:, 9]
-        k_safe = torch.clamp(k, min=1.0)
-        mean_shift = node_mom[:, 0:3] / k_safe[:, None]
-        mean = par_mean + mean_shift
-        cov6 = node_mom[:, 3:9] / k_safe[:, None] - _outer6(mean_shift)
-        bessel = k / torch.clamp(k - 1.0, min=1.0)
-        cov6 = torch.where((k >= 2.0)[:, None], cov6 * bessel[:, None], 0.0)
-        _, evecs = eigh3(_sym_from6(cov6))  # (nseg,3,3): columns ascending
-        pca_n = evecs[:, :, 0]
-        split_dir = evecs[:, :, 2]
-
-        # plane predecessor (mad_tree.cpp:65-67, 90-93)
-        below = par_bbox0 < b_min
-        has_pp = par_has_pp | below
-        ppn = torch.where(
-            par_has_pp[:, None],
-            par_ppn,
-            torch.where(below[:, None], par_pca, 0.0),
-        )
-        # nearest >=3-point ancestor-or-self normal (mad_tree.cpp:68-73)
-        n3 = torch.where((k >= 3.0)[:, None], pca_n, par_n3)
-        if level == 0:  # the root has no ancestors to inherit from
-            fallback = pca_n
-        else:
-            fallback = torch.where((k < 3.0)[:, None], par_n3, pca_n)
-        normal = torch.where(has_pp[:, None], ppn, fallback)
-
-        # ---- per-point: eigenbasis coordinates and oriented bbox ----
-        packA = torch.cat(
-            [mean, evecs.reshape(nseg, 9), par_leaf.to(dtype)[:, None]], dim=1
-        )  # (nseg, 13)
-        ptA = packA.index_select(0, torch.clamp(idx, max=nseg - 1))
-        mean_pt = ptA[:, 0:3]
-        d2 = points - mean_pt
-        v = (
-            ptA[:, 3:6] * d2[:, 0:1]
-            + ptA[:, 6:9] * d2[:, 1:2]
-            + ptA[:, 9:12] * d2[:, 2:3]
-        )  # E^T d2
-        ext = torch.cat([v, -v], dim=1)  # (BN, 6)
-        node_ext = torch.full((nseg + 1, 6), big, dtype=dtype, device=dev)
-        node_ext.scatter_reduce_(0, idx[:, None].expand(BN, 6), ext, "amin")
+            mom = shard.all_sum(segsum_moments(d.double(), idx, nseg)).to(dtype)
+        packA, state, ext = build_nodes.build_nodes(mom, prev, arena, level=level,
+                                                    b_max=b_max, b_min=b_min)
+        d, idx = build_points.build_points(points, d, idx, leaf_of, frz_dist, packA, ext,
+                                           level=level, depth=depth)
         if shard is not None:
-            node_ext = shard.all_min(node_ext)
-        vmin = node_ext[:nseg, 0:3]
-        vmax = -node_ext[:nseg, 3:6]
-        extents = torch.clamp(vmax, min=0.0) - torch.clamp(vmin, max=0.0)
-        is_real_node = (k > 0) & ~par_leaf
-        is_leaf_node = is_real_node & ((extents[:, 2] < b_max) | force_leaf)
-
-        levels.append(
-            dict(
-                mean=mean,
-                split=split_dir,
-                normal=normal,
-                bbox0=extents[:, 0],
-                is_leaf=is_leaf_node,
-                is_real=is_real_node,
-            )
-        )
-
-        # ---- per-point updates: retire points whose parent was a leaf;
-        # at the depth cap every surviving point freezes in place ----
-        dead_pt = live & (ptA[:, 12] > 0)
-        leaf_of = torch.where(dead_pt, node >> 1, leaf_of)
-        frz_dist = torch.where(dead_pt, _norm(d), frz_dist)
-        frozen = frozen | dead_pt
-        if level < depth:
-            go_right = v[:, 2] >= 0
-            node = torch.where(live & ~dead_pt, 2 * node + go_right.long(), node)
-            prev_mean_pt = torch.where(live[:, None], mean_pt, prev_mean_pt)
-            prev_pack = torch.cat(
-                [mean, pca_n, ppn, n3, extents[:, 0:1],
-                 has_pp.to(dtype)[:, None], is_leaf_node.to(dtype)[:, None]],
-                dim=1,
-            )
-        else:
-            here = live & ~dead_pt
-            leaf_of = torch.where(here, node, leaf_of)
-            frz_dist = torch.where(here, _norm(d2), frz_dist)
-
-    arena = {
-        key: torch.cat(
-            [torch.zeros((B, 1) + levels[0][key].shape[1:],
-                         dtype=levels[0][key].dtype, device=dev)]
-            + [lv[key].reshape((B, 1 << i) + lv[key].shape[1:])
-               for i, lv in enumerate(levels)],
-            dim=1,
-        )
-        for key in levels[0]
-    }  # (B, M, ...)
-    point_leaf = torch.where(valid, leaf_of, 0)
+            ext = shard.all_min(ext)
+        prev = (packA, state, ext)
+    build_nodes.close_level(state, ext, arena, level=depth)
 
     # ---- leaf representatives (mad_tree.cpp:76-86): the point nearest
     # the leaf mean, distances within a relative tie_tol of the minimum
@@ -364,39 +237,32 @@ def build_tree(
     # both). Leaf ``a`` of cloud ``b`` is row ``b M + a``; a point's index
     # is ``b N + n``, so within a cloud the order is the cloud's own ----
     BM = B * M
-    aid = torch.where(valid, leaf_of + seq_sz * (M >> depth), BM)
-    dmin = torch.full((BM + 1,), big, dtype=dtype, device=dev)
-    dmin.scatter_reduce_(0, aid, frz_dist, "amin")
+    leaf_bn, frz_bn = leaf_of.view(B, N), frz_dist.view(B, N)
+    dmin = build_points.pick_dmin(valid, leaf_bn, frz_bn, M)
     if shard is not None:
         dmin = shard.all_min(dmin)
-    tie_tol = 1e-9 if dtype == torch.float64 else 1e-4
-    is_near = valid & (
-        frz_dist <= dmin.index_select(0, torch.clamp(aid, max=BM - 1)) * (1.0 + tie_tol)
-    )
+    n_total, offset = (N, 0) if shard is None else (shard.n_total, shard.offset)
+    near_pos = build_points.pick_near(valid, leaf_bn, frz_bn, dmin, M, n_total, offset)
     if shard is None:
-        iota = torch.arange(BN, device=dev)
-    else:  # the point's index in its whole cloud
-        iota = (torch.arange(BN, device=dev).view(B, N)
-                + (torch.arange(B, device=dev) * (shard.n_total - N) + shard.offset)[:, None]
-                ).reshape(BN)
-    near_pos = torch.full((BM + 1,), big_i, dtype=torch.int64, device=dev)
-    near_pos.scatter_reduce_(0, torch.where(is_near, aid, BM), iota, "amin")
-    if shard is None:
-        near_pt = points.index_select(0, torch.clamp(near_pos[:BM], max=BN - 1))
+        near_pt = points.index_select(0, torch.clamp(near_pos, max=BN - 1))
     else:
         # the lowest global index over the processes; the process that
         # holds that point contributes it
         near_pos = shard.all_min(near_pos)
         row_b = torch.arange(B, device=dev).repeat_interleave(M)
-        local = near_pos[:BM] - (row_b * shard.n_total + shard.offset)
+        local = near_pos - (row_b * shard.n_total + shard.offset)
         mine = (local >= 0) & (local < N)
         near_pt = points.index_select(0, row_b * N + torch.clamp(local, 0, N - 1))
         near_pt = shard.all_sum(torch.where(mine[:, None], near_pt, 0.0))
-    arena["repr"] = torch.where(arena["is_leaf"][..., None], near_pt.view(B, M, 3),
-                                arena["mean"])
+    is_leaf = arena[..., 10] > 0
+    fields = dict(
+        mean=arena[..., 0:3], split=arena[..., 3:6], normal=arena[..., 6:9],
+        bbox0=arena[..., 9], is_leaf=is_leaf, is_real=arena[..., 11] > 0,
+        repr=torch.where(is_leaf[..., None], near_pt.view(B, M, 3), arena[..., 0:3]),
+    )
 
-    tree = _pack_tree(arena, M, dtype)
-    point_leaf = point_leaf.view(B, N)
+    tree = _pack_tree(fields, M, dtype)
+    point_leaf = torch.where(valid, leaf_bn, 0)
     if single:
         return SearchTree(nav=tree.nav[0]), point_leaf[0]
     return tree, point_leaf

@@ -87,18 +87,28 @@ def event_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+PROFILE_PAD_S = 0.05  # idle seconds at either end of a profiled window
+
+
 def device_kernels(fn) -> tuple:
     """({CUDA kernel name: (device microseconds, launches)}, wall ms) of
-    one ``fn()`` under ``torch.profiler``; memsets count as kernels."""
+    one ``fn()`` under ``torch.profiler``; memsets count as kernels. The
+    profiler keeps only the device records that fall inside its capture
+    window on its own clock, so the window idles :data:`PROFILE_PAD_S` at
+    either end (outside the wall time), and one cycle's events are kept
+    whole (``acc_events``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        time.sleep(PROFILE_PAD_S)
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        time.sleep(PROFILE_PAD_S)
     by_name: dict = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:

@@ -23,7 +23,9 @@ script exits non-zero without the final line):
               it reads (the bound's bytes); the terms' matched bit for bit
               and H, b within 1e-5 (1e-12 in float64) relative of a float64
               sum of the plain version's per-entry terms; eager, graphed
-              and plain ms and bounds. Then the certified flagship drive,
+              and plain ms and bounds; the kernels of one call by name,
+              from torch.profiler (one terms_kernel a call). Then
+              the certified flagship drive,
               graphed, with the kernels and with both functions routed to
               their plain versions (a patch of this script): scans/s,
               device busy and kernels a scan of each on the bench's world
@@ -38,7 +40,10 @@ script exits non-zero without the final line):
               representatives, node fields), and the built nav and
               point_leaf equal to the plain versions' build on the same
               moments; launches a build; eager, graphed and plain ms of
-              each kernel and of a whole build, with the bound. Then the
+              each kernel and of a whole build, with the bound; every K8
+              call of the bench-scan build (level, path, nseg, live
+              points, distinct (warp, node) pairs, bound µs and device µs
+              in a CUDA graph, the times that sum to K8's). Then the
               certified flagship drive, graphed, with the build kernels
               and with the build routed to its plain versions (a patch of
               this script): scans/s, device busy and kernels a scan of
@@ -165,11 +170,14 @@ def check(cond: bool, what: str) -> None:
 
 ASSOC_KERNELS = ("descend", "icp_terms")  # the association's and the terms' kernels
 BUILD_KERNELS = ("build_nodes", "build_points")  # the tree build's level pass and pick
-# their __global__ functions, as a CUDA trace names them
-KERNEL_NAMES = {"descend": ("descend_kernel",),
-                "icp_terms": ("terms_kernel", "finish_kernel"),
-                "build_nodes": ("nodes_kernel", "close_kernel"),
-                "build_points": ("advance_kernel", "pick_min_kernel", "pick_near_kernel")}
+
+
+def kernel_names() -> dict:
+    """{kernel: its __global__ functions, as a CUDA trace names them}."""
+    from madicp_tpu_torch.kernels import build_nodes, build_points, descent, icp_terms
+
+    return {"descend": descent.KERNEL_NAMES, "icp_terms": icp_terms.KERNEL_NAMES,
+            "build_nodes": build_nodes.KERNEL_NAMES, "build_points": build_points.KERNEL_NAMES}
 
 
 def reset_launches() -> None:
@@ -492,6 +500,7 @@ def phase_assoc(torch, nvidia_smi: str) -> dict:
     from madicp_tpu_torch import bench
     from madicp_tpu_torch.kernels import descent, icp_terms
     from madicp_tpu_torch.ops.tree import build_tree, get_leaves
+    from madicp_tpu_torch.probes import kernel_trace
     from madicp_tpu_torch.probes.segsum_levels import bench_pose
     from madicp_tpu_torch.utils.timing import bound_ms, event_ms, graph_ms
 
@@ -590,7 +599,11 @@ def phase_assoc(torch, nvidia_smi: str) -> dict:
             "ms": event_ms(call, ASSOC_REPS), "device_ms": graph_ms(call, ASSOC_REPS),
             "plain_ms": event_ms(lambda: icp_terms.terms_plain(*args, **terms_kw),
                                  ASSOC_REPS),
-            "bound_ms": bound, "bound_by": by, "library_ms": None}
+            "bound_ms": bound, "bound_by": by, "library_ms": None,
+            "parts": kernel_trace.terms_trace(args, terms_kw)}
+        parts = out["icp_terms"][dname]["parts"]
+        check([p["kernel"].split("<")[0] for p in parts] == list(icp_terms.KERNEL_NAMES),
+              f"icp_terms {dname}: a call ran {parts}, want one terms_kernel")
         del nav, q, ids0, payload0, args, H, b, matched, Hp, bp, mp, J, s, e, Js
         torch.cuda.empty_cache()
     del ring, leaves
@@ -630,8 +643,6 @@ def phase_assoc(torch, nvidia_smi: str) -> dict:
 BUILD_REPLACES = {"build_nodes": "madicp_tpu/ops/tree.py:457",
                   "build_points": "madicp_tpu/ops/tree.py:492"}
 TREE_REPS = 10  # calls a timing
-NODE_FLOPS = 400  # about: the eigensolver ~350 (six cross products, roots), node fields ~50
-POINT_FLOPS = 24  # d2 3, v 15, a norm 6
 
 
 def padded(scan, n: int):
@@ -642,60 +653,17 @@ def padded(scan, n: int):
     return pts, np.arange(n) < m
 
 
-def build_call_cost(c, esize: int) -> tuple:
-    """(bytes, operations) of one recorded call of the build (a
-    :class:`~madicp_tpu_torch.probes.build_levels.Call`): each input read
-    once and each output written once, counting what this call's data
-    needs (the live points, their distinct nodes, the points that freeze)."""
-    import torch
-
-    ksize = esize  # keys have the floats' width
-    if c.name == "build_nodes":
-        mom, prev, arena = c.args
-        nseg = mom.shape[0]
-        parents = 0 if prev is None else nseg // 2
-        # a node: 10 moments read, pack, state and arena row written, 6
-        # keys set; a parent: its mean and PCA normal (6 of its pack), 8
-        # state values and 6 keys read, its bbox0 and is_leaf written
-        nbytes = (nseg * (10 + 13 + 8 + 10) * esize + nseg * 6 * ksize
-                  + parents * ((6 + 8 + 2) * esize + 6 * ksize)
-                  + (arena.shape[0] * 12 * esize if prev is None else 0))
-        return nbytes, nseg * NODE_FLOPS
-    if c.name == "close_level":
-        state, ext, _ = c.args
-        return state.shape[0] * (3 * esize + 6 * ksize), state.shape[0] * 10
-    if c.name == "build_points":
-        # every id read and next id written; a live point's position; d
-        # read by the points that retire, d_next written by those that
-        # advance; a live node's pack and keys; leaf_of and frz_dist
-        # written by the points that retire or freeze
-        idx, packA = c.args[2], c.args[5]
-        n, nseg = idx.shape[0], packA.shape[0]
-        live = (idx >= 0) & (idx < nseg)
-        dead = live & (packA[torch.where(live, idx, 0).long(), 12] > 0)
-        n_live, n_dead = int(live.sum()), int(dead.sum())
-        n_adv = int((c.results[1] >= 0).sum())
-        nodes = int(torch.unique(idx[live]).numel())
-        nbytes = (n * 8 + (n_live + n_dead + n_adv) * 3 * esize
-                  + nodes * (13 * esize + 6 * ksize) + (n_live - n_adv) * (8 + esize))
-        return nbytes, n_live * POINT_FLOPS
-    valid = c.args[0]
-    n, n_valid, rows = valid.numel(), int(valid.sum()), c.results[0].numel()
-    nbytes = n + n_valid * (8 + esize) + rows * ksize
-    if c.name == "pick_near":
-        nbytes += rows * 8
-    return nbytes, n_valid * 3
-
-
 def time_build_calls(torch, calls, kernel: str, dname: str) -> dict:
     """A kernel's eager, graphed and plain ms and bound, summed over its
-    recorded calls of one build (each call on copies of its inputs; the
+    recorded calls of one build, and each call's graphed µs
+    (``device_us``, in order); each call on copies of its inputs (the
     in-place results are idempotent, so repeats redo the same work)."""
     from madicp_tpu_torch.probes import build_levels as bl
     from madicp_tpu_torch.utils.timing import bound_ms, event_ms, graph_ms
 
     esize = torch.finfo(getattr(torch, dname)).bits // 8
-    tot = dict(ms=0.0, device_ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes=0, operations=0)
+    tot = dict(ms=0.0, device_ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes=0, operations=0,
+               device_us=[])
     by = set()
     for c in calls:
         if c.name not in bl.KERNELS[kernel]:
@@ -704,11 +672,12 @@ def time_build_calls(torch, calls, kernel: str, dname: str) -> dict:
         fn = getattr(bl._MODULE[c.name], c.name)
         call = lambda fn=fn, args=args, kw=c.kwargs: fn(*args, **kw)  # noqa: E731
         plain = lambda c=c, args=args: bl.PLAIN[c.name](*args, **c.kwargs)  # noqa: E731
-        nbytes, ops = build_call_cost(c, esize)
+        nbytes, ops = bl.call_cost(c, esize)
         bound, b = bound_ms(nbytes, ops, dname)
         by.add(b)
         tot["ms"] += event_ms(call, TREE_REPS)
-        tot["device_ms"] += graph_ms(call, TREE_REPS)
+        tot["device_us"].append(graph_ms(call, TREE_REPS) * 1e3)
+        tot["device_ms"] += tot["device_us"][-1] / 1e3
         tot["plain_ms"] += event_ms(plain, TREE_REPS)
         tot["bound_ms"] += bound
         tot["bytes"] += nbytes
@@ -734,7 +703,7 @@ def phase_tree(torch, nvidia_smi: str) -> dict:
 
     from madicp_tpu_torch import bench
     from madicp_tpu_torch.ops.tree import build_tree
-    from madicp_tpu_torch.probes import build_levels
+    from madicp_tpu_torch.probes import build_levels, kernel_trace
     from madicp_tpu_torch.utils.timing import bound_ms, event_ms, graph_ms
 
     t_phase = time.perf_counter()
@@ -790,9 +759,12 @@ def phase_tree(torch, nvidia_smi: str) -> dict:
                 whole["graph_replay_equal"] = (torch.equal(g_tree.nav, tree.nav)
                                                and torch.equal(g_leaf, leaf))
                 whole["graph_replays_recorded_moments"] = dtype == torch.float64
+                k8_calls = kernel_trace.call_rows(calls, esize)
+                for k8, us in zip(k8_calls, kernels["build_points"]["device_us"]):
+                    k8["device_us"] = us
                 out["timing"][dname] = {"kernels": {k: dict(v, max_abs_err=report[k]["max_abs_err"])
                                                     for k, v in kernels.items()},
-                                        "build": whole}
+                                        "build": whole, "k8_calls": k8_calls}
                 check(whole["graph_replay_equal"], f"tree {dname}: a graph replay of the build "
                       "differs from the eager build")
             emit({"phase": "tree", "part": f"{name} {dname}", **row})
@@ -941,7 +913,7 @@ def profile_window(run, n_scans: int) -> dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:25]
     own = {k: sum(ms for name, (ms, _) in by_name.items()
                   if any(f"::{p}<" in name for p in pats)) / n_scans
-           for k, pats in KERNEL_NAMES.items()}
+           for k, pats in kernel_names().items()}
     return {
         "wall_ms_per_scan": wall_ms / n_scans,
         "device_busy_ms_per_scan": busy_ms / n_scans,

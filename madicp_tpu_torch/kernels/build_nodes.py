@@ -43,6 +43,8 @@ from madicp_tpu_torch.ops.eigh3 import (
     SIXTH, THIRD, TWO_PI_THIRDS, eigh3_parts, tolerances)
 
 counter = build.LaunchCounter()
+# the __global__ functions of csrc/build_nodes.cu, as a CUDA trace names them
+KERNEL_NAMES = ("nodes_kernel", "close_kernel")
 MOM_COLS = 10
 STATE_COLS = 8
 ARENA_COLS = 12

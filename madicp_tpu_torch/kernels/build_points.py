@@ -19,7 +19,11 @@ point index within a relative ``tie_tol`` of it. It is the counterpart of
 the JAX package's ``madicp_tpu/ops/tree.py:492-541, 561-592`` (per-point
 pass) and ``:594-618`` (leaf pick), which XLA lowered: no Pallas kernel
 stands behind them. The kernels live in ``csrc/build_points.cu`` (design
-and bound in its header).
+and bound in its header); :func:`plan` picks a level's path: the
+contended levels near the root reduce into each block's shared table and
+merge a thread-block cluster's tables through distributed shared memory,
+the others issue their atomics to the global table, a warp's rows at a
+time.
 
 Minima are taken over order-preserving integer keys of the floats
 (:func:`float_keys`: int32 for float32, int64 for float64) in both
@@ -38,13 +42,15 @@ capture.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from madicp_tpu_torch.kernels import build
-from madicp_tpu_torch.kernels.segsum import sm_count
 
 counter = build.LaunchCounter()
+# the __global__ functions of csrc/build_points.cu, as a CUDA trace names them
+KERNEL_NAMES = ("cluster_kernel", "stage_kernel", "pick_min_kernel", "pick_near_kernel")
 DROP = -1  # the segment id of a point that is no longer live
 PACK_COLS = 13  # packA: mean (3), E row-major (9), parent-leaf flag
 EXT_COLS = 6  # the extents table: keys of min v (3) and of min -v (3)
@@ -52,17 +58,56 @@ TIE_TOL = {torch.float32: 1e-4, torch.float64: 1e-9}  # the leaf pick's near tie
 NO_POINT = 2**31 - 1  # the pick's index table before any point
 # levels where many points share a node reduce in shared memory first
 CONTENDED_POINTS = 128  # points a node from which a level is contended
-SMEM_MAX_NODES = 256  # nodes of the largest shared table (12 KB in float64)
-THREADS = 256
+CLUSTER_SMEM = 48 * 1024  # a block's dynamic shared bytes without the opt-in
+# nodes of the largest table the cluster path takes, in either dtype: a
+# float64 table (6 int64 keys a node) of 1024 nodes fills CLUSTER_SMEM
+CLUSTER_MAX_NODES = CLUSTER_SMEM // (6 * 8)
+PATHS = ("cluster", "stage")  # csrc/build_points.cu's Path, in order
+CLUSTER = 8  # blocks of a cluster (the portable size)
+CLUSTER_THREADS = 512  # a block of the cluster path, a point a thread
+THREADS = 256  # a block of the stage path and of the pick
 _KEY = {torch.float32: torch.int32, torch.float64: torch.int64}
 _MASK = {torch.int32: 0x7FFFFFFF, torch.int64: 0x7FFFFFFFFFFFFFFF}
 _MAX_N = 2**30  # 2 idx + 1 and 6 n stay within a C int
 _launch = build.Launcher("build_points", {  # the stream last
-    "advance": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    "advance": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
     "pick_min": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
     "pick_near": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_double]
                   + [ctypes.c_longlong] * 2 + [ctypes.c_void_p]),
 }, counter)
+
+
+class Plan(NamedTuple):
+    """A level's launch: its path (:data:`PATHS`), its blocks (a point a
+    thread), the blocks of a cluster and the dynamic shared bytes a
+    block (the cluster path's table)."""
+
+    path: str
+    blocks: int
+    cluster: int
+    smem: int
+
+
+def plan(n: int, nseg: int, dtype: torch.dtype, path: str | None = None) -> Plan:
+    """The launch of a level of ``n`` points into ``nseg`` nodes: ``path``
+    forced, or the cluster path where the level is contended (at most
+    :data:`CLUSTER_MAX_NODES` nodes, at least :data:`CONTENDED_POINTS`
+    points a node), else the stage path. Raises for a forced cluster path
+    whose block table (``nseg`` rows of 6 keys) exceeds
+    :data:`CLUSTER_SMEM`."""
+    table = nseg * EXT_COLS * (torch.finfo(dtype).bits // 8)  # keys have the floats' width
+    if path is None:
+        contended = nseg <= CLUSTER_MAX_NODES and n >= CONTENDED_POINTS * nseg
+        path = "cluster" if contended else "stage"
+    if path == "cluster":
+        if table > CLUSTER_SMEM:
+            raise ValueError(f"build_points: a table of {nseg} nodes takes {table} shared "
+                             f"bytes, more than {CLUSTER_SMEM}")
+        blocks = -(-max(n, 1) // CLUSTER_THREADS)
+        return Plan(path, -(-blocks // CLUSTER) * CLUSTER, CLUSTER, table)
+    if path not in PATHS:
+        raise ValueError(f"build_points: unknown path {path!r}, want one of {PATHS}")
+    return Plan(path, max(1, -(-n // THREADS)), 1, 0)
 
 
 def key_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -225,17 +270,22 @@ def build_points(points, d, idx, leaf_of, frz_dist, packA, ext, *, level, depth)
     if not (n <= _MAX_N and 1 <= nseg <= _MAX_N):
         raise ValueError(f"{what}: need n <= {_MAX_N} and 1 <= nseg <= {_MAX_N}, got "
                          f"{n} and {nseg}")
+    return launch(points, d, idx, leaf_of, frz_dist, packA, ext, level=level, depth=depth,
+                  pl=plan(n, nseg, points.dtype))
+
+
+def launch(points, d, idx, leaf_of, frz_dist, packA, ext, *, level, depth, pl: Plan):
+    """Run the level pass on checked CUDA tensors as ``pl`` says (results
+    as :func:`build_points`); one count."""
     d_next, idx_next = torch.empty_like(d), torch.empty_like(idx)
+    n = points.shape[0]
     if n == 0:
         return d_next, idx_next
-    smem = nseg <= SMEM_MAX_NODES and n >= CONTENDED_POINTS * nseg
-    blocks = -(-n // THREADS)
-    if smem:  # a few points a thread, a table a block
-        blocks = min(blocks, max(sm_count(dev), -(-n // (8 * THREADS))))
-    _launch("advance", points.dtype, dev, points.data_ptr(), d.data_ptr(), idx.data_ptr(),
-            packA.data_ptr(), ext.data_ptr(), leaf_of.data_ptr(), frz_dist.data_ptr(),
-            d_next.data_ptr(), idx_next.data_ptr(), n, nseg, 1 << level,
-            int(level == depth), int(smem), blocks)
+    _launch("advance", points.dtype, points.device, points.data_ptr(), d.data_ptr(),
+            idx.data_ptr(), packA.data_ptr(), ext.data_ptr(), leaf_of.data_ptr(),
+            frz_dist.data_ptr(), d_next.data_ptr(), idx_next.data_ptr(), n, packA.shape[0],
+            1 << level, int(level == depth), PATHS.index(pl.path), pl.blocks, pl.cluster,
+            pl.smem)
     return d_next, idx_next
 
 

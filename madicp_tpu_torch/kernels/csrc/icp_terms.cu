@@ -1,10 +1,10 @@
 // Point-to-plane ICP terms and normal equations (K7), for Hopper (sm_90a).
 //
 // From an association payload (..., L, 8) = [f (3), n (3), bbox0, flags],
-// the moving points m (..., L, 3) in the scan frame, their map-frame
-// positions ml = m R^T + t (..., L, 3), the valid mask (..., L) and the
-// pose X (..., 4, 4), each with leading axes that broadcast (strides, 0
-// where an axis broadcasts), for each entry:
+// the moving points m (..., L, 3) in the scan frame, the valid mask
+// (..., L) and the pose X (..., 4, 4), each with leading axes that
+// broadcast (strides, 0 where an axis broadcasts), for each entry:
+//   map frame ml_c = ((m_x R_c0 + m_y R_c1) + m_z R_c2) + t_c
 //   gate      matched = |ml - f| <= b_max + b_ratio |m|, valid, flags == 3
 //   residual  e = (ml - f) . n
 //   Jacobian  J = [u, m x u], u = R^T n
@@ -19,27 +19,43 @@
 // one, so no Pallas kernel stands behind it.
 //
 // Bound on an H100: bytes (payload, points, valid and X in; matched, H and
-// b out) at 3.35 TB/s; ~120 float operations an entry are ~1/10 of that
+// b out) at 3.35 TB/s; ~130 float operations an entry are ~1/10 of that
 // at the float32 peak. At the flagship (16 keyframes x 32768 leaves) the
 // payload alone is 16.8 MB a round, ~5 us.
 //
-// Design:
-//   * kernel 1: one block a tile of L for one leading index; a thread an
-//     entry at a time forms the per-entry values with _rn intrinsics in
-//     the plain version's order (so `matched` equals it bit for bit; nvcc
-//     would otherwise contract a*b + c into FMAs), then adds the 27 terms
-//     in double. The block reduces them by warp shuffles and through
-//     shared memory in a fixed order and writes its partial row to a
-//     (lead, tiles, 27) double workspace the wrapper allocates.
-//   * kernel 2: a thread a (leading index, sum) adds the tiles' partials in
-//     double, in tile order, and writes H (both triangles) and b in the
-//     working type.
-// No float atomics and no workspace that outlives the call: a CUDA graph's
-// replay equals the eager call bit for bit, and two streams never share
-// scratch. The weight s is not bitwise the plain version's: torch divides
-// a tensor by a host scalar (bbox0 / b_max) as a multiply by its
-// reciprocal, this kernel divides; and the sums' order differs by design.
+// Design (one launch a call):
+//   * a thread-block cluster a leading index; its blocks split L into
+//     contiguous tiles, and a thread walks its tile in steps of the block,
+//     loading each entry before it forms the one before it. The work is
+//     latency- and issue-bound (27 double FMAs and 13 conversions an
+//     entry), so the wrapper's plan (kernels/icp_terms.py `plan`) puts as
+//     many threads on a leading index as the card holds in one wave: the
+//     block (256 or 512 threads, at most 128 registers each, so 16 warps
+//     an SM) and the cluster (1..8 blocks) come from the clusters the
+//     card reports it holds at once (icp_terms_max_clusters). On the H100
+//     the flagship's 16 keyframes take clusters of 6 blocks of 512: 8
+//     would take two waves (15 fit at once).
+//   * a thread forms each entry's values with _rn intrinsics in the plain
+//     version's order (so `matched` equals it bit for bit; nvcc would
+//     otherwise contract a*b + c into FMAs), the map-frame point ml
+//     included (the wrapper no longer forms it with a GEMM), then adds the
+//     27 terms in double.
+//   * a contiguous payload row (8 values, 16-byte aligned) is read as two
+//     16-byte loads (four in float64); a view broadcast along its entries
+//     or strided takes scalar loads through its strides.
+//   * the block reduces its 27 sums by warp shuffles, then the warps in
+//     order through shared memory; after a cluster barrier the cluster's
+//     first block adds its peers' partials through distributed shared
+//     memory in rank order and writes H (both triangles) and b, and a
+//     second barrier keeps every block alive until it has read them.
+// Every sum has a fixed order and no atomics and no workspace exist, so a
+// CUDA graph's replay equals the eager call bit for bit, and two streams
+// never share scratch. The weight takes bbox0 times the reciprocal of
+// b_max formed in the working type, as torch's CUDA division of a tensor
+// by a host scalar does; the sums' order differs from the plain
+// version's by design.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -47,13 +63,14 @@
 
 namespace {
 
+namespace cg = cooperative_groups;
 using madicp::Arith;
 
 constexpr unsigned FULL_MASK = 0xffffffffu;
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
+constexpr int REGS = 128;  // registers a thread, at most: 16 warps an SM
 constexpr int NSUM = 27;  // 21 of H (upper triangle, row-major) and 6 of b
 constexpr int NLEAD = 4;  // leading axes the wrapper pads to
+constexpr int MAX_CLUSTER = 8;  // portable cluster size
 
 // one operand's strides in elements: its leading axes, then its own two
 struct View {
@@ -64,8 +81,8 @@ struct View {
 
 struct Params {
   long long shape[NLEAD];
-  View pay, ml, m, valid, x;
-  int L, tiles, tile;
+  View pay, m, valid, x;
+  int L, cluster, tile;
 };
 
 __constant__ int H_ROW[21] = {0, 0, 0, 0, 0, 0, 1, 1, 1, 1, 1, 2, 2, 2, 2, 3, 3, 3, 4, 4, 5};
@@ -81,16 +98,118 @@ __device__ __forceinline__ long long offset(const View& v, const long long* idx)
   return idx[0] * v.lead[0] + idx[1] * v.lead[1] + idx[2] * v.lead[2] + idx[3] * v.lead[3];
 }
 
+// the 8 payload values of entry l: two (float) or four (double) 16-byte
+// loads of a contiguous aligned row, else 8 strided scalar loads
+template <typename T, bool VEC>
+__device__ __forceinline__ void load_row(const T* __restrict__ pay, const View& v, int l,
+                                         T (&f)[8]) {
+  if constexpr (VEC) {
+    const T* row = pay + 8ll * l;
+    if constexpr (sizeof(T) == 4) {
+      const float4 a = __ldg(reinterpret_cast<const float4*>(row));
+      const float4 b = __ldg(reinterpret_cast<const float4*>(row) + 1);
+      f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
+      f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
+    } else {
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        const double2 a = __ldg(reinterpret_cast<const double2*>(row) + h);
+        f[2 * h] = a.x;
+        f[2 * h + 1] = a.y;
+      }
+    }
+  } else {
+    const T* row = pay + l * v.row;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) f[c] = row[c * v.col];
+  }
+}
+
+// one entry's inputs: its payload row, its moving point and valid flag
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
-terms_kernel(Params p, const T* __restrict__ payload, const T* __restrict__ ml,
-             const T* __restrict__ mpts, const uint8_t* __restrict__ valid,
-             const T* __restrict__ X, T b_max, T b_ratio, T rho,
-             uint8_t* __restrict__ matched_out, double* __restrict__ ws) {
+struct Entry {
+  T f[8], m[3];
+  bool valid;
+};
+
+template <typename T, bool VEC>
+__device__ __forceinline__ void load_entry(const T* __restrict__ pay, const T* __restrict__ mp,
+                                           const uint8_t* __restrict__ vp, const Params& p,
+                                           int l, Entry<T>& x) {
+  load_row<T, VEC>(pay, p.pay, l, x.f);
+  const T* mm = mp + l * p.m.row;
+  x.m[0] = __ldg(mm);
+  x.m[1] = __ldg(mm + p.m.col);
+  x.m[2] = __ldg(mm + 2 * p.m.col);
+  x.valid = __ldg(vp + l * p.valid.row) != 0;
+}
+
+// entry l's values in the plain version's order, its matched flag
+// written and its 27 terms added to acc
+template <typename T>
+__device__ __forceinline__ void form_entry(const Entry<T>& x, const T (&R)[3][3],
+                                           const T (&t)[3], T inv_b_max, T b_ratio, T b_max,
+                                           T rho, uint8_t* __restrict__ matched, int l,
+                                           double (&acc)[NSUM]) {
   using A = Arith<T>;
+  const T fx = x.f[0], fy = x.f[1], fz = x.f[2];
+  const T nx = x.f[3], ny = x.f[4], nz = x.f[5];
+  const T bbox0 = x.f[6], flags = x.f[7];
+  const T mx = x.m[0], my = x.m[1], mz = x.m[2];
+  // the map-frame point
+  T ml[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c)
+    ml[c] = A::add(A::add(A::add(A::mul(mx, R[c][0]), A::mul(my, R[c][1])), A::mul(mz, R[c][2])),
+                   t[c]);
+
+  // adaptive-radius gate
+  const T dx = A::sub(ml[0], fx), dy = A::sub(ml[1], fy), dz = A::sub(ml[2], fz);
+  const T dist = A::sqrt(A::add(A::add(A::mul(dx, dx), A::mul(dy, dy)), A::mul(dz, dz)));
+  const T rng = A::sqrt(A::add(A::add(A::mul(mx, mx), A::mul(my, my)), A::mul(mz, mz)));
+  const T src_ball = A::add(A::mul(b_ratio, rng), b_max);
+  const bool ok = dist <= src_ball && x.valid && flags == T(3);
+  matched[l] = ok;
+
+  // residual and analytic Jacobian, u = R^T n
+  const T e = A::add(A::add(A::mul(dx, nx), A::mul(dy, ny)), A::mul(dz, nz));
+  const T ux = A::add(A::add(A::mul(nx, R[0][0]), A::mul(ny, R[1][0])), A::mul(nz, R[2][0]));
+  const T uy = A::add(A::add(A::mul(nx, R[0][1]), A::mul(ny, R[1][1])), A::mul(nz, R[2][1]));
+  const T uz = A::add(A::add(A::mul(nx, R[0][2]), A::mul(ny, R[1][2])), A::mul(nz, R[2][2]));
+  const T J[6] = {ux, uy, uz, A::sub(A::mul(my, uz), A::mul(mz, uy)),
+                  A::sub(A::mul(mz, ux), A::mul(mx, uz)), A::sub(A::mul(mx, uy), A::mul(my, ux))};
+
+  // Huber clamp times the squared planarity weight, gated
+  const T chi = fabs(e);
+  const T scale = chi > rho ? A::div(rho, clamp_min(chi, T(1e-30))) : T(1);
+  T w = A::sub(T(1), A::mul(bbox0, inv_b_max));
+  w = w != w ? w : (w < T(0) ? T(0) : (w > T(1) ? T(1) : w));
+  const T s = A::mul(A::mul(A::mul(scale, w), w), ok ? T(1) : T(0));
+
+  double Js[6];
+#pragma unroll
+  for (int a = 0; a < 6; ++a) Js[a] = static_cast<double>(A::mul(J[a], s));
+  int k = 0;
+#pragma unroll
+  for (int a = 0; a < 6; ++a)
+#pragma unroll
+    for (int c = a; c < 6; ++c) acc[k++] += Js[a] * static_cast<double>(J[c]);
+#pragma unroll
+  for (int a = 0; a < 6; ++a) acc[21 + a] += Js[a] * static_cast<double>(e);
+}
+
+template <typename T, bool VEC, int THREADS>
+__global__ void __launch_bounds__(THREADS, 65536 / (REGS * THREADS))
+terms_kernel(Params p, const T* __restrict__ payload, const T* __restrict__ mpts,
+             const uint8_t* __restrict__ valid, const T* __restrict__ X, T inv_b_max,
+             T b_ratio, T b_max, T rho, uint8_t* __restrict__ matched_out,
+             T* __restrict__ H, T* __restrict__ b) {
+  constexpr int WARPS = THREADS / 32;
   __shared__ double red[WARPS][NSUM];
-  const int lead = blockIdx.x / p.tiles;
-  const int tile = blockIdx.x - lead * p.tiles;
+  __shared__ double part[NSUM];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int lead = blockIdx.x / p.cluster;
   long long idx[NLEAD];
   long long rem = lead;
 #pragma unroll
@@ -99,66 +218,33 @@ terms_kernel(Params p, const T* __restrict__ payload, const T* __restrict__ ml,
     rem /= p.shape[d];
   }
   const T* pay = payload + offset(p.pay, idx);
-  const T* mlp = ml + offset(p.ml, idx);
   const T* mp = mpts + offset(p.m, idx);
   const uint8_t* vp = valid + offset(p.valid, idx);
   const T* xp = X + offset(p.x, idx);
-  T R[3][3];
+  T R[3][3], t[3];
 #pragma unroll
-  for (int i = 0; i < 3; ++i)
+  for (int i = 0; i < 3; ++i) {
 #pragma unroll
     for (int j = 0; j < 3; ++j) R[i][j] = xp[i * p.x.row + j * p.x.col];
+    t[i] = xp[i * p.x.row + 3 * p.x.col];
+  }
+  uint8_t* matched = matched_out + static_cast<long long>(lead) * p.L;
 
   double acc[NSUM];
 #pragma unroll
   for (int k = 0; k < NSUM; ++k) acc[k] = 0.0;
 
-  const int lo = tile * p.tile;
-  const int hi = min(p.L, lo + p.tile);
-  for (int l = lo + threadIdx.x; l < hi; l += THREADS) {
-    const T* f = pay + l * p.pay.row;
-    const T fx = f[0], fy = f[p.pay.col], fz = f[2 * p.pay.col];
-    const T nx = f[3 * p.pay.col], ny = f[4 * p.pay.col], nz = f[5 * p.pay.col];
-    const T bbox0 = f[6 * p.pay.col], flags = f[7 * p.pay.col];
-    const T* q = mlp + l * p.ml.row;
-    const T mlx = q[0], mly = q[p.ml.col], mlz = q[2 * p.ml.col];
-    const T* mm = mp + l * p.m.row;
-    const T mx = mm[0], my = mm[p.m.col], mz = mm[2 * p.m.col];
-
-    // adaptive-radius gate, in the plain version's order
-    const T dx = A::sub(mlx, fx), dy = A::sub(mly, fy), dz = A::sub(mlz, fz);
-    const T dist = A::sqrt(A::add(A::add(A::mul(dx, dx), A::mul(dy, dy)), A::mul(dz, dz)));
-    const T rng = A::sqrt(A::add(A::add(A::mul(mx, mx), A::mul(my, my)), A::mul(mz, mz)));
-    const T src_ball = A::add(A::mul(b_ratio, rng), b_max);
-    const bool ok = dist <= src_ball && vp[l * p.valid.row] != 0 && flags == T(3);
-    matched_out[static_cast<long long>(lead) * p.L + l] = ok;
-
-    // residual and analytic Jacobian, u = R^T n
-    const T e = A::add(A::add(A::mul(dx, nx), A::mul(dy, ny)), A::mul(dz, nz));
-    const T ux = A::add(A::add(A::mul(nx, R[0][0]), A::mul(ny, R[1][0])), A::mul(nz, R[2][0]));
-    const T uy = A::add(A::add(A::mul(nx, R[0][1]), A::mul(ny, R[1][1])), A::mul(nz, R[2][1]));
-    const T uz = A::add(A::add(A::mul(nx, R[0][2]), A::mul(ny, R[1][2])), A::mul(nz, R[2][2]));
-    const T J[6] = {ux, uy, uz, A::sub(A::mul(my, uz), A::mul(mz, uy)),
-                    A::sub(A::mul(mz, ux), A::mul(mx, uz)),
-                    A::sub(A::mul(mx, uy), A::mul(my, ux))};
-
-    // Huber clamp times the squared planarity weight, gated
-    const T chi = fabs(e);
-    const T scale = chi > rho ? A::div(rho, clamp_min(chi, T(1e-30))) : T(1);
-    T w = A::sub(T(1), A::div(bbox0, b_max));
-    w = w != w ? w : (w < T(0) ? T(0) : (w > T(1) ? T(1) : w));
-    const T s = A::mul(A::mul(A::mul(scale, w), w), ok ? T(1) : T(0));
-
-    double Js[6];
-#pragma unroll
-    for (int a = 0; a < 6; ++a) Js[a] = static_cast<double>(A::mul(J[a], s));
-    int k = 0;
-#pragma unroll
-    for (int a = 0; a < 6; ++a)
-#pragma unroll
-      for (int c = a; c < 6; ++c) acc[k++] += Js[a] * static_cast<double>(J[c]);
-#pragma unroll
-    for (int a = 0; a < 6; ++a) acc[21 + a] += Js[a] * static_cast<double>(e);
+  // the block's tile, a thread's entries a block apart; each entry's
+  // loads are issued before the previous entry is formed
+  const int hi = min(p.L, (rank + 1) * p.tile);
+  int l = rank * p.tile + threadIdx.x;
+  Entry<T> cur;
+  if (l < hi) load_entry<T, VEC>(pay, mp, vp, p, l, cur);
+  for (; l < hi; l += THREADS) {
+    Entry<T> next;
+    if (l + THREADS < hi) load_entry<T, VEC>(pay, mp, vp, p, l + THREADS, next);
+    form_entry<T>(cur, R, t, inv_b_max, b_ratio, b_max, rho, matched, l, acc);
+    cur = next;
   }
 
   // the block's 27 sums, in a fixed order: lanes, then warps
@@ -175,27 +261,23 @@ terms_kernel(Params p, const T* __restrict__ payload, const T* __restrict__ ml,
     double v = 0.0;
 #pragma unroll
     for (int w8 = 0; w8 < WARPS; ++w8) v += red[w8][threadIdx.x];
-    ws[static_cast<long long>(blockIdx.x) * NSUM + threadIdx.x] = v;
+    part[threadIdx.x] = v;
   }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-finish_kernel(const double* __restrict__ ws, int n_lead, int tiles, T* __restrict__ H,
-              T* __restrict__ b) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_lead * NSUM) return;
-  const int lead = i / NSUM, k = i - lead * NSUM;
-  const double* src = ws + static_cast<long long>(lead) * tiles * NSUM + k;
-  double v = 0.0;
-  for (int t = 0; t < tiles; ++t) v += src[static_cast<long long>(t) * NSUM];
-  const T out = static_cast<T>(v);
-  if (k < 21) {
-    H[lead * 36 + H_ROW[k] * 6 + H_COL[k]] = out;
-    H[lead * 36 + H_COL[k] * 6 + H_ROW[k]] = out;
-  } else {
-    b[lead * 6 + k - 21] = out;
+  // the cluster's partials, in rank order, by its first block
+  cluster.sync();
+  if (rank == 0 && threadIdx.x < NSUM) {
+    const int k = threadIdx.x;
+    double v = part[k];
+    for (int r = 1; r < p.cluster; ++r) v += cluster.map_shared_rank(part, r)[k];
+    const T out = static_cast<T>(v);
+    if (k < 21) {
+      H[lead * 36 + H_ROW[k] * 6 + H_COL[k]] = out;
+      H[lead * 36 + H_COL[k] * 6 + H_ROW[k]] = out;
+    } else {
+      b[lead * 6 + k - 21] = out;
+    }
   }
+  cluster.sync();  // no block leaves while its partials are read
 }
 
 View read_view(const long long*& meta) {
@@ -206,27 +288,81 @@ View read_view(const long long*& meta) {
   return v;
 }
 
+// the kernel for a working type, a load path and a block size
 template <typename T>
-int launch(const long long* meta, const T* payload, const T* ml, const T* mpts,
-           const uint8_t* valid, const T* X, double b_max, double b_ratio, double rho,
-           int n_lead, double* ws, uint8_t* matched, T* H, T* b, cudaStream_t stream) {
+using Kernel = void (*)(Params, const T*, const T*, const uint8_t*, const T*, T, T, T, T,
+                        uint8_t*, T*, T*);
+
+template <typename T>
+Kernel<T> kernel_for(bool vec, int threads) {
+  if (threads == 256) return vec ? terms_kernel<T, true, 256> : terms_kernel<T, false, 256>;
+  if (threads == 512) return vec ? terms_kernel<T, true, 512> : terms_kernel<T, false, 512>;
+  return nullptr;
+}
+
+// a launch of `blocks` blocks of `threads` in clusters of `cluster`
+cudaLaunchConfig_t cluster_config(int blocks, int threads, int cluster, cudaStream_t stream,
+                                  cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(blocks), 1, 1);
+  cfg.blockDim = dim3(static_cast<unsigned>(threads), 1, 1);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// clusters of `cluster` blocks of `threads` the card holds at once (0
+// where it holds none, or the kernel does not exist)
+template <typename T>
+int max_clusters(int threads, int cluster) {
+  const Kernel<T> k = kernel_for<T>(true, threads);
+  if (k == nullptr || cluster < 1 || cluster > MAX_CLUSTER) return 0;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = cluster_config(cluster, threads, cluster, nullptr, attr);
+  int n = 0;
+  if (cudaOccupancyMaxActiveClusters(&n, reinterpret_cast<const void*>(k), &cfg) != cudaSuccess) {
+    cudaGetLastError();  // clear it: a query that fails launches nothing
+    return 0;
+  }
+  return n;
+}
+
+template <typename T>
+int launch(const long long* meta, const T* payload, const T* mpts, const uint8_t* valid,
+           const T* X, double b_max, double b_ratio, double rho, int n_lead, uint8_t* matched,
+           T* H, T* b, cudaStream_t stream) {
   Params p;
   for (int d = 0; d < NLEAD; ++d) p.shape[d] = *meta++;
   p.pay = read_view(meta);
-  p.ml = read_view(meta);
   p.m = read_view(meta);
   p.valid = read_view(meta);
   p.x = read_view(meta);
   p.L = static_cast<int>(*meta++);
-  p.tiles = static_cast<int>(*meta++);
+  p.cluster = static_cast<int>(*meta++);
   p.tile = static_cast<int>(*meta++);
+  const int threads = static_cast<int>(*meta++);
+  const bool vec = *meta++ != 0;
+  const Kernel<T> k = kernel_for<T>(vec, threads);
+  if (k == nullptr || p.cluster < 1 || p.cluster > MAX_CLUSTER || p.tile < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (n_lead <= 0) return static_cast<int>(cudaGetLastError());
-  terms_kernel<T><<<n_lead * p.tiles, THREADS, 0, stream>>>(
-      p, payload, ml, mpts, valid, X, static_cast<T>(b_max), static_cast<T>(b_ratio),
-      static_cast<T>(rho), matched, ws);
-  const int n = n_lead * NSUM;
-  finish_kernel<T><<<(n + THREADS - 1) / THREADS, THREADS, 0, stream>>>(ws, n_lead, p.tiles,
-                                                                       H, b);
+  // torch divides a tensor by a host scalar as a product with the
+  // scalar's reciprocal, formed in the working type
+  const T bm = static_cast<T>(b_max);
+  const T inv = T(1) / bm;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = cluster_config(n_lead * p.cluster, threads, p.cluster,
+                                                stream, attr);
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, k, p, payload, mpts, valid, X, inv,
+                                             static_cast<T>(b_ratio), bm,
+                                             static_cast<T>(rho), matched, H, b);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -234,29 +370,36 @@ int launch(const long long* meta, const T* payload, const T* ml, const T* mpts,
 
 extern "C" {
 
-// Plain C interface for ctypes: (meta, payload, ml, m, valid, X, b_max,
-// b_ratio, rho, n_lead, workspace (n_lead, tiles, 27) doubles, matched
-// (n_lead, L) bool, H (n_lead, 6, 6), b (n_lead, 6), stream). `meta`
-// (host memory, 37 values): the leading shape padded to 4 axes; then for
-// payload, ml, m, valid and X in turn 4 leading strides and 2 own
-// strides, in elements; then L, tiles and the tile (entries a block).
-// b_max, b_ratio and rho are rounded to the working type here, as torch
-// rounds a host scalar. Returns the cudaGetLastError() code after the
-// launches (0 = success).
-int icp_terms_f32(const long long* meta, const float* payload, const float* ml,
-                  const float* mpts, const uint8_t* valid, const float* X, double b_max,
-                  double b_ratio, double rho, int n_lead, double* ws, uint8_t* matched,
-                  float* H, float* b, void* stream) {
-  return launch<float>(meta, payload, ml, mpts, valid, X, b_max, b_ratio, rho, n_lead, ws,
-                       matched, H, b, static_cast<cudaStream_t>(stream));
+// Plain C interface for ctypes: (meta, payload, m, valid, X, b_max,
+// b_ratio, rho, n_lead, matched (n_lead, L) bool, H (n_lead, 6, 6), b
+// (n_lead, 6), stream). `meta` (host memory, 33 values): the leading
+// shape padded to 4 axes; then for payload, m, valid and X in turn 4
+// leading strides and 2 own strides, in elements; then L, the cluster
+// (blocks a leading index, 1..8), the tile (entries a block), the block
+// (256 or 512 threads) and 1 where every payload row is contiguous and
+// 16-byte aligned (the vector loads). b_max, b_ratio and rho are rounded
+// to the working type here, as torch rounds a host scalar. Returns the
+// cudaGetLastError() code after the launch, or the launch's own error
+// when the card refuses it (0 = success).
+int icp_terms_f32(const long long* meta, const float* payload, const float* mpts,
+                  const uint8_t* valid, const float* X, double b_max, double b_ratio,
+                  double rho, int n_lead, uint8_t* matched, float* H, float* b, void* stream) {
+  return launch<float>(meta, payload, mpts, valid, X, b_max, b_ratio, rho, n_lead, matched, H,
+                       b, static_cast<cudaStream_t>(stream));
 }
 
-int icp_terms_f64(const long long* meta, const double* payload, const double* ml,
-                  const double* mpts, const uint8_t* valid, const double* X, double b_max,
-                  double b_ratio, double rho, int n_lead, double* ws, uint8_t* matched,
-                  double* H, double* b, void* stream) {
-  return launch<double>(meta, payload, ml, mpts, valid, X, b_max, b_ratio, rho, n_lead, ws,
-                        matched, H, b, static_cast<cudaStream_t>(stream));
+int icp_terms_f64(const long long* meta, const double* payload, const double* mpts,
+                  const uint8_t* valid, const double* X, double b_max, double b_ratio,
+                  double rho, int n_lead, uint8_t* matched, double* H, double* b,
+                  void* stream) {
+  return launch<double>(meta, payload, mpts, valid, X, b_max, b_ratio, rho, n_lead, matched,
+                        H, b, static_cast<cudaStream_t>(stream));
+}
+
+// Clusters of `cluster` blocks of `threads` (float64 when f64 is 1) the
+// current card holds at once; 0 where it holds none.
+int icp_terms_max_clusters(int f64, int threads, int cluster) {
+  return f64 ? max_clusters<double>(threads, cluster) : max_clusters<float>(threads, cluster);
 }
 
 const char* madicp_cuda_error_string(int code) {

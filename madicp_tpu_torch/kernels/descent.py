@@ -27,6 +27,8 @@ import torch
 from madicp_tpu_torch.kernels import build
 
 counter = build.LaunchCounter()
+# the __global__ functions of csrc/descent.cu, as a CUDA trace names them
+KERNEL_NAMES = ("descend_kernel",)
 _launch = build.Launcher("descent", {  # the stream last
     "descend": ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_void_p] * 2
                 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4),

@@ -8,44 +8,116 @@ b and the ``(L,)`` matched mask. It is the body of
 of the JAX package's ``madicp_tpu/ops/icp_core.py:69``
 ``terms_from_payload``. The kernel lives in ``csrc/icp_terms.cu`` (design
 and bound in its header); :func:`terms_plain` is the same math in tensor
-ops. Both take the map-frame points from one torch expression
-(:func:`moving_in_map`) and form each entry's values in one order, so
-``matched`` agrees bit for bit on the card; H and b are sums in another
-order (the kernel's in double), and the weight differs by the rounding of
-``bbox0 / b_max`` (torch multiplies by the host scalar's reciprocal).
+ops. Both form each entry's values in one order, the map-frame points
+(:func:`moving_in_map`) included, so ``matched`` agrees bit for bit on
+the card; H and b are sums in another order (the kernel's in double), and
+the kernel takes ``bbox0 / b_max`` as torch's CUDA division by a host
+scalar does, a product with the reciprocal.
 
-Dispatch is by the tensors' device and nothing else: CPU tensors take
-the plain version, CUDA tensors take the kernel or the call raises. The
-wrapper allocates its workspace per call with ``torch.empty``, reads
-nothing back to the host and launches on the current stream, so it runs
-inside CUDA graph capture.
+The kernel runs one launch a call: a thread-block cluster a leading
+index, its blocks splitting L (:func:`plan`), a contiguous payload read
+with 16-byte loads (:func:`vector_rows`). Dispatch is by the tensors'
+device and nothing else: CPU tensors take the plain version, CUDA tensors
+take the kernel or the call raises, a cluster launch the card refuses
+included. The wrapper allocates only its outputs, reads nothing back to
+the host and launches on the current stream, so it runs inside CUDA graph
+capture.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
 from madicp_tpu_torch.kernels import build
-from madicp_tpu_torch.kernels.segsum import sm_count
 
 counter = build.LaunchCounter()
+# the __global__ functions of csrc/icp_terms.cu, as a CUDA trace names them
+KERNEL_NAMES = ("terms_kernel",)
 NSUM = 27  # 21 sums of H's upper triangle and 6 of b
-THREADS = 256
-BLOCKS_PER_SM = 4  # tiles a leading index gets, as far as L allows
+BLOCKS = (256, 512)  # the block sizes csrc/icp_terms.cu takes
+THREADS = 256  # the block where no cluster plan fits
+MAX_CLUSTER = 8  # blocks a leading index, at most: the portable cluster size
+MIN_PER_THREAD = 8  # entries a thread walks, at least
 MAX_LEAD_AXES = 4
 _launch = build.Launcher("icp_terms", {  # the stream last
-    "icp_terms": ([ctypes.c_void_p] * 6 + [ctypes.c_double] * 3 + [ctypes.c_int]
-                  + [ctypes.c_void_p] * 5),
+    "icp_terms": ([ctypes.c_void_p] * 5 + [ctypes.c_double] * 3 + [ctypes.c_int]
+                  + [ctypes.c_void_p] * 4),
 }, counter)
 _MAX_ENTRIES = 2**31 - 1
 
 
+class Plan(NamedTuple):
+    """A call's launch: ``cluster`` blocks of ``threads`` a leading index,
+    each over ``tile`` consecutive entries of L."""
+
+    cluster: int
+    tile: int
+    threads: int
+
+
+def plan(n_lead: int, L: int, capacity) -> Plan:
+    """The launch of a call over ``n_lead`` leading indices of ``L``
+    entries on a card that holds ``capacity(threads, cluster)`` clusters
+    of ``cluster`` blocks of ``threads`` at once: among the block sizes
+    of :data:`BLOCKS` and the clusters of 1 to :data:`MAX_CLUSTER` blocks
+    that hold every leading index's cluster at once (one wave) and give a
+    thread at least :data:`MIN_PER_THREAD` entries, the one with the most
+    threads a leading index (the fewer blocks on a tie); one block of
+    :data:`THREADS` where none does. Tiles of a multiple of 32 entries."""
+    best = (0, 0, THREADS, 1)  # threads a lead, -cluster, threads, cluster
+    for threads in BLOCKS:
+        for cluster in range(1, MAX_CLUSTER + 1):
+            if (n_lead <= capacity(threads, cluster)
+                    and -(-L // (cluster * threads)) >= MIN_PER_THREAD):
+                best = max(best, (cluster * threads, -cluster, threads, cluster))
+    _, _, threads, cluster = best
+    tile = -(-L // cluster)
+    return Plan(cluster, -(-tile // 32) * 32, threads)
+
+
+_CAPACITY: dict = {}
+
+
+def card_capacity(device: torch.device, dtype: torch.dtype):
+    """``capacity(threads, cluster)`` of :func:`plan` for the card and the
+    working type: the clusters of the kernel that the card holds at once
+    (``cudaOccupancyMaxActiveClusters``), asked once a device and type."""
+    key = (device.index, dtype)
+    if key not in _CAPACITY:
+        fn = build.load("icp_terms").icp_terms_max_clusters
+        fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_int
+        with torch.cuda.device(device):
+            _CAPACITY[key] = {(t, c): fn(int(dtype == torch.float64), t, c)
+                              for t in BLOCKS for c in range(1, MAX_CLUSTER + 1)}
+    table = _CAPACITY[key]
+    return lambda threads, cluster: table[(threads, cluster)]
+
+
+def vector_rows(payload: torch.Tensor, lead: tuple) -> bool:
+    """Whether every payload row the kernel reads is 8 contiguous values
+    at a 16-byte aligned address (its two or four 16-byte loads), seen
+    with the leading shape ``lead`` (rows shared across a leading axis
+    qualify); a view broadcast along its entries, strided or off a
+    16-byte boundary takes the scalar loads."""
+    per = 16 // payload.element_size()  # values in 16 bytes
+    st = payload.expand(lead + tuple(payload.shape[-2:])).stride()
+    return (st[-1] == 1 and st[-2] == 8 and payload.data_ptr() % 16 == 0
+            and all(s % per == 0 for s in st[:-2]))
+
+
 def moving_in_map(moving_pts: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
-    """The moving points in the map frame, ``m R^T + t`` (both versions)."""
-    return moving_pts @ X[..., :3, :3].mT + X[..., None, :3, 3]
+    """The moving points in the map frame, ``m R^T + t``: each coordinate
+    ``((m_x R_c0 + m_y R_c1) + m_z R_c2) + t_c``, one rounding an
+    operation, the kernel's order."""
+    m = moving_pts
+    X = X[..., None, :, :]  # broadcasts over L
+    return torch.stack([((m[..., 0] * X[..., c, 0] + m[..., 1] * X[..., c, 1])
+                         + m[..., 2] * X[..., c, 2]) + X[..., c, 3] for c in range(3)],
+                       dim=-1)
 
 
 def entry_terms(payload, moving_pts, moving_valid, X, *, b_max, b_ratio, rho_ker):
@@ -153,6 +225,15 @@ def terms(payload, moving_pts, moving_valid, X, *, b_max, b_ratio, rho_ker):
     if payload.device.type == "cpu":
         return terms_plain(payload, moving_pts, moving_valid, X,
                            b_max=b_max, b_ratio=b_ratio, rho_ker=rho_ker)
+    pl = plan(math.prod(lead), payload.shape[-2], card_capacity(payload.device, payload.dtype))
+    return launch(payload, moving_pts, moving_valid, X, b_max=b_max, b_ratio=b_ratio,
+                  rho_ker=rho_ker, pl=pl)
+
+
+def launch(payload, moving_pts, moving_valid, X, *, b_max, b_ratio, rho_ker, pl: Plan):
+    """Run the kernel on CUDA tensors as ``pl`` says (arguments and results
+    as :func:`terms`); one count."""
+    lead = _lead(payload, moving_pts, moving_valid, X)
     if len(lead) > MAX_LEAD_AXES:
         raise ValueError(f"icp_terms: at most {MAX_LEAD_AXES} leading axes, got {lead}")
     dev, dtype = payload.device, payload.dtype
@@ -160,20 +241,16 @@ def terms(payload, moving_pts, moving_valid, X, *, b_max, b_ratio, rho_ker):
     n_lead = math.prod(lead)
     if n_lead * max(L, 1) > _MAX_ENTRIES:
         raise ValueError(f"icp_terms: at most {_MAX_ENTRIES} entries, got {n_lead} x {L}")
-    ml = moving_in_map(moving_pts, X)
     rho = float(torch.sqrt(torch.tensor(rho_ker, dtype=dtype)))
-    tiles = max(1, min(-(-L // THREADS), -(-BLOCKS_PER_SM * sm_count(dev) // max(n_lead, 1))))
-    tile = -(-L // tiles)
     meta = ([1] * (MAX_LEAD_AXES - len(lead)) + list(lead)
-            + _view(payload, lead, 2) + _view(ml, lead, 2) + _view(moving_pts, lead, 2)
-            + _view(moving_valid, lead, 1) + _view(X, lead, 2) + [L, tiles, tile])
+            + _view(payload, lead, 2) + _view(moving_pts, lead, 2)
+            + _view(moving_valid, lead, 1) + _view(X, lead, 2)
+            + [L, pl.cluster, pl.tile, pl.threads, int(vector_rows(payload, lead))])
     meta = (ctypes.c_longlong * len(meta))(*meta)
-    ws = torch.empty((n_lead, tiles, NSUM), dtype=torch.float64, device=dev)
     matched = torch.empty(lead + (L,), dtype=torch.bool, device=dev)
     H = torch.empty(lead + (6, 6), dtype=dtype, device=dev)
     b = torch.empty(lead + (6,), dtype=dtype, device=dev)
-    _launch("icp_terms", dtype, dev, meta, payload.data_ptr(), ml.data_ptr(),
-            moving_pts.data_ptr(), moving_valid.data_ptr(), X.data_ptr(), float(b_max),
-            float(b_ratio), rho, n_lead, ws.data_ptr(), matched.data_ptr(), H.data_ptr(),
-            b.data_ptr())
+    _launch("icp_terms", dtype, dev, meta, payload.data_ptr(), moving_pts.data_ptr(),
+            moving_valid.data_ptr(), X.data_ptr(), float(b_max), float(b_ratio), rho, n_lead,
+            matched.data_ptr(), H.data_ptr(), b.data_ptr())
     return H, b, matched

@@ -46,6 +46,8 @@ def _close_level_plain(state, ext, arena, *, level):
 PLAIN = {"build_nodes": bn.build_nodes_plain, "close_level": _close_level_plain,
          "build_points": bp.build_points_plain, "pick_dmin": bp.pick_dmin_plain,
          "pick_near": bp.pick_near_plain}
+NODE_FLOPS = 400  # about: the eigensolver ~350 (six cross products, roots), node fields ~50
+POINT_FLOPS = 24  # d2 3, v 15, a norm 6
 # positions of the arguments a call changes in place
 IN_PLACE = {"build_nodes": (2,), "close_level": (2,), "build_points": (3, 4, 6),
             "pick_dmin": (), "pick_near": ()}
@@ -199,3 +201,47 @@ def replay_build(points, valid, moments, *, depth, b_max, b_min):
     ``moments`` (:func:`replaying`, checked): ``(tree, point_leaf)``."""
     with replaying(moments), plain_build():
         return tree_mod.build_tree(points, valid, depth=depth, b_max=b_max, b_min=b_min)
+
+
+def call_cost(c, esize: int) -> tuple:
+    """(bytes, operations) of one recorded call of the build (a
+    :class:`Call`): each input read once and each output written once,
+    counting what this call's data needs (the live points, their distinct
+    nodes, the points that freeze). ``chip_smoke.py`` bounds the build's
+    kernels with it."""
+    ksize = esize  # keys have the floats' width
+    if c.name == "build_nodes":
+        mom, prev, arena = c.args
+        nseg = mom.shape[0]
+        parents = 0 if prev is None else nseg // 2
+        # a node: 10 moments read, pack, state and arena row written, 6
+        # keys set; a parent: its mean and PCA normal (6 of its pack), 8
+        # state values and 6 keys read, its bbox0 and is_leaf written
+        nbytes = (nseg * (10 + 13 + 8 + 10) * esize + nseg * 6 * ksize
+                  + parents * ((6 + 8 + 2) * esize + 6 * ksize)
+                  + (arena.shape[0] * 12 * esize if prev is None else 0))
+        return nbytes, nseg * NODE_FLOPS
+    if c.name == "close_level":
+        state, ext, _ = c.args
+        return state.shape[0] * (3 * esize + 6 * ksize), state.shape[0] * 10
+    if c.name == "build_points":
+        # every id read and next id written; a live point's position; d
+        # read by the points that retire, d_next written by those that
+        # advance; a live node's pack and keys; leaf_of and frz_dist
+        # written by the points that retire or freeze
+        idx, packA = c.args[2], c.args[5]
+        n, nseg = idx.shape[0], packA.shape[0]
+        live = (idx >= 0) & (idx < nseg)
+        dead = live & (packA[torch.where(live, idx, 0).long(), 12] > 0)
+        n_live, n_dead = int(live.sum()), int(dead.sum())
+        n_adv = int((c.results[1] >= 0).sum())
+        nodes = int(torch.unique(idx[live]).numel())
+        nbytes = (n * 8 + (n_live + n_dead + n_adv) * 3 * esize
+                  + nodes * (13 * esize + 6 * ksize) + (n_live - n_adv) * (8 + esize))
+        return nbytes, n_live * POINT_FLOPS
+    valid = c.args[0]
+    n, n_valid, rows = valid.numel(), int(valid.sum()), c.results[0].numel()
+    nbytes = n + n_valid * (8 + esize) + rows * ksize
+    if c.name == "pick_near":
+        nbytes += rows * 8
+    return nbytes, n_valid * 3

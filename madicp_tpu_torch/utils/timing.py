@@ -90,13 +90,13 @@ def event_ms(fn, reps: int) -> float:
 PROFILE_PAD_S = 0.05  # idle seconds at either end of a profiled window
 
 
-def device_kernels(fn) -> tuple:
-    """({CUDA kernel name: (device microseconds, launches)}, wall ms) of
-    one ``fn()`` under ``torch.profiler``; memsets count as kernels. The
-    profiler keeps only the device records that fall inside its capture
-    window on its own clock, so the window idles :data:`PROFILE_PAD_S` at
-    either end (outside the wall time), and one cycle's events are kept
-    whole (``acc_events``)."""
+def device_trace(fn) -> tuple:
+    """([(CUDA kernel name, device start µs, device µs)] in start order,
+    wall ms) of one ``fn()`` under ``torch.profiler``; memsets count as
+    kernels. The profiler keeps only the device records that fall inside
+    its capture window on its own clock, so the window idles
+    :data:`PROFILE_PAD_S` at either end (outside the wall time), and one
+    cycle's events are kept whole (``acc_events``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -109,11 +109,19 @@ def device_kernels(fn) -> tuple:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
         time.sleep(PROFILE_PAD_S)
+    records = [(e.name, e.time_range.start, e.device_time_total)
+               for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return sorted(records, key=lambda r: r[1]), wall_ms
+
+
+def device_kernels(fn) -> tuple:
+    """({CUDA kernel name: (device microseconds, launches)}, wall ms) of
+    one ``fn()`` under ``torch.profiler`` (:func:`device_trace`)."""
+    records, wall_ms = device_trace(fn)
     by_name: dict = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            us, cnt = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (us + e.device_time_total, cnt + 1)
+    for name, _, us in records:
+        total, cnt = by_name.get(name, (0.0, 0))
+        by_name[name] = (total + us, cnt + 1)
     return by_name, wall_ms
 
 

@@ -188,6 +188,75 @@ def test_terms_dispatch_and_argument_checks():
         icp_terms.terms(payload, pts, valid, X.expand(3, 4, 4), **TERMS_KW)
 
 
+# clusters of (threads, cluster blocks) of the terms kernel that an H100
+# 80GB HBM3 holds at once (cudaOccupancyMaxActiveClusters, float32)
+H100_CLUSTERS = {
+    256: {1: 264, 2: 132, 3: 79, 4: 62, 5: 47, 6: 39, 7: 32, 8: 30},
+    512: {1: 132, 2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15, 8: 15},
+}
+
+
+@pytest.mark.parametrize("n_lead, L, threads, cluster, tile", [
+    (16, 32768, 512, 6, 5472),    # the flagship: 16 x 8 x 512 would take two waves
+    (16, 32765, 512, 6, 5472),    # L not a multiple of the tile
+    (64, 32768, 512, 2, 16384),   # the fleet at B = 4
+    (1, 32768, 512, 8, 4096),     # one tree: the largest cluster
+    (16, 3000, 256, 1, 3008),     # too few entries a thread to split
+    (200, 32768, 256, 1, 32768),  # more leads than a wave of 512-thread blocks
+    (400, 32768, 256, 1, 32768),  # more than one wave of anything
+    (4, 0, 256, 1, 0),
+])
+def test_terms_plan(n_lead, L, threads, cluster, tile):
+    """The terms kernel's launch on an H100's cluster capacity: among the
+    block sizes and clusters that hold every leading index at once and
+    give a thread at least 8 entries, the most threads a leading index;
+    one 256-thread block a lead where none does; tiles of whole warps
+    that cover L."""
+    pl = icp_terms.plan(n_lead, L, lambda t, c: H100_CLUSTERS[t][c])
+    assert pl == (cluster, tile, threads)
+    assert pl.cluster * pl.tile >= L and pl.tile % 32 == 0
+    assert pl.cluster == 1 or (n_lead <= H100_CLUSTERS[pl.threads][pl.cluster]
+                               and -(-L // (pl.cluster * pl.threads))
+                               >= icp_terms.MIN_PER_THREAD)
+
+
+def test_terms_vector_rows():
+    """A payload whose rows are 8 contiguous values at 16-byte aligned
+    addresses takes the 16-byte loads, in both dtypes, with leading axes
+    and with rows shared by the leading indices (stride 0 across a lead);
+    a view broadcast along its entries (row stride 0), a strided slice, a
+    payload that starts off a 16-byte boundary and rows of 12 values take
+    the scalar loads."""
+    for dtype in (torch.float32, torch.float64):
+        pay = torch.zeros((2, 4, 100, 8), dtype=dtype)
+        assert icp_terms.vector_rows(pay, (2, 4))
+        assert icp_terms.vector_rows(pay[:, :1], (2, 4))  # shared across a lead
+        assert icp_terms.vector_rows(pay[0, 0], (3,))
+        assert not icp_terms.vector_rows(pay[0, 0, :1].expand(100, 8), (2,))
+        assert not icp_terms.vector_rows(pay[:, :, ::2], (2, 4))
+        flat = torch.zeros(2 * 4 * 100 * 8 + 1, dtype=dtype)
+        assert not icp_terms.vector_rows(flat[1:].view(2, 4, 100, 8), (2, 4))
+        wide = torch.zeros((3, 100, 12), dtype=dtype)
+        assert not icp_terms.vector_rows(wide[..., :8], (3,))
+
+
+def test_moving_in_map_order():
+    """The map-frame points are ``((m_x R_c0 + m_y R_c1) + m_z R_c2) +
+    t_c`` bit for bit (the kernel's order, one rounding an operation),
+    within an ulp of ``m R^T + t`` as a matrix product, with leading axes
+    on either side."""
+    payload, pts, valid, X = _terms_inputs((3,), (3,), (3,), 50, dtype=torch.float32)
+    ml = icp_terms.moving_in_map(pts, X)
+    R, t = X[:, None, :3, :3], X[:, None, :3, 3]
+    for c in range(3):
+        want = ((pts[..., 0] * R[..., c, 0] + pts[..., 1] * R[..., c, 1])
+                + pts[..., 2] * R[..., c, 2]) + t[..., c]
+        assert torch.equal(ml[..., c], want)
+    torch.testing.assert_close(ml, pts @ X[..., :3, :3].mT + X[..., None, :3, 3],
+                               rtol=1e-6, atol=1e-5)
+    assert icp_terms.moving_in_map(pts[0], X).shape == (3, 50, 3)
+
+
 @pytest.mark.parametrize("case", DESCENT_CASES)
 def test_descend_plain_matches_jax(jax_ref, case):
     """float64, the same nav table: ids and blocks equal, margins within
@@ -349,10 +418,56 @@ def test_terms_kernel_matches_the_plain_version_on_cuda(cuda_device, dtype, case
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", ["fleet_b4", "strided", "graph"])
+def test_terms_kernel_cluster_launches_on_cuda(cuda_device, dtype, case):
+    """The terms kernel's cluster launches at full size: the fleet's B = 4
+    (4, 16) leading indices of 32768 entries; a payload that is a strided
+    view of wider rows (the scalar loads) equal bit for bit to the
+    contiguous call on the same values; and a flagship call (16 leads, a
+    cluster of several blocks each) captured in a CUDA graph, replayed
+    twice, equal to the eager call bit for bit. Each one launch, matched
+    bit for bit and H, b within 1e-5 (1e-12) of the float64 sum."""
+    lead = {"fleet_b4": ((4, 16), (4, 1), (4, 1)), "strided": ((16,), (), ()),
+            "graph": ((16,), (), ())}[case]
+    L = 32768 if case == "fleet_b4" else 32765
+    args = [t.to(cuda_device) for t in _terms_inputs(*lead, L, seed=3, dtype=dtype)]
+    H_ref, b_ref, m_ref = _terms_reference(*args)
+    before = icp_terms.counter.launches
+    H, b, matched = icp_terms.terms(*args, **TERMS_KW)
+    torch.cuda.synchronize()
+    assert icp_terms.counter.launches == before + 1
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    assert torch.equal(matched, m_ref) and torch.equal(H, H.mT)
+    assert float(_rel_frobenius(H, H_ref, (-2, -1)).max()) <= tol
+    assert float(_rel_frobenius(b, b_ref, (-1,)).max()) <= tol
+    if case == "strided":
+        wide = torch.zeros(args[0].shape[:-1] + (12,), dtype=dtype, device=cuda_device)
+        wide[..., :8] = args[0]
+        view = wide[..., :8]
+        assert not icp_terms.vector_rows(view, (16,)) and icp_terms.vector_rows(args[0], (16,))
+        got = icp_terms.terms(view, *args[1:], **TERMS_KW)
+        for a, w in zip(got, (H, b, matched)):
+            assert torch.equal(a, w)
+    if case == "graph":
+        assert icp_terms.plan(16, L, icp_terms.card_capacity(cuda_device, dtype)).cluster > 1
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = icp_terms.terms(*args, **TERMS_KW)
+        for _ in range(2):
+            for t in out:
+                t.zero_()
+            graph.replay()
+            torch.cuda.synchronize()
+            for a, w in zip(out, (H, b, matched)):
+                assert torch.equal(a, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_assoc_kernels_replay_in_a_cuda_graph(cuda_device, dtype):
     """Both kernels captured in one CUDA graph and replayed twice equal
     their eager calls bit for bit (no float atomics, no workspace that
-    outlives a call)."""
+    outlives a call, sums in a fixed order)."""
     nav, q, depth, base, kw = descent_case("root", n=3000)
     nav, q = nav.to(dtype).to(cuda_device), q.to(dtype).to(cuda_device)
     base, kw = base.to(cuda_device), _to(kw, cuda_device)

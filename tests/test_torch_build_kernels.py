@@ -327,6 +327,54 @@ def test_build_points_dispatch_and_argument_checks():
         bp.build_points(p, d, idx, leaf_of, frz, packA, ext, level=7, depth=6)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n, nseg, path", [
+    (131072, 1, "cluster"),       # the flagship's root
+    (131072, 256, "cluster"),
+    (131072, 257, "cluster"),
+    (131072, 1024, "cluster"),    # the largest cluster table
+    (131072 * 2, 1025, "stage"),  # one node more
+    (131072 * 4, 2048, "stage"),  # the fleet's B = 4 level 9: 256 points a node, over the cap
+    (131072, 65536, "stage"),     # the flagship's last level
+    (128 * 200, 200, "cluster"),  # 128 points a node
+    (128 * 200 - 1, 200, "stage"),  # one point fewer
+    (1000, 7, "cluster"),         # fewer points than a cluster's threads
+])
+def test_build_points_plan(dtype, n, nseg, path):
+    """The level pass's plan: the cluster path where at most 1024 nodes
+    hold at least 128 points each (in either dtype: a float64 table of
+    1024 nodes fills the 48 KB a block has without an opt-in), the stage
+    path elsewhere; a point a thread; the cluster path's grid is whole
+    clusters of 8 blocks, each with the table's bytes of shared memory."""
+    ksize = torch.finfo(dtype).bits // 8
+    assert bp.CLUSTER_MAX_NODES * 6 * 8 == bp.CLUSTER_SMEM == 48 * 1024
+    pl = bp.plan(n, nseg, dtype)
+    assert pl.path == path
+    if path == "cluster":
+        assert pl.cluster == bp.CLUSTER and pl.blocks % bp.CLUSTER == 0
+        assert pl.blocks * bp.CLUSTER_THREADS >= n > (pl.blocks - bp.CLUSTER) * bp.CLUSTER_THREADS
+        assert pl.smem == nseg * 6 * ksize
+    else:
+        assert pl == (path, -(-n // bp.THREADS), 1, 0)
+
+
+def test_build_points_forced_plans():
+    """Both paths can be forced at any level whose cluster table fits the
+    48 KB a block has without an opt-in; a cluster table over it and an
+    unknown path raise."""
+    assert bp.PATHS == ("cluster", "stage")
+    for path in bp.PATHS:
+        assert bp.plan(131072, 2048, torch.float32, path=path).path == path
+    assert bp.plan(131072, 2048, torch.float32, path="cluster").smem == 2048 * 24
+    assert bp.plan(131072, 1024, torch.float64, path="cluster").smem == 48 * 1024
+    with pytest.raises(ValueError, match="shared bytes"):
+        bp.plan(131072, 1025, torch.float64, path="cluster")
+    with pytest.raises(ValueError, match="shared bytes"):
+        bp.plan(131072, 65536, torch.float32, path="cluster")
+    with pytest.raises(ValueError, match="unknown path"):
+        bp.plan(131072, 8, torch.float32, path="warp")
+
+
 def test_pick_dispatch_and_argument_checks():
     """The leaf pick: CPU tensors take the plain versions and count no
     launch; wrong devices, dtypes and shapes raise on every device."""
@@ -389,6 +437,46 @@ def test_build_kernels_are_bitwise_the_plain_versions_on_cuda(cuda_device, dtype
         assert row["equal"], (kernel, row)
     tree_p, leaf_p = build_levels.replay_build(points, valid, moments, depth=depth, **BUILD_KW)
     assert torch.equal(tree.nav, tree_p.nav) and torch.equal(point_leaf, leaf_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B, n, depth, last_cluster", [
+    (1, 131072, 12, 10),  # 1024 nodes of 128 points the last cluster level
+    (3, 4096, 8, 5),      # 128 points a node at nseg 96, 64 at 192
+])
+def test_build_points_paths_are_bitwise_at_their_boundaries_on_cuda(
+        cuda_device, dtype, B, n, depth, last_cluster):
+    """Every level of a build on both paths where they can take it (the
+    cluster path wherever its table fits 48 KB of shared memory, past the
+    plan's 1024 nodes in float32; the stage path everywhere) equals the
+    plain version bit for bit; the plan takes the cluster path up to
+    ``last_cluster`` and the stage path after it, across the 1024-node
+    and the 128-points-a-node edges."""
+    points, valid = _cuda_batch(cuda_device, B, n, dtype, seed=depth)
+    _, _, calls, _ = build_levels.record_build(points, valid, depth=depth, **BUILD_KW)
+    forced = 0
+    for c in calls:
+        if c.name != "build_points":
+            continue
+        level, nseg = c.kwargs["level"], c.args[5].shape[0]
+        assert bp.plan(B * n, nseg, dtype).path == ("cluster" if level <= last_cluster
+                                                     else "stage")
+        plain_args = build_levels.copy_args(c.args)
+        want = build_levels.results(c.name, bp.build_points_plain(*plain_args, **c.kwargs),
+                                    plain_args)
+        for path in bp.PATHS:
+            try:
+                pl = bp.plan(B * n, nseg, dtype, path=path)
+            except ValueError:  # a cluster table over 48 KB
+                continue
+            args = build_levels.copy_args(c.args)
+            got = build_levels.results(c.name, bp.launch(*args, **c.kwargs, pl=pl), args)
+            torch.cuda.synchronize()
+            for a, b in zip(got, want):
+                assert build_levels.compare(a, b)[0], (level, path)
+            forced += 1
+    assert forced >= 2 * (depth + 1) - 2
 
 
 @pytest.mark.cuda

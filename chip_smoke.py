@@ -20,7 +20,12 @@ script exits non-zero without the final line):
               and float64: the descent's ids, blocks and margins bit for
               bit at a certified round 0, a later certified round (most
               entries parked) and a warm start, with the distinct panels
-              it reads (the bound's bytes); the terms' matched bit for bit
+              it reads (the bound's bytes), each in the flat form and in
+              the ring form the step launches (one query operand for the
+              16 trees; the later round merged into round 0's results in
+              place), and a whole certified re-association round as
+              descend + three where against the step's merged one, kernel
+              by kernel from torch.profiler; the terms' matched bit for bit
               and H, b within 1e-5 (1e-12 in float64) relative of a float64
               sum of the plain version's per-entry terms; eager, graphed
               and plain ms and bounds; the kernels of one call by name,
@@ -43,7 +48,9 @@ script exits non-zero without the final line):
               each kernel and of a whole build, with the bound; every K8
               call of the bench-scan build (level, path, nseg, live
               points, distinct (warp, node) pairs, bound µs and device µs
-              in a CUDA graph, the times that sum to K8's). Then the
+              in a CUDA graph, the times that sum to K8's) and every K9
+              call (level, nodes, blocks, node kernel, bound µs, device
+              µs in a CUDA graph). Then the
               certified flagship drive, graphed, with the build kernels
               and with the build routed to its plain versions (a patch of
               this script): scans/s, device busy and kernels a scan of
@@ -393,12 +400,13 @@ def plain_association():
 
     @contextlib.contextmanager
     def patched():
-        real = descent.descend, icp_terms.terms
-        descent.descend, icp_terms.terms = descent.descend_plain, icp_terms.terms_plain
+        real = descent.descend, descent.descend_ring, icp_terms.terms
+        descent.descend, descent.descend_ring, icp_terms.terms = (
+            descent.descend_plain, descent.descend_ring_plain, icp_terms.terms_plain)
         try:
             yield
         finally:
-            descent.descend, icp_terms.terms = real
+            descent.descend, descent.descend_ring, icp_terms.terms = real
 
     return patched()
 
@@ -571,6 +579,54 @@ def phase_assoc(torch, nvidia_smi: str) -> dict:
                     nav, q, base, DEPTH, **kw), ASSOC_REPS),
                 "bound_ms": bound, "bound_by": by, "max_abs_err": 0.0,
                 "library_ms": None}
+
+        # the ring form the step launches (one (1, L, 3) query operand for
+        # the K trees): round 0, the fast schedule's warm start, and a
+        # later certified round merged into round 0's results in place
+        ring_nav = nav.view(K, M, 56)
+        q1 = (lp @ Xt[:3, :3].mT + Xt[:3, 3])[None]
+        prev = descent.descend_ring_plain(ring_nav, q1, DEPTH, need, return_margin=True)
+        ring_cases = {"ring_round0": dict(need=need, return_margin=True),
+                      "ring_warm": dict(need=need, start=prev[0] >> 6, n_gathers=3),
+                      "ring_later_merged": dict(need=need & later, return_margin=True)}
+        for case, kw in ring_cases.items():
+            merged = case.endswith("merged")
+            bufs = [tuple(t.clone() for t in prev) if merged else None for _ in range(3)]
+            got = descent.descend_ring(ring_nav, q1, DEPTH, **kw, out=bufs[0])
+            want = descent.descend_ring_plain(ring_nav, q1, DEPTH, **kw, out=bufs[1])
+            for name, a, b in zip(("ids", "blocks", "margins"), got, want):
+                check(a.dtype == b.dtype and torch.equal(a, b),
+                      f"descend {dname} {case}: {name} differ from the plain version in "
+                      f"{int((a != b).reshape(a.shape[0] * a.shape[1], -1).any(-1).sum())} "
+                      "entries")
+            cost = kernel_trace.ring_cost(ring_nav, q1, DEPTH, kw["need"], kw.get("start"),
+                                          kw.get("n_gathers"), kw.get("return_margin", False),
+                                          merged)
+            bound, by = bound_ms(cost["bytes"], cost["operations"], dname)
+            call = lambda kw=kw, o=bufs[2]: descent.descend_ring(  # noqa: E731
+                ring_nav, q1, DEPTH, **kw, out=o)
+            out["descend"][dname][case] = {
+                "entries": Q, "live": int(kw["need"].sum()), **cost,
+                "ms": event_ms(call, ASSOC_REPS), "device_ms": graph_ms(call, ASSOC_REPS),
+                "plain_ms": event_ms(lambda kw=kw, o=bufs[2]: descent.descend_ring_plain(
+                    ring_nav, q1, DEPTH, **kw, out=o), ASSOC_REPS),
+                "bound_ms": bound, "bound_by": by, "max_abs_err": 0.0, "library_ms": None,
+                "trace": kernel_trace.launch_us(call)}
+        # a whole certified re-association round: descend + three wheres
+        # (the K-fold query copies included) against the step's merged one
+        later_args = (nav, DEPTH, lp[None], Xt[None], (need & later)[None])
+        prev = tuple(t[None] for t in prev)
+        rounds = {"unmerged": kernel_trace.unmerged_round,
+                  "merged": kernel_trace.merged_round}
+        res = {name: fn(*later_args, *(t.clone() for t in prev)) for name, fn in rounds.items()}
+        check(all(torch.equal(a, b.view(a.shape)) for a, b in zip(res["merged"],
+                                                                 res["unmerged"])),
+              f"descend {dname}: the merged round differs from descend + where")
+        out["descend"][dname]["round"] = {
+            name: kernel_trace.launch_us(lambda fn=fn, bufs=tuple(t.clone() for t in prev):
+                                         fn(*later_args, *bufs))
+            for name, fn in rounds.items()}
+        del ring_nav, q1, prev, bufs, got, want, res
 
         # K7 on the round-0 payload, shaped as the pipeline hands it over
         args = (payload0.view(1, K, L, 8), lp[None, None], leaves.valid[None, None],
@@ -759,12 +815,15 @@ def phase_tree(torch, nvidia_smi: str) -> dict:
                 whole["graph_replay_equal"] = (torch.equal(g_tree.nav, tree.nav)
                                                and torch.equal(g_leaf, leaf))
                 whole["graph_replays_recorded_moments"] = dtype == torch.float64
-                k8_calls = kernel_trace.call_rows(calls, esize)
-                for k8, us in zip(k8_calls, kernels["build_points"]["device_us"]):
-                    k8["device_us"] = us
+                per_call = {}
+                for k in BUILD_KERNELS:  # each call's level, bound and graphed µs
+                    per_call[k] = kernel_trace.call_rows(calls, esize, k)
+                    for call_row, us in zip(per_call[k], kernels[k]["device_us"]):
+                        call_row["device_us"] = us
                 out["timing"][dname] = {"kernels": {k: dict(v, max_abs_err=report[k]["max_abs_err"])
                                                     for k, v in kernels.items()},
-                                        "build": whole, "k8_calls": k8_calls}
+                                        "build": whole, "k8_calls": per_call["build_points"],
+                                        "k9_calls": per_call["build_nodes"]}
                 check(whole["graph_replay_equal"], f"tree {dname}: a graph replay of the build "
                       "differs from the eager build")
             emit({"phase": "tree", "part": f"{name} {dname}", **row})
@@ -1824,8 +1883,8 @@ def main() -> int:
         })
     for name, replaces in ASSOC_REPLACES.items():
         k = assoc[name]["float32"]
-        if name == "descend":
-            k = k["round0"]
+        if name == "descend":  # the form the step launches
+            k = k["ring_round0"]
         rows.append({
             "name": name, "route": "cuda",
             "source": f"madicp_tpu_torch/kernels/csrc/{ASSOC_SOURCES[name]}.cu",

@@ -44,14 +44,31 @@ from madicp_tpu_torch.ops.eigh3 import (
 
 counter = build.LaunchCounter()
 # the __global__ functions of csrc/build_nodes.cu, as a CUDA trace names them
-KERNEL_NAMES = ("nodes_kernel", "close_kernel")
+KERNEL_NAMES = ("nodes_kernel", "nodes_stage_kernel", "close_kernel")
 MOM_COLS = 10
 STATE_COLS = 8
 ARENA_COLS = 12
 THREADS = 128
 _MAX_NODES = 2**30
+# the node kernels: rows read and written where they lie, or the
+# outputs written through shared memory
+PATHS = ("direct", "stage")
+STAGE_MIN_NODES = 32768  # the levels the staged kernel takes (the A/B's threshold)
+
+
+def plan(nseg: int) -> str:
+    """The node kernel of a level of ``nseg`` nodes: ``stage`` (a block's
+    output rows written through shared memory, whole and coalesced) from
+    :data:`STAGE_MIN_NODES` on, where the scattered rows' sector
+    transactions set the pace, else ``direct`` (one node's chain and the
+    launch set it there, and staging adds). Set by the A/B of every
+    kernel of :data:`PATHS` at every level (``python -m
+    madicp_tpu_torch.probes.kernel_trace --parts nodes --paths``)."""
+    return "stage" if nseg >= STAGE_MIN_NODES else "direct"
+
+
 _launch = build.Launcher("build_nodes", {  # the stream last
-    "nodes": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_double] * 7
+    "nodes": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_double] * 7
     + [ctypes.c_void_p],
     "close": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
 }, counter)
@@ -164,7 +181,7 @@ def _check_level(what, arena, level, tensors: dict, rows: dict) -> None:
             raise ValueError(f"{what}: want {name} {shape}, got {tuple(t.shape)}")
 
 
-def build_nodes(mom, prev, arena, *, level, b_max, b_min):
+def build_nodes(mom, prev, arena, *, level, b_max, b_min, path=None):
     """Node math of ``level``, and the close of ``level - 1``.
 
     Args:
@@ -178,6 +195,8 @@ def build_nodes(mom, prev, arena, *, level, b_max, b_min):
         level: the level; ``b_max`` the leaf criterion on the largest
             extent, ``b_min`` the plane-predecessor criterion on the
             smallest.
+        path: the node kernel (:data:`PATHS`) on the card; :func:`plan`
+            by default.
 
     Returns:
         ``(packA (B 2^level, 13), state (B 2^level, 8), ext (B 2^level, 6))``
@@ -193,6 +212,8 @@ def build_nodes(mom, prev, arena, *, level, b_max, b_min):
     elif level:
         raise ValueError(f"{what}: level {level} needs the previous level's tables")
     _check_level(what, arena, level, tensors, rows)
+    if path is not None and path not in PATHS:
+        raise ValueError(f"{what}: path {path!r}, want one of {PATHS}")
     if arena.device.type == "cpu":
         return build_nodes_plain(mom, prev, arena, level=level, b_max=b_max, b_min=b_min)
     if not all(t.is_contiguous() for t in (arena, *tensors.values())):
@@ -205,10 +226,11 @@ def build_nodes(mom, prev, arena, *, level, b_max, b_min):
     ext = torch.empty((nseg, EXT_COLS), dtype=key_dtype(dtype), device=dev)
     prev_ptrs = [0, 0, 0] if prev is None else [t.data_ptr() for t in prev]
     eps, tol_c = tolerances(dtype)
+    path = plan(nseg) if path is None else path
     _launch("nodes", dtype, dev, mom.data_ptr(), *prev_ptrs, arena.data_ptr(),
             packA.data_ptr(), state.data_ptr(), ext.data_ptr(), nseg, 1 << level, M,
-            -(-nseg // THREADS), float(b_max), float(b_min), eps, tol_c, THIRD, SIXTH,
-            TWO_PI_THIRDS)
+            -(-nseg // THREADS), PATHS.index(path), float(b_max), float(b_min), eps, tol_c,
+            THIRD, SIXTH, TWO_PI_THIRDS)
     return packA, state, ext
 
 

@@ -41,9 +41,18 @@
 // operations a node (the eigensolver's six cross products and the roots
 // dominate) take ~8e-4 ms at the float32 peak.
 //
-// Design: one thread a node, one launch a level. Every sum, product,
-// difference and quotient is an _rn intrinsic in the plain version's
-// order (nvcc would contract a*b + c into an FMA); the cross products are
+// Design: one thread a node, one launch a level, two kernels (the
+// wrapper's plan picks by the level's width). A thread's rows lie 24-104
+// bytes apart, so where each thread reads and writes its own (the direct
+// kernel) every scalar is its own 32-byte sector transaction: 67 a node,
+// which set the pace of the widest levels (traced on an H100: 32.6 us
+// at 65,536 nodes against a 4.5 us bound). The staged kernel writes a
+// block's pack, state, keys and arena rows through shared memory, with
+// consecutive threads on consecutive addresses; the direct kernel keeps
+// the narrower levels, where one node's chain and the launch set the
+// pace (the wrapper's plan, from an A/B of both at every level). Every
+// sum, product, difference and quotient is an _rn intrinsic in the plain
+// version's order (nvcc would contract a*b + c into an FMA); the cross products are
 // the one fused form torch.linalg.cross computes, fma(a_i, b_j, -(a_j
 // b_i)); acos/cos/sqrt are the CUDA math library's (no fast math, as
 // torch's own kernels); the constants (1/3, 1/6, 2 pi / 3, eps, tol_c,
@@ -225,41 +234,34 @@ __device__ __forceinline__ void extents(const typename Arith<T>::Key* key, T* ou
   }
 }
 
+// one node's results: its packA, state and arena rows (the arena's bbox0
+// and is_leaf are left to the next level's close), and its parent's close
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
-nodes_kernel(const T* __restrict__ mom, const T* __restrict__ pack_p,
-             const T* __restrict__ state_p, const typename Arith<T>::Key* __restrict__ ext_p,
-             T* __restrict__ arena, T* __restrict__ pack, T* __restrict__ state,
-             typename Arith<T>::Key* __restrict__ ext, int nseg, int sz, int M, Consts cs) {
-  using A = Arith<T>;
-  const int g = blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= nseg) return;
-  const int b = g / sz, j = g & (sz - 1);
-  T* cloud = arena + static_cast<long long>(b) * M * ARENA;
-  const T b_max = static_cast<T>(cs.b_max), b_min = static_cast<T>(cs.b_min);
-  const bool root = pack_p == nullptr;
+struct Node {
+  T pack[PACK], state[STATE], row[ARENA];
+  T par_bbox0;
+  bool par_leaf;
+};
 
-  // the parent's fields (the root's sentinel: shift 0, no pp, no n3)
+// the node math of one node from its moments m and its parent's pack,
+// state and ext rows (pk == nullptr: the root's sentinel parent: shift 0,
+// no pp, no n3)
+template <typename T>
+__device__ __forceinline__ void node_math(const T* m, const T* pk, const T* ps,
+                                          const typename Arith<T>::Key* pe, const Consts& cs,
+                                          Node<T>& o) {
+  using A = Arith<T>;
+  const T b_max = static_cast<T>(cs.b_max), b_min = static_cast<T>(cs.b_min);
+  const bool root = pk == nullptr;
   T par_mean[3] = {T(0), T(0), T(0)}, par_pca[3] = {T(0), T(0), T(0)};
   T par_ppn[3] = {T(0), T(0), T(0)}, par_n3[3] = {T(0), T(0), T(0)};
   T par_bbox0 = A::max_value();
   bool par_has_pp = false, par_leaf = false;
-  if (root) {
-#pragma unroll
-    for (int c = 0; c < ARENA; ++c) cloud[c] = T(0);
-  } else {
-    const int pg = g >> 1;
+  if (!root) {
     T ex[3];
-    extents<T>(ext_p + static_cast<long long>(pg) * EXT, ex);
-    const T* ps = state_p + static_cast<long long>(pg) * STATE;
-    const T* pk = pack_p + static_cast<long long>(pg) * PACK;
+    extents<T>(pe, ex);
     par_leaf = ps[7] > T(0) && ex[2] < b_max;
     par_bbox0 = ex[0];
-    if ((j & 1) == 0) {  // close the parent's arena row
-      T* row = cloud + static_cast<long long>((sz + j) >> 1) * ARENA;
-      row[9] = ex[0];
-      row[10] = par_leaf ? T(1) : T(0);
-    }
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
       par_mean[c] = pk[c];
@@ -269,8 +271,9 @@ nodes_kernel(const T* __restrict__ mom, const T* __restrict__ pack_p,
     }
     par_has_pp = ps[6] > T(0);
   }
+  o.par_bbox0 = par_bbox0;
+  o.par_leaf = par_leaf;
 
-  const T* m = mom + static_cast<long long>(g) * MOM;
   const T k = m[9];
   const T k_safe = k < T(1) ? T(1) : k;
   T shift[3], mean[3];
@@ -300,38 +303,125 @@ nodes_kernel(const T* __restrict__ mom, const T* __restrict__ pack_p,
   // plane predecessor, >= 3-point normal, the normal
   const bool below = par_bbox0 < b_min;
   const bool has_pp = par_has_pp || below;
-  T ppn[3], n3[3], normal[3];
+  const bool is_real = k > T(0) && !par_leaf;
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
-    ppn[c] = par_has_pp ? par_ppn[c] : (below ? par_pca[c] : T(0));
-    n3[c] = k >= T(3) ? v0[c] : par_n3[c];
+    const T ppn = par_has_pp ? par_ppn[c] : (below ? par_pca[c] : T(0));
     const T fallback = (!root && k < T(3)) ? par_n3[c] : v0[c];
-    normal[c] = has_pp ? ppn[c] : fallback;
+    o.pack[c] = mean[c];
+    o.pack[3 + 3 * c] = v0[c];
+    o.pack[4 + 3 * c] = v1[c];
+    o.pack[5 + 3 * c] = v2[c];
+    o.state[c] = ppn;
+    o.state[3 + c] = k >= T(3) ? v0[c] : par_n3[c];
+    o.row[c] = mean[c];
+    o.row[3 + c] = v2[c];
+    o.row[6 + c] = has_pp ? ppn : fallback;
   }
-  const bool is_real = k > T(0) && !par_leaf;
+  o.pack[12] = par_leaf ? T(1) : T(0);
+  o.state[6] = has_pp ? T(1) : T(0);
+  o.state[7] = is_real ? T(1) : T(0);
+  o.row[11] = is_real ? T(1) : T(0);
+}
 
+// the parent's close (its even child writes it) and, at level 0, row 0
+template <typename T>
+__device__ __forceinline__ void close_parent(T* cloud, int sz, int j, bool root,
+                                             const Node<T>& o) {
+  if (root) {
+#pragma unroll
+    for (int c = 0; c < ARENA; ++c) cloud[c] = T(0);
+  } else if ((j & 1) == 0) {
+    T* row = cloud + static_cast<long long>((sz + j) >> 1) * ARENA;
+    row[9] = o.par_bbox0;
+    row[10] = o.par_leaf ? T(1) : T(0);
+  }
+}
+
+// direct: one thread a node, its rows read and written where they lie
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+nodes_kernel(const T* __restrict__ mom, const T* __restrict__ pack_p,
+             const T* __restrict__ state_p, const typename Arith<T>::Key* __restrict__ ext_p,
+             T* __restrict__ arena, T* __restrict__ pack, T* __restrict__ state,
+             typename Arith<T>::Key* __restrict__ ext, int nseg, int sz, int M, Consts cs) {
+  using A = Arith<T>;
+  const int g = blockIdx.x * blockDim.x + threadIdx.x;
+  if (g >= nseg) return;
+  const int b = g / sz, j = g & (sz - 1);
+  T* cloud = arena + static_cast<long long>(b) * M * ARENA;
+  const bool root = pack_p == nullptr;
+  const long long pg = g >> 1;
+  Node<T> o;
+  node_math<T>(mom + static_cast<long long>(g) * MOM, root ? nullptr : pack_p + pg * PACK,
+               root ? nullptr : state_p + pg * STATE, root ? nullptr : ext_p + pg * EXT, cs,
+               o);
+  close_parent<T>(cloud, sz, j, root, o);
   T* pk = pack + static_cast<long long>(g) * PACK;
   T* st = state + static_cast<long long>(g) * STATE;
   T* row = cloud + static_cast<long long>(sz + j) * ARENA;
 #pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    pk[c] = mean[c];
-    pk[3 + 3 * c] = v0[c];
-    pk[4 + 3 * c] = v1[c];
-    pk[5 + 3 * c] = v2[c];
-    st[c] = ppn[c];
-    st[3 + c] = n3[c];
-    row[c] = mean[c];
-    row[3 + c] = v2[c];
-    row[6 + c] = normal[c];
+  for (int c = 0; c < PACK; ++c) pk[c] = o.pack[c];
+#pragma unroll
+  for (int c = 0; c < STATE; ++c) st[c] = o.state[c];
+#pragma unroll
+  for (int c = 0; c < ARENA; ++c) {
+    if (c != 9 && c != 10) row[c] = o.row[c];
   }
-  pk[12] = par_leaf ? T(1) : T(0);
-  st[6] = has_pp ? T(1) : T(0);
-  st[7] = is_real ? T(1) : T(0);
-  row[11] = is_real ? T(1) : T(0);
   typename Arith<T>::Key* ek = ext + static_cast<long long>(g) * EXT;
 #pragma unroll
   for (int c = 0; c < EXT; ++c) ek[c] = A::big_key();
+}
+
+// staged: a block's pack, state, keys and arena rows are written through
+// shared memory by consecutive threads at consecutive addresses; a
+// node's rows are 24-104 bytes apart, so one thread a row costs a 32-byte
+// sector transaction a value. (Staging the reads too, each parent's rows
+// once for its two children, was slower at every level on an H100: the
+// block then waits for all its loads before any node starts.)
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+nodes_stage_kernel(const T* __restrict__ mom, const T* __restrict__ pack_p,
+                   const T* __restrict__ state_p,
+                   const typename Arith<T>::Key* __restrict__ ext_p, T* __restrict__ arena,
+                   T* __restrict__ pack, T* __restrict__ state,
+                   typename Arith<T>::Key* __restrict__ ext, int nseg, int sz, int M,
+                   Consts cs) {
+  using A = Arith<T>;
+  __shared__ T s_pack[THREADS * PACK], s_state[THREADS * STATE], s_row[THREADS * ARENA];
+  const int g0 = blockIdx.x * THREADS, t = threadIdx.x;
+  const int n = min(THREADS, nseg - g0);
+  const int g = g0 + t;
+  const bool root = pack_p == nullptr;
+  if (t < n) {
+    const long long pg = g >> 1;
+    Node<T> o;
+    node_math<T>(mom + static_cast<long long>(g) * MOM, root ? nullptr : pack_p + pg * PACK,
+                 root ? nullptr : state_p + pg * STATE, root ? nullptr : ext_p + pg * EXT, cs,
+                 o);
+    close_parent<T>(arena + static_cast<long long>(g / sz) * M * ARENA, sz, g & (sz - 1),
+                    root, o);
+#pragma unroll
+    for (int c = 0; c < PACK; ++c) s_pack[t * PACK + c] = o.pack[c];
+#pragma unroll
+    for (int c = 0; c < STATE; ++c) s_state[t * STATE + c] = o.state[c];
+#pragma unroll
+    for (int c = 0; c < ARENA; ++c) s_row[t * ARENA + c] = o.row[c];
+  }
+  __syncthreads();
+  for (int i = t; i < n * PACK; i += THREADS) {
+    pack[g0 * static_cast<long long>(PACK) + i] = s_pack[i];
+  }
+  for (int i = t; i < n * STATE; i += THREADS) {
+    state[g0 * static_cast<long long>(STATE) + i] = s_state[i];
+  }
+  for (int i = t; i < n * EXT; i += THREADS) ext[g0 * static_cast<long long>(EXT) + i] = A::big_key();
+  for (int i = t; i < n * ARENA; i += THREADS) {
+    const int r = i / ARENA, c = i - r * ARENA;
+    if (c == 9 || c == 10) continue;  // bbox0, is_leaf: the next level's close
+    const int gr = g0 + r;
+    arena[(static_cast<long long>(gr / sz) * M + sz + (gr & (sz - 1))) * ARENA + c] = s_row[i];
+  }
 }
 
 // the last level: bbox0 and is_leaf (every real node) of each node's row
@@ -353,8 +443,11 @@ template <typename T>
 int launch_nodes(const T* mom, const T* pack_p, const T* state_p,
                  const typename Arith<T>::Key* ext_p, T* arena, T* pack, T* state,
                  typename Arith<T>::Key* ext, int nseg, int sz, int M, int blocks,
-                 Consts cs, cudaStream_t stream) {
-  if (nseg > 0) {
+                 int stage, Consts cs, cudaStream_t stream) {
+  if (nseg > 0 && stage) {
+    nodes_stage_kernel<T><<<blocks, THREADS, 0, stream>>>(mom, pack_p, state_p, ext_p, arena,
+                                                          pack, state, ext, nseg, sz, M, cs);
+  } else if (nseg > 0) {
     nodes_kernel<T><<<blocks, THREADS, 0, stream>>>(mom, pack_p, state_p, ext_p, arena, pack,
                                                     state, ext, nseg, sz, M, cs);
   }
@@ -375,28 +468,28 @@ extern "C" {
 // Plain C interface for ctypes: (mom (nseg, 10), pack_prev (nseg / 2, 13)
 // or null at level 0, state_prev (nseg / 2, 8) or null, ext_prev (nseg /
 // 2, 6) keys or null, arena (B, M, 12), pack (nseg, 13), state (nseg, 8),
-// ext (nseg, 6) keys, nseg, sz = 2^level, M, blocks, b_max, b_min, eps,
-// tol_c, 1/3, 1/6, 2 pi / 3, stream). Keys are int32 (float32) or int64
+// ext (nseg, 6) keys, nseg, sz = 2^level, M, blocks, stage (1: the staged
+// kernel), b_max, b_min, eps, tol_c, 1/3, 1/6, 2 pi / 3, stream). Keys are int32 (float32) or int64
 // (float64). Every array is contiguous. Returns the cudaGetLastError()
 // code after the launch (0 = success).
 int nodes_f32(const float* mom, const float* pack_p, const float* state_p, const int* ext_p,
               float* arena, float* pack, float* state, int* ext, int nseg, int sz, int M,
-              int blocks, double b_max, double b_min, double eps, double tol_c, double third,
-              double sixth, double two_pi_thirds, void* stream) {
+              int blocks, int stage, double b_max, double b_min, double eps, double tol_c,
+              double third, double sixth, double two_pi_thirds, void* stream) {
   return launch_nodes<float>(mom, pack_p, state_p, ext_p, arena, pack, state, ext, nseg, sz, M,
-                             blocks, Consts{b_max, b_min, eps, tol_c, third, sixth,
-                                            two_pi_thirds},
+                             blocks, stage, Consts{b_max, b_min, eps, tol_c, third, sixth,
+                                                   two_pi_thirds},
                              static_cast<cudaStream_t>(stream));
 }
 
 int nodes_f64(const double* mom, const double* pack_p, const double* state_p,
               const long long* ext_p, double* arena, double* pack, double* state,
-              long long* ext, int nseg, int sz, int M, int blocks, double b_max, double b_min,
-              double eps, double tol_c, double third, double sixth, double two_pi_thirds,
-              void* stream) {
+              long long* ext, int nseg, int sz, int M, int blocks, int stage, double b_max,
+              double b_min, double eps, double tol_c, double third, double sixth,
+              double two_pi_thirds, void* stream) {
   return launch_nodes<double>(mom, pack_p, state_p, ext_p, arena, pack, state, ext, nseg, sz,
-                              M, blocks, Consts{b_max, b_min, eps, tol_c, third, sixth,
-                                                two_pi_thirds},
+                              M, blocks, stage, Consts{b_max, b_min, eps, tol_c, third, sixth,
+                                                       two_pi_thirds},
                               static_cast<cudaStream_t>(stream));
 }
 

@@ -1,51 +1,74 @@
 // Approximate-NN descent of the MAD-tree forest (K6), for Hopper (sm_90a).
 //
-// For each query i: a no-backtracking descent in the flat (R, 56) table
-// `nav`, at rows base[i] + node, from the root (node 1), from
+// For each entry i: a no-backtracking descent in the flat (R, 56) table
+// `nav`, at rows base_i + node, from the root (node 1), from
 // max(start[i], 1) when warm-started, or from node 0 (row 0 of its tree,
-// unreal: the query parks there) when valid[i] is false. Each row holds 7
+// unreal: the entry parks there) when valid[i] is false. Each row holds 7
 // panels of 8 values: the node's own block, its 2 children and its 4
 // grandchildren; a block is [mean or repr (3), split or normal (3), kids
-// or bbox0, flags]. One row advances a query up to 3 levels: the side
+// or bbox0, flags]. One row advances an entry up to 3 levels: the side
 // value sval = (q - c) . n goes right when >= 0; flags >= 2 is real and
 // flags == 3 a leaf; kids = left + 2 right child existence. Outputs: the
 // LOCAL node id (int64), the final block (8 values) and, optionally, the
 // margin: the least |sval| over every real interior node evaluated.
 //
+// Two ways to name an entry's tree and query:
+//   * flat: entry i has its own query queries[i] and row offset base_q[i]
+//     (or base0 for all);
+//   * ring (ring_q > 0): entries are tree-major, (T trees) x (ring_q
+//     queries); entry i = t ring_q + j descends tree t at rows t ring_m +
+//     node with query (t / ring_k) ring_q + j of a (T / ring_k, ring_q, 3)
+//     operand: every group of ring_k consecutive trees (a sequence's
+//     keyframes) shares its queries, which are never copied K-fold.
+// With `merge` (ring or flat) an entry whose valid flag is false is not
+// descended and its outputs are not written: the caller's buffers keep
+// what they held (the certified schedule's re-association merges a
+// round's fresh results into the previous round's this way, in place).
+//
 // It is the counterpart of madicp_tpu_torch/ops/tree.py `search_forest`
-// (plain version: kernels/descent.py `descend_plain`), which ports the
-// JAX package's madicp_tpu/ops/tree.py:685 `search_forest`, gather path;
-// XLA lowered that one, so no Pallas kernel stands behind it.
+// and ops/icp_core.py `associate_ring` (plain versions: kernels/
+// descent.py `descend_plain`, and `descend_ring_plain`, the plain descent
+// followed by the merge's three torch.where), which port the JAX package's
+// madicp_tpu/ops/tree.py:685 `search_forest`, gather path, and
+// madicp_tpu/models/pipeline.py:569 `reassociate`; XLA lowered those, so
+// no Pallas kernel stands behind them.
 //
 // Bound on an H100: the bytes of the distinct panels the descents read
-// plus the queries in and the ids, blocks and margins out (3.35 TB/s);
-// at the flagship (16 keyframes x 32768 leaves) that is well under 1 ms a
-// scan. In practice it is latency-bound: a query's panel reads are
-// dependent, up to 3 a row.
+// plus the queries in and the entries' flags and outputs (3.35 TB/s). A
+// descent is a chain of dependent panel reads (up to 3 a row, 6 rows at
+// depth 16), most of them L2 or HBM misses, so the kernel is bound by how
+// many chains it keeps in flight, not by the bytes.
 //
-// Design (one thread a query):
-//   * a row read takes only the panels the query needs: panel 0, then the
-//     child panel its first side picks, then the grandchild panel its
-//     second side picks (3 x 32 B in float32, against the whole 224 B
-//     row). Rows are 224 B apart, so every panel is one 32-byte sector
-//     wherever the table starts on one; VEC loads a panel as 16-byte
-//     vectors (the wrapper checks the alignment).
-//   * a query stops after the first row in which it takes no step: the
+// Design (one thread a descent):
+//   * merged (descend_merge_kernel): a later certified round descends
+//     ~16% of its entries, anywhere. Each warp reads CHUNKS x 32 flags,
+//     queues the live entries (ballot ranks) in shared memory and
+//     descends them one a lane, so a parked entry costs a flag read and
+//     no thread, and the grid (one warp a 128 entries) runs in one wave.
+//     Two entries a thread or four, their panel loads interleaved, were
+//     slower in every case on an H100 (the registers they take cost more
+//     resident threads than the loads in flight gain).
+//   * a row read takes only the panels the entry needs: panel 0, the
+//     child its first side picks, the grandchild its second side picks
+//     (3 x 32 B in float32, against the whole 224 B row). Rows are 224 B
+//     apart, so every panel is one 32-byte sector wherever the table
+//     starts on one; VEC loads a panel as 16-byte vectors (the wrapper
+//     checks the alignment).
+//   * an entry stops after the first row in which it takes no step: the
 //     plain loop would only read the same row again and change nothing
 //     (panel 0 is bitwise the block it holds, the margin's min is
-//     idempotent). A query that stepped in a row reads the next one while
-//     gathers remain, as the plain loop does: that fetches panel 0 of a
-//     node entered on the third substep (whose block is stale until then)
-//     and the node's own panel 0 wherever it entered through a copy.
-//     A parked query (node 0) costs one panel read.
+//     idempotent). An entry that stepped in a row reads the next one
+//     while gathers remain, as the plain loop does. A parked entry costs
+//     one panel read; under `merge` none.
 //   * the side value is formed with _rn intrinsics in the plain version's
 //     order, ((q - c) * n summed as (p0 + p1) + p2): nvcc would contract
 //     a*b + c into an FMA, and one FMA flips a query that lies on a split
 //     plane. So ids, blocks and margins equal the plain version's bit for
 //     bit on the card.
-// The kernel writes every output of every query, allocates nothing, reads
-// nothing back to the host and launches on the caller's stream, so it can
-// be captured in a CUDA graph.
+// The kernel allocates nothing, reads nothing back to the host, writes
+// each output element at most once (no atomics) and launches on the
+// caller's stream, so it can be captured in a CUDA graph and a replay
+// equals an eager call bit for bit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -104,35 +127,53 @@ __device__ __forceinline__ T minimum(T a, T b) {
   return a < b ? a : b;
 }
 
+template <typename T>
+struct Args {
+  const T* nav;
+  const T* queries;
+  const int64_t* base_q;  // flat: (n,) row offsets, or null for base0
+  long long base0;
+  const uint8_t* valid;  // (n,) or null
+  const int64_t* start;  // (n,) or null
+  long long n;           // entries
+  int depth, n_gathers, known_levels, merge;
+  long long ring_q, ring_k, ring_m;  // ring_q > 0: the ring form
+  int64_t* node_out;
+  T* blk_out;
+  T* margin_out;
+};
+
+// the descent of entry i (0 <= i < n): parked on row 0 of its tree where
+// its valid flag is false (under merge the caller passes valid entries)
 template <typename T, bool VEC>
-__global__ void __launch_bounds__(THREADS)
-descend_kernel(const T* __restrict__ nav, const T* __restrict__ queries,
-               const int64_t* __restrict__ base_q, int64_t base0,
-               const uint8_t* __restrict__ valid, const int64_t* __restrict__ start,
-               int n_queries, int depth, int n_gathers, int known_levels,
-               int64_t* __restrict__ node_out, T* __restrict__ blk_out,
-               T* __restrict__ margin_out) {
+__device__ __forceinline__ void descend_one(const Args<T>& a, long long i) {
   using A = Arith<T>;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_queries) return;
+  long long qi = i, base;
+  if (a.ring_q > 0) {
+    const long long t = i / a.ring_q;
+    qi = (t / a.ring_k) * a.ring_q + (i - t * a.ring_q);
+    base = t * a.ring_m;
+  } else {
+    base = a.base_q != nullptr ? a.base_q[i] : a.base0;
+  }
+  const T* tree = a.nav + base * NAV;
   int64_t node = 1;
-  if (start != nullptr) node = start[i] > 1 ? start[i] : 1;
-  if (valid != nullptr && !valid[i]) node = 0;
-  const int64_t base = base_q != nullptr ? base_q[i] : base0;
-  const T qx = queries[3 * i], qy = queries[3 * i + 1], qz = queries[3 * i + 2];
+  if (a.start != nullptr) node = a.start[i] > 1 ? a.start[i] : 1;
+  if (a.valid != nullptr && !a.valid[i]) node = 0;
+  const T qx = a.queries[3 * qi], qy = a.queries[3 * qi + 1], qz = a.queries[3 * qi + 2];
   T blk[8];
 #pragma unroll
   for (int k = 0; k < 8; ++k) blk[k] = T(0);
   T margin = A::max_value();
 
-  for (int g = 0; g < n_gathers; ++g) {
-    const T* row = nav + (base + node) * NAV;
+  for (int g = 0; g < a.n_gathers; ++g) {
+    const T* row = tree + node * NAV;
     load_panel<T, VEC>(row, blk);
     bool stepped = false;
     int b1 = 0;
 #pragma unroll
     for (int s = 0; s < 3; ++s) {
-      if (known_levels && g * 3 + s >= depth) break;  // below the depth cap
+      if (a.known_levels && g * 3 + s >= a.depth) break;  // below the depth cap
       const T p0 = A::mul(A::sub(qx, blk[0]), blk[3]);
       const T p1 = A::mul(A::sub(qy, blk[1]), blk[4]);
       const T p2 = A::mul(A::sub(qz, blk[2]), blk[5]);
@@ -142,7 +183,7 @@ descend_kernel(const T* __restrict__ nav, const T* __restrict__ queries,
       const bool has = side ? kids >= T(2) : (kids == T(1) || kids == T(3));
       // every real interior node evaluated is consequential
       const bool consider = flags >= T(2) && flags != T(3);
-      if (margin_out != nullptr && consider) margin = minimum(margin, fabs(sval));
+      if (a.margin_out != nullptr && consider) margin = minimum(margin, fabs(sval));
       // no step: the rest of the row (and every later row) repeats this
       if (!(consider && has)) break;
       node = 2 * node + (side ? 1 : 0);
@@ -158,33 +199,99 @@ descend_kernel(const T* __restrict__ nav, const T* __restrict__ queries,
     if (!stepped) break;
   }
 
-  node_out[i] = node;
-  if (blk_out != nullptr) {
+  a.node_out[i] = node;
+  if (a.blk_out != nullptr) {
     if (VEC) {
-      store_vec(blk_out + 8 * static_cast<int64_t>(i), blk);
+      store_vec(a.blk_out + 8 * i, blk);
     } else {
 #pragma unroll
-      for (int k = 0; k < 8; ++k) blk_out[8 * static_cast<int64_t>(i) + k] = blk[k];
+      for (int k = 0; k < 8; ++k) a.blk_out[8 * i + k] = blk[k];
     }
   }
-  if (margin_out != nullptr) margin_out[i] = margin;
+  if (a.margin_out != nullptr) a.margin_out[i] = margin;
+}
+
+// every entry, one a thread
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(THREADS)
+descend_kernel(const Args<T> a) {
+  const long long i = static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
+  if (i < a.n) descend_one<T, VEC>(a, i);
+}
+
+// merged: each warp scans CHUNKS x 32 entries' valid flags and queues the
+// valid ones (ballot ranks) in shared memory; each batch of up to 32
+// queued entries is descended one a lane. Parked entries cost a flag read
+// and no lane, so a round whose few live entries lie anywhere takes about
+// one descent's chain a warp, in one wave.
+constexpr int WARPS = THREADS / 32;
+constexpr int CHUNKS = 4;
+
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(THREADS)
+descend_merge_kernel(const Args<T> a) {
+  __shared__ long long queue[WARPS][64];
+  const int lane = threadIdx.x & 31;
+  long long* qw = queue[threadIdx.x >> 5];
+  const long long tile0 =
+      (static_cast<long long>(blockIdx.x) * WARPS + (threadIdx.x >> 5)) * 32 * CHUNKS + lane;
+  unsigned bits = 0;  // chunk c's flag of this lane
+#pragma unroll
+  for (int c = 0; c < CHUNKS; ++c) {
+    const long long e = tile0 + 32 * c;
+    if (e < a.n && a.valid[e]) bits |= 1u << c;
+  }
+  const unsigned below = (1u << lane) - 1u;
+  int c = 0, count = 0;  // chunks queued, entries in the queue (warp-uniform)
+#pragma unroll 1
+  while (c < CHUNKS || count > 0) {
+    if (c < CHUNKS) {
+      const bool live = (bits >> c) & 1u;
+      const unsigned mask = __ballot_sync(0xffffffffu, live);
+      if (live) qw[count + __popc(mask & below)] = tile0 + 32 * c;
+      count += __popc(mask);
+      ++c;
+    }
+    if (count < 32 && (c < CHUNKS || count == 0)) continue;
+    __syncwarp();
+    const int take = count < 32 ? count : 32;
+    const long long mine = lane < take ? qw[lane] : -1;
+    const int rest = count - take;  // < 32: move them to the front
+    const long long moved = lane < rest ? qw[take + lane] : 0;
+    __syncwarp();
+    if (lane < rest) qw[lane] = moved;
+    count = rest;
+    __syncwarp();
+    if (mine >= 0) descend_one<T, VEC>(a, mine);
+  }
+}
+
+template <typename T, bool VEC>
+void launch_vec(const Args<T>& a, cudaStream_t stream) {
+  const long long per_block = a.merge ? 32LL * CHUNKS * WARPS : THREADS;
+  const unsigned blocks = static_cast<unsigned>((a.n + per_block - 1) / per_block);
+  if (a.merge) {
+    descend_merge_kernel<T, VEC><<<blocks, THREADS, 0, stream>>>(a);
+  } else {
+    descend_kernel<T, VEC><<<blocks, THREADS, 0, stream>>>(a);
+  }
 }
 
 template <typename T>
 int launch(const T* nav, const T* queries, const int64_t* base_q, long long base0,
-           const uint8_t* valid, const int64_t* start, int n_queries, int depth,
-           int n_gathers, int known_levels, int vec, int64_t* node_out, T* blk_out,
-           T* margin_out, cudaStream_t stream) {
-  if (n_queries <= 0) return static_cast<int>(cudaGetLastError());
-  const int blocks = (n_queries + THREADS - 1) / THREADS;
+           const uint8_t* valid, const int64_t* start, long long n, int depth,
+           int n_gathers, int known_levels, int vec, long long ring_q, long long ring_k,
+           long long ring_m, int merge, int64_t* node_out, T* blk_out, T* margin_out,
+           cudaStream_t stream) {
+  if (merge && valid == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  const Args<T> a{nav, queries, base_q, base0, valid, start, n, depth, n_gathers,
+                  known_levels, merge, ring_q, ring_k, ring_m, node_out, blk_out,
+                  margin_out};
   if (vec) {
-    descend_kernel<T, true><<<blocks, THREADS, 0, stream>>>(
-        nav, queries, base_q, base0, valid, start, n_queries, depth, n_gathers,
-        known_levels, node_out, blk_out, margin_out);
+    launch_vec<T, true>(a, stream);
   } else {
-    descend_kernel<T, false><<<blocks, THREADS, 0, stream>>>(
-        nav, queries, base_q, base0, valid, start, n_queries, depth, n_gathers,
-        known_levels, node_out, blk_out, margin_out);
+    launch_vec<T, false>(a, stream);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -193,29 +300,34 @@ int launch(const T* nav, const T* queries, const int64_t* base_q, long long base
 
 extern "C" {
 
-// Plain C interface for ctypes: (nav (R, 56), queries (Q, 3), base_q (Q,)
-// int64 or null with base0 the offset of every query, valid (Q,) bool or
-// null, start (Q,) int64 or null, Q, depth, n_gathers, known_levels (1:
-// the depth cap applies, no warm start), vec (1: nav and blk_out are
-// 16-byte aligned), node_out (Q,) int64, blk_out (Q, 8) or null,
-// margin_out (Q,) or null, stream). Every array is contiguous. Returns the
-// cudaGetLastError() code after the launch (0 = success).
+// Plain C interface for ctypes: (nav (R, 56), queries (n, 3) flat or
+// (T / ring_k, ring_q, 3) ring, base_q (n,) int64 or null with base0 the
+// offset of every entry (flat), valid (n,) bool or null, start (n,) int64
+// or null, n, depth, n_gathers, known_levels (1: the depth cap applies, no
+// warm start), vec (1: nav and blk_out are 16-byte aligned), ring_q (0:
+// flat), ring_k, ring_m (rows a tree),
+// merge (1: entries with valid false are neither descended nor written),
+// node_out (n,) int64, blk_out (n, 8) or null, margin_out (n,) or null,
+// stream). Every array is contiguous. Returns the cudaGetLastError() code
+// after the launch (0 = success).
 int descend_f32(const float* nav, const float* queries, const int64_t* base_q,
-                long long base0, const uint8_t* valid, const int64_t* start,
-                int n_queries, int depth, int n_gathers, int known_levels, int vec,
-                int64_t* node_out, float* blk_out, float* margin_out, void* stream) {
-  return launch<float>(nav, queries, base_q, base0, valid, start, n_queries, depth,
-                       n_gathers, known_levels, vec, node_out, blk_out, margin_out,
-                       static_cast<cudaStream_t>(stream));
+                long long base0, const uint8_t* valid, const int64_t* start, long long n,
+                int depth, int n_gathers, int known_levels, int vec, long long ring_q,
+                long long ring_k, long long ring_m, int merge, int64_t* node_out,
+                float* blk_out, float* margin_out, void* stream) {
+  return launch<float>(nav, queries, base_q, base0, valid, start, n, depth, n_gathers,
+                       known_levels, vec, ring_q, ring_k, ring_m, merge, node_out, blk_out,
+                       margin_out, static_cast<cudaStream_t>(stream));
 }
 
 int descend_f64(const double* nav, const double* queries, const int64_t* base_q,
-                long long base0, const uint8_t* valid, const int64_t* start,
-                int n_queries, int depth, int n_gathers, int known_levels, int vec,
-                int64_t* node_out, double* blk_out, double* margin_out, void* stream) {
-  return launch<double>(nav, queries, base_q, base0, valid, start, n_queries, depth,
-                        n_gathers, known_levels, vec, node_out, blk_out, margin_out,
-                        static_cast<cudaStream_t>(stream));
+                long long base0, const uint8_t* valid, const int64_t* start, long long n,
+                int depth, int n_gathers, int known_levels, int vec, long long ring_q,
+                long long ring_k, long long ring_m, int merge, int64_t* node_out,
+                double* blk_out, double* margin_out, void* stream) {
+  return launch<double>(nav, queries, base_q, base0, valid, start, n, depth, n_gathers,
+                        known_levels, vec, ring_q, ring_k, ring_m, merge, node_out, blk_out,
+                        margin_out, static_cast<cudaStream_t>(stream));
 }
 
 const char* madicp_cuda_error_string(int code) {

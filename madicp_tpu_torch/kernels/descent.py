@@ -11,6 +11,15 @@ header); :func:`descend_plain` is the same loop in tensor ops, and both
 form the side value in one order, ``(p0 + p1) + p2`` over ``p = (q - c)
 * n``, so their ids, blocks and margins agree bit for bit on the card.
 
+:func:`descend_ring` is the same descent over a ring of trees, the form
+the step launches (:func:`madicp_tpu_torch.ops.icp_core.associate_ring`):
+each sequence's queries serve its keyframes' trees where they lie, and
+with ``out`` only the ``need`` entries are descended and written into
+the previous round's results in place, which is the certified
+schedule's merge (the JAX package's ``madicp_tpu/models/pipeline.py:569``
+``reassociate``); :func:`descend_ring_plain` is the flat plain descent
+followed by that merge's ``torch.where``s.
+
 Dispatch is by the tensors' device and nothing else: CPU tensors take
 the plain version, CUDA tensors take the kernel or the call raises. The
 kernel allocates nothing but its outputs, reads nothing back to the host
@@ -28,12 +37,14 @@ from madicp_tpu_torch.kernels import build
 
 counter = build.LaunchCounter()
 # the __global__ functions of csrc/descent.cu, as a CUDA trace names them
-KERNEL_NAMES = ("descend_kernel",)
+KERNEL_NAMES = ("descend_kernel", "descend_merge_kernel")
 _launch = build.Launcher("descent", {  # the stream last
     "descend": ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_void_p] * 2
-                + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4),
+                + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 3
+                + [ctypes.c_int] + [ctypes.c_void_p] * 4),
 }, counter)
-_MAX_QUERIES = 2**31 - 1  # one thread a query, indexed by an int
+THREADS = 256  # a block of csrc/descent.cu
+_MAX_QUERIES = 2**31 - 1
 
 
 def default_gathers(depth: int, return_blocks: bool) -> int:
@@ -195,6 +206,27 @@ def _check(nav, queries, base, depth, valid, start, n_gathers) -> None:
                          f"{n_gathers}")
 
 
+def _run(nav, queries, depth, n_gathers, known_levels, node, blk, margin, *, base=0,
+         valid=None, start=None, ring=(0, 1, 0), merge=False) -> None:
+    """Launch the kernel over ``node.numel()`` entries (arguments as the C
+    interface of ``csrc/descent.cu`` takes them)."""
+    n = node.numel()
+    if n > _MAX_QUERIES:
+        raise ValueError(f"descend: at most {_MAX_QUERIES} entries, got {n}")
+    if isinstance(base, torch.Tensor):
+        base_t, base0 = base.to(torch.int64).contiguous(), 0
+    else:
+        base_t, base0 = None, int(base)
+    # 16-byte vectors where the table's rows (224 or 448 bytes) and the
+    # blocks out start on 16-byte boundaries
+    vec = nav.data_ptr() % 16 == 0 and (blk is None or blk.data_ptr() % 16 == 0)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    _launch("descend", nav.dtype, nav.device, nav.data_ptr(), queries.data_ptr(),
+            ptr(base_t), base0, ptr(valid), ptr(start), n, depth, n_gathers,
+            int(known_levels), int(vec), *ring, int(merge), node.data_ptr(), ptr(blk),
+            ptr(margin))
+
+
 def descend(nav, queries, base, depth, valid=None, start=None,
             n_gathers: Optional[int] = None, return_blocks: bool = False,
             return_margin: bool = False):
@@ -208,32 +240,118 @@ def descend(nav, queries, base, depth, valid=None, start=None,
     if not nav.is_contiguous():
         raise ValueError("descend: nav must be contiguous (the kernel reads its rows)")
     Q = queries.shape[0]
-    if Q > _MAX_QUERIES:
-        raise ValueError(f"descend: at most {_MAX_QUERIES} queries, got {Q}")
     dev = queries.device
     known_levels = start is None
     if n_gathers is None:
         n_gathers = default_gathers(depth, return_blocks)
-    queries = queries.contiguous()
-    if isinstance(base, torch.Tensor):
-        base_t, base0 = base.to(torch.int64).contiguous(), 0
-    else:
-        base_t, base0 = None, int(base)
-    valid_t = None if valid is None else valid.contiguous()
-    start_t = None if start is None else start.to(torch.int64).contiguous()
     node = torch.empty((Q,), dtype=torch.int64, device=dev)
     blk = torch.empty((Q, 8), dtype=nav.dtype, device=dev) if return_blocks else None
     margin = torch.empty((Q,), dtype=nav.dtype, device=dev) if return_margin else None
-    # 16-byte vectors where the table's rows (224 or 448 bytes) and the
-    # blocks out start on 16-byte boundaries
-    vec = nav.data_ptr() % 16 == 0 and (blk is None or blk.data_ptr() % 16 == 0)
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    _launch("descend", nav.dtype, dev, nav.data_ptr(), queries.data_ptr(), ptr(base_t), base0,
-            ptr(valid_t), ptr(start_t), Q, depth, n_gathers, int(known_levels), int(vec),
-            node.data_ptr(), ptr(blk), ptr(margin))
+    _run(nav, queries.contiguous(), depth, n_gathers, known_levels, node, blk, margin,
+         base=base, valid=None if valid is None else valid.contiguous(),
+         start=None if start is None else start.to(torch.int64).contiguous())
     out = (node,)
     if return_blocks:
         out += (blk,)
     if return_margin:
         out += (margin,)
     return out if len(out) > 1 else node
+
+
+def descend_ring_plain(nav, queries, depth, need, start=None, n_gathers=None,
+                       return_margin=False, out=None):
+    """Plain version of :func:`descend_ring`: the queries copied to every
+    tree of their group and :func:`descend_plain` over the flat table;
+    with ``out``, each result merged into its buffer where ``need`` holds
+    (``torch.where``, then copied in place)."""
+    T, M = nav.shape[:2]
+    queries = queries.reshape((-1,) + queries.shape[-2:])
+    G, Q = queries.shape[:2]
+    q = queries[:, None].expand(G, T // G, Q, 3).reshape(T * Q, 3)
+    base = (torch.arange(T, device=nav.device) * M)[:, None].expand(T, Q).reshape(T * Q)
+    res = descend_plain(nav.reshape(T * M, nav.shape[2]), q, base, depth, need.reshape(T * Q),
+                        None if start is None else start.reshape(T * Q), n_gathers, True,
+                        return_margin)
+    res = tuple(r.view((T, Q) + r.shape[1:]) for r in res)
+    if out is None:
+        return res
+    for o, r in zip(out, res):
+        o.copy_(torch.where(need.view(need.shape + (1,) * (r.dim() - 2)), r, o))
+    return out
+
+
+def _check_ring(nav, queries, depth, need, start, n_gathers, return_margin, out) -> None:
+    """Raise on what neither version of :func:`descend_ring` takes."""
+    if nav.dim() != 3 or queries.dim() not in (2, 3) or need.dim() != 2:
+        raise ValueError(f"descend_ring: want nav (T, M, 56), queries (G, Q, 3) or (Q, 3) "
+                         f"and need (T, Q), got {tuple(nav.shape)}, {tuple(queries.shape)} "
+                         f"and {tuple(need.shape)}")
+    T, Q = need.shape
+    G = queries.shape[0] if queries.dim() == 3 else 1
+    if nav.shape[0] != T or queries.shape[-2] != Q or T % G:
+        raise ValueError(f"descend_ring: {T} trees and {Q} queries a tree do not match nav "
+                         f"{tuple(nav.shape)} and queries {tuple(queries.shape)}")
+    _check(nav.reshape(-1, nav.shape[-1]), queries.reshape(-1, queries.shape[-1]), 0, depth,
+           None, None, n_gathers)
+    for name, t in (("need", need), ("start", start)):
+        if t is not None and (t.device != nav.device or t.shape != (T, Q)):
+            raise ValueError(f"descend_ring: {name} must be ({T}, {Q}) on {nav.device}")
+    if need.dtype != torch.bool:
+        raise TypeError(f"descend_ring: need must be bool, got {need.dtype}")
+    if start is not None and (start.is_floating_point() or start.dtype == torch.bool):
+        raise TypeError(f"descend_ring: start must be an integer tensor, got {start.dtype}")
+    if out is None:
+        return
+    want = [((T, Q), torch.int64), ((T, Q, 8), nav.dtype)]
+    if return_margin:
+        want.append(((T, Q), nav.dtype))
+    if len(out) != len(want) or any(o.shape != s or o.dtype != d or o.device != nav.device
+                                    for o, (s, d) in zip(out, want)):
+        raise ValueError(f"descend_ring: out must be {want} on {nav.device}")
+
+
+def descend_ring(nav, queries, depth, need, start=None, n_gathers: Optional[int] = None,
+                 return_margin: bool = False, out=None):
+    """Descend every (tree, query) entry of a ring of trees in one launch.
+
+    ``nav`` (T, M, 56): T trees of M rows (a batch's keyframe rings, B K
+    trees); ``queries`` (G, Q, 3) in the map frame, each shared by the T /
+    G consecutive trees of its group (a sequence's keyframes), or (Q, 3)
+    shared by all; ``need`` (T, Q) the entries to descend, the others
+    park on row 0 of their tree; ``start`` (T, Q) LOCAL warm-start nodes.
+    Returns ``(ids (T, Q), blocks (T, Q, 8)[, margins (T, Q)])``, as
+    :func:`descend` with blocks over the flat entries. With ``out``, those
+    tensors' previous values: only the ``need`` entries are descended and
+    written, in place (the certified re-association's merge), and
+    ``out`` is returned.
+
+    CPU tensors take :func:`descend_ring_plain`; CUDA tensors the kernel,
+    which reads each group's queries where they lie (no K-fold copy, no
+    row-offset table)."""
+    _check_ring(nav, queries, depth, need, start, n_gathers, return_margin, out)
+    if nav.device.type == "cpu":
+        return descend_ring_plain(nav, queries, depth, need, start, n_gathers, return_margin,
+                                  out)
+    if not nav.is_contiguous():
+        raise ValueError("descend_ring: nav must be contiguous (the kernel reads its rows)")
+    T, M = nav.shape[:2]
+    Q = need.shape[1]
+    G = queries.shape[0] if queries.dim() == 3 else 1
+    known_levels = start is None
+    if n_gathers is None:
+        n_gathers = default_gathers(depth, True)
+    if out is not None and not all(o.is_contiguous() for o in out):
+        raise ValueError("descend_ring: out must be contiguous (the kernel writes its rows)")
+    if out is None:
+        dev, dtype = nav.device, nav.dtype
+        res = (torch.empty((T, Q), dtype=torch.int64, device=dev),
+               torch.empty((T, Q, 8), dtype=dtype, device=dev))
+        if return_margin:
+            res += (torch.empty((T, Q), dtype=dtype, device=dev),)
+    else:
+        res = tuple(out)
+    _run(nav, queries.contiguous(), depth, n_gathers, known_levels, res[0], res[1],
+         res[2] if return_margin else None, valid=need.contiguous(),
+         start=None if start is None else start.to(torch.int64).contiguous(),
+         ring=(Q, T // G, M), merge=out is not None)
+    return res

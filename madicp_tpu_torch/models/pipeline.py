@@ -331,24 +331,28 @@ def icp_rounds(
     nav = kf_tree.nav.reshape((B * K,) + kf_tree.nav.shape[2:])
     terms_kw = dict(b_max=cfg.b_max, b_ratio=cfg.b_ratio, rho_ker=cfg.rho_ker)
 
-    def descend(X, need, margin: bool, pts=None, start=None, n_gathers=None):
+    def descend(X, need, margin: bool, pts=None, start=None, n_gathers=None, out=None):
         """Descend every (sequence, keyframe, query) entry with ``need``
         (B, K, Q); the others park on row 0 of their keyframe's arena.
-        ``pts``: the queries in the scan frame, (B, Q, 3) or (B, K, Q, 3);
-        the leaves by default. Results are (B, K, Q, ...)."""
+        ``pts``: the queries in the scan frame, (B, Q, 3) (each sequence's
+        serve its K keyframes as they are, never copied K-fold) or (B, K,
+        Q, 3); the leaves by default. Results are (B, K, Q, ...); with
+        ``out`` (such results) only the ``need`` entries are descended and
+        merged into them, in place."""
         pts = leaves_pts if pts is None else pts
         Q = need.shape[-1]
         with phase(timer, "association"):
             if pts.dim() == 3:
-                q = (pts @ X[:, :3, :3].mT + X[:, None, :3, 3])[:, None].expand(B, K, Q, 3)
+                q = pts @ X[:, :3, :3].mT + X[:, None, :3, 3]
             else:
-                q = pts @ X[:, None, :3, :3].mT + X[:, None, None, :3, 3]
-            out = associate_ring(
-                nav.view(B * K, -1, nav.shape[-1]), cfg.depth, q.reshape(B * K, Q, 3),
+                q = (pts @ X[:, None, :3, :3].mT + X[:, None, None, :3, 3]).reshape(B * K, Q, 3)
+            res = associate_ring(
+                nav.view(B * K, -1, nav.shape[-1]), cfg.depth, q,
                 need.reshape(B * K, Q), start=None if start is None else start.reshape(B * K, Q),
                 n_gathers=n_gathers, return_margin=margin,
+                out=None if out is None else tuple(o.view((B * K,) + o.shape[2:]) for o in out),
             )
-            return tuple(o.view((B, K) + o.shape[1:]) for o in out)
+            return tuple(o.view((B, K) + o.shape[1:]) for o in res)
 
     def terms_scan(X, payload, with_matched: bool):
         """H/b (+ matched) of each sequence over its keyframes from
@@ -463,16 +467,13 @@ def icp_rounds(
         sweep_col = U + torch.arange(L, device=dev)  # (L,)
 
     def descend_need(X, need):
-        """Fresh (ids, payload, margin) (B, K, L) for the ``need`` entries.
-
-        With ``certify_compact`` = U (JAX models/pipeline.py:567-632): a
+        """Fresh (ids, payload, margin) (B, K, L) for the ``need`` entries
+        with ``certify_compact`` = U (JAX models/pipeline.py:567-632): a
         keyframe whose live uncertified count fits compacts those leaves
         into its row of a (K, U) buffer, by a cumulative-sum rank; one
         that overflows takes its full parked sweep. Which keyframes
         overflow is device data, so both the buffer and the sweep descend
         in one call and each entry reads its own branch's result."""
-        if not U:
-            return descend(X, need, True)
         rank = torch.cumsum(need, dim=-1)  # (B, K, L): 1-based rank of need entries
         fits = rank[..., -1] <= U  # (B, K)
         leaf_of_slot = torch.searchsorted(rank, slots)  # (B, K, U); L = empty
@@ -490,7 +491,14 @@ def icp_rounds(
         )
 
     def reassociate(X, uncert, ids, payload, slack):
+        """The round's results: fresh descents where uncertified, the
+        previous round's (and the decremented slack) elsewhere. Without
+        ``certify_compact`` the full parked sweep merges them into ``ids``,
+        ``payload`` and ``slack`` in place (JAX ``reassociate``, models/
+        pipeline.py:569, as one kernel on the card)."""
         need = uncert & live_kl
+        if not U:
+            return descend(X, need, True, out=(ids, payload, slack))
         ids2, payload2, margin2 = descend_need(X, need)
         return (
             torch.where(need, ids2, ids),

@@ -23,6 +23,7 @@ from typing import NamedTuple
 
 import torch
 
+from madicp_tpu_torch.kernels import descent
 from madicp_tpu_torch.kernels import icp_terms as terms_kernel
 from madicp_tpu_torch.ops.lie import exp_se3_split
 from madicp_tpu_torch.ops.tree import SearchTree, search_forest
@@ -67,28 +68,26 @@ def associate_ring(
     start: torch.Tensor = None,
     n_gathers: int = None,
     return_margin: bool = False,
+    out=None,
 ):
     """Descend every (keyframe, query) entry of a keyframe ring in ONE
-    batched call over its flat ``(K*M, 56)`` view, each query offset to
-    its keyframe's rows.
+    batched call over its ``(K, M, 56)`` arenas, each query on its
+    keyframe's rows.
 
-    ``nav`` (K, M, 56); ``moving_pts_map`` (Q, 3) shared by every keyframe
-    or (K, Q, 3), already in the map frame; ``need`` (K, Q) — entries
-    without it park on row 0 of their keyframe's arena. ``start`` (K, Q)
-    holds LOCAL node ids. Returns ``(leaf_ids, payload[, margin])`` shaped
-    (K, Q, ...), as :func:`associate_packed`.
-    """
-    K, M = nav.shape[0], nav.shape[1]
-    Q = need.shape[1]
-    dev = nav.device
-    base = (torch.arange(K, device=dev) * M)[:, None].expand(K, Q).reshape(K * Q)
-    out = associate_packed(
-        nav.reshape(K * M, nav.shape[2]), base, depth,
-        moving_pts_map.expand(K, Q, 3).reshape(K * Q, 3), need.reshape(K * Q),
-        start=None if start is None else start.reshape(K * Q),
-        n_gathers=n_gathers, return_margin=return_margin,
-    )
-    return tuple(o.reshape((K, Q) + o.shape[1:]) for o in out)
+    ``nav`` (K, M, 56); ``moving_pts_map`` (Q, 3) shared by every keyframe,
+    or (G, Q, 3) shared by each group of K / G consecutive keyframes (a
+    batch's sequences: G = B, K = B x keyframes), already in the map
+    frame; ``need`` (K, Q) — entries without it park on row 0 of their
+    keyframe's arena. ``start`` (K, Q) holds LOCAL node ids. Returns
+    ``(leaf_ids, payload[, margin])`` shaped (K, Q, ...), as
+    :func:`associate_packed`. With ``out`` (those tensors of an earlier
+    call) only the ``need`` entries are descended and written, in place:
+    the certified schedule's re-association merge.
+
+    :func:`madicp_tpu_torch.kernels.descent.descend_ring`: on the card one
+    launch reads each group's queries where they lie."""
+    return descent.descend_ring(nav, moving_pts_map, depth, need, start=start,
+                                n_gathers=n_gathers, return_margin=return_margin, out=out)
 
 
 def terms_from_payload(

@@ -1,31 +1,43 @@
-"""Per-launch device time of the tree build's point pass (K8) and of one
-normal-equations call (K7) at the flagship configuration, graphed.
+"""Per-launch device time of the hand-written kernels at the flagship
+configuration (16 keyframes x 32768 leaves, 131072 points, depth 16), the
+parts named by ``--parts`` (default: all but ``step``):
 
-- ``build``: one ``build_tree`` of the bench's scan 1 (131072 points with
-  the padding, depth 16) is captured whole in a CUDA graph and replayed
-  ``reps`` times under ``torch.profiler``. For each K8 launch, in order
-  (17 level passes, then the two pick kernels): its level, its
-  ``__global__`` function with the template arguments, the plan's path,
-  the level's segments ``nseg``, the live points, the device µs (median
-  over the replays), the bound µs (:func:`build_levels.call_cost` at the
-  H100's rates), the distinct nodes of its live points and the distinct
-  (warp, node) pairs (32 points in index order a warp: the groups a
-  warp-merged pass reduces one after the other).
-- ``terms``: one ``terms_from_payload`` call at the flagship (16 keyframes
-  x 32768 leaves of the bench's scan 1 against a primed ring, the
-  round-0 payload of a pose near it), called ``reps`` times under
-  ``torch.profiler``: every kernel the call launches, by name, with its
-  median device µs.
+- ``build``: one ``build_tree`` of the bench's scan 1 captured whole in a
+  CUDA graph and replayed in ``reps`` profiled windows. For each K8
+  launch, in order (17 level passes, then the two pick kernels): its
+  level, its ``__global__`` function with the template arguments, the
+  plan's path, the level's segments ``nseg``, the live points, the device
+  µs (median over the replays), the bound µs (:func:`build_levels.call_cost`
+  at the H100's rates), the distinct nodes of its live points and the
+  distinct (warp, node) pairs.
+- ``nodes``: the same for K9 (17 node passes and the close: level, nodes,
+  blocks, node kernel, device and bound µs), for the bench's scan and
+  for a B = 4 batch of its scans 1-4; with the launch floor (a
+  one-element ``add_``, device µs and graphed µs a launch).
+- ``terms``: one ``terms_from_payload`` call on the round-0 payload of a
+  pose near scan 1: every kernel it launches, with its median device µs.
+- ``descent``: K6 at a certified round 0, a later certified round (16%
+  of the entries live), the fast warm start and a live-share sweep (0%,
+  16%, 100%): live entries, panel reads, distinct panels, bound µs,
+  kernel µs (median of ``reps`` eager calls under torch.profiler) and
+  graphed µs a call; and a whole later re-association round as descend +
+  three ``where``s, kernel by kernel. ``ring`` (with ``descent``) adds the
+  ring form the step launches, the merged later round and the round as
+  the step runs it.
+- ``resources``: each K6 and K9 kernel's registers, stack and spills from
+  ``nvcc -Xptxas -v`` and the threads an SM holds at that count.
+- ``step``: the bench's certified schedule graphed (median scans/s,
+  device busy ms and kernels a scan, 8 poses) and a B = 4 fleet.
 
-``--paths`` adds the A/B that sets K8's plan: every level of the float32
-and float64 builds on every path that can take it (:data:`build_points.PATHS`),
-each held bit for bit to the plain version and timed in a CUDA graph
-(:func:`graph_ms`); and K7 at the flagship's 16 and the fleet's 64
-leading indices with every cluster size. ``chip_smoke.py``'s ``tree``
+``--paths`` adds the A/Bs that set the plans: every K8 level on every
+path that can take it (:data:`build_points.PATHS`), every K9 call on both
+node kernels (:data:`build_nodes.PATHS`), K7 at the flagship's 16 and
+the fleet's 64 leading indices with every cluster size, each held bit
+for bit to the plain version and timed in a CUDA graph (:func:`graph_ms`). ``chip_smoke.py``'s ``tree``
 and ``assoc`` phases report the traces. Every line is JSON and carries
 the card's name and power limit. Run on the card:
 
-    python -m madicp_tpu_torch.probes.kernel_trace [--paths]
+    python -m madicp_tpu_torch.probes.kernel_trace [--parts a,b,...] [--paths]
 """
 
 from __future__ import annotations
@@ -35,15 +47,26 @@ import json
 import math
 import re
 import statistics
+import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from madicp_tpu_torch.kernels import build_points, icp_terms
+from madicp_tpu_torch.kernels import build, build_nodes, build_points, descent, icp_terms
 from madicp_tpu_torch.probes import build_levels
 from madicp_tpu_torch.utils.timing import bound_ms, device_trace, graph_ms
 
 REPS = 5  # graph replays a trace
+PARTS = ("build", "terms", "descent", "ring", "nodes", "resources", "step")
+DEFAULT_PARTS = PARTS[:-1]
+# a later certified round's uncertified share: a certified flagship scan
+# descends 1.71 M entries, 0.52 M of them in round 0, and each of the other
+# 14 rounds hands the descent 0.52 M entries of which ~16% are live
+LIVE = 0.16
+LIVE_SEED = 5
+SWEEP = (0.0, 0.16, 1.0)  # live shares of the sweep
+DESCENT_FLOPS_PER_PANEL = 8  # the side value: 3 subtractions, 3 products, 2 adds
 
 
 def short_name(name: str) -> str:
@@ -53,24 +76,32 @@ def short_name(name: str) -> str:
     return m.group(1) if m else name
 
 
-def traced_runs(run, reps: int) -> list:
-    """The CUDA kernel records of ``run()``, which launches the same
-    kernels ``reps`` times: ``reps`` lists of ``(short name, device µs)``
-    in launch order, from one profiled window. Raises where the records
-    do not split into ``reps`` equal runs: the profiler lost one."""
-    records, _ = device_trace(run)
-    per = len(records) // reps
-    runs = [records[k * per:(k + 1) * per] for k in range(reps)]
-    if not per or per * reps != len(records) or any(
-            [r[0] for r in run] != [r[0] for r in runs[0]] for run in runs):
-        raise RuntimeError(f"a profiled window of {reps} equal runs kept {len(records)} "
-                           "kernel records that do not split into them")
-    return [[(short_name(n), us) for n, _, us in run] for run in runs]
+def windows(fn, reps: int) -> list:
+    """The CUDA kernel records of ``fn()`` in profiled windows of one
+    call each: up to ``reps`` lists of ``(short name, device µs)`` in
+    launch order. The profiler on the card drops records (a flagship
+    build's window kept 97 of its 98; most windows of one short kernel
+    kept none), so windows that kept fewer records than the most any
+    kept are dropped, up to ``5 reps`` windows are taken, and the full
+    ones are returned (at least one); raises where none kept a record or
+    the full ones disagree on the kernels."""
+    kept, most = [], 0
+    for _ in range(5 * reps):
+        w = [(short_name(n), us) for n, _, us in device_trace(fn)[0]]
+        if len(w) > most:
+            kept, most = [], len(w)
+        if w and len(w) == most:
+            kept.append(w)
+        if len(kept) == reps:
+            break
+    if not kept or any([r[0] for r in w] != [r[0] for r in kept[0]] for w in kept):
+        raise RuntimeError(f"{len(kept)} of {5 * reps} profiled windows kept {most} kernel "
+                           "records in one order")
+    return kept
 
 
 def graphed_records(fn, reps: int = REPS) -> list:
-    """The CUDA kernel records of ``fn()`` captured in one CUDA graph and
-    replayed ``reps`` times (:func:`traced_runs`)."""
+    """:func:`windows` of one replay of ``fn()`` captured in a CUDA graph."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):  # warm up off the capture stream
@@ -80,19 +111,21 @@ def graphed_records(fn, reps: int = REPS) -> list:
     with torch.cuda.graph(graph):
         fn()
     graph.replay()
-    runs = traced_runs(lambda: [graph.replay() for _ in range(reps)], reps)
+    runs = windows(graph.replay, reps)
     del graph
     return runs
 
 
-def call_rows(calls, esize: int) -> list:
-    """One row a recorded K8 call (:func:`build_levels.record_build`):
-    its level, bound µs, and for a level pass its ``nseg``, plan path,
-    live points, distinct nodes and distinct (warp, node) pairs."""
+def call_rows(calls, esize: int, kernel: str = "build_points") -> list:
+    """One row a recorded call of ``kernel`` (K8 ``build_points`` or K9
+    ``build_nodes``; :func:`build_levels.record_build`): its level and
+    bound µs; for a K8 level pass its ``nseg``, plan path, live points,
+    distinct nodes and distinct (warp, node) pairs; for a K9 call its
+    ``nseg``, blocks and node kernel."""
     dname = "float32" if esize == 4 else "float64"
     rows = []
     for c in calls:
-        if c.name not in build_levels.KERNELS["build_points"]:
+        if c.name not in build_levels.KERNELS[kernel]:
             continue
         nbytes, ops = build_levels.call_cost(c, esize)
         row = {"call": c.name, "level": c.kwargs.get("level"),
@@ -107,25 +140,32 @@ def call_rows(calls, esize: int) -> list:
                        path=build_points.plan(idx.shape[0], nseg, c.args[0].dtype).path,
                        live=int(at.numel()), nodes=int(torch.unique(g).numel()),
                        warp_node_pairs=int(torch.unique((at >> 5) * nseg + g).numel()))
+        elif kernel == "build_nodes":
+            nseg = c.args[0].shape[0]
+            row.update(nseg=nseg, blocks=-(-nseg // build_nodes.THREADS),
+                       path=build_nodes.plan(nseg) if c.name == "build_nodes" else None)
         rows.append(row)
     return rows
 
 
-def build_trace(points, valid, *, depth, b_max, b_min, reps: int = REPS) -> list:
-    """:func:`call_rows` of one graphed ``build_tree``, each with its
-    ``__global__`` function and its device µs from torch.profiler (module
-    doc)."""
+def build_trace(points, valid, *, depth, b_max, b_min, reps: int = REPS,
+                kernel: str = "build_points") -> list:
+    """:func:`call_rows` of ``kernel`` in one graphed ``build_tree``, each
+    with its ``__global__`` function and its device µs from
+    torch.profiler (module doc)."""
     from madicp_tpu_torch.ops.tree import build_tree
 
     _, _, calls, _ = build_levels.record_build(points, valid, depth=depth, b_max=b_max,
                                                b_min=b_min)
-    rows = call_rows(calls, points.element_size())
+    rows = call_rows(calls, points.element_size(), kernel)
     runs = graphed_records(lambda: build_tree(points, valid, depth=depth, b_max=b_max,
                                               b_min=b_min), reps)
-    runs = [[r for r in run if r[0].split("<")[0] in build_points.KERNEL_NAMES]
-            for run in runs]
+    names = {"build_points": build_points.KERNEL_NAMES,
+             "build_nodes": build_nodes.KERNEL_NAMES}[kernel]
+    runs = [[r for r in run if r[0].split("<")[0] in names] for run in runs]
     if any(len(run) != len(rows) for run in runs):
-        raise RuntimeError(f"{[len(r) for r in runs]} K8 records a replay, want {len(rows)}")
+        raise RuntimeError(f"{[len(r) for r in runs]} {kernel} records a replay, want "
+                           f"{len(rows)}")
     for j, row in enumerate(rows):
         row.update(kernel=runs[0][j][0], device_us=statistics.median(run[j][1] for run in runs))
     return rows
@@ -165,6 +205,38 @@ def point_paths(calls, reps: int = 20) -> list:
     return rows
 
 
+def node_paths(calls, reps: int = 20) -> list:
+    """Each recorded K9 call on both node kernels (:data:`build_nodes.PATHS`;
+    the close as it is): ``[{"call", "level", "nseg", "plan", "paths":
+    {path: device µs}}]``, each held bit for bit to the plain version and
+    timed in a CUDA graph (:func:`graph_ms`)."""
+    rows = []
+    for c in calls:
+        if c.name not in build_levels.KERNELS["build_nodes"]:
+            continue
+        plain_args = build_levels.copy_args(c.args)
+        want = build_levels.results(c.name, build_levels.PLAIN[c.name](*plain_args, **c.kwargs),
+                                    plain_args)
+        nseg = c.args[0].shape[0]
+        paths = build_nodes.PATHS if c.name == "build_nodes" else (None,)
+        row = {"call": c.name, "level": c.kwargs["level"], "nseg": nseg,
+               "plan": build_nodes.plan(nseg) if c.name == "build_nodes" else None,
+               "paths": {}}
+        fn = getattr(build_nodes, c.name)
+        for path in paths:
+            kw = dict(c.kwargs) if path is None else dict(c.kwargs, path=path)
+            args = build_levels.copy_args(c.args)
+            got = build_levels.results(c.name, fn(*args, **kw), args)
+            for a, b in zip(got, want):
+                if not build_levels.compare(a, b)[0]:
+                    raise AssertionError(f"{c.name} level {row['level']} {path}: differs from "
+                                         "the plain version")
+            row["paths"][str(path)] = graph_ms(lambda args=args, kw=kw: fn(*args, **kw),
+                                               reps) * 1e3
+        rows.append(row)
+    return rows
+
+
 def terms_plans(args, kw, reps: int = 20) -> dict:
     """Device µs of one ``icp_terms`` call launched with every block size
     of :data:`icp_terms.BLOCKS` and every cluster size that the card holds
@@ -195,18 +267,23 @@ def terms_trace(args, kw, reps: int = REPS) -> list:
     calls under torch.profiler (the call allocates its outputs, so it
     runs no kernel but its own)."""
     icp_terms.terms(*args, **kw)
-    runs = traced_runs(lambda: [icp_terms.terms(*args, **kw) for _ in range(reps)], reps)
+    runs = windows(lambda: icp_terms.terms(*args, **kw), reps)
     return [{"kernel": name, "device_us": statistics.median(run[j][1] for run in runs)}
             for j, (name, _) in enumerate(runs[0])]
 
 
-def flagship_terms_args(device, dtype):
-    """(args, kwargs) of one flagship ``icp_terms.terms`` call: the bench's
-    scan 1's leaves (32768) against its primed ring of 16 trees, the
-    round-0 payload of a pose 2 cm off the scan's, shaped as the pipeline
-    hands them over."""
+class Flagship(NamedTuple):
+    """The association's inputs at the flagship: the bench's primed ring
+    of 16 trees (float32), the leaves of its scan 1, a pose 2 cm off the
+    scan's and the pipeline's configuration."""
+    cfg: object
+    ring: torch.Tensor  # (K, M, 56)
+    leaves: object  # ops.tree.Leaves, L = 32768
+    X: np.ndarray  # (4, 4)
+
+
+def flagship_assoc(device) -> Flagship:
     from madicp_tpu_torch import bench
-    from madicp_tpu_torch.kernels import descent
     from madicp_tpu_torch.ops.tree import build_tree, get_leaves
     from madicp_tpu_torch.probes.segsum_levels import bench_pose
 
@@ -216,22 +293,386 @@ def flagship_terms_args(device, dtype):
     cfg = pipe.cfg
     pts, val, _ = pipe.stage(setup.scan_at(1))
     tree, _ = build_tree(pts, val, depth=cfg.depth, b_max=cfg.b_max, b_min=cfg.b_min)
-    leaves = get_leaves(tree, cfg.leaves_cap)
     R, t = bench_pose(1)
     X = np.eye(4)
     X[:3, :3], X[:3, 3] = R, t + np.array([0.02, -0.01, 0.0])
-    nav = pipe.state.kf_tree.nav.to(dtype)
-    K, M = nav.shape[0], nav.shape[1]
-    L = leaves.pts.shape[0]
-    lp = leaves.pts.to(dtype)
-    Xt = torch.as_tensor(X, dtype=dtype, device=device)
+    return Flagship(cfg, pipe.state.kf_tree.nav.clone(), get_leaves(tree, cfg.leaves_cap), X)
+
+
+def descent_inputs(fl: Flagship, dtype) -> dict:
+    """The descent's flagship inputs in ``dtype``, as the step hands them
+    over (every (keyframe, leaf) entry, keyframe-major): the flat table
+    ``nav`` (K M, 56), the scan-frame leaves ``pts`` (1, L, 3), the pose
+    ``X`` (1, 4, 4), the map-frame queries ``q`` (K L, 3), ``base`` (K
+    L,), ``need`` (K, L) the live entries, ``later`` (K, L) a later
+    certified round's uncertified share (:data:`LIVE`, seed
+    :data:`LIVE_SEED`), and round 0's ``ids``, ``payload``, ``margin`` (K,
+    L, ...)."""
+    dev = fl.ring.device
+    K, M = fl.ring.shape[:2]
+    L = fl.leaves.pts.shape[0]
+    lp = fl.leaves.pts.to(dtype)
+    Xt = torch.as_tensor(fl.X, dtype=dtype, device=dev)
+    nav = fl.ring.reshape(K * M, 56).to(dtype)
     q = (lp @ Xt[:3, :3].mT + Xt[:3, 3]).expand(K, L, 3).reshape(K * L, 3)
-    base = (torch.arange(K, device=device) * M)[:, None].expand(K, L).reshape(K * L)
-    valid = leaves.valid[None].expand(K, L).reshape(K * L)
-    _, payload, _ = descent.descend(nav.reshape(K * M, 56), q, base, cfg.depth, valid=valid,
-                                    return_blocks=True, return_margin=True)
-    args = (payload.view(1, K, L, 8), lp[None, None], leaves.valid[None, None], Xt[None, None])
-    return args, dict(b_max=cfg.b_max, b_ratio=cfg.b_ratio, rho_ker=cfg.rho_ker)
+    base = (torch.arange(K, device=dev) * M)[:, None].expand(K, L).reshape(K * L)
+    need = fl.leaves.valid[None].expand(K, L).contiguous()
+    later = need & live_mask((K, L), LIVE, dev)
+    ids, payload, margin = descent.descend(nav, q, base, fl.cfg.depth, valid=need.reshape(-1),
+                                           return_blocks=True, return_margin=True)
+    return dict(nav=nav, pts=lp[None], X=Xt[None], q=q, base=base, need=need, later=later,
+                ids=ids.view(K, L), payload=payload.view(K, L, 8), margin=margin.view(K, L))
+
+
+def live_mask(shape, share: float, device) -> torch.Tensor:
+    """A random ``share`` of the entries (numpy seed :data:`LIVE_SEED`)."""
+    return torch.from_numpy(np.random.default_rng(LIVE_SEED).random(shape) < share).to(device)
+
+
+def descent_cost(nav, q, base, depth, kw: dict) -> dict:
+    """What one descent call needs (:func:`descent.panel_reads`): the
+    panels read, the distinct ones, and the bound's bytes: each distinct
+    panel once, each entry's query, base, valid flag and outputs (id,
+    block, margin where asked), a warm start's node."""
+    esize = nav.element_size()
+    valid = kw.get("valid")
+    _, _, _, keys = descent.panel_reads(nav, q, base, depth, valid, kw.get("start"),
+                                        kw.get("n_gathers"), kw.get("return_blocks", False))
+    Q = q.shape[0]
+    distinct = int(torch.unique(keys).numel())
+    nbytes = (distinct * 8 * esize + Q * (3 * esize + 8 + 1 + 8)
+              + (Q * 8 * esize if kw.get("return_blocks") else 0)
+              + (Q * 8 if "start" in kw else 0) + (Q * esize if kw.get("return_margin") else 0))
+    return {"panel_reads": int(keys.numel()), "distinct_panels": distinct, "bytes": nbytes,
+            "operations": int(keys.numel()) * DESCENT_FLOPS_PER_PANEL}
+
+
+def ring_cost(nav, queries, depth, need, start=None, n_gathers=None, return_margin=False,
+              merged=False) -> dict:
+    """What one :func:`descent.descend_ring` call needs, as
+    :func:`descent_cost` counts it: ``nav`` (T, M, 56), ``queries`` (G, Q,
+    3), ``need`` (T, Q). The queries are read once a group; ``merged``
+    (``out`` given) descends and writes only the ``need`` entries, and
+    reads the others' flags alone."""
+    T, M = nav.shape[:2]
+    G, Q = queries.shape[:2]
+    esize = nav.element_size()
+    flat = nav.reshape(T * M, 56)
+    q = queries[:, None].expand(G, T // G, Q, 3).reshape(T * Q, 3)
+    base = (torch.arange(T, device=nav.device) * M)[:, None].expand(T, Q).reshape(T * Q)
+    live = need.reshape(-1)
+    kw = dict(start=None if start is None else start.reshape(-1), n_gathers=n_gathers,
+              return_blocks=True)
+    if merged:
+        sel = lambda t: None if t is None else t[live]  # noqa: E731
+        _, _, _, keys = descent.panel_reads(flat, q[live], base[live], depth, None,
+                                            sel(kw["start"]), n_gathers, True)
+        n = int(live.sum())
+        nbytes = T * Q + n * 3 * esize
+    else:
+        _, _, _, keys = descent.panel_reads(flat, q, base, depth, live, **kw)
+        n = T * Q
+        nbytes = T * Q + G * Q * 3 * esize
+    distinct = int(torch.unique(keys).numel())
+    nbytes += (distinct * 8 * esize + n * (8 + 8 * esize) + (n * esize if return_margin else 0)
+               + (n * 8 if start is not None else 0))
+    return {"descended": n, "panel_reads": int(keys.numel()), "distinct_panels": distinct,
+            "bytes": nbytes, "operations": int(keys.numel()) * DESCENT_FLOPS_PER_PANEL}
+
+
+def launch_us(fn, reps: int = REPS, parts: dict = None) -> dict:
+    """``graph_us``: the device µs of one ``fn()``, captured 20 times in a
+    CUDA graph (gaps between launches included); ``kernels``: every kernel
+    it launches, in order, with its median device µs over profiled eager
+    calls (:func:`windows`; a kernel's device time is the same in a
+    graph), or None with the reason where the profiler kept no full
+    window; ``parts_graph_us``: the same graphed µs of each of ``parts``
+    (name: callable), the steps of ``fn`` on their own."""
+    fn()
+    out = {"graph_us": graph_ms(fn, 20) * 1e3}
+    try:
+        runs = windows(fn, reps)
+        out["kernels"] = [{"kernel": name,
+                           "device_us": statistics.median(r[j][1] for r in runs)}
+                          for j, (name, _) in enumerate(runs[0])]
+        out["profiled_calls"] = len(runs)
+    except RuntimeError as e:  # the trace is lost, the graphed times stand
+        out["kernels"], out["profiler"] = None, str(e)
+    if parts:
+        out["parts_graph_us"] = {name: graph_ms(p, 20) * 1e3 for name, p in parts.items()}
+    return out
+
+
+def descent_cases(inp: dict, depth: int) -> dict:
+    """The keyword arguments of the traced descent cases: a certified
+    round 0 (every live entry), a later certified round (:data:`LIVE` of
+    them uncertified), the fast schedule's warm start (6 levels up, 3
+    gathers), and the live-share sweep (:data:`SWEEP`) at the later
+    round's form."""
+    need = inp["need"].reshape(-1)
+    full = dict(valid=need, return_blocks=True, return_margin=True)
+    cases = {"round0": full,
+             "later_round": dict(full, valid=inp["later"].reshape(-1)),
+             "warm": dict(valid=need, start=inp["ids"].reshape(-1) >> 6, n_gathers=3,
+                          return_blocks=True)}
+    for share in SWEEP:
+        mask = live_mask(inp["need"].shape, share, need.device).reshape(-1)
+        cases[f"live_{share:g}"] = dict(full, valid=need & mask)
+    return cases
+
+
+def unmerged_round(nav, depth, pts, X, need, ids, payload, slack, parts: bool = False):
+    """A certified re-association round as the step ran it before the
+    merged mode: the queries formed and copied K-fold, the entries' row
+    offsets in the flat table ``nav`` (B K M, 56), every entry descended
+    (the others parked) and the fresh results merged where ``need`` (B,
+    K, L) holds by three ``torch.where``. With ``parts``, also ``{step:
+    callable}`` of its steps on their own (for :func:`launch_us`)."""
+    B, K, Q = need.shape
+    dev = nav.device
+    M = nav.shape[0] // (B * K)
+
+    def queries():
+        return pts @ X[:, :3, :3].mT + X[:, None, :3, 3]
+
+    def copies(qb):
+        return qb[:, None].expand(B, K, Q, 3).reshape(B * K * Q, 3)
+
+    def offsets():
+        return (torch.arange(B * K, device=dev) * M)[:, None].expand(B * K, Q).reshape(-1)
+
+    def descend(q, base):
+        return descent.descend(nav, q, base, depth, valid=need.reshape(-1), return_blocks=True,
+                               return_margin=True)
+
+    def where(fresh):
+        ids2, payload2, margin2 = (f.view((B, K, Q) + f.shape[1:]) for f in fresh)
+        return (torch.where(need, ids2, ids), torch.where(need[..., None], payload2, payload),
+                torch.where(need, margin2, slack))
+
+    qb = queries()
+    q, base = copies(qb), offsets()
+    fresh = descend(q, base)
+    out = where(fresh)
+    if not parts:
+        return out
+    return out, {"queries (GEMM, add)": queries, "K-fold query copies": lambda: copies(qb),
+                 "row offsets": offsets, "descend": lambda: descend(q, base),
+                 "three where": lambda: where(fresh)}
+
+
+def merged_round(nav, depth, pts, X, need, ids, payload, slack):
+    """A certified re-association round as the step runs it
+    (``models/pipeline.py`` ``icp_rounds``, ``certify_compact`` 0): each
+    sequence's queries formed once and the ``need`` (B, K, L) entries
+    descended and merged into ``ids``, ``payload``, ``slack`` in place."""
+    from madicp_tpu_torch.ops.icp_core import associate_ring
+
+    B, K, Q = need.shape
+    q = pts @ X[:, :3, :3].mT + X[:, None, :3, 3]
+    return associate_ring(nav.view(B * K, -1, nav.shape[-1]), depth, q, need.reshape(B * K, Q),
+                          return_margin=True,
+                          out=tuple(o.view((B * K,) + o.shape[2:]) for o in (ids, payload, slack)))
+
+
+def descent_trace(fl: Flagship, dtype, reps: int = REPS, ring: bool = False) -> dict:
+    """K6 at the flagship in ``dtype``: each case of :func:`descent_cases`
+    (its live entries, panel reads, distinct panels, bound µs, its
+    kernel's device µs and the graphed µs of a call) and the whole
+    certified re-association round at the later round's share as descend
+    + three ``where``s, kernel by kernel. ``ring`` adds the ring form of
+    the cases (one (1, L, 3) query operand for the K trees), the merged
+    later round (only its live entries descended and written in place)
+    and the round as the step runs it (:func:`merged_round`)."""
+    inp = descent_inputs(fl, dtype)
+    depth = fl.cfg.depth
+    dname = str(dtype).split(".")[1]
+    nav, q, base = inp["nav"], inp["q"], inp["base"]
+    K, L = inp["need"].shape
+    out = {}
+    calls = {}
+    for case, kw in descent_cases(inp, depth).items():
+        cost = descent_cost(nav, q, base, depth, kw)
+        calls[case] = lambda kw=kw: descent.descend(nav, q, base, depth, **kw)
+        out[case] = {"live": int(kw["valid"].sum()), **cost,
+                     "bound_us": bound_ms(cost["bytes"], cost["operations"], dname)[0] * 1e3,
+                     **launch_us(calls[case], reps)}
+    prev = (inp["ids"][None], inp["payload"][None], inp["margin"][None])
+    args = (nav, depth, inp["pts"], inp["X"], inp["later"][None])
+    _, steps = unmerged_round(*args, *prev, parts=True)
+    out["round_unmerged"] = launch_us(lambda: unmerged_round(*args, *prev), reps, steps)
+    if ring:
+        ring_nav = nav.view(K, -1, 56)
+        q1 = inp["pts"] @ inp["X"][:, :3, :3].mT + inp["X"][:, None, :3, 3]  # (1, L, 3)
+        bufs = tuple(t.clone() for t in prev)
+        flat = {"round0": dict(need=inp["need"], return_margin=True),
+                "later_round": dict(need=inp["later"], return_margin=True),
+                "later_merged": dict(need=inp["later"], return_margin=True,
+                                     out=tuple(b[0] for b in bufs))}
+        for case, kw in flat.items():
+            calls[f"ring_{case}"] = lambda kw=kw: descent.descend_ring(ring_nav, q1, depth, **kw)
+            out[f"ring_{case}"] = launch_us(calls[f"ring_{case}"], reps)
+        for case, kw in flat.items():
+            cost = ring_cost(ring_nav, q1, depth, kw["need"], return_margin=True,
+                             merged="out" in kw)
+            out[f"ring_{case}"].update(
+                cost, bound_us=bound_ms(cost["bytes"], cost["operations"], dname)[0] * 1e3)
+        out["round_merged"] = launch_us(
+            lambda: merged_round(*args, *bufs), reps,
+            {"queries (GEMM, add)": lambda: inp["pts"] @ inp["X"][:, :3, :3].mT
+             + inp["X"][:, None, :3, 3],
+             "descend, merged": calls["ring_later_merged"]})
+        # the merged round's results are the unmerged round's, bit for bit
+        want = unmerged_round(*args, *prev)
+        got = merged_round(*args, *(t.clone() for t in prev))
+        if not all(torch.equal(a, b) for a, b in zip(got, (w.view(g.shape) for w, g in
+                                                             zip(want, got)))):
+            raise AssertionError(f"descend {dname}: the merged round differs from descend + "
+                                 "where")
+    return out
+
+
+def floor_us(device, reps: int = 200) -> dict:
+    """The launch floor: a one-element ``add_`` (a kernel that does
+    nothing measurable) ``reps`` times in one CUDA graph: its device µs
+    under the profiler and the graph's µs a launch (gaps included)."""
+    x = torch.zeros(1, device=device)
+    kernel = launch_us(lambda: x.add_(1.0))["kernels"][0]
+    return {**kernel, "graph_us_a_launch": graph_ms(lambda: x.add_(1.0), reps) * 1e3}
+
+
+def flagship_clouds(device, dtype) -> dict:
+    """{case: (points, valid)} of the K9 trace: the bench's scan 1 padded
+    to 131072 points, and a B = 4 fleet batch of its scans 1-4."""
+    from madicp_tpu_torch import bench
+
+    setup = bench.BenchSetup(device, 131072, 16, 16, 32768)
+    out = {}
+    for name, scans in (("bench_scan", [1]), ("fleet_b4", [1, 2, 3, 4])):
+        pts = np.zeros((len(scans), 131072, 3))
+        valid = np.zeros((len(scans), 131072), dtype=bool)
+        for b, i in enumerate(scans):
+            scan = setup.scan_at(i)
+            pts[b, :len(scan)], valid[b, :len(scan)] = scan, True
+        squeeze = (lambda a: a[0]) if len(scans) == 1 else (lambda a: a)
+        out[name] = (torch.as_tensor(squeeze(pts), dtype=dtype, device=device),
+                     torch.as_tensor(squeeze(valid), device=device))
+    return out
+
+
+def resident_threads(registers: int, threads: int) -> int:
+    """Threads an H100 SM holds of a kernel with no shared memory, from
+    its registers a thread (allocated 256 a warp at a time) and block
+    size: at most 64 warps and 32 blocks an SM, 65536 registers."""
+    warps = threads // 32
+    per_block = -(-registers * 32 // 256) * 256 * warps
+    return min(65536 // per_block, 64 // warps, 32) * threads
+
+
+def ptxas_usage(names=("descent", "build_nodes")) -> dict:
+    """``{source: {kernel: {registers, stack, spill_stores, spill_loads}}}``
+    from ``nvcc -Xptxas -v`` on each CUDA source (built with the
+    package's flags, all at once, into a scratch directory)."""
+    import subprocess
+    import tempfile
+
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
+        procs = {n: subprocess.Popen(
+            [build.nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o", f"{tmp}/{n}.so",
+             str(build.CSRC / f"{n}.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True) for n in names}
+        logs = {n: p.communicate()[0] for n, p in procs.items()}
+    out = {}
+    for n, log in logs.items():
+        rows, cur = {}, None
+        for line in log.splitlines():
+            m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
+            if m:
+                cur = rows.setdefault(m.group(1), {})
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", line)
+            if m and cur is not None:
+                cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                           spill_loads=int(m.group(3)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and cur is not None:
+                cur["registers"] = int(m.group(1))
+        rows = {k: v for k, v in rows.items() if "registers" in v}  # entry functions
+        if not rows:
+            raise RuntimeError(f"nvcc -Xptxas -v printed no kernel for {n}:\n{log}")
+        out[n] = {demangled: rows[m] for m, demangled in zip(rows, demangle(list(rows)))}
+    return out
+
+
+def demangle(names: list) -> list:
+    """Short names (:func:`short_name`) of mangled kernel symbols."""
+    import shutil
+    import subprocess
+
+    tool = shutil.which("cu++filt") or str(build.Path(build.nvcc()).parent / "cu++filt")
+    if not build.Path(tool).exists():
+        tool = shutil.which("c++filt")
+    if tool is None:
+        return names
+    text = subprocess.run([tool, *names], capture_output=True, text=True).stdout.splitlines()
+    if len(text) != len(names):
+        return names
+    out = []
+    for t in text:  # "void <unnamed>::descend_kernel<float, (bool)1, 4>(const T1 *, ...)"
+        t = t.replace("(bool)0", "false").replace("(bool)1", "true").split("::", 1)[-1]
+        out.append(t[:t.index(">(") + 1] if ">(" in t else t.split("(")[0])
+    return out
+
+
+def step_numbers(device, n_warm: int = 3, n_timed: int = 8, n_prof: int = 2) -> dict:
+    """The end-to-end numbers a kernel change should move, graphed: the
+    bench's certified schedule (:func:`bench.run_schedule`, 3 windows of
+    12 scans: median scans/s, device busy ms and kernels a scan; then the
+    poses of 8 scans of a primed pipeline, to compare two trees) and a
+    B = 4 fleet (four sequences of the bench's drive, staggered by 5
+    scans; fleet scans/s over ``n_timed`` batched scans, device busy ms
+    and kernels a batched scan)."""
+    from madicp_tpu_torch import bench
+    from madicp_tpu_torch.parallel import Fleet
+    from madicp_tpu_torch.utils.timing import device_kernels
+
+    setup = bench.BenchSetup(device, 131072, 16, 16, 32768)
+    cert = bench.run_schedule(setup, "certified", 3, 12, 3)
+    out = {"certified": {k: cert[k] for k in ("median_scans_per_sec", "windows", "profile")}}
+    torch.cuda.empty_cache()
+    pipe = setup.make_pipe("certified")
+    setup.prime(pipe)
+    poses = []
+    for i in range(1, 9):  # graphed from the third: their poses, to compare trees bit for bit
+        pipe.compute_device(0.1 * i, *pipe.stage(setup.scan_at(i)))
+        poses.append(pipe._last.pose.double().cpu().numpy().tolist())
+    out["certified"]["poses"] = poses
+    pipe = setup.make_pipe("certified")
+    total = n_warm + n_timed + n_prof
+    staged = []
+    for k in range(total):
+        batch = [pipe.stage(setup.scan_at(1 + k + 5 * b)) for b in range(4)]
+        staged.append((torch.stack([p for p, _, _ in batch]),
+                       torch.stack([v for _, v, _ in batch])))
+    fleet = Fleet(pipe.cfg, 4, device=device)
+    del pipe
+    for k in range(n_warm):
+        fleet.compute(None, *staged[k])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k in range(n_warm, n_warm + n_timed):
+        fleet.compute(None, *staged[k])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    by_name, wall_ms = device_kernels(
+        lambda: [fleet.compute(None, *staged[k]) for k in range(n_warm + n_timed, total)])
+    out["fleet_b4"] = {"fleet_scans_per_s": 4 * n_timed / wall,
+                       "device_busy_ms_per_batched_scan":
+                           sum(us for us, _ in by_name.values()) / 1e3 / n_prof,
+                       "kernels_per_batched_scan": sum(c for _, c in by_name.values()) / n_prof,
+                       "profiled_wall_ms_per_batched_scan": wall_ms / n_prof}
+    return out
 
 
 def main(argv=None) -> int:
@@ -241,38 +682,82 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reps", type=int, default=REPS)
     ap.add_argument("--paths", action="store_true",
-                    help="every K8 level on every path, K7 with every cluster size")
+                    help="every K8 and K9 level on every path, K7 with every cluster size")
+    ap.add_argument("--parts", default=",".join(DEFAULT_PARTS),
+                    help=f"comma list of {', '.join(PARTS)} (default: all but step)")
     a = ap.parse_args(argv)
+    parts = set(a.parts.split(","))
+    if parts - set(PARTS):
+        ap.error(f"unknown parts {sorted(parts - set(PARTS))}; choose from {PARTS}")
     dev = torch.device("cuda")
     smi = card_name(dev)
-    setup = bench.BenchSetup(dev, 131072, 16, 16, 32768)
-    scan = setup.scan_at(1)
-    pts = np.zeros((131072, 3))
-    pts[:len(scan)] = scan
+
+    def emit(part, **kw):
+        print(json.dumps({"part": part, "nvidia_smi": smi, **kw}), flush=True)
+
+    if "resources" in parts:
+        usage = ptxas_usage()
+        for src, kernels in usage.items():
+            for name, row in kernels.items():
+                threads = build_nodes.THREADS if src == "build_nodes" else descent.THREADS
+                row["resident_threads_an_sm"] = resident_threads(row["registers"], threads)
+        emit("resources", usage=usage)
+    if "nodes" in parts:
+        emit("floor", **floor_us(dev))
+    if "ring" in parts and "descent" not in parts:
+        ap.error("the ring part extends the descent part: ask for both")
+    fl = flagship_assoc(dev) if parts & {"terms", "descent"} else None
     for dtype in (torch.float32, torch.float64):
         dname = str(dtype).split(".")[1]
-        points = torch.as_tensor(pts, dtype=dtype, device=dev)
-        valid = torch.arange(131072, device=dev) < len(scan)
         kw = dict(depth=16, b_max=0.2, b_min=0.1)
-        rows = build_trace(points, valid, **kw, reps=a.reps)
-        print(json.dumps({"part": "build", "dtype": dname, "nvidia_smi": smi,
-                          "device_us": sum(r["device_us"] for r in rows),
-                          "bound_us": sum(r["bound_us"] for r in rows), "calls": rows}),
-              flush=True)
-        if a.paths:
-            _, _, calls, _ = build_levels.record_build(points, valid, **kw)
-            print(json.dumps({"part": "build_paths", "dtype": dname, "nvidia_smi": smi,
-                              "levels": point_paths(calls)}), flush=True)
-            del calls
-        args, tkw = flagship_terms_args(dev, dtype)
-        print(json.dumps({"part": "terms", "dtype": dname, "nvidia_smi": smi,
-                          "kernels": terms_trace(args, tkw, a.reps)}), flush=True)
-        if a.paths:
-            fleet = (args[0].expand(4, 16, *args[0].shape[2:]),) + args[1:]
-            print(json.dumps({"part": "terms_plans", "dtype": dname, "nvidia_smi": smi,
-                              "leads_16": terms_plans(args, tkw),
-                              "leads_64": terms_plans(fleet, tkw)}), flush=True)
+        clouds = flagship_clouds(dev, dtype) if parts & {"build", "nodes"} else {}
+        if "build" in parts:
+            points, valid = clouds["bench_scan"]
+            rows = build_trace(points, valid, **kw, reps=a.reps)
+            emit("build", dtype=dname, device_us=sum(r["device_us"] for r in rows),
+                 bound_us=sum(r["bound_us"] for r in rows), calls=rows)
+            if a.paths:
+                _, _, calls, _ = build_levels.record_build(points, valid, **kw)
+                emit("build_paths", dtype=dname, levels=point_paths(calls))
+                del calls
+        if "nodes" in parts:
+            for name, (points, valid) in clouds.items():
+                rows = build_trace(points, valid, **kw, reps=a.reps, kernel="build_nodes")
+                emit("nodes", dtype=dname, cloud=name,
+                     device_us=sum(r["device_us"] for r in rows),
+                     bound_us=sum(r["bound_us"] for r in rows), calls=rows)
+                if a.paths:
+                    _, _, calls, _ = build_levels.record_build(points, valid, **kw)
+                    emit("nodes_paths", dtype=dname, cloud=name, calls=node_paths(calls))
+                    del calls
+        del clouds
+        if "descent" in parts:
+            emit("descent", dtype=dname, **descent_trace(fl, dtype, a.reps, "ring" in parts))
+        if "terms" in parts:
+            args, tkw = flagship_terms_args(fl, dtype)
+            emit("terms", dtype=dname, kernels=terms_trace(args, tkw, a.reps))
+            if a.paths:
+                fleet = (args[0].expand(4, 16, *args[0].shape[2:]),) + args[1:]
+                emit("terms_plans", dtype=dname, leads_16=terms_plans(args, tkw),
+                     leads_64=terms_plans(fleet, tkw))
+        torch.cuda.empty_cache()
+    if "step" in parts:
+        del fl
+        torch.cuda.empty_cache()
+        emit("step", **step_numbers(dev))
     return 0
+
+
+def flagship_terms_args(fl: Flagship, dtype):
+    """(args, kwargs) of one flagship ``icp_terms.terms`` call: the bench's
+    scan 1's leaves (32768) against its primed ring of 16 trees, the
+    round-0 payload of a pose 2 cm off the scan's, shaped as the pipeline
+    hands them over."""
+    inp = descent_inputs(fl, dtype)
+    K, L = inp["need"].shape
+    args = (inp["payload"].view(1, K, L, 8), inp["pts"][None], fl.leaves.valid[None, None],
+            inp["X"][None])
+    return args, dict(b_max=fl.cfg.b_max, b_ratio=fl.cfg.b_ratio, rho_ker=fl.cfg.rho_ker)
 
 
 if __name__ == "__main__":

@@ -91,6 +91,32 @@ def descent_case(case: str, n: int = 600, seed: int = 0):
 DESCENT_CASES = ["root", "warm", "depth9", "ids"]
 
 
+def ring_case(case: str, n: int = 600, seed: int = 0, groups: int = 1):
+    """A :func:`descent_case` in the ring form the step launches: the
+    forest's two trees as (T, M, 56) (``groups`` copies of them, T = 2
+    groups), each group's queries (``groups``, n, 3) shared by its two
+    trees, ``need`` (T, n) (the case's valid flags in the first tree,
+    another 70% in the second), a warm start from a first descent's ids,
+    and round 0's results as a merge's previous buffers."""
+    nav, q, depth, _, kw = descent_case(case, n=n, seed=seed)
+    M = nav.shape[0] // 2
+    rng = np.random.default_rng(seed + 1)
+    T = 2 * groups
+    ring = nav.view(2, M, 56).repeat(groups, 1, 1)
+    queries = (q[None] + torch.from_numpy(rng.normal(0, 0.05, (groups, n, 3)))).to(nav.dtype)
+    valid = kw.get("valid", torch.ones(n, dtype=torch.bool))
+    need = torch.stack([valid, torch.from_numpy(rng.random(n) < 0.7)]).repeat(groups, 1)
+    rkw = dict(need=need, return_margin=case != "ids")
+    if case == "warm":
+        ids0 = descent.descend_ring_plain(ring, queries, depth, torch.ones_like(need))[0]
+        rkw.update(start=ids0 >> 4, n_gathers=3)
+    # the previous round: every entry, 3 cm away
+    prev = descent.descend_ring_plain(ring, queries + 0.03, depth,
+                                      torch.ones((T, n), dtype=torch.bool),
+                                      return_margin=rkw["return_margin"])
+    return ring, queries, depth, rkw, prev
+
+
 # ------------------------------------------------------------------ CPU --
 def test_descend_dispatch_and_argument_checks():
     """CPU tensors take the plain version and count no launch; wrong
@@ -332,6 +358,105 @@ def test_terms_plain_matches_jax(jax_ref, case):
         np.testing.assert_array_equal(matched[idx].numpy(), np.asarray(want.matched))
 
 
+@pytest.mark.parametrize("groups", [1, 2])
+@pytest.mark.parametrize("case", DESCENT_CASES)
+def test_ring_form_is_the_expanded_call(case, groups):
+    """The ring form (each group's queries shared by its trees, row
+    offsets from the entry's tree) equals today's call over the flat
+    table with the queries copied to every tree and a per-entry base,
+    bit for bit; with ``out`` only the ``need`` entries change."""
+    ring, queries, depth, kw, prev = ring_case(case, groups=groups)
+    T, M = ring.shape[:2]
+    n = queries.shape[1]
+    got = descent.descend_ring(ring, queries, depth, **kw)
+    q = queries[:, None].expand(groups, T // groups, n, 3).reshape(T * n, 3)
+    base = (torch.arange(T) * M)[:, None].expand(T, n).reshape(T * n)
+    start = kw.get("start")
+    want = descent.descend(ring.reshape(T * M, 56), q, base, depth,
+                           valid=kw["need"].reshape(-1),
+                           start=None if start is None else start.reshape(-1),
+                           n_gathers=kw.get("n_gathers"), return_blocks=True,
+                           return_margin=kw["return_margin"])
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.shape[:2] == (T, n) and torch.equal(a.reshape(b.shape), b)
+
+
+@pytest.mark.parametrize("case", DESCENT_CASES)
+def test_merged_plain_is_descend_plain_and_where(case):
+    """The merged mode's plain version (``out``) is ``descend_plain``
+    followed by the certified schedule's three ``torch.where``s, bit for
+    bit, written into the buffers it was given."""
+    ring, queries, depth, kw, prev = ring_case(case, groups=2)
+    bufs = tuple(t.clone() for t in prev)
+    got = descent.descend_ring(ring, queries, depth, **kw, out=bufs)
+    fresh = descent.descend_ring_plain(ring, queries, depth, **kw)
+    need = kw["need"]
+    assert all(g is b for g, b in zip(got, bufs))
+    for g, f, p in zip(got, fresh, prev):
+        assert torch.equal(g, torch.where(need.view(need.shape + (1,) * (f.dim() - 2)), f, p))
+    assert not torch.equal(bufs[0], prev[0])  # some entries moved
+
+
+def test_ring_argument_checks():
+    ring, queries, depth, kw, prev = ring_case("root", n=64, groups=2)
+    with pytest.raises(ValueError, match="do not match"):
+        descent.descend_ring(ring[:3], queries, depth, kw["need"][:3])
+    with pytest.raises(ValueError, match="start must be"):
+        descent.descend_ring(ring, queries, depth, kw["need"], start=kw["need"][:, 1:].long())
+    with pytest.raises(TypeError, match="need must be bool"):
+        descent.descend_ring(ring, queries, depth, kw["need"].long())
+    with pytest.raises(ValueError, match="out must be"):
+        descent.descend_ring(ring, queries, depth, kw["need"], return_margin=True,
+                             out=prev[:2])
+    with pytest.raises(TypeError, match="queries are"):
+        descent.descend_ring(ring, queries.float(), depth, kw["need"])
+
+
+def test_certified_drive_merges_in_place_as_descend_and_where(monkeypatch):
+    """The certified schedule (``certify_compact`` 0) hands each later
+    round's re-association to the descent as a merge into the previous
+    round's results; a drive whose merges are done as descend + where
+    outside the descent (the schedule before the merged mode) gives the
+    same poses, inlier ratios and descents, bit for bit (float32, a room
+    passed at 5 cm a scan)."""
+    from madicp_tpu_torch.models.pipeline import Pipeline
+
+    rng = np.random.default_rng(3)
+    room = _room(rng, n=800)
+    scans = [room - np.array([0.05 * i, 0.02 * i, 0.0]) + rng.normal(0, 0.001, room.shape)
+             for i in range(4)]
+    kw = dict(sensor_hz=10.0, deskew=False, b_max=0.2, rho_ker=0.1, p_th=0.8, b_min=0.1,
+              b_ratio=0.02, num_keyframes=2, n_points=4096, depth=10, max_leaves=1024,
+              certify=True, dtype=torch.float32, device="cpu")
+
+    def drive():
+        pipe = Pipeline(**kw)
+        out = []
+        for i, scan in enumerate(scans):
+            pipe.compute(0.1 * i, scan)
+            out.append((pipe.current_pose(), pipe.inlier_ratio(), pipe.descents()))
+        return out
+
+    merged = drive()
+    real, calls = descent.descend_ring, []
+
+    def unmerged(nav, queries, depth, need, out=None, **k):
+        calls.append(out is not None)
+        if out is None:
+            return real(nav, queries, depth, need, **k)
+        fresh = real(nav, queries, depth, need, **k)
+        return tuple(torch.where(need.view(need.shape + (1,) * (f.dim() - 2)), f, o)
+                     for f, o in zip(fresh, out))
+
+    monkeypatch.setattr(descent, "descend_ring", unmerged)
+    parent = drive()
+    assert any(calls) and not all(calls)  # round 0 fresh, later rounds merged
+    for (pa, ra, da), (pb, rb, db) in zip(merged, parent):
+        np.testing.assert_array_equal(pa, pb)
+        assert ra == rb and da == db
+
+
 # ------------------------------------------------------------------ card --
 @pytest.fixture
 def cuda_device():
@@ -378,6 +503,75 @@ def test_descend_kernel_takes_an_unaligned_table_on_cuda(cuda_device):
     for a, b in zip(descent.descend(shifted, q, base, depth, **kw),
                     descent.descend_plain(shifted, q, base, depth, **kw)):
         assert torch.equal(a, b)
+
+
+def _ring_on(case, dtype, device, n=1000, groups=1):
+    ring, queries, depth, kw, prev = ring_case(case, n=n, seed=n + groups, groups=groups)
+    prev = tuple(t.to(dtype) if t.is_floating_point() else t for t in prev)
+    return (ring.to(dtype).to(device), queries.to(dtype).to(device), depth, _to(kw, device),
+            tuple(t.to(device) for t in prev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", DESCENT_CASES)
+@pytest.mark.parametrize("groups", [1, 4])
+def test_ring_kernel_is_bitwise_the_plain_version_on_cuda(cuda_device, dtype, case, groups):
+    """The ring form on the card (each group's queries shared by its two
+    trees; 4 groups: a B = 4 batch of 2 keyframes), fresh and merged into
+    the previous buffers: ids, blocks and margins bit for bit against the
+    plain version, 1000 queries a tree (not a multiple of a block); one
+    launch a call, and the merge leaves the entries without ``need``
+    untouched."""
+    ring, queries, depth, kw, prev = _ring_on(case, dtype, cuda_device, groups=groups)
+    for merged in (False, True):
+        want = descent.descend_ring_plain(ring, queries, depth, **kw,
+                                          out=tuple(t.clone() for t in prev) if merged else None)
+        bufs = tuple(t.clone() for t in prev) if merged else None
+        before = descent.counter.launches
+        got = descent.descend_ring(ring, queries, depth, **kw, out=bufs)
+        torch.cuda.synchronize()
+        assert descent.counter.launches == before + 1
+        assert len(got) == len(want)
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_ring_kernel_takes_an_unaligned_table_on_cuda(cuda_device):
+    """A ring that starts off a 16-byte boundary takes the scalar loads,
+    fresh and merged: still bit for bit."""
+    ring, queries, depth, kw, prev = _ring_on("root", torch.float32, cuda_device, n=777)
+    flat = torch.zeros(ring.numel() + 1, dtype=torch.float32, device=cuda_device)
+    shifted = flat[1:].view(ring.shape)
+    shifted.copy_(ring)
+    for merged in (False, True):
+        bufs = [tuple(t.clone() for t in prev) if merged else None for _ in range(2)]
+        for a, b in zip(descent.descend_ring(shifted, queries, depth, **kw, out=bufs[0]),
+                        descent.descend_ring_plain(shifted, queries, depth, **kw, out=bufs[1])):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_merged_ring_replays_in_a_cuda_graph(cuda_device, dtype):
+    """The merge captured in a CUDA graph (writing into the buffers in
+    place) and replayed twice, the buffers reset to the previous round's
+    before each replay, equals the eager merge bit for bit."""
+    ring, queries, depth, kw, prev = _ring_on("root", dtype, cuda_device, n=3000, groups=2)
+    eager = descent.descend_ring(ring, queries, depth, **kw, out=tuple(t.clone() for t in prev))
+    bufs = tuple(t.clone() for t in prev)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        descent.descend_ring(ring, queries, depth, **kw, out=bufs)
+    for _ in range(2):
+        for b, p in zip(bufs, prev):
+            b.copy_(p)
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(bufs, eager):
+            assert torch.equal(a, b)
 
 
 def _terms_reference(payload, pts, valid, X):

@@ -289,12 +289,25 @@ def test_build_nodes_dispatch_and_argument_checks():
         bn.build_nodes(mom, None, arena, **kw)
     with pytest.raises(ValueError, match="has no rows"):
         bn.build_nodes(mom, prev, arena[:, :8], **kw)
+    with pytest.raises(ValueError, match="want one of"):
+        bn.build_nodes(mom, prev, arena, **kw, path="lanes")
     close = next(c for c in calls if c.name == "close_level")
     state, ext, arena = close.args
     bn.close_level(state, ext, arena, **close.kwargs)
     assert torch.equal(arena, close.results[0]) and bn.counter.launches == before
     with pytest.raises(ValueError, match="want state"):
         bn.close_level(state[1:], ext, arena, **close.kwargs)
+
+
+@pytest.mark.parametrize("nseg, path", [
+    (1, "direct"), (2048, "direct"), (bn.STAGE_MIN_NODES - 1, "direct"),
+    (bn.STAGE_MIN_NODES, "stage"), (65536, "stage"), (262144, "stage"),
+])
+def test_build_nodes_plan(nseg, path):
+    """The node kernel a level takes: the staged one from
+    ``STAGE_MIN_NODES`` nodes on (the flagship's widest levels and the
+    fleet's), the direct one below."""
+    assert bn.plan(nseg) == path
 
 
 def test_build_points_dispatch_and_argument_checks():
@@ -481,10 +494,43 @@ def test_build_points_paths_are_bitwise_at_their_boundaries_on_cuda(
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B, n, depth", [
+    (1, 131072, 15),  # 16384 nodes direct, 32768 staged
+    (3, 4096, 14),    # 24576 direct, 49152 staged; 96 and 192 nodes: part blocks
+])
+def test_build_nodes_paths_are_bitwise_at_their_boundaries_on_cuda(
+        cuda_device, dtype, B, n, depth):
+    """Every build_nodes call of a build on both node kernels (rows where
+    they lie; a block's outputs staged through shared memory) equals the
+    plain version bit for bit, across the plan's threshold and at levels
+    whose nodes fill part of a block or span clouds."""
+    points, valid = _cuda_batch(cuda_device, B, n, dtype, seed=depth)
+    _, _, calls, _ = build_levels.record_build(points, valid, depth=depth, **BUILD_KW)
+    paths = set()
+    for c in calls:
+        if c.name != "build_nodes":
+            continue
+        plain_args = build_levels.copy_args(c.args)
+        want = build_levels.results(c.name, bn.build_nodes_plain(*plain_args, **c.kwargs),
+                                    plain_args)
+        paths.add(bn.plan(c.args[0].shape[0]))
+        for path in bn.PATHS:
+            args = build_levels.copy_args(c.args)
+            got = build_levels.results(c.name, bn.build_nodes(*args, **c.kwargs, path=path),
+                                       args)
+            torch.cuda.synchronize()
+            for a, b in zip(got, want):
+                assert build_levels.compare(a, b)[0], (c.kwargs["level"], path)
+    assert paths == set(bn.PATHS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_build_nodes_matches_plain_eigh3_on_cuda(cuda_device, dtype):
     """The node kernel's eigenbasis on every spectrum kind equals the plain
-    eigh3 on the card bit for bit: one level of B = 320 one-node clouds
-    whose moments are those of the spectra's matrices."""
+    eigh3 on the card bit for bit, on both node kernels: one level of B =
+    320 one-node clouds whose moments are those of the spectra's
+    matrices."""
     rng = np.random.default_rng(3)
     A = np.concatenate([_spectra(k, rng) for k in ("random", "spherical", "planar", "line",
                                                     "repeated")])
@@ -495,12 +541,14 @@ def test_build_nodes_matches_plain_eigh3_on_cuda(cuda_device, dtype):
     mom[:, 9] = k
     mom = torch.from_numpy(mom).to(dtype).to(cuda_device)
     arena = torch.zeros((n, 4, bn.ARENA_COLS), dtype=dtype, device=cuda_device)
-    got = bn.build_nodes(mom, None, arena, level=0, **BUILD_KW)
     arena_p = torch.zeros_like(arena)
     want = bn.build_nodes_plain(mom, None, arena_p, level=0, **BUILD_KW)
-    for a, b in zip(got, want):
-        assert torch.equal(a, b)
-    assert torch.equal(arena, arena_p) and torch.isfinite(got[0]).all()
+    for path in bn.PATHS:  # 320 nodes: two whole blocks and a part
+        arena.zero_()
+        got = bn.build_nodes(mom, None, arena, level=0, **BUILD_KW, path=path)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), path
+        assert torch.equal(arena, arena_p) and torch.isfinite(got[0]).all()
 
 
 @pytest.mark.cuda

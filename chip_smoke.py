@@ -56,6 +56,20 @@ script exits non-zero without the final line):
               this script): scans/s, device busy and kernels a scan of
               each, the two-orientation world's drive both ways within
               5e-4 m;
+3d. gn        gn_update (K10) and certify_slack (K11), the GN update and
+              the certified rounds' slack pass, against their plain
+              PyTorch versions on the card, float32 and float64: the test
+              cases (madicp_tpu_torch/probes/gn_cases.py) and every call
+              of a certified flagship scan (15 updates, 14 slack passes;
+              B = 1 and four stacked), K10 within 5e-6 relative (1e-12 in
+              float64) and K11's need, slack and count bit for bit; eager,
+              graphed and plain ms and the bound at B = 1 and 4, with
+              torch.linalg.solve_ex beside K10 and each call's kernels.
+              Then the certified flagship drive, graphed, with the kernels
+              and with both on their plain versions (plain_gn, a patch of
+              this script): scans/s, device busy and kernels a scan of
+              each, poses within 5e-4 m (y and z on the bench's world, the
+              two-orientation world whole);
 3b. probe     one run of the probe entry point (python -m
               madicp_tpu_torch.probes.scatter_probe), its launches counted
               from 0: it holds the four scatter-probe kernels
@@ -94,7 +108,8 @@ script exits non-zero without the final line):
               scans/s, host enqueue ms, device busy and kernels, 17
               segment-sum launches; the graph's capture ms, nodes and pool
               bytes; poses within 5e-4 m over 15 scans, kernels a scan
-              within 1%; then a realtime
+              within 1% of eager's plus the replay's 10 copies (the
+              scan in, the output's 8 tensors out); then a realtime
               pipeline whose budget (0.4 of the graphed certified step
               just measured) moves its iteration count: a graph captured
               for each count;
@@ -125,9 +140,10 @@ script exits non-zero without the final line):
               keyframe ring split, then the build too) within 5e-4 of
               one process on both ranks — plumbing, not scaling.
 
-Then the line {"kernels": [...]} (all nine kernels: segsum_moments,
+Then the line {"kernels": [...]} (all eleven kernels: segsum_moments,
 build_nodes and build_points per flagship build, descend at a certified
-round 0 and icp_terms on its payload, each with its launches in the
+round 0 and icp_terms on its payload, gn_update and certify_slack on a
+certified flagship scan's round, each with its launches in the
 steady phase's main-path run; the probe kernels summed over one probe
 pass with the probe's launches), the
 nvidia-smi line, and last
@@ -142,7 +158,10 @@ compute_batch or Fleet.compute without a mesh replays captured CUDA
 graphs from the second odometry scan on; a capture that fails raises.
 Every run of the step (every schedule, the fleet, the CLI, the demos)
 counts its kernels' launches from 0 and fails if build_nodes,
-build_points, descend or icp_terms was never launched. The realtime
+build_points, descend, icp_terms or gn_update (and certify_slack on the
+certified and compact schedules) was never launched; a scan launches
+gn_update once a GN round (15) and certify_slack once a later round of
+the certified rounds (14). The realtime
 scenario of phase 8b derives its sensor rate from the graphed certified
 step's measured time, so that its budget is overrun.
 """
@@ -177,14 +196,31 @@ def check(cond: bool, what: str) -> None:
 
 ASSOC_KERNELS = ("descend", "icp_terms")  # the association's and the terms' kernels
 BUILD_KERNELS = ("build_nodes", "build_points")  # the tree build's level pass and pick
+GN_KERNELS = ("gn_update", "certify_slack")  # the GN update and the certified slack pass
+STEP_KERNELS = BUILD_KERNELS + ASSOC_KERNELS + ("gn_update",)  # every schedule's
+ROUNDS = 15  # GN rounds a scan: one gn_update each, a certify_slack each after the first
+
+
+def certifies(spec: str) -> bool:
+    """Whether the bench schedule ``spec`` runs the certified rounds' slack
+    pass (certified and compact; prefix keeps its own)."""
+    return spec.split(":")[0] in ("certified", "compact")
 
 
 def kernel_names() -> dict:
     """{kernel: its __global__ functions, as a CUDA trace names them}."""
-    from madicp_tpu_torch.kernels import build_nodes, build_points, descent, icp_terms
+    from madicp_tpu_torch.kernels import (
+        build_nodes,
+        build_points,
+        certify_slack,
+        descent,
+        gn_update,
+        icp_terms,
+    )
 
     return {"descend": descent.KERNEL_NAMES, "icp_terms": icp_terms.KERNEL_NAMES,
-            "build_nodes": build_nodes.KERNEL_NAMES, "build_points": build_points.KERNEL_NAMES}
+            "build_nodes": build_nodes.KERNEL_NAMES, "build_points": build_points.KERNEL_NAMES,
+            "gn_update": gn_update.KERNEL_NAMES, "certify_slack": certify_slack.KERNEL_NAMES}
 
 
 def reset_launches() -> None:
@@ -197,14 +233,17 @@ def reset_launches() -> None:
 
 def launches() -> dict:
     """{kernel name: launches since its counter was reset} of the step's
-    kernels (segsum_moments, descend, icp_terms)."""
+    kernels (models/step_graph.py COUNTERS)."""
     from madicp_tpu_torch.models.step_graph import COUNTERS
 
     return {name: c.launches for name, c in COUNTERS.items()}
 
 
-def check_launched(counts: dict, what: str, kernels=BUILD_KERNELS + ASSOC_KERNELS) -> None:
-    for name in kernels:
+def check_launched(counts: dict, what: str, kernels=STEP_KERNELS,
+                   certified: bool = False) -> None:
+    """Fail where a kernel of ``kernels`` (and ``certify_slack`` on a
+    ``certified`` run) was never launched."""
+    for name in kernels + (("certify_slack",) if certified else ()):
         check(counts[name] > 0, f"{what}: {name} was never launched")
 
 
@@ -436,14 +475,35 @@ def plain_build():
     return patched()
 
 
+def plain_gn():
+    """A context in which the GN update and the certified slack pass take
+    their plain versions on the card too (their counters stand still): the
+    yardstick of the ``gn`` drive."""
+    import contextlib
+
+    from madicp_tpu_torch.kernels import certify_slack, gn_update
+
+    @contextlib.contextmanager
+    def patched():
+        real = gn_update.gn_update, certify_slack.certify_slack
+        gn_update.gn_update = gn_update.gn_update_plain
+        certify_slack.certify_slack = certify_slack.certify_slack_plain
+        try:
+            yield
+        finally:
+            gn_update.gn_update, certify_slack.certify_slack = real
+
+    return patched()
+
+
 def route_context(route: str):
     """The context of a drive's route: the kernels, or the association and
-    terms (``plain_association``) or the build (``plain_build``) on their
-    plain versions."""
+    terms (``plain_association``), the build (``plain_build``) or the GN
+    update and slack pass (``plain_gn``) on their plain versions."""
     import contextlib
 
     return {"kernels": contextlib.nullcontext, "plain_association": plain_association,
-            "plain_build": plain_build}[route]()
+            "plain_build": plain_build, "plain_gn": plain_gn}[route]()
 
 
 def certified_drive(torch, route: str) -> dict:
@@ -686,8 +746,9 @@ def phase_assoc(torch, nvidia_smi: str) -> dict:
     # drives stay ~10 m behind the truth along it), so only y and z hold
     check(max(bench_gap["y_m"], bench_gap["z_m"]) <= ASSOC_BOUND_M,
           f"assoc: kernel and plain drives {bench_gap} apart on the bench's world")
-    check_launched(drives[0]["launches_per_scan"], "assoc drive")
-    check_launched(drives[1]["launches_per_scan"], "assoc plain drive", BUILD_KERNELS)
+    check_launched(drives[0]["launches_per_scan"], "assoc drive", certified=True)
+    check_launched(drives[1]["launches_per_scan"], "assoc plain drive",
+                   BUILD_KERNELS + GN_KERNELS)
     for name in ASSOC_KERNELS:
         check(drives[1]["launches_per_scan"][name] == 0,
               f"assoc plain drive: {name} was launched")
@@ -859,11 +920,238 @@ def phase_tree(torch, nvidia_smi: str) -> dict:
           f"tree: kernel and plain-build drives {two_way_gap} apart on the two-orientation world")
     check(max(bench_gap["y_m"], bench_gap["z_m"]) <= ASSOC_BOUND_M,
           f"tree: kernel and plain-build drives {bench_gap} apart on the bench's world")
-    check_launched(drives[0]["launches_per_scan"], "tree drive")
-    check_launched(drives[1]["launches_per_scan"], "tree plain drive", ASSOC_KERNELS)
+    check_launched(drives[0]["launches_per_scan"], "tree drive", certified=True)
+    check_launched(drives[1]["launches_per_scan"], "tree plain drive",
+                   ASSOC_KERNELS + GN_KERNELS)
     for name in BUILD_KERNELS:
         check(drives[1]["launches_per_scan"][name] == 0,
               f"tree plain drive: {name} was launched")
+    return out
+
+
+# the GN update's and the slack pass's kernels -> the JAX code each
+# counterpart ports (XLA lowered there)
+GN_REPLACES = {"gn_update": "madicp_tpu/ops/icp_core.py:256",
+               "certify_slack": "madicp_tpu/models/pipeline.py:531"}
+GN_REPS = 50  # calls a timing
+GN_TOL = {"float32": 5e-6, "float64": 1e-12}  # K10's relative distance to the plain version
+# K10: scaling ~100, LU ~155, substitutions ~40, clamp ~20, exp ~50, product 84
+GN_FLOPS_PER_SEQUENCE = 450
+# K11: the motion bound and the floor ~45 a leaf; a subtraction and a test an entry
+SLACK_FLOPS_PER_LEAF, SLACK_FLOPS_PER_ENTRY = 45, 3
+
+
+def record_gn_calls(torch) -> dict:
+    """The arguments of every gn_update and certify_slack call of one
+    certified flagship scan (the bench's world and primed ring, its scan
+    2, eager): ``{name: [args, ...]}``, 15 and 14 calls, each cloned
+    before the call."""
+    from madicp_tpu_torch import bench
+    from madicp_tpu_torch.kernels import certify_slack, gn_update
+    from madicp_tpu_torch.utils.timing import PhaseTimer
+
+    setup = bench.BenchSetup(DEV, N_POINTS, KEYFRAMES, DEPTH, MAX_LEAVES)
+    pipe = setup.make_pipe("certified")
+    setup.prime(pipe)
+    pipe.timer = PhaseTimer(torch.device(DEV))  # eager: every call passes the wrappers
+    calls = {"gn_update": [], "certify_slack": []}
+    real = {"gn_update": (gn_update, gn_update.gn_update),
+            "certify_slack": (certify_slack, certify_slack.certify_slack)}
+
+    def recorder(name):
+        fn = real[name][1]
+
+        def call(*args):
+            calls[name].append(tuple(a.clone() for a in args))
+            return fn(*args)
+        return call
+
+    pipe.compute_device(0.1, *pipe.stage(setup.scan_at(1)))
+    try:
+        for name, (mod, _) in real.items():
+            setattr(mod, name, recorder(name))
+        pipe.compute_device(0.2, *pipe.stage(setup.scan_at(2)))
+    finally:
+        for name, (mod, fn) in real.items():
+            setattr(mod, name, fn)
+    torch.cuda.synchronize()
+    del pipe
+    torch.cuda.empty_cache()
+    return calls
+
+
+def gn_batch_of(calls: list, B: int) -> tuple:
+    """The first ``B`` recorded calls' arguments stacked along the batch
+    axis (each call is one sequence's)."""
+    import torch
+
+    return tuple(torch.cat([c[j] for c in calls[:B]]) for j in range(len(calls[0])))
+
+
+def slack_pass_pair(torch, args) -> tuple:
+    """(kernel's, plain version's) ``(need, slack, n_descents)`` of one
+    slack pass on copies of ``args``."""
+    from madicp_tpu_torch.kernels import certify_slack
+
+    a, p = [t.clone() for t in args], [t.clone() for t in args]
+    return ((certify_slack.certify_slack(*a), a[0], a[7]),
+            (certify_slack.certify_slack_plain(*p), p[0], p[7]))
+
+
+def gn_rel(got, want) -> float:
+    """Largest relative Frobenius distance of two pose batches."""
+    d = (got.double() - want.double()).square().sum((-2, -1)).sqrt()
+    return float((d / want.double().square().sum((-2, -1)).sqrt()).max())
+
+
+def phase_gn(torch, nvidia_smi: str) -> dict:
+    """The GN update (K10) and the certified slack pass (K11) against
+    their plain versions on the card, float32 and float64: the test cases
+    (``probes/gn_cases.py``: real normal equations, an empty H, a singular
+    one, steps beyond each trust bound, both branches of exp_so3, batches
+    of four) and every call of a certified flagship scan (15 updates, 14
+    slack passes, B = 1 as recorded and B = 4 stacked): K10 within 5e-6
+    (float32) and 1e-12 (float64) relative, K11's need, slack and count bit
+    for bit. At the flagship's B = 1 and 4: eager, graphed and plain ms,
+    the bound, torch.linalg.solve_ex on the scaled system beside K10, the
+    kernels a call. Then the certified drive graphed twice, with the
+    kernels and with both on their plain versions (``plain_gn``): scans/s,
+    device busy and kernels a scan of both, poses within 5e-4 m (the
+    bench's world on y and z, the two-orientation world whole)."""
+    from madicp_tpu_torch.kernels import certify_slack, gn_update
+    from madicp_tpu_torch.probes import gn_cases, kernel_trace
+    from madicp_tpu_torch.utils.timing import bound_ms, event_ms, graph_ms
+
+    t_phase = time.perf_counter()
+    dev = torch.device(DEV)
+    out = {"phase": "gn", "nvidia_smi": nvidia_smi, "cases": {}, "flagship": {}}
+    recorded = record_gn_calls(torch)
+    check(len(recorded["gn_update"]) == ROUNDS
+          and len(recorded["certify_slack"]) == ROUNDS - 1,
+          f"gn: a certified scan made {len(recorded['gn_update'])} updates and "
+          f"{len(recorded['certify_slack'])} slack passes, want {ROUNDS} and {ROUNDS - 1}")
+    for dtype in (torch.float32, torch.float64):
+        dname = str(dtype).split(".")[1]
+        esize = torch.finfo(dtype).bits // 8
+        cast = lambda args: tuple(a.to(dtype) if a.is_floating_point() else a  # noqa: E731
+                                  for a in args)
+        # the test cases
+        rows = {}
+        for name, cases in gn_cases.BATCHES.items():
+            X, H, b = (torch.as_tensor(a, dtype=dtype, device=dev)
+                       for a in gn_cases.gn_batch(cases))
+            # each sequence's plain update on its own: the plain batched LU
+            # on the card zeroes a singular system's whole step
+            rel = gn_rel(gn_update.gn_update(X, H, b), gn_cases.plain_by_sequence(X, H, b))
+            rows[name] = rel
+            check(rel <= GN_TOL[dname], f"gn_update {dname} {name}: {rel:.2e} from the plain "
+                  f"version, tolerance {GN_TOL[dname]}")
+        for B in (1, 2):
+            s = gn_cases.slack_inputs(dtype, B=B, K=KEYFRAMES, L=4096)
+            (nk, sk, ck), (np_, sp, cp) = slack_pass_pair(torch, tuple(
+                v.to(dev) for v in s.values()))
+            rows[f"slack_B{B}"] = {"need": int(np_.sum()), "equal": torch.equal(nk, np_)
+                                   and torch.equal(sk, sp) and torch.equal(ck, cp)}
+            check(rows[f"slack_B{B}"]["equal"], f"certify_slack {dname} B={B}: differs from "
+                  "the plain version")
+        out["cases"][dname] = rows
+        # every recorded call of the flagship scan, then B = 4 stacks
+        gn_errs, slack_equal, need_counts, max_abs = [], [], [], 0.0
+        for args in recorded["gn_update"]:
+            args = cast(args)
+            got, want = gn_update.gn_update(*args), gn_update.gn_update_plain(*args)
+            gn_errs.append(gn_rel(got, want))
+            max_abs = max(max_abs, float((got - want).abs().max()))
+        for args in recorded["certify_slack"]:
+            (nk, sk, ck), (np_, sp, cp) = slack_pass_pair(torch, cast(args))
+            slack_equal.append(torch.equal(nk, np_) and torch.equal(sk, sp)
+                               and torch.equal(ck, cp))
+            need_counts.append(int(np_.sum()))
+        flag = {"gn_rel_err": gn_errs, "gn_max_abs_err": max_abs, "slack_equal": slack_equal,
+                "need_per_round": need_counts, "tol": GN_TOL[dname]}
+        check(max(gn_errs) <= GN_TOL[dname], f"gn_update {dname} flagship: {max(gn_errs):.2e} "
+              f"from the plain version, tolerance {GN_TOL[dname]}")
+        check(all(slack_equal), f"certify_slack {dname} flagship: rounds {slack_equal} differ "
+              "from the plain version")
+        for B in (1, 4):
+            g = cast(gn_batch_of(recorded["gn_update"], B))
+            c = cast(gn_batch_of(recorded["certify_slack"], B))
+            got, want = gn_update.gn_update(*g), gn_update.gn_update_plain(*g)
+            rel = gn_rel(got, want)
+            (nk, sk, ck), (np_, sp, cp) = slack_pass_pair(torch, c)
+            equal = torch.equal(nk, np_) and torch.equal(sk, sp) and torch.equal(ck, cp)
+            check(rel <= GN_TOL[dname], f"gn_update {dname} B={B}: {rel:.2e} from plain")
+            check(equal, f"certify_slack {dname} B={B}: differs from the plain version")
+            A, rhs = gn_cases.scaled_system(*g[1:])
+            kernel = lambda g=g: gn_update.gn_update(*g)  # noqa: E731
+            plain = lambda g=g: gn_update.gn_update_plain(*g)  # noqa: E731
+            solve = lambda A=A, rhs=rhs: torch.linalg.solve_ex(A, rhs)  # noqa: E731
+            bound, by = bound_ms(B * (16 + 36 + 6 + 16) * esize, B * GN_FLOPS_PER_SEQUENCE,
+                                 dname)
+            k10 = {"rel_err": rel, "max_abs_err": float((got - want).abs().max()),
+                   "ms": event_ms(kernel, GN_REPS), "device_ms": graph_ms(kernel, GN_REPS),
+                   "plain_ms": event_ms(plain, GN_REPS),
+                   "plain_device_ms": graph_ms(plain, GN_REPS),
+                   "solve_ex_ms": event_ms(solve, GN_REPS),
+                   "solve_ex_device_ms": graph_ms(solve, GN_REPS),
+                   "bound_ms": bound, "bound_by": by, "library_ms": None,
+                   "trace": kernel_trace.launch_us(kernel),
+                   "plain_trace": kernel_trace.launch_us(plain)}
+            _, K, L = c[0].shape
+            work = [t.clone() for t in c]  # the slack and the count change in place
+            pwork = [t.clone() for t in c]
+            kernel = lambda: certify_slack.certify_slack(*work)  # noqa: E731
+            plain = lambda: certify_slack.certify_slack_plain(*pwork)  # noqa: E731
+            nbytes = (B * K * L * (2 * esize + 1) + B * L * (4 * esize + 1) + B * K
+                      + B * 32 * esize + 16 * B)
+            bound, by = bound_ms(nbytes, B * L * SLACK_FLOPS_PER_LEAF
+                                 + B * K * L * SLACK_FLOPS_PER_ENTRY, dname)
+            k11 = {"entries": B * K * L, "need": int(np_.sum()), "equal": equal,
+                   "max_abs_err": 0.0, "ms": event_ms(kernel, GN_REPS),
+                   "device_ms": graph_ms(kernel, GN_REPS), "plain_ms": event_ms(plain, GN_REPS),
+                   "plain_device_ms": graph_ms(plain, GN_REPS), "bound_ms": bound,
+                   "bound_by": by, "library_ms": None,
+                   "trace": kernel_trace.launch_us(kernel),
+                   "plain_trace": kernel_trace.launch_us(plain)}
+            for name, k in (("gn_update", k10), ("certify_slack", k11)):
+                names = [r["kernel"].split("<")[0] for r in (k["trace"]["kernels"] or [])]
+                check(k["trace"]["kernels"] is None
+                      or names == list(kernel_names()[name]),
+                      f"{name} {dname} B={B}: a call ran {names}")
+            flag[f"B{B}"] = {"gn_update": k10, "certify_slack": k11}
+            del work, pwork
+        out["flagship"][dname] = flag
+        emit({"phase": "gn", "part": dname, "nvidia_smi": nvidia_smi, "cases": rows, **flag})
+    del recorded
+    torch.cuda.empty_cache()
+
+    # the certified drive with the kernels, then with both on their plain versions
+    drives = [certified_drive(torch, route) for route in ("kernels", "plain_gn")]
+    bench_gap = pose_gap(drives[0].pop("poses"), drives[1].pop("poses"))
+    two_way = []
+    for route in ("kernels", "plain_gn"):
+        with route_context(route):
+            two_way.append(two_way_drive()[0])
+        torch.cuda.empty_cache()
+    two_way_gap = pose_gap(*two_way)
+    out["drive"] = {"schedule": "certified", "graphed": True, **ASSOC_DRIVE,
+                    "kernels": drives[0], "plain_gn": drives[1],
+                    "bench_world_gap": bench_gap, "two_way_world_gap": two_way_gap,
+                    "bound_m": ASSOC_BOUND_M}
+    out["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "gn", "part": "drive", **out["drive"], "seconds": out["seconds"]})
+    check(two_way_gap["max_abs"] <= ASSOC_BOUND_M,
+          f"gn: kernel and plain_gn drives {two_way_gap} apart on the two-orientation world")
+    check(max(bench_gap["y_m"], bench_gap["z_m"]) <= ASSOC_BOUND_M,
+          f"gn: kernel and plain_gn drives {bench_gap} apart on the bench's world")
+    check_launched(drives[0]["launches_per_scan"], "gn drive", certified=True)
+    check(drives[0]["launches_per_scan"]["gn_update"] == ROUNDS
+          and drives[0]["launches_per_scan"]["certify_slack"] == ROUNDS - 1,
+          f"gn drive: launches a scan {drives[0]['launches_per_scan']}")
+    check_launched(drives[1]["launches_per_scan"], "gn plain drive",
+                   BUILD_KERNELS + ASSOC_KERNELS)
+    for name in GN_KERNELS:
+        check(drives[1]["launches_per_scan"][name] == 0, f"gn plain drive: {name} was launched")
     return out
 
 
@@ -957,7 +1245,7 @@ def phase_accuracy(torch) -> None:
           "segsum_launches": counts["segsum_moments"], "launches": counts})
     check(counts["segsum_moments"] == 12 * (DEPTH + 1),
           f"segsum launched {counts['segsum_moments']} times in 12 scans")
-    check_launched(counts, "accuracy")
+    check_launched(counts, "accuracy", certified=True)
     check(worst <= 0.01, f"flagship motion error {worst * 1e3:.2f} mm > 10 mm")
 
 
@@ -1051,7 +1339,11 @@ def phase_steady(torch) -> dict:
     check(counts["segsum_moments"] == n_timed * (DEPTH + 1),
           f"segsum launched {counts['segsum_moments']} times in {n_timed} scans, "
           f"want {DEPTH + 1} a scan")
-    check_launched(counts, "steady")
+    check_launched(counts, "steady", certified=True)
+    check(counts["gn_update"] == ROUNDS * n_timed
+          and counts["certify_slack"] == (ROUNDS - 1) * n_timed,
+          f"steady: {counts['gn_update']} gn_update and {counts['certify_slack']} "
+          f"certify_slack launches in {n_timed} scans, want {ROUNDS} and {ROUNDS - 1} a scan")
     return out
 
 
@@ -1137,7 +1429,7 @@ def phase_schedules(torch) -> dict:
         want = n_windows * n_steps * (DEPTH + 1)
         check(r["segsum_launches"] == want,
               f"{spec}: segsum launched {r['segsum_launches']} times, want {want}")
-        check_launched(r["kernel_launches"], spec)
+        check_launched(r["kernel_launches"], spec, certified=certifies(spec))
         torch.cuda.empty_cache()
     out = {"phase": "schedules", "part": "flagship", "config": {
         "n_points": N_POINTS, "depth": DEPTH, "keyframes": KEYFRAMES,
@@ -1184,6 +1476,7 @@ def phase_graphs(torch, nvidia_smi: str) -> dict:
     share of the graphed certified step's measured time, moves its
     iteration count: a graph a count."""
     from madicp_tpu_torch import bench
+    from madicp_tpu_torch.models.pipeline import StepOutput
     from madicp_tpu_torch.models.step_graph import step_in_place
 
     t_phase = time.perf_counter()
@@ -1235,7 +1528,11 @@ def phase_graphs(torch, nvidia_smi: str) -> dict:
         scans = sorted(poses["eager"])
         diff = max(float((poses["graphed"][i] - poses["eager"][i]).abs().max()) for i in scans)
         g, e = side["graphed"], side["eager"]
-        kernels_dev = abs(g["kernels_per_scan"] - e["kernels_per_scan"]) / e["kernels_per_scan"]
+        # a replay also runs its own copies: the scan's points and mask
+        # into the static buffers, and a clone of each output tensor
+        replay_io = 2 + len(StepOutput._fields)
+        kernels_dev = (abs(g["kernels_per_scan"] - replay_io - e["kernels_per_scan"])
+                       / e["kernels_per_scan"])
         rows[spec] = dict(side, capture_ms=capture_ms, nodes=nodes, pool_bytes=pool,
                           launches_a_replay=replay_launches, scans_compared=len(scans),
                           max_pose_dev_m=diff, kernels_rel_dev=kernels_dev,
@@ -1243,13 +1540,19 @@ def phase_graphs(torch, nvidia_smi: str) -> dict:
         emit({"phase": "graphs", "part": "flagship", "schedule": spec,
               "nvidia_smi": nvidia_smi, **rows[spec]})
         check(diff <= GRAPH_BOUND_M, f"{spec}: graphed pose {diff:.2e} m from eager")
-        check(kernels_dev <= 0.01, f"{spec}: {g['kernels_per_scan']} kernels a graphed scan, "
-              f"{e['kernels_per_scan']} eager")
+        check(kernels_dev <= 0.01, f"{spec}: {g['kernels_per_scan']} kernels a graphed scan "
+              f"({replay_io} of them the replay's copies), {e['kernels_per_scan']} eager")
         for name in side:
             check(side[name]["segsum_launches_per_scan"] == DEPTH + 1,
                   f"{spec} {name}: {side[name]['segsum_launches_per_scan']} segsum launches "
                   "a scan")
-            check_launched(side[name]["launches_per_scan"], f"{spec} {name}")
+            check_launched(side[name]["launches_per_scan"], f"{spec} {name}",
+                           certified=certifies(spec))
+            per_scan = side[name]["launches_per_scan"]
+            want = (ROUNDS, ROUNDS - 1 if certifies(spec) else 0)
+            check((per_scan["gn_update"], per_scan["certify_slack"]) == want,
+                  f"{spec} {name}: {per_scan['gn_update']} gn_update and "
+                  f"{per_scan['certify_slack']} certify_slack launches a scan, want {want}")
         del graphed, eager, staged, poses, setups
         torch.cuda.empty_cache()
 
@@ -1334,7 +1637,7 @@ def run_cli(argv) -> dict:
     scans = [(float(r), float(o)) for r, o in re.findall(
         r"^scan +\d+ +read +([\d.]+) ms +odometry +([\d.]+) ms", out.getvalue(), re.M)]
     check(counts["segsum_moments"] > 0, f"cli {argv}: no segment-sum launch")
-    check_launched(counts, f"cli {argv}")
+    check_launched(counts, f"cli {argv}", certified=True)
     rate = re.search(r"^(\d+) scans after the first in ([\d.]+) s: ([\d.]+) scans/s$",
                      out.getvalue(), re.M)
     check(rate is not None and int(rate.group(1)) == len(scans) - 1,
@@ -1678,7 +1981,10 @@ def phase_fleet(torch, nvidia_smi: str) -> dict:
             check(side[name]["segsum_launches"] == n_timed * (DEPTH + 1),
                   f"B={B} {name}: segsum launched {side[name]['segsum_launches']} times "
                   f"in {n_timed} batched scans")
-            check_launched(side[name]["launches"], f"B={B} {name}")
+            check_launched(side[name]["launches"], f"B={B} {name}", certified=True)
+            check(side[name]["launches"]["gn_update"] == ROUNDS * n_timed,
+                  f"B={B} {name}: {side[name]['launches']['gn_update']} gn_update launches in "
+                  f"{n_timed} batched scans, want {ROUNDS} a batched scan")
         del fleet, twin, staged
         torch.cuda.empty_cache()
 
@@ -1845,6 +2151,7 @@ def main() -> int:
     ksum = phase_kernels(torch)
     assoc = phase_assoc(torch, dev["nvidia_smi"])
     tree = phase_tree(torch, dev["nvidia_smi"])
+    gn = phase_gn(torch, dev["nvidia_smi"])
     probe = phase_probe(torch)
     phase_precision(torch)
     phase_golden(torch)
@@ -1888,6 +2195,16 @@ def main() -> int:
         rows.append({
             "name": name, "route": "cuda",
             "source": f"madicp_tpu_torch/kernels/csrc/{ASSOC_SOURCES[name]}.cu",
+            "replaces": replaces, "launches": steady["launches"][name],
+            **{key: k[key] for key in ("max_abs_err", "ms", "device_ms", "plain_ms",
+                                       "bound_ms", "bound_by", "library_ms")},
+            "library_device_ms": None,
+        })
+    for name, replaces in GN_REPLACES.items():
+        k = gn["flagship"]["float32"]["B1"][name]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"madicp_tpu_torch/kernels/csrc/{name}.cu",
             "replaces": replaces, "launches": steady["launches"][name],
             **{key: k[key] for key in ("max_abs_err", "ms", "device_ms", "plain_ms",
                                        "bound_ms", "bound_by", "library_ms")},

@@ -36,7 +36,7 @@ NVCC_FLAGS = (
     "-fPIC",
 )
 SOURCES = ("segsum_moments", "scatter_probe", "descent", "icp_terms", "build_nodes",
-           "build_points")
+           "build_points", "gn_update", "certify_slack")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 

@@ -50,7 +50,7 @@ from typing import Any, NamedTuple, Optional
 import numpy as np
 import torch
 
-from madicp_tpu_torch.kernels import segsum
+from madicp_tpu_torch.kernels import certify_slack, segsum
 from madicp_tpu_torch.models.vel_estimator import estimate_velocity
 from madicp_tpu_torch.ops.constants import FRAME_WINDOW, MAX_ICP_ITS, SMOOTHING_T
 from madicp_tpu_torch.ops.deskew import deskew_cloud
@@ -441,25 +441,18 @@ def icp_rounds(
     # displacement stays strictly below its descent's path margin
     # provably descends to the same leaf, so its cached payload is kept
     # and its descent parked.
-    dinfo = torch.finfo(dtype)
     r_norm = torch.sqrt(torch.sum(leaves_pts * leaves_pts, dim=-1))  # (B, L)
     live_kl = leaves_valid[:, None, :] & kf_live[:, :, None]  # (B, K, L)
 
-    def motion_bound(Xa, Xb):
-        """Exact per-leaf displacement ||Xb m - Xa m|| between rounds.
-        Its own rounding must stay below eps_cert: keep it a norm of
-        differences — an arccos angle bound carries ~sqrt(eps) error and
-        certifies near-zero-slack entries unsoundly (JAX package,
-        models/pipeline.py:531-558)."""
-        d = (leaves_pts @ (Xb[:, :3, :3] - Xa[:, :3, :3]).mT
-             + (Xb[:, :3, 3] - Xa[:, :3, 3])[:, None])
-        return torch.sqrt(torch.sum(d * d, dim=-1))  # (B, L)
-
-    def eps_cert(X):
-        """fp-safety floor: the side dot-product's rounding noise scales
-        with the map-frame coordinate magnitude."""
-        t_norm = torch.sqrt(torch.sum(X[:, :3, 3] * X[:, :3, 3], dim=-1))
-        return 64.0 * dinfo.eps * (1.0 + t_norm[:, None] + r_norm)  # (B, L)
+    def slack_pass(Xp, X, slack, n_descents):
+        """A later round's certificate (:mod:`madicp_tpu_torch.kernels.certify_slack`,
+        one launch on the card): ``slack`` less each leaf's exact map-frame
+        displacement between ``Xp`` and ``X`` (a norm of differences, no
+        trig; JAX models/pipeline.py:531-558), in place; the live entries
+        whose slack no longer clears the rounding floor ``eps_cert`` are
+        returned as ``need`` (B, K, L) and counted into ``n_descents``."""
+        return certify_slack.certify_slack(slack, Xp, X, leaves_pts, r_norm, leaves_valid,
+                                           kf_live, n_descents)
 
     U = min(cfg.certify_compact, L)
     if U:
@@ -490,13 +483,12 @@ def icp_rounds(
             for o in out
         )
 
-    def reassociate(X, uncert, ids, payload, slack):
-        """The round's results: fresh descents where uncertified, the
-        previous round's (and the decremented slack) elsewhere. Without
+    def reassociate(X, need, ids, payload, slack):
+        """The round's results: fresh descents for the ``need`` entries,
+        the previous round's (and the decremented slack) elsewhere. Without
         ``certify_compact`` the full parked sweep merges them into ``ids``,
         ``payload`` and ``slack`` in place (JAX ``reassociate``, models/
         pipeline.py:569, as one kernel on the card)."""
-        need = uncert & live_kl
         if not U:
             return descend(X, need, True, out=(ids, payload, slack))
         ids2, payload2, margin2 = descend_need(X, need)
@@ -514,18 +506,14 @@ def icp_rounds(
 
     Xp, X = X0, step(X0, payload)[0]
     for _ in range(1, n_its - 1):
-        slack = slack - motion_bound(Xp, X)[:, None, :]
-        uncert = slack <= eps_cert(X)[:, None, :]
-        ids, payload, slack = reassociate(X, uncert, ids, payload, slack)
-        n_descents = n_descents + (uncert & live_kl).sum(dim=(1, 2))
+        need = slack_pass(Xp, X, slack, n_descents)
+        ids, payload, slack = reassociate(X, need, ids, payload, slack)
         Xp, X = X, step(X, payload)[0]
     # final round: matched flags and H_last from this round's (certified)
     # re-association, like the reference's last-iteration reset
     # (pipeline.cpp:172-176)
-    slack = slack - motion_bound(Xp, X)[:, None, :]
-    uncert = slack <= eps_cert(X)[:, None, :]
-    _, payload, _ = reassociate(X, uncert, ids, payload, slack)
-    n_descents = n_descents + (uncert & live_kl).sum(dim=(1, 2))
+    need = slack_pass(Xp, X, slack, n_descents)
+    _, payload, _ = reassociate(X, need, ids, payload, slack)
     X, H_last, _, matched = step(X, payload, True)
     return X, H_last, matched, n_descents
 

@@ -27,7 +27,8 @@ buffers and leaves the new state in the state's own tensors.
   count) is captured at its first scan. A capture that fails raises:
   nothing falls back to an eager step.
 - A replay launches the step's kernels (the segment-sum, the build's node
-  and point passes, the descent and the ICP terms) without passing
+  and point passes, the descent, the ICP terms, the GN update and the
+  certified slack pass) without passing
   through their wrappers, so each graph
   adds the launches its capture recorded to each kernel's counter on
   every replay.
@@ -41,7 +42,15 @@ from typing import NamedTuple
 
 import torch
 
-from madicp_tpu_torch.kernels import build_nodes, build_points, descent, icp_terms, segsum
+from madicp_tpu_torch.kernels import (
+    build_nodes,
+    build_points,
+    certify_slack,
+    descent,
+    gn_update,
+    icp_terms,
+    segsum,
+)
 from madicp_tpu_torch.models.pipeline import (
     PipelineState,
     StepOutput,
@@ -55,7 +64,8 @@ from madicp_tpu_torch.ops.tree import SearchTree
 # the launch counter of every kernel the step runs, by wrapper name
 COUNTERS = {"segsum_moments": segsum.counter, "descend": descent.counter,
             "icp_terms": icp_terms.counter, "build_nodes": build_nodes.counter,
-            "build_points": build_points.counter}
+            "build_points": build_points.counter, "gn_update": gn_update.counter,
+            "certify_slack": certify_slack.counter}
 
 
 def _tensors(state: PipelineState):

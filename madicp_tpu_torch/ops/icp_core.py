@@ -3,9 +3,10 @@
 The reference's per-leaf serial loop (``mad_icp.cpp:74-117``) as batched
 work: the whole moving-leaf set descends the fixed tree(s) at once,
 residual/Jacobian/weight are per entry, and the 6x6 normal equations
-are one masked ``(s J)^T J`` sum per keyframe. On the card the descent
-and the terms are hand-written kernels (``kernels/descent.py``,
-``kernels/icp_terms.py``); on the CPU, their plain tensor versions.
+are one masked ``(s J)^T J`` sum per keyframe. On the card the descent,
+the terms and the GN update are hand-written kernels
+(``kernels/descent.py``, ``kernels/icp_terms.py``,
+``kernels/gn_update.py``); on the CPU, their plain tensor versions.
 
 Contracts (SURVEY.md §2.1.3-6, as in the JAX package):
 - gate: accept a match iff ``|X m - f| <= b_max + b_ratio * |m|``;
@@ -23,9 +24,14 @@ from typing import NamedTuple
 
 import torch
 
-from madicp_tpu_torch.kernels import descent
+from madicp_tpu_torch.kernels import descent, gn_update
 from madicp_tpu_torch.kernels import icp_terms as terms_kernel
-from madicp_tpu_torch.ops.lie import exp_se3_split
+from madicp_tpu_torch.kernels.gn_update import (  # noqa: F401  (the update's steps)
+    GN_STEP_MAX_R,
+    GN_STEP_MAX_T,
+    clamp_step,
+    solve_gn,
+)
 from madicp_tpu_torch.ops.tree import SearchTree, search_forest
 
 
@@ -167,50 +173,14 @@ def icp_normal_equations(H_parts: torch.Tensor, b_parts: torch.Tensor):
     return torch.sum(H_parts, dim=0), torch.sum(b_parts, dim=0)
 
 
-def solve_gn(H: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Solve ``H dx = -b`` with Jacobi scaling (translation and rotation
-    blocks differ by ~range^2). Zeros when H is (numerically) empty; a
-    non-finite solve also yields zeros.
-
-    ``solve_ex`` and not ``solve``: the latter checks for singularity on
-    the host, which on CUDA would synchronise every GN round.
-    """
-    diag = torch.diagonal(H, dim1=-2, dim2=-1)
-    good = torch.sum(diag, dim=-1) > 0
-    d = torch.sqrt(torch.clamp(diag, min=1e-30))
-    d = torch.where(diag > 0, d, 1.0)
-    Hs = H / (d[..., :, None] * d[..., None, :])
-    bs = b / d
-    eye = torch.eye(6, dtype=H.dtype, device=H.device)
-    dx = torch.linalg.solve_ex(Hs + 1e-8 * eye, -bs)[0] / d
-    dx = torch.where(torch.isfinite(dx), dx, 0.0)
-    return torch.where(good[..., None], dx, torch.zeros_like(dx))
-
-
-# Trust-region bound on one GN step (as in the JAX package): inactive on
-# nominal trajectories, it only stops catastrophic escapes when the match
-# set is degenerate.
-GN_STEP_MAX_T = 1.0  # metres
-GN_STEP_MAX_R = 0.5  # radians
-
-
-def clamp_step(dx: torch.Tensor) -> torch.Tensor:
-    """Scale dx = [t(3), w(3)] into the trust region (direction kept)."""
-    dt = torch.sqrt(torch.sum(dx[..., :3] * dx[..., :3], dim=-1))
-    dr = torch.sqrt(torch.sum(dx[..., 3:] * dx[..., 3:], dim=-1))
-    scale = torch.clamp(
-        torch.minimum(
-            GN_STEP_MAX_T / torch.clamp(dt, min=1e-30),
-            GN_STEP_MAX_R / torch.clamp(dr, min=1e-30),
-        ),
-        max=1.0,
-    )
-    return dx * scale[..., None]
-
-
 def gn_se3_step(X: torch.Tensor, H: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """One right-multiplicative Gauss-Newton update of X (``mad_icp.cpp:105-117``)."""
-    return X @ exp_se3_split(clamp_step(solve_gn(H, b)))
+    """One right-multiplicative Gauss-Newton update of X (``mad_icp.cpp:105-117``):
+    :func:`solve_gn`, :func:`clamp_step`, ``exp_se3_split`` and the
+    product. CPU tensors take the plain chain
+    (:func:`madicp_tpu_torch.kernels.gn_update.gn_update_plain`), CUDA
+    tensors the update kernel (``kernels/csrc/gn_update.cu``: one launch,
+    one thread a sequence)."""
+    return gn_update.gn_update(X, H, b)
 
 
 def neg_logdet(H: torch.Tensor) -> torch.Tensor:

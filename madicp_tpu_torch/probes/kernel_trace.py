@@ -26,6 +26,15 @@ parts named by ``--parts`` (default: all but ``step``):
   the step runs it.
 - ``resources``: each K6 and K9 kernel's registers, stack and spills from
   ``nvcc -Xptxas -v`` and the threads an SM holds at that count.
+- ``gn``: a certified round's pose update and slack pass on the
+  flagship's real normal equations (the round-0 payload of scan 1 under
+  B poses 1 cm apart, B = 1 and 4): the GN update as the plain chain
+  (``solve_gn``, ``clamp_step``, ``exp_se3_split``, the product; each
+  step's kernels and graphed µs, and the whole), ``torch.linalg.solve_ex``
+  alone on the ``(B, 6, 6)`` system, the slack pass in the GEMM form of
+  ``icp_rounds`` before K11 (motion bound, eps_cert, slack, need, the
+  descent count), and, where the tree has them, K10 ``gn_update`` and
+  K11 ``certify_slack`` with their plain versions.
 - ``step``: the bench's certified schedule graphed (median scans/s,
   device busy ms and kernels a scan, 8 poses) and a B = 4 fleet.
 
@@ -58,7 +67,7 @@ from madicp_tpu_torch.probes import build_levels
 from madicp_tpu_torch.utils.timing import bound_ms, device_trace, graph_ms
 
 REPS = 5  # graph replays a trace
-PARTS = ("build", "terms", "descent", "ring", "nodes", "resources", "step")
+PARTS = ("build", "terms", "descent", "ring", "nodes", "resources", "gn", "step")
 DEFAULT_PARTS = PARTS[:-1]
 # a later certified round's uncertified share: a certified flagship scan
 # descends 1.71 M entries, 0.52 M of them in round 0, and each of the other
@@ -706,7 +715,7 @@ def main(argv=None) -> int:
         emit("floor", **floor_us(dev))
     if "ring" in parts and "descent" not in parts:
         ap.error("the ring part extends the descent part: ask for both")
-    fl = flagship_assoc(dev) if parts & {"terms", "descent"} else None
+    fl = flagship_assoc(dev) if parts & {"terms", "descent", "gn"} else None
     for dtype in (torch.float32, torch.float64):
         dname = str(dtype).split(".")[1]
         kw = dict(depth=16, b_max=0.2, b_min=0.1)
@@ -741,6 +750,12 @@ def main(argv=None) -> int:
                 emit("terms_plans", dtype=dname, leads_16=terms_plans(args, tkw),
                      leads_64=terms_plans(fleet, tkw))
         torch.cuda.empty_cache()
+    if "gn" in parts:
+        fl = fl or flagship_assoc(dev)
+        for dtype in (torch.float32, torch.float64):
+            for B in GN_BATCHES:
+                emit("gn", dtype=str(dtype).split(".")[1], B=B, **gn_trace(fl, dtype, B, a.reps))
+        torch.cuda.empty_cache()
     if "step" in parts:
         del fl
         torch.cuda.empty_cache()
@@ -758,6 +773,82 @@ def flagship_terms_args(fl: Flagship, dtype):
     args = (inp["payload"].view(1, K, L, 8), inp["pts"][None], fl.leaves.valid[None, None],
             inp["X"][None])
     return args, dict(b_max=fl.cfg.b_max, b_ratio=fl.cfg.b_ratio, rho_ker=fl.cfg.rho_ker)
+
+
+
+GN_BATCHES = (1, 4)  # a Pipeline and the fleet's B = 4
+
+
+def gn_inputs(fl: Flagship, dtype, B: int) -> dict:
+    """A certified round's inputs at the flagship in ``dtype`` for ``B``
+    sequences: the poses ``Xp`` (B, 4, 4) (scan 1's, 2 cm off, then 1 cm
+    apart along x), their normal equations ``H`` (B, 6, 6), ``b`` (B, 6)
+    over the 16 keyframes from the round-0 payload (what the step hands
+    the update), the updated poses ``X``, round 0's margins as the
+    ``slack`` (B, K, L), the leaves ``pts`` (B, L, 3), their norms
+    ``r_norm`` (B, L), ``leaves_valid`` (B, L), ``kf_live`` (B, K) and a
+    descent count ``n_descents`` (B,)."""
+    from madicp_tpu_torch.ops.icp_core import gn_se3_step
+
+    inp = descent_inputs(fl, dtype)
+    K, L = inp["need"].shape
+    dev = fl.ring.device
+    Xp = inp["X"].expand(B, 4, 4).clone()
+    Xp[:, 0, 3] += 0.01 * torch.arange(B, device=dev, dtype=dtype)
+    H, b, _ = icp_terms.terms(inp["payload"][None], inp["pts"][:, None],
+                              fl.leaves.valid[None, None], Xp[:, None],
+                              b_max=fl.cfg.b_max, b_ratio=fl.cfg.b_ratio,
+                              rho_ker=fl.cfg.rho_ker)
+    H, b = H.sum(1), b.sum(1)
+    pts = inp["pts"].expand(B, L, 3).contiguous()
+    return dict(Xp=Xp, H=H, b=b, X=gn_se3_step(Xp, H, b),
+                slack=inp["margin"][None].expand(B, K, L).contiguous(), pts=pts,
+                r_norm=torch.sqrt(torch.sum(pts * pts, dim=-1)),
+                leaves_valid=fl.leaves.valid[None].expand(B, L).contiguous(),
+                kf_live=torch.ones((B, K), dtype=torch.bool, device=dev),
+                n_descents=torch.zeros((B,), dtype=torch.int64, device=dev))
+
+
+def gn_trace(fl: Flagship, dtype, B: int, reps: int = REPS) -> dict:
+    """The ``gn`` part (module doc) for ``B`` sequences in ``dtype``: for
+    each traced call its kernels in launch order with their median device
+    µs (``kernels``; their count is the call's launches) and its graphed
+    µs (``graph_us``)."""
+    import importlib.util
+
+    from madicp_tpu_torch.ops.icp_core import clamp_step, solve_gn
+    from madicp_tpu_torch.ops.lie import exp_se3_split
+    from madicp_tpu_torch.probes import gn_cases
+
+    g = gn_inputs(fl, dtype, B)
+    Xp, H, b, X = g["Xp"], g["H"], g["b"], g["X"]
+    dx = solve_gn(H, b)
+    dxc = clamp_step(dx)
+    dX = exp_se3_split(dxc)
+    A, rhs = gn_cases.scaled_system(H, b)
+    out = {"gn_plain": launch_us(lambda: Xp @ exp_se3_split(clamp_step(solve_gn(H, b))), reps,
+                                 {"solve": lambda: solve_gn(H, b),
+                                  "clamp": lambda: clamp_step(dx),
+                                  "exp": lambda: exp_se3_split(dxc),
+                                  "product": lambda: Xp @ dX}),
+           "solve_ex": launch_us(lambda: torch.linalg.solve_ex(A, rhs), reps)}
+    for name, fn in (("solve", lambda: solve_gn(H, b)), ("clamp", lambda: clamp_step(dx)),
+                     ("exp", lambda: exp_se3_split(dxc)), ("product", lambda: Xp @ dX)):
+        out[f"gn_plain_{name}"] = launch_us(fn, reps)
+    tail = (g["slack"], Xp, X, g["pts"], g["r_norm"], g["leaves_valid"], g["kf_live"],
+            g["n_descents"])
+    out["slack_gemm"] = launch_us(lambda: gn_cases.gemm_slack_pass(*tail), reps)
+    out["slack_gemm"]["need"] = int(gn_cases.gemm_slack_pass(*tail)[3].sum())
+    if importlib.util.find_spec("madicp_tpu_torch.kernels.gn_update") is not None:
+        from madicp_tpu_torch.kernels import certify_slack, gn_update
+
+        out["gn_update"] = launch_us(lambda: gn_update.gn_update(Xp, H, b), reps)
+        out["gn_update_plain"] = launch_us(lambda: gn_update.gn_update_plain(Xp, H, b), reps)
+        work = tuple(t.clone() for t in tail)  # the slack and the count change in place
+        out["certify_slack"] = launch_us(lambda: certify_slack.certify_slack(*work), reps)
+        out["certify_slack_plain"] = launch_us(
+            lambda: certify_slack.certify_slack_plain(*work), reps)
+    return out
 
 
 if __name__ == "__main__":

@@ -59,12 +59,16 @@ script exits non-zero without the final line):
 3d. gn        gn_update (K10) and certify_slack (K11), the GN update and
               the certified rounds' slack pass, against their plain
               PyTorch versions on the card, float32 and float64: the test
-              cases (madicp_tpu_torch/probes/gn_cases.py) and every call
-              of a certified flagship scan (15 updates, 14 slack passes;
-              B = 1 and four stacked), K10 within 5e-6 relative (1e-12 in
-              float64) and K11's need, slack and count bit for bit; eager,
-              graphed and plain ms and the bound at B = 1 and 4, with
-              torch.linalg.solve_ex beside K10 and each call's kernels.
+              cases (madicp_tpu_torch/probes/gn_cases.py: an infinite
+              H_ii among them, per-keyframe terms, K11 on a ragged tile
+              and keyframe group) and every call of a certified flagship
+              scan (15 updates on the per-keyframe terms, 14 slack
+              passes; B = 1 and four stacked), K10 within 5e-6 relative
+              (1e-12 in float64) and its keyframe sums within the bound
+              of two summation orders, K11's need, slack and count bit
+              for bit; eager, graphed and plain ms and the bound at B = 1
+              and 4, with torch.linalg.solve_ex beside K10 and each
+              call's kernels.
               Then the certified flagship drive, graphed, with the kernels
               and with both on their plain versions (plain_gn, a patch of
               this script): scans/s, device busy and kernels a scan of
@@ -937,6 +941,7 @@ GN_REPS = 50  # calls a timing
 GN_TOL = {"float32": 5e-6, "float64": 1e-12}  # K10's relative distance to the plain version
 # K10: scaling ~100, LU ~155, substitutions ~40, clamp ~20, exp ~50, product 84
 GN_FLOPS_PER_SEQUENCE = 450
+GN_FLOPS_PER_KEYFRAME = 84  # the keyframe sum: a product and an add for each of 42 values
 # K11: the motion bound and the floor ~45 a leaf; a subtraction and a test an entry
 SLACK_FLOPS_PER_LEAF, SLACK_FLOPS_PER_ENTRY = 45, 3
 
@@ -1004,15 +1009,48 @@ def gn_rel(got, want) -> float:
     return float((d / want.double().square().sum((-2, -1)).sqrt()).max())
 
 
+def gn_folded_errors(got, want, args) -> dict:
+    """K10's per-keyframe form against its plain version (``(X, H, b)``
+    each, from ``args = (X, H_k, b_k, w)``): the poses' relative distance
+    (``rel``) and largest entry difference, and each sum's largest
+    difference over the bound two summation orders keep, 2 K eps times
+    the sum of the terms' magnitudes (at most 1 passes)."""
+    import torch
+
+    _, Hk, bk, w = args
+    eps = torch.finfo(Hk.dtype).eps
+    out = {"rel": gn_rel(got[0], want[0]),
+           "max_abs": float((got[0] - want[0]).abs().max())}
+    for name, g, p, t in (("H", got[1], want[1], Hk), ("b", got[2], want[2], bk)):
+        lead = w.shape + (1,) * (t.dim() - w.dim())
+        bound = 2 * w.shape[-1] * eps * (w.abs().view(lead) * t.abs()).sum(w.dim() - 1)
+        over = (g - p).abs().double() / bound.double().clamp(min=1e-300)
+        out[f"{name}_over_bound"] = float(over.max())
+    return out
+
+
+def check_folded(err: dict, tol: float, what: str) -> None:
+    """Fail where K10's per-keyframe form (:func:`gn_folded_errors`) is
+    further than ``tol`` from its plain version, or a sum outside the
+    bound of two summation orders."""
+    check(err["rel"] <= tol, f"{what}: {err['rel']:.2e} from the plain version, tolerance {tol}")
+    check(err["H_over_bound"] <= 1 and err["b_over_bound"] <= 1,
+          f"{what}: the keyframe sums at {err['H_over_bound']:.2f}, {err['b_over_bound']:.2f} "
+          "of the bound of two summation orders")
+
+
 def phase_gn(torch, nvidia_smi: str) -> dict:
     """The GN update (K10) and the certified slack pass (K11) against
     their plain versions on the card, float32 and float64: the test cases
     (``probes/gn_cases.py``: real normal equations, an empty H, a singular
-    one, steps beyond each trust bound, both branches of exp_so3, batches
-    of four) and every call of a certified flagship scan (15 updates, 14
-    slack passes, B = 1 as recorded and B = 4 stacked): K10 within 5e-6
-    (float32) and 1e-12 (float64) relative, K11's need, slack and count bit
-    for bit. At the flagship's B = 1 and 4: eager, graphed and plain ms,
+    one, steps beyond each trust bound, both branches of exp_so3, an
+    infinite diagonal entry, batches of four; per-keyframe terms at K = 1,
+    4 and 16; the slack pass on a ragged tile and keyframe group) and
+    every call of a certified flagship scan (15 updates on the
+    per-keyframe terms, 14 slack passes, B = 1 as recorded and B = 4
+    stacked): K10 within 5e-6 (float32) and 1e-12 (float64) relative and
+    its sums within the bound of two summation orders, K11's need, slack
+    and count bit for bit. At the flagship's B = 1 and 4: eager, graphed and plain ms,
     the bound, torch.linalg.solve_ex on the scaled system beside K10, the
     kernels a call. Then the certified drive graphed twice, with the
     kernels and with both on their plain versions (``plain_gn``): scans/s,
@@ -1040,34 +1078,44 @@ def phase_gn(torch, nvidia_smi: str) -> dict:
         for name, cases in gn_cases.BATCHES.items():
             X, H, b = (torch.as_tensor(a, dtype=dtype, device=dev)
                        for a in gn_cases.gn_batch(cases))
-            # each sequence's plain update on its own: the plain batched LU
-            # on the card zeroes a singular system's whole step
-            rel = gn_rel(gn_update.gn_update(X, H, b), gn_cases.plain_by_sequence(X, H, b))
+            rel = gn_rel(gn_update.gn_update(X, H, b), gn_update.gn_update_plain(X, H, b))
             rows[name] = rel
             check(rel <= GN_TOL[dname], f"gn_update {dname} {name}: {rel:.2e} from the plain "
                   f"version, tolerance {GN_TOL[dname]}")
+        for K in (1, 4, KEYFRAMES):  # the per-keyframe form, an empty slot among them
+            args = tuple(torch.as_tensor(a, dtype=dtype, device=dev)
+                         for a in gn_cases.keyframe_terms(2, K, seed=K))
+            rows[f"folded_K{K}"] = gn_folded_errors(gn_update.gn_update(*args),
+                                                    gn_update.gn_update_plain(*args), args)
+            check_folded(rows[f"folded_K{K}"], GN_TOL[dname], f"gn_update {dname} folded K={K}")
         for B in (1, 2):
-            s = gn_cases.slack_inputs(dtype, B=B, K=KEYFRAMES, L=4096)
-            (nk, sk, ck), (np_, sp, cp) = slack_pass_pair(torch, tuple(
-                v.to(dev) for v in s.values()))
-            rows[f"slack_B{B}"] = {"need": int(np_.sum()), "equal": torch.equal(nk, np_)
-                                   and torch.equal(sk, sp) and torch.equal(ck, cp)}
-            check(rows[f"slack_B{B}"]["equal"], f"certify_slack {dname} B={B}: differs from "
-                  "the plain version")
+            for K, L in ((KEYFRAMES, 4096), (5, 4095)):  # 4095, 5: ragged tile and group
+                s = gn_cases.slack_inputs(dtype, B=B, K=K, L=L)
+                (nk, sk, ck), (np_, sp, cp) = slack_pass_pair(torch, tuple(
+                    v.to(dev) for v in s.values()))
+                rows[f"slack_B{B}_K{K}_L{L}"] = {
+                    "need": int(np_.sum()),
+                    "equal": torch.equal(nk, np_) and torch.equal(sk, sp) and torch.equal(ck, cp)}
+                check(rows[f"slack_B{B}_K{K}_L{L}"]["equal"], f"certify_slack {dname} B={B} "
+                      f"K={K} L={L}: differs from the plain version")
         out["cases"][dname] = rows
         # every recorded call of the flagship scan, then B = 4 stacks
-        gn_errs, slack_equal, need_counts, max_abs = [], [], [], 0.0
+        gn_errs, sum_errs, slack_equal, need_counts, max_abs = [], [], [], [], 0.0
         for args in recorded["gn_update"]:
             args = cast(args)
-            got, want = gn_update.gn_update(*args), gn_update.gn_update_plain(*args)
-            gn_errs.append(gn_rel(got, want))
-            max_abs = max(max_abs, float((got - want).abs().max()))
+            err = gn_folded_errors(gn_update.gn_update(*args), gn_update.gn_update_plain(*args),
+                                   args)
+            check_folded(err, GN_TOL[dname], f"gn_update {dname} flagship")
+            gn_errs.append(err["rel"])
+            sum_errs.append([err["H_over_bound"], err["b_over_bound"]])
+            max_abs = max(max_abs, err["max_abs"])
         for args in recorded["certify_slack"]:
             (nk, sk, ck), (np_, sp, cp) = slack_pass_pair(torch, cast(args))
             slack_equal.append(torch.equal(nk, np_) and torch.equal(sk, sp)
                                and torch.equal(ck, cp))
             need_counts.append(int(np_.sum()))
-        flag = {"gn_rel_err": gn_errs, "gn_max_abs_err": max_abs, "slack_equal": slack_equal,
+        flag = {"gn_rel_err": gn_errs, "gn_max_abs_err": max_abs,
+                "sums_over_bound": sum_errs, "slack_equal": slack_equal,
                 "need_per_round": need_counts, "tol": GN_TOL[dname]}
         check(max(gn_errs) <= GN_TOL[dname], f"gn_update {dname} flagship: {max(gn_errs):.2e} "
               f"from the plain version, tolerance {GN_TOL[dname]}")
@@ -1076,19 +1124,20 @@ def phase_gn(torch, nvidia_smi: str) -> dict:
         for B in (1, 4):
             g = cast(gn_batch_of(recorded["gn_update"], B))
             c = cast(gn_batch_of(recorded["certify_slack"], B))
-            got, want = gn_update.gn_update(*g), gn_update.gn_update_plain(*g)
-            rel = gn_rel(got, want)
+            err = gn_folded_errors(gn_update.gn_update(*g), gn_update.gn_update_plain(*g), g)
             (nk, sk, ck), (np_, sp, cp) = slack_pass_pair(torch, c)
             equal = torch.equal(nk, np_) and torch.equal(sk, sp) and torch.equal(ck, cp)
-            check(rel <= GN_TOL[dname], f"gn_update {dname} B={B}: {rel:.2e} from plain")
+            check_folded(err, GN_TOL[dname], f"gn_update {dname} B={B}")
             check(equal, f"certify_slack {dname} B={B}: differs from the plain version")
-            A, rhs = gn_cases.scaled_system(*g[1:])
+            A, rhs = gn_cases.scaled_system(*gn_update.keyframe_sums(*g[1:]))
             kernel = lambda g=g: gn_update.gn_update(*g)  # noqa: E731
             plain = lambda g=g: gn_update.gn_update_plain(*g)  # noqa: E731
             solve = lambda A=A, rhs=rhs: torch.linalg.solve_ex(A, rhs)  # noqa: E731
-            bound, by = bound_ms(B * (16 + 36 + 6 + 16) * esize, B * GN_FLOPS_PER_SEQUENCE,
-                                 dname)
-            k10 = {"rel_err": rel, "max_abs_err": float((got - want).abs().max()),
+            K = g[3].shape[-1]  # X, the K terms and weights in; X, H, b out
+            bound, by = bound_ms(B * (16 + 43 * K + 16 + 42) * esize,
+                                 B * (GN_FLOPS_PER_SEQUENCE + GN_FLOPS_PER_KEYFRAME * K), dname)
+            k10 = {"rel_err": err["rel"], "max_abs_err": err["max_abs"],
+                   "sums_over_bound": [err["H_over_bound"], err["b_over_bound"]],
                    "ms": event_ms(kernel, GN_REPS), "device_ms": graph_ms(kernel, GN_REPS),
                    "plain_ms": event_ms(plain, GN_REPS),
                    "plain_device_ms": graph_ms(plain, GN_REPS),

@@ -24,10 +24,10 @@ GEMM, whose order is cuBLAS's), norms as ``(x^2 + y^2) + z^2``, and
 count equal the plain version's bit for bit.
 
 Dispatch is by the tensors' device and nothing else: CPU tensors take the
-plain version, CUDA tensors take the kernel (one launch a round) or the
-call raises. The wrapper allocates only ``need``, reads nothing back to
-the host and launches on the current stream, so it runs inside CUDA graph
-capture.
+plain version, CUDA tensors take the kernel (one launch a round, over leaf
+tiles, keyframe groups and sequences) or the call raises. The wrapper
+allocates only ``need``, reads nothing back to the host and launches on
+the current stream, so it runs inside CUDA graph capture.
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 // Scalar arithmetic shared by the hand-written kernels, one struct a
 // working type (float, double).
 //
-//   * add, sub, mul, div, sqrt round each result to nearest on its own
+//   * add, sub, mul, div, rcp, sqrt round each result to nearest on its own
 //     (_rn intrinsics): nvcc never contracts them into an FMA, so a kernel
 //     that forms a value in its plain version's order gets the plain
 //     version's bits. fma is the one fused form, for the values torch
@@ -31,6 +31,7 @@ struct Arith<float> {
   static __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
   static __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
   static __device__ __forceinline__ float div(float a, float b) { return __fdiv_rn(a, b); }
+  static __device__ __forceinline__ float rcp(float a) { return __frcp_rn(a); }
   static __device__ __forceinline__ float fma(float a, float b, float c) {
     return __fmaf_rn(a, b, c);
   }
@@ -56,6 +57,7 @@ struct Arith<double> {
   static __device__ __forceinline__ double sub(double a, double b) { return __dsub_rn(a, b); }
   static __device__ __forceinline__ double mul(double a, double b) { return __dmul_rn(a, b); }
   static __device__ __forceinline__ double div(double a, double b) { return __ddiv_rn(a, b); }
+  static __device__ __forceinline__ double rcp(double a) { return __drcp_rn(a); }
   static __device__ __forceinline__ double fma(double a, double b, double c) {
     return __fma_rn(a, b, c);
   }

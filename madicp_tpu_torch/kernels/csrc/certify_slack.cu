@@ -28,18 +28,30 @@
 //
 // Bound on an H100: bytes. The slack is read and written (8 bytes an
 // entry in float32), need written (1), the leaves, their norms and flags
-// read once a leaf: at the flagship (16 keyframes x 32768 leaves) ~4.9 MB,
-// ~1.5 us at 3.35 TB/s; ~30 operations a leaf and 3 an entry.
+// read once a leaf: at the flagship (16 keyframes x 32768 leaves) ~5.3 MB,
+// ~1.6 us at 3.35 TB/s; ~45 operations a leaf and 3 an entry. In a round
+// the slack was written two launches before, so it is read from L2.
 //
-// Design: one launch a round, one thread a leaf (blocks of 256 leaves of
-// one sequence), looping over the K keyframes: the leaf's bound and floor
-// are formed once, each keyframe's slack is a coalesced read and write
-// along L. need is a soundness decision, so the kernel forms every value
-// with _rn intrinsics in the plain version's order (nvcc would otherwise
-// contract a*b + c into FMAs) and agrees with it bit for bit. The count
-// adds each block's need entries (warp sums, then one integer atomic a
-// block): integer sums are exact in any order, so a replay equals the
-// eager call.
+// Design: one launch a round over (leaf tile, keyframe group, sequence):
+// a block of 256 threads, TX = 64 along the leaves and 4 along the
+// keyframes, covers TX x N leaves (N = 16 bytes of the working type: 4 in
+// float32, 2 in float64) and KG = 4 x KPT = 16 keyframes of one sequence
+// (one sequence at the flagship: 128 blocks in float32, 256 in float64,
+// about one an SM). A thread owns N leaves of KPT = 4 keyframes: it loads
+// their slack as KPT 16-byte vectors and the tile's leaves, norms and
+// flags before it reads a pose (all its loads in flight before its first
+// store), the block forms each leaf's bound and floor once into shared
+// memory (one leaf a thread, the same _rn sequence in the plain version's
+// order: nvcc would otherwise contract a*b + c into FMAs), and the thread
+// writes the slack back as 16-byte vectors and `need` as one 4- (2-) byte
+// store a keyframe. A row length L that is not a multiple of N (or a
+// slack or need that is not so aligned) takes the same kernel with scalar
+// loads and stores. need agrees with the plain version bit for bit. The
+// count adds each block's need entries (warp sums, then one integer
+// atomic a block): integer sums are exact in any order, so a replay
+// equals the eager call. PERF.md §6 (PR 15) has the A/B of six block
+// shapes behind this one: at B = 4 in float64 (1.6 waves) none matched
+// the one-thread-a-leaf loop it replaced.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -53,25 +65,92 @@ namespace {
 using madicp::Arith;
 
 constexpr int THREADS = 256;
+constexpr int TX = 64;   // threads along the leaves; THREADS / TX along the keyframes
+constexpr int KPT = 4;   // keyframes a thread
+// blocks an SM must hold (__launch_bounds__: a register cap of 48)
+constexpr int MIN_BLOCKS = 5;
 constexpr unsigned FULL_MASK = 0xffffffffu;
 
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
+struct Lanes;  // 16 bytes of the working type, and a need word of as many leaves
+template <>
+struct Lanes<float> {
+  static constexpr int N = 4;
+  using Vec = float4;
+  using Need = uint32_t;
+};
+template <>
+struct Lanes<double> {
+  static constexpr int N = 2;
+  using Vec = double2;
+  using Need = uint16_t;
+};
+
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
     certify_slack_kernel(T* __restrict__ slack, const T* __restrict__ Xp,
                          const T* __restrict__ X, const T* __restrict__ pts,
                          const T* __restrict__ r_norm, const uint8_t* __restrict__ leaves_valid,
                          const uint8_t* __restrict__ kf_live, int K, int L, T floor_scale,
                          uint8_t* __restrict__ need, unsigned long long* __restrict__ n_descents) {
   using A = Arith<T>;
+  using V = typename Lanes<T>::Vec;
+  using Need = typename Lanes<T>::Need;
+  constexpr int N = Lanes<T>::N;
+  constexpr int TL = TX * N;           // leaves a block
+  constexpr int KG = THREADS / TX * KPT;  // keyframes a block
+  __shared__ T s_bound[TL], s_eps[TL];
+  __shared__ uint8_t s_valid[TL];
   __shared__ unsigned warp_counts[THREADS / 32];
-  const int b = blockIdx.y;
-  const int l = blockIdx.x * THREADS + threadIdx.x;
-  unsigned count = 0;
-  if (l < L) {
-    const T* x = X + b * 16;
-    const T* xp = Xp + b * 16;
-    const T* m = pts + (static_cast<long long>(b) * L + l) * 3;
-    const T mx = m[0], my = m[1], mz = m[2];
+  const int b = blockIdx.z;
+  const int tile = blockIdx.x * TL;
+  const int tx = threadIdx.x % TX;
+  const int k_first = blockIdx.y * KG + (threadIdx.x / TX) * KPT;
+  const int l_first = tile + tx * N;  // this thread's first leaf
+  const long long bL = static_cast<long long>(b) * L;
+
+  // phase: loads
+  T sv[KPT][N] = {};
+  bool live[KPT];
+#pragma unroll
+  for (int q = 0; q < KPT; ++q) {
+    const int k = k_first + q;
+    live[q] = k < K && kf_live[b * K + k] != 0;
+    const T* row = slack + (static_cast<long long>(b) * K + k) * L + l_first;
+    if (VEC) {
+      if (k < K && l_first < L) {
+        const V v = *reinterpret_cast<const V*>(row);
+        sv[q][0] = v.x;
+        sv[q][1] = v.y;
+        if constexpr (N == 4) {
+          sv[q][2] = v.z;
+          sv[q][3] = v.w;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < N; ++e)
+        if (k < K && l_first + e < L) sv[q][e] = row[e];
+    }
+  }
+  // the tile's leaves, one a thread (the first TL threads): its point,
+  // norm and flag
+  static_assert(TL <= THREADS, "a leaf a thread");
+  const int lt = tile + threadIdx.x;  // this thread's leaf of the bound
+  const bool bounds = threadIdx.x < TL && lt < L;
+  T mx = T(0), my = T(0), mz = T(0), rn = T(0);
+  bool valid = false;
+  if (bounds) {
+    const T* m = pts + (bL + lt) * 3;
+    mx = m[0], my = m[1], mz = m[2];
+    rn = r_norm[bL + lt];
+    valid = leaves_valid[bL + lt] != 0;
+  }
+
+  // phase: bound (the poses: X is the update's output, the launch before)
+  const T* x = X + b * 16;
+  const T* xp = Xp + b * 16;
+  if (bounds) {
     T dsq = T(0);
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
@@ -82,19 +161,53 @@ __global__ void __launch_bounds__(THREADS)
           A::sub(x[c * 4 + 3], xp[c * 4 + 3]));
       dsq = c == 0 ? A::mul(d, d) : A::add(dsq, A::mul(d, d));
     }
-    const T bound = A::sqrt(dsq);
     const T t_norm = A::sqrt(A::add(A::add(A::mul(x[3], x[3]), A::mul(x[7], x[7])),
                                     A::mul(x[11], x[11])));
-    const T eps = A::mul(floor_scale,
-                         A::add(A::add(T(1), t_norm), r_norm[static_cast<long long>(b) * L + l]));
-    const bool valid = leaves_valid[static_cast<long long>(b) * L + l] != 0;
-    for (int k = 0; k < K; ++k) {
-      const long long at = (static_cast<long long>(b) * K + k) * L + l;
-      const T s = A::sub(slack[at], bound);
-      slack[at] = s;
-      const bool nd = s <= eps && valid && kf_live[b * K + k] != 0;
-      need[at] = nd;
-      count += nd;
+    s_bound[threadIdx.x] = A::sqrt(dsq);
+    s_eps[threadIdx.x] = A::mul(floor_scale, A::add(A::add(T(1), t_norm), rn));
+    s_valid[threadIdx.x] = valid;
+  }
+  __syncthreads();
+
+  // phase: entries
+  unsigned count = 0;
+#pragma unroll
+  for (int q = 0; q < KPT; ++q) {
+    const int k = k_first + q;
+    if (k >= K) continue;
+    const long long at = (static_cast<long long>(b) * K + k) * L + l_first;
+    Need word = 0;
+#pragma unroll
+    for (int e = 0; e < N; ++e) {
+      // past L (the last tile's tail) nothing is read, counted or stored
+      if (VEC ? l_first < L : l_first + e < L) {
+        const int t = tx * N + e;
+        sv[q][e] = A::sub(sv[q][e], s_bound[t]);
+        const bool nd = sv[q][e] <= s_eps[t] && s_valid[t] && live[q];
+        word |= static_cast<Need>(nd) << (8 * e);
+        count += nd;
+      }
+    }
+    if (VEC) {
+      if (l_first < L) {
+        V v;
+        v.x = sv[q][0];
+        v.y = sv[q][1];
+        if constexpr (N == 4) {
+          v.z = sv[q][2];
+          v.w = sv[q][3];
+        }
+        *reinterpret_cast<V*>(slack + at) = v;
+        *reinterpret_cast<Need*>(need + at) = word;
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < N; ++e) {
+        if (l_first + e < L) {
+          slack[at + e] = sv[q][e];
+          need[at + e] = static_cast<uint8_t>((word >> (8 * e)) & 1u);
+        }
+      }
     }
   }
   count = __reduce_add_sync(FULL_MASK, count);
@@ -106,20 +219,26 @@ __global__ void __launch_bounds__(THREADS)
     for (int w = 0; w < THREADS / 32; ++w) total += warp_counts[w];
     if (total) atomicAdd(n_descents + b, static_cast<unsigned long long>(total));
   }
+  // phase: end
 }
 
 template <typename T>
 int launch(T* slack, const T* Xp, const T* X, const T* pts, const T* r_norm,
            const uint8_t* leaves_valid, const uint8_t* kf_live, int B, int K, int L,
            uint8_t* need, long long* n_descents, cudaStream_t stream) {
+  constexpr int N = Lanes<T>::N;
   if (B < 0 || K < 0 || L < 0 || B > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  if (B == 0 || L == 0) return static_cast<int>(cudaGetLastError());
+  if (B == 0 || K == 0 || L == 0) return static_cast<int>(cudaGetLastError());
   // 64 eps: an exact power of two in the working type
   const T floor_scale = T(64) * std::numeric_limits<T>::epsilon();
-  const dim3 grid((L + THREADS - 1) / THREADS, B);
-  certify_slack_kernel<T><<<grid, THREADS, 0, stream>>>(
-      slack, Xp, X, pts, r_norm, leaves_valid, kf_live, K, L, floor_scale, need,
-      reinterpret_cast<unsigned long long*>(n_descents));
+  constexpr int tl = TX * N, kg = THREADS / TX * KPT;
+  const dim3 grid((L + tl - 1) / tl, (K + kg - 1) / kg, B), block(THREADS);
+  const bool vec = L % N == 0 && reinterpret_cast<uintptr_t>(slack) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(need) % N == 0;
+  auto* kernel = vec ? certify_slack_kernel<T, true> : certify_slack_kernel<T, false>;
+  kernel<<<grid, block, 0, stream>>>(slack, Xp, X, pts, r_norm, leaves_valid, kf_live, K, L,
+                                     floor_scale, need,
+                                     reinterpret_cast<unsigned long long*>(n_descents));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -131,7 +250,7 @@ extern "C" {
 // 4), pts (B, L, 3), r_norm (B, L), leaves_valid (B, L) bool, kf_live (B,
 // K) bool, B, K, L, need (B, K, L) bool, n_descents (B,) int64, stream),
 // every tensor contiguous; slack and n_descents are updated in place.
-// Returns the cudaGetLastError() code after the launch (0 = success).
+// Returns the CUDA error code of the launch (0 = success).
 int certify_slack_f32(float* slack, const float* Xp, const float* X, const float* pts,
                       const float* r_norm, const uint8_t* leaves_valid, const uint8_t* kf_live,
                       int B, int K, int L, uint8_t* need, long long* n_descents, void* stream) {

@@ -1,11 +1,20 @@
 // The Gauss-Newton pose update (K10), for Hopper (sm_90a).
 //
 // For each sequence of a batch, from its pose X (4, 4) and its normal
-// equations H (6, 6), b (6), state ordering [t (3), omega (3)]:
-//   Jacobi scaling  d_i = sqrt(max(H_ii, 1e-30)), 1 where H_ii <= 0
-//   solve           (H / (d d^T) + 1e-8 I) y = -b / d, a 6x6 LU with
-//                   partial pivoting
-//   step            dx = y / d; a component that is not finite is 0, and
+// equations, state ordering [t (3), omega (3)]: either K per-keyframe
+// terms H_k (6, 6), b_k (6) with weights w_k, summed here in a fixed order
+// (k = 0 .. K-1) into H = sum_k w_k H_k, b = sum_k w_k b_k (which are also
+// written out), or H, b summed already (K = 1, weight 1):
+//   Jacobi scaling  d_i = sqrt(max(H_ii, 1e-30)), 1 where H_ii <= 0;
+//                   e_i = 1 / d_i
+//   solve           (H (e e^T) + 1e-8 I) y = -b e, a 6x6 LU with partial
+//                   pivoting (the first largest magnitude, as LAPACK's
+//                   i?amax: a NaN is taken only where it comes first);
+//                   the multipliers are the column times the pivot's
+//                   reciprocal, and a column that is zero below its pivot
+//                   (or whose pivot is zero) eliminates nothing; the
+//                   substitution multiplies by the pivots' reciprocals
+//   step            dx = y e; a component that is not finite is 0, and
 //                   dx is 0 where sum_i H_ii <= 0 (no match)
 //   trust region    dx scaled by min(1, 1 m / |dx_t|, 0.5 rad / |dx_w|)
 //   increment       dX = [exp_so3(dx_w) | dx_t] (MAD-ICP's split form:
@@ -15,139 +24,214 @@
 //   update          X <- X dX
 //
 // It is the counterpart of madicp_tpu_torch/ops/icp_core.py `gn_se3_step`
-// (plain version: kernels/gn_update.py `gn_update_plain`, the
-// solve_gn -> clamp_step -> exp_se3_split -> product chain), which ports
-// the JAX package's madicp_tpu/ops/icp_core.py:256 `gn_se3_step` (with
-// `solve_gn` :209, `clamp_step` :242 and madicp_tpu/ops/lie.py:147
-// `exp_se3_split`); XLA lowered that one, so no Pallas kernel stands
-// behind it.
+// and of the keyframe sum of models/pipeline.py's rounds (plain version:
+// kernels/gn_update.py `gn_update_plain`: the einsum, then solve_gn ->
+// clamp_step -> exp_se3_split -> product), which port the JAX package's
+// madicp_tpu/ops/icp_core.py:256 `gn_se3_step` (with `solve_gn` :209,
+// `clamp_step` :242, madicp_tpu/ops/lie.py:147 `exp_se3_split`) and
+// madicp_tpu/models/pipeline.py:432-433; XLA lowered those, so no Pallas
+// kernel stands behind them. The zero-below rule is the JAX LU's: where
+// H_ii is infinite, row and column i of the scaled system are zero but
+// for a NaN pivot, and the other rows keep their values, so only the
+// components that depend on that row zero out.
 //
-// Bound on an H100: a sequence reads 52 values and writes 16 (a few
-// hundred bytes: nanoseconds at 3.35 TB/s) and does ~400 operations, so
-// the bound is far below the launch itself (~1 us); what costs is the
-// chain around it. The plain chain is ~70 launches a GN round (cuSOLVER's
-// getrf and getrs among them, the scaling, the clamp, the exponential and
-// a batched GEMM), each at least ~1 us in a CUDA graph.
+// Bound on an H100: a sequence reads 16 + 42 K + K values and writes 16
+// (+ 42): a few kilobytes, nanoseconds at 3.35 TB/s, and ~450 + 84 K
+// operations. What limits it is the launch (~1.1 us in a CUDA graph) and
+// the chain of dependent steps inside one sequence.
 //
-// Design: one launch a round, one thread a sequence (a batch holds one to
-// a few tens), everything in registers: every loop runs over constant
-// bounds and is unrolled, and the pivot's row swap is a predicated select
-// over the rows below, so no array is indexed by a value known only at
-// run time (which would put it in local memory). Each sequence's result
-// is a fixed sequence of operations with no atomics, so the same H, b give
-// the same bits on every rank of a keyframe-sharded step and in every
-// replay of a CUDA graph. sin and sqrt are the CUDA math library's IEEE
-// functions (no fast math). The rounding differs from cuSOLVER's LU and
-// cuBLAS's product, so the result agrees with the plain version to a
-// tolerance, not bit for bit.
+// Design: one warp a sequence (blocks of WARPS warps), every operand
+// contiguous. One warp runs the whole kernel, so its time is its chain
+// and its instruction count: the first design took ~4.2 cycles an
+// instruction of its SASS (PERF.md §6), so offsets are 32-bit, the
+// keyframes of a batch immediates, and no step is coded twice.
+// The lanes spread the loads: lane v sums value v of the 42 (and v + 32),
+// all K keyframes' loads in flight before the first add. The sums pass through shared
+// memory to lanes 0-5, which hold a row each of the scaled system and its
+// right-hand side and form one scale each (a square root and a
+// reciprocal: no division in the scaling); shuffles share them. The
+// LU swaps no data: `order` (3 bits a position, the same on every lane)
+// says which lane holds which position; each pivot step gathers the
+// column by position with shuffles, every lane runs the pivot search on
+// it, the pivot row comes by shuffles, and the rows below eliminate in
+// parallel. The substitution broadcasts one unknown a step. Every lane
+// forms the clamp and exp_so3 from the broadcast unknowns; lanes 0-15
+// form one entry each of X dX. Each value is a fixed sequence of
+// operations with no atomics, so the same inputs give the same bits on
+// every rank of a keyframe-sharded step and in every replay of a CUDA
+// graph. The LU and the substitution round one operation at a time in
+// the plain version's order (_rn), as do the scaling and the step; sqrt
+// and sin are the CUDA math library's IEEE functions (no fast math).
+// The keyframe sum, the clamp's norms, exp_so3 and the product may round
+// otherwise than the plain version's einsum and products, so the result
+// agrees with it to a tolerance.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "arith.cuh"
+
 namespace {
 
-constexpr int THREADS = 32;  // a block: sequences are few
+using madicp::Arith;
 
-struct View3 {  // strides in elements: between sequences, rows, columns
-  long long seq, row, col;
-};
+constexpr int WARPS = 4;  // sequences a block
+constexpr int THREADS = 32 * WARPS;
+constexpr int NV = 42;    // values of a sequence's system: H (36), then b (6)
+constexpr int KC = 16;    // keyframes whose terms a lane has in flight at once
+constexpr unsigned FULL_MASK = 0xffffffffu;
+// position j -> the lane that holds it, 3 bits a position: lane j at first
+constexpr unsigned IDENTITY_ORDER = 0u | 1u << 3 | 2u << 6 | 3u << 9 | 4u << 12 | 5u << 15;
 
 __device__ __forceinline__ float sin_(float x) { return sinf(x); }
 __device__ __forceinline__ double sin_(double x) { return sin(x); }
-__device__ __forceinline__ float sqrt_(float x) { return sqrtf(x); }
-__device__ __forceinline__ double sqrt_(double x) { return sqrt(x); }
-__device__ __forceinline__ bool finite_(float x) { return isfinite(x); }
-__device__ __forceinline__ bool finite_(double x) { return isfinite(x); }
+
+__device__ __forceinline__ int lane_at(unsigned order, int pos) {
+  return static_cast<int>((order >> (3 * pos)) & 7u);
+}
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
-    gn_update_kernel(const T* __restrict__ X, View3 vx, const T* __restrict__ H, View3 vh,
-                     const T* __restrict__ bv, View3 vb, int n, T* __restrict__ out) {
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= n) return;
-  const T* Hs = H + s * vh.seq;
-  const T* bs = bv + s * vb.seq;
+    gn_update_kernel(const T* __restrict__ X, const T* __restrict__ H,
+                     const T* __restrict__ bv, const T* __restrict__ w, int n, int K,
+                     T* __restrict__ out, T* __restrict__ Hout, T* __restrict__ bout) {
+  using A = Arith<T>;
+  __shared__ T sys[WARPS][NV];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long s = static_cast<long long>(blockIdx.x) * WARPS + warp;
+  if (s >= n) return;  // a whole warp: s is the warp's
 
-  // Jacobi scaling
-  T A[6][6], r[6], d[6];
+  // phase: terms
+  // X's row for this lane's entry of the product (lanes 0-15)
+  const T* xr = X + s * 16 + ((lane >> 2) & 3) * 4;
+  const T x0 = xr[0], x1 = xr[1], x2 = xr[2], x3 = xr[3];
+  // lane v sums value v (an entry of H) and value v + 32 (H's last four,
+  // then b) over the keyframes, in order; every offset but the sequence's
+  // is 32-bit, and the keyframes of a batch are immediates
+  const int v1 = lane + 32;
+  const bool has1 = v1 < NV;
+  const T* h0p = H + s * (36LL * K) + lane;
+  const T* h1p = v1 < 36 ? H + s * (36LL * K) + v1 : bv + s * (6LL * K) + (v1 - 36);
+  const int step1 = v1 < 36 ? 36 : 6;
+  const T* ws = w == nullptr ? nullptr : w + s * K;
+  T acc0 = T(0), acc1 = T(0);
+  for (int k0 = 0; k0 < K; k0 += KC) {
+    T h0[KC], h1[KC], wk[KC];
+#pragma unroll
+    for (int j = 0; j < KC; ++j) {
+      const bool in = k0 + j < K;
+      h0[j] = in ? h0p[(k0 + j) * 36] : T(0);
+      h1[j] = in && has1 ? h1p[(k0 + j) * step1] : T(0);
+      wk[j] = in && ws != nullptr ? ws[k0 + j] : T(1);
+    }
+#pragma unroll
+    for (int j = 0; j < KC; ++j) {
+      if (k0 + j < K) {
+        acc0 = k0 + j == 0 ? A::mul(wk[j], h0[j]) : A::fma(wk[j], h0[j], acc0);
+        acc1 = k0 + j == 0 ? A::mul(wk[j], h1[j]) : A::fma(wk[j], h1[j], acc1);
+      }
+    }
+  }
+  sys[warp][lane] = acc0;
+  if (has1) sys[warp][v1] = acc1;
+  if (Hout != nullptr) {
+    Hout[s * 36 + lane] = acc0;
+    if (v1 < 36) Hout[s * 36 + v1] = acc1;
+    else if (has1) bout[s * 6 + v1 - 36] = acc1;
+  }
+  __syncwarp();
+
+  // phase: scaling
+  // lane i < 6 holds row i (lanes 6-31 mirror row 5 and take no part) and
+  // forms its scale; the others come by shuffles
+  const int row = lane < 6 ? lane : 5;
   T trace = T(0);
 #pragma unroll
-  for (int i = 0; i < 6; ++i) {
-    const T hii = Hs[i * vh.row + i * vh.col];
-    trace += hii;
-    d[i] = hii > T(0) ? sqrt_(fmax(hii, T(1e-30))) : T(1);
-  }
+  for (int j = 0; j < 6; ++j) trace = j == 0 ? sys[warp][0] : A::add(trace, sys[warp][7 * j]);
+  const T hii = sys[warp][7 * row];
+  const T ei = A::rcp(hii > T(0) ? A::sqrt(fmax(hii, T(1e-30))) : T(1));
+  T e[6];
 #pragma unroll
-  for (int i = 0; i < 6; ++i) {
+  for (int j = 0; j < 6; ++j) e[j] = __shfl_sync(FULL_MASK, ei, j);
+  T a[6];
 #pragma unroll
-    for (int j = 0; j < 6; ++j) A[i][j] = Hs[i * vh.row + j * vh.col] / (d[i] * d[j]);
-    A[i][i] += T(1e-8);
-    r[i] = -(bs[i * vb.row] / d[i]);
+  for (int j = 0; j < 6; ++j) {
+    a[j] = A::mul(sys[warp][6 * row + j], A::mul(ei, e[j]));
+    if (j == row) a[j] = A::add(a[j], T(1e-8));
   }
+  T r = -A::mul(sys[warp][36 + row], ei);
 
-  // LU with partial pivoting (the first largest magnitude of the column),
-  // eliminating into r as it goes
+  // phase: lu
+  unsigned order = IDENTITY_ORDER;
+  int pos = lane < 6 ? lane : 7;  // this lane's row's position
+  T ru = T(0);                    // the reciprocal of its pivot, once it is one
 #pragma unroll
   for (int k = 0; k < 6; ++k) {
+    const T col = a[k];
+    T c[6];
+#pragma unroll
+    for (int j = k; j < 6; ++j) c[j] = __shfl_sync(FULL_MASK, col, lane_at(order, j));
     int p = k;
-    T best = fabs(A[k][k]);
+    T best = fabs(c[k]), piv = c[k];
+    int nonzero = c[k] != T(0);
 #pragma unroll
-    for (int i = k + 1; i < 6; ++i) {
-      const T a = fabs(A[i][k]);
-      if (a > best) {
-        best = a;
-        p = i;
+    for (int j = k + 1; j < 6; ++j) {
+      const T m = fabs(c[j]);
+      if (m > best) {
+        best = m;
+        p = j;
+        piv = c[j];
       }
+      nonzero += c[j] != T(0);
     }
-#pragma unroll
-    for (int i = k + 1; i < 6; ++i) {
-      if (i == p) {
-#pragma unroll
-        for (int j = k; j < 6; ++j) {
-          const T t = A[k][j];
-          A[k][j] = A[i][j];
-          A[i][j] = t;
-        }
-        const T t = r[k];
-        r[k] = r[i];
-        r[i] = t;
-      }
+    const bool skip = piv == T(0) || nonzero == 1;  // only the pivot is nonzero
+    const int pl = lane_at(order, p), kl = lane_at(order, k);
+    order = (order & ~(7u << (3 * k)) & ~(7u << (3 * p))) | (static_cast<unsigned>(pl) << (3 * k)) |
+            (static_cast<unsigned>(kl) << (3 * p));
+    if (lane == pl) {
+      pos = k;
+    } else if (lane == kl) {
+      pos = p;
     }
-    // a zero pivot (the column is zero below it) eliminates nothing, as
-    // LAPACK's getrf: its row's solve is not finite and zeroes out
-    const bool pivot = A[k][k] != T(0);
+    const T rp = A::rcp(piv);
+    if (lane == pl) ru = rp;
+    T prow[6];
 #pragma unroll
-    for (int i = k + 1; i < 6; ++i) {
-      const T l = pivot ? A[i][k] / A[k][k] : T(0);
+    for (int j = k + 1; j < 6; ++j) prow[j] = __shfl_sync(FULL_MASK, a[j], pl);
+    const T pr = __shfl_sync(FULL_MASK, r, pl);
+    if (pos > k && !skip) {
+      const T l = A::mul(col, rp);
 #pragma unroll
-      for (int j = k + 1; j < 6; ++j) A[i][j] -= l * A[k][j];
-      r[i] -= l * r[k];
+      for (int j = k + 1; j < 6; ++j) a[j] = A::sub(a[j], A::mul(l, prow[j]));
+      r = A::sub(r, A::mul(l, pr));
     }
   }
+
+  // phase: substitution
+  T y[6];
+#pragma unroll
+  for (int k = 5; k >= 0; --k) {
+    y[k] = __shfl_sync(FULL_MASK, A::mul(r, ru), lane_at(order, k));
+    if (pos < k) r = A::sub(r, A::mul(a[k], y[k]));
+  }
+
+  // phase: clamp
+  const bool good = trace > T(0);
   T dx[6];
 #pragma unroll
-  for (int i = 5; i >= 0; --i) {
-    T acc = r[i];
-#pragma unroll
-    for (int j = i + 1; j < 6; ++j) acc -= A[i][j] * dx[j];
-    dx[i] = acc / A[i][i];
+  for (int j = 0; j < 6; ++j) {
+    const T v = A::mul(y[j], e[j]);
+    dx[j] = good && isfinite(v) ? v : T(0);
   }
-  const bool good = trace > T(0);
+  const T dt = A::sqrt(dx[0] * dx[0] + dx[1] * dx[1] + dx[2] * dx[2]);
+  const T dr = A::sqrt(dx[3] * dx[3] + dx[4] * dx[4] + dx[5] * dx[5]);
+  const T scale = fmin(fmin(A::div(T(1.0), fmax(dt, T(1e-30))),
+                            A::div(T(0.5), fmax(dr, T(1e-30)))), T(1));
 #pragma unroll
-  for (int i = 0; i < 6; ++i) {
-    const T v = dx[i] / d[i];
-    dx[i] = good && finite_(v) ? v : T(0);
-  }
+  for (int j = 0; j < 6; ++j) dx[j] *= scale;
 
-  // trust region: 1 m, 0.5 rad
-  const T dt = sqrt_(dx[0] * dx[0] + dx[1] * dx[1] + dx[2] * dx[2]);
-  const T dr = sqrt_(dx[3] * dx[3] + dx[4] * dx[4] + dx[5] * dx[5]);
-  const T scale =
-      fmin(fmin(T(1.0) / fmax(dt, T(1e-30)), T(0.5) / fmax(dr, T(1e-30))), T(1));
-#pragma unroll
-  for (int i = 0; i < 6; ++i) dx[i] *= scale;
-
-  // exp_so3 of the rotation part
+  // phase: exp_so3
   const T wx = dx[3], wy = dx[4], wz = dx[5];
   const T theta_sq = wx * wx + wy * wy + wz * wz;
   T R[3][3];
@@ -156,44 +240,42 @@ __global__ void __launch_bounds__(THREADS)
     R[1][0] = wz, R[1][1] = T(1), R[1][2] = -wx;
     R[2][0] = -wy, R[2][1] = wx, R[2][2] = T(1);
   } else {
-    const T theta = sqrt_(theta_sq);
-    const T kx = wx / theta, ky = wy / theta, kz = wz / theta;
+    const T theta = A::sqrt(theta_sq);
+    const T kx = A::div(wx, theta), ky = A::div(wy, theta), kz = A::div(wz, theta);
     const T sn = sin_(theta);
     const T h = sin_(theta / T(2));
     const T omc = T(2) * (h * h);
-    const T K[3][3] = {{T(0), -kz, ky}, {kz, T(0), -kx}, {-ky, kx, T(0)}};
+    const T Kx[3][3] = {{T(0), -kz, ky}, {kz, T(0), -kx}, {-ky, kx, T(0)}};
     const T KK[3][3] = {{-(ky * ky + kz * kz), kx * ky, kx * kz},
                         {ky * kx, -(kx * kx + kz * kz), ky * kz},
                         {kz * kx, kz * ky, -(kx * kx + ky * ky)}};
 #pragma unroll
     for (int i = 0; i < 3; ++i) {
 #pragma unroll
-      for (int j = 0; j < 3; ++j) R[i][j] = (T(i == j) + sn * K[i][j]) + omc * KK[i][j];
+      for (int j = 0; j < 3; ++j) R[i][j] = (T(i == j) + sn * Kx[i][j]) + omc * KK[i][j];
     }
   }
 
-  // X <- X dX, dX = [R | dx_t; 0 0 0 1]
-  const T* Xs = X + s * vx.seq;
-  T* o = out + s * 16;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const T x0 = Xs[i * vx.row], x1 = Xs[i * vx.row + vx.col],
-            x2 = Xs[i * vx.row + 2 * vx.col], x3 = Xs[i * vx.row + 3 * vx.col];
-#pragma unroll
-    for (int j = 0; j < 3; ++j) o[i * 4 + j] = x0 * R[0][j] + x1 * R[1][j] + x2 * R[2][j];
-    o[i * 4 + 3] = x0 * dx[0] + x1 * dx[1] + x2 * dx[2] + x3;
+  // phase: product
+  // X <- X dX, dX = [R | dx_t; 0 0 0 1]: lane 4 i + j forms entry (i, j)
+  if (lane < 16) {
+    const int j = lane & 3;
+    const T c0 = j == 0 ? R[0][0] : j == 1 ? R[0][1] : j == 2 ? R[0][2] : dx[0];
+    const T c1 = j == 0 ? R[1][0] : j == 1 ? R[1][1] : j == 2 ? R[1][2] : dx[1];
+    const T c2 = j == 0 ? R[2][0] : j == 1 ? R[2][1] : j == 2 ? R[2][2] : dx[2];
+    const T o = x0 * c0 + x1 * c1 + x2 * c2;
+    out[s * 16 + lane] = j == 3 ? o + x3 : o;
   }
+  // phase: end
 }
 
-View3 read_view(const long long* v) { return View3{v[0], v[1], v[2]}; }
-
 template <typename T>
-int launch(const long long* meta, const T* X, const T* H, const T* b, int n, T* out,
-           cudaStream_t stream) {
-  if (n < 0) return static_cast<int>(cudaErrorInvalidValue);
+int launch(const T* X, const T* H, const T* b, const T* w, int n, int K, T* out, T* Hout,
+           T* bout, cudaStream_t stream) {
+  if (n < 0 || K < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return static_cast<int>(cudaGetLastError());
-  gn_update_kernel<T><<<(n + THREADS - 1) / THREADS, THREADS, 0, stream>>>(
-      X, read_view(meta), H, read_view(meta + 3), b, read_view(meta + 6), n, out);
+  const dim3 grid((n + WARPS - 1) / WARPS), block(THREADS);
+  gn_update_kernel<T><<<grid, block, 0, stream>>>(X, H, b, w, n, K, out, Hout, bout);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -201,19 +283,19 @@ int launch(const long long* meta, const T* X, const T* H, const T* b, int n, T* 
 
 extern "C" {
 
-// Plain C interface for ctypes: (meta, X, H, b, n, out (n, 4, 4)
-// contiguous, stream). `meta` (host memory, 9 values): the strides in
-// elements of X (n, 4, 4), H (n, 6, 6) and b (n, 6), each as (between
-// sequences, between rows, between columns); b's column stride is unused.
-// Returns the cudaGetLastError() code after the launch (0 = success).
-int gn_update_f32(const long long* meta, const float* X, const float* H, const float* b, int n,
-                  float* out, void* stream) {
-  return launch<float>(meta, X, H, b, n, out, static_cast<cudaStream_t>(stream));
+// Plain C interface for ctypes: (X (n, 4, 4), H (n, K, 6, 6), b (n, K,
+// 6), w (n, K), n, K, out (n, 4, 4), H_out (n, 6, 6), b_out (n, 6),
+// stream), every tensor contiguous. Without weights (w null) the terms
+// are summed already: K = 1, weight 1; H_out and b_out may then be null
+// (not written). Returns the CUDA error code of the launch (0 = success).
+int gn_update_f32(const float* X, const float* H, const float* b, const float* w, int n, int K,
+                  float* out, float* Hout, float* bout, void* stream) {
+  return launch<float>(X, H, b, w, n, K, out, Hout, bout, static_cast<cudaStream_t>(stream));
 }
 
-int gn_update_f64(const long long* meta, const double* X, const double* H, const double* b,
-                  int n, double* out, void* stream) {
-  return launch<double>(meta, X, H, b, n, out, static_cast<cudaStream_t>(stream));
+int gn_update_f64(const double* X, const double* H, const double* b, const double* w, int n,
+                  int K, double* out, double* Hout, double* bout, void* stream) {
+  return launch<double>(X, H, b, w, n, K, out, Hout, bout, static_cast<cudaStream_t>(stream));
 }
 
 const char* madicp_cuda_error_string(int code) {

@@ -50,7 +50,7 @@ from typing import Any, NamedTuple, Optional
 import numpy as np
 import torch
 
-from madicp_tpu_torch.kernels import certify_slack, segsum
+from madicp_tpu_torch.kernels import certify_slack, gn_update, segsum
 from madicp_tpu_torch.models.vel_estimator import estimate_velocity
 from madicp_tpu_torch.ops.constants import FRAME_WINDOW, MAX_ICP_ITS, SMOOTHING_T
 from madicp_tpu_torch.ops.deskew import deskew_cloud
@@ -366,9 +366,20 @@ def icp_rounds(
         return reduce_terms((H, b))
 
     def step(X, payload, with_matched=False):
+        """``(X dX, H, b)`` (+ matched) of a round. Without a keyframe
+        group to reduce over, the update takes the per-keyframe terms and
+        forms their sums itself (one kernel on the card); with one, the
+        sums are all-reduced before the update."""
         with phase(timer, "terms+solve"):
-            out = terms_scan(X, payload, with_matched)
-            return (gn_se3_step(X, out[0], out[1]),) + out
+            if reduce_terms is not _identity:
+                out = terms_scan(X, payload, with_matched)
+                return (gn_se3_step(X, out[0], out[1]),) + out
+            terms = terms_from_payload(payload, leaves_pts[:, None], leaves_valid[:, None],
+                                       X[:, None], **terms_kw)
+            out = gn_update.gn_update(X, terms.H, terms.b, kf_valid_f)
+            if with_matched:
+                return out + (torch.any(terms.matched & kf_live[..., None], dim=1),)
+            return out
 
     n_its = cfg.max_icp_iterations
     if n_its <= 0:

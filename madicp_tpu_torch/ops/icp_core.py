@@ -179,7 +179,7 @@ def gn_se3_step(X: torch.Tensor, H: torch.Tensor, b: torch.Tensor) -> torch.Tens
     product. CPU tensors take the plain chain
     (:func:`madicp_tpu_torch.kernels.gn_update.gn_update_plain`), CUDA
     tensors the update kernel (``kernels/csrc/gn_update.cu``: one launch,
-    one thread a sequence)."""
+    one warp a sequence)."""
     return gn_update.gn_update(X, H, b)
 
 

@@ -1,10 +1,12 @@
 """Inputs of the K10 (``gn_update``) and K11 (``certify_slack``) checks,
 made from numpy seeds on the CPU: the GN update's cases (real normal
 equations of a room scene, an empty H, a singular one, steps beyond each
-trust bound, both branches of ``exp_so3``) and a certified later round's
-slack pass. ``tests/test_torch_gn_kernels.py`` holds the plain versions to
-the JAX package with them and the kernels to the plain versions on the
-card; ``chip_smoke.py``'s ``gn`` phase does the latter too."""
+trust bound, both branches of ``exp_so3``, an infinite diagonal entry),
+per-keyframe terms with their weights, a certified later round's slack
+pass, and a round's K7 -> K10 -> K11 inputs.
+``tests/test_torch_gn_kernels.py`` holds the plain versions to the JAX
+package with them and the kernels to the plain versions on the card;
+``chip_smoke.py``'s ``gn`` phase does the latter too."""
 
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ from scipy.spatial.transform import Rotation
 from madicp_tpu_torch.ops.icp_core import icp_terms
 from madicp_tpu_torch.ops.tree import build_tree
 
-GN_CASES = ("real", "empty", "singular", "clamp_t", "clamp_r", "small_angle")
+GN_CASES = ("real", "empty", "singular", "clamp_t", "clamp_r", "small_angle", "inf_0", "inf_3")
 
 
 def pose(rotvec, t) -> np.ndarray:
@@ -58,7 +60,9 @@ def gn_case(case: str, seed: int = 0) -> tuple:
     zero out); ``clamp_t`` and
     ``clamp_r`` (a step beyond the 1 m or the 0.5 rad trust bound);
     ``small_angle`` (a rotation step below exp_so3's theta^2 = 1e-8
-    branch)."""
+    branch); ``inf_0`` and ``inf_3`` (``H_00`` or ``H_33`` infinite: row
+    and column i of the scaled system are zero but for a NaN pivot, and
+    the components that depend on that row zero out)."""
     rng = np.random.default_rng(seed)
     X = pose(rng.normal(0, 0.3, 3), rng.normal(0, 5.0, 3))
     if case == "real":
@@ -68,6 +72,10 @@ def gn_case(case: str, seed: int = 0) -> tuple:
         return X, np.zeros((6, 6)), np.zeros(6)
     A = rng.normal(0, 1, (6, 6))
     H = A @ A.T + np.diag([400.0, 400.0, 400.0, 2.0, 2.0, 2.0])
+    if case.startswith("inf_"):
+        i = int(case[4:])
+        H[i, i] = np.inf
+        return X, H, rng.normal(0, 1, 6)
     if case == "singular":
         H[2, :] = H[:, 2] = 0.0
         H[2, 2] = -1e-8  # cancels the solve's 1e-8 ridge exactly
@@ -78,19 +86,6 @@ def gn_case(case: str, seed: int = 0) -> tuple:
     return X, H, -H @ np.asarray(dx)
 
 
-def plain_by_sequence(X, H, b):
-    """The plain GN update of each sequence of a batch on its own (a
-    ``(6, 6)`` solve each): the yardstick of the kernel on the card. The
-    plain version's batched LU on the card does not stop at a zero
-    pivot, so for a singular system it zeroes the whole step, where
-    LAPACK's getrf (the CPU, and so the JAX reference), the card's LU of
-    one matrix and the kernel zero only the components that are not
-    finite."""
-    from madicp_tpu_torch.kernels.gn_update import gn_update_plain
-
-    return torch.stack([gn_update_plain(X[i], H[i], b[i]) for i in range(X.shape[0])])
-
-
 def gn_batch(cases, seed: int = 0) -> tuple:
     """(X (B, 4, 4), H (B, 6, 6), b (B, 6)) float64 numpy of ``cases``."""
     parts = [gn_case(c, seed + i) for i, c in enumerate(cases)]
@@ -99,7 +94,48 @@ def gn_batch(cases, seed: int = 0) -> tuple:
 
 BATCHES = {**{c: (c,) for c in GN_CASES},
            "b4_mixed": ("real", "clamp_t", "small_angle", "empty"),
-           "b4_edges": ("singular", "clamp_r", "real", "clamp_t")}
+           "b4_edges": ("singular", "clamp_r", "real", "clamp_t"),
+           "b4_inf": ("inf_0", "clamp_t", "inf_3", "real")}
+
+
+def keyframe_terms(B: int, K: int, seed: int = 0) -> tuple:
+    """(X (B, 4, 4), H (B, K, 6, 6), b (B, K, 6), w (B, K)) float64 numpy:
+    per-keyframe normal equations of a round (each ``A A^T`` plus a
+    diagonal, translations ~100 times the rotations), and the keyframe
+    weights with an empty ring slot (0) in each sequence where K > 1."""
+    rng = np.random.default_rng(seed)
+    X = np.stack([pose(rng.normal(0, 0.3, 3), rng.normal(0, 5.0, 3)) for _ in range(B)])
+    A = rng.normal(0, 1, (B, K, 6, 6))
+    H = A @ np.swapaxes(A, -1, -2) + np.diag([100.0, 100.0, 100.0, 1.0, 1.0, 1.0])
+    b = rng.normal(0, 1, (B, K, 6))
+    w = np.ones((B, K))
+    if K > 1:
+        w[np.arange(B), rng.integers(0, K, B)] = 0.0
+    return X, H, b, w
+
+
+TERMS_KW = dict(b_max=0.2, b_ratio=0.02, rho_ker=0.1)
+
+
+def round_inputs(dtype, B: int = 2, K: int = 5, L: int = 3000, seed: int = 0) -> dict:
+    """A certified later round's K7 -> K10 -> K11 inputs: the K7
+    ``payload`` (B, K, L, 8) (map points near the leaves mapped by ``X``,
+    unit normals, bbox0 and flags), the leaves ``pts`` (B, L, 3) and their
+    ``valid`` (B, L), the previous pose ``Xp`` (B, 4, 4), the keyframe
+    weights ``w`` (B, K) and the slack pass's inputs (:func:`slack_inputs`
+    for the rest). K7 takes :data:`TERMS_KW`."""
+    s = slack_inputs(dtype, B=B, K=K, L=L, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    pts = s["pts"].double().numpy()
+    X = s["Xp"].double().numpy()
+    ml = pts[:, None] @ np.swapaxes(X[:, None, :3, :3], -1, -2) + X[:, None, None, :3, 3]
+    n = rng.normal(0, 1, (B, K, L, 3))
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    near = np.broadcast_to(ml, (B, K, L, 3)) + rng.normal(0, 0.1, (B, K, L, 3))
+    payload = np.concatenate([near, n, rng.uniform(0, 0.15, (B, K, L, 1)),
+                              rng.choice([3.0, 3.0, 3.0, 2.0, 0.0], (B, K, L, 1))], axis=-1)
+    w = s["kf_live"].to(dtype)
+    return dict(s, payload=torch.as_tensor(payload, dtype=dtype), w=w)
 
 
 def slack_inputs(dtype, B: int = 2, K: int = 3, L: int = 500, seed: int = 0) -> dict:
@@ -128,12 +164,12 @@ def slack_inputs(dtype, B: int = 2, K: int = 3, L: int = 500, seed: int = 0) -> 
 
 
 def scaled_system(H: torch.Tensor, b: torch.Tensor) -> tuple:
-    """``(A, rhs)``: the Jacobi-scaled system ``solve_gn`` hands
-    ``torch.linalg.solve_ex``, for timing the library solve alone."""
+    """``(A, rhs)``: the Jacobi-scaled system ``solve_gn`` hands its LU,
+    for timing the library solve (``torch.linalg.solve_ex``) alone."""
     diag = torch.diagonal(H, dim1=-2, dim2=-1)
-    d = torch.where(diag > 0, torch.sqrt(torch.clamp(diag, min=1e-30)), 1.0)
+    e = torch.reciprocal(torch.where(diag > 0, torch.sqrt(torch.clamp(diag, min=1e-30)), 1.0))
     eye = torch.eye(6, dtype=H.dtype, device=H.device)
-    return H / (d[..., :, None] * d[..., None, :]) + 1e-8 * eye, -b / d
+    return H * (e[..., :, None] * e[..., None, :]) + 1e-8 * eye, -(b * e)
 
 
 def gemm_slack_pass(slack, Xp, X, pts, r_norm, leaves_valid, kf_live, n_descents) -> tuple:

@@ -1,6 +1,6 @@
 """Per-launch device time of the hand-written kernels at the flagship
 configuration (16 keyframes x 32768 leaves, 131072 points, depth 16), the
-parts named by ``--parts`` (default: all but ``step``):
+parts named by ``--parts`` (default: all but ``step``, ``pdl`` and ``launch``):
 
 - ``build``: one ``build_tree`` of the bench's scan 1 captured whole in a
   CUDA graph and replayed in ``reps`` profiled windows. For each K8
@@ -28,15 +28,26 @@ parts named by ``--parts`` (default: all but ``step``):
   ``nvcc -Xptxas -v`` and the threads an SM holds at that count.
 - ``gn``: a certified round's pose update and slack pass on the
   flagship's real normal equations (the round-0 payload of scan 1 under
-  B poses 1 cm apart, B = 1 and 4): the GN update as the plain chain
-  (``solve_gn``, ``clamp_step``, ``exp_se3_split``, the product; each
-  step's kernels and graphed µs, and the whole), ``torch.linalg.solve_ex``
-  alone on the ``(B, 6, 6)`` system, the slack pass in the GEMM form of
-  ``icp_rounds`` before K11 (motion bound, eps_cert, slack, need, the
-  descent count), and, where the tree has them, K10 ``gn_update`` and
-  K11 ``certify_slack`` with their plain versions.
-- ``step``: the bench's certified schedule graphed (median scans/s,
-  device busy ms and kernels a scan, 8 poses) and a B = 4 fleet.
+  B poses 1 cm apart, B = 1 and 4): K10's and K11's registers, spills
+  and SASS instructions; the GN update as the plain chain (``solve_gn``,
+  ``clamp_step``, ``exp_se3_split``, the product; each step's kernels
+  and graphed µs, and the whole); the keyframe sums the step formed with
+  two einsums; K10 ``gn_update`` (and, where it takes them, on the
+  per-keyframe terms), its plain version and a stamped variant's cycles
+  a phase (:func:`gn_stamps`); K11 ``certify_slack`` warm and after an
+  L2 flush, its launch's share of the card, and its plain version.
+- ``step``: the bench's certified, exact and fast schedules graphed
+  (median scans/s, device busy ms and kernels a scan; certified's 8
+  poses and every kernel's µs a call in two graphed scans) and fleets of
+  B = 1, 2 and 4, each beside an eager twin (scans/s, host enqueue ms).
+- ``pdl``: the certified schedule graphed with K10 and K11 under
+  programmatic dependent launch (a variant built here) and as the package
+  launches them, in :data:`PDL_PAIRS` alternating pairs (:func:`pdl_ab`),
+  with the captured graphs' programmatic edges and their poses against
+  ordinary launches' bit for bit. Not in the default.
+- ``launch``: K10 and K11 on a certified round's inputs in each launch
+  variant of :data:`LAUNCH_VARIANTS` (:func:`launch_ab`): graphed and
+  device µs, bit for bit against the package. Not in the default.
 
 ``--paths`` adds the A/Bs that set the plans: every K8 level on every
 path that can take it (:data:`build_points.PATHS`), every K9 call on both
@@ -52,6 +63,8 @@ the card's name and power limit. Run on the card:
 from __future__ import annotations
 
 import argparse
+import contextlib
+import itertools
 import json
 import math
 import re
@@ -67,8 +80,9 @@ from madicp_tpu_torch.probes import build_levels
 from madicp_tpu_torch.utils.timing import bound_ms, device_trace, graph_ms
 
 REPS = 5  # graph replays a trace
-PARTS = ("build", "terms", "descent", "ring", "nodes", "resources", "gn", "step")
-DEFAULT_PARTS = PARTS[:-1]
+PARTS = ("build", "terms", "descent", "ring", "nodes", "resources", "gn", "step", "pdl",
+         "launch")
+DEFAULT_PARTS = PARTS[:-3]
 # a later certified round's uncertified share: a certified flagship scan
 # descends 1.71 M entries, 0.52 M of them in round 0, and each of the other
 # 14 rounds hands the descent 0.52 M entries of which ~16% are live
@@ -634,22 +648,68 @@ def demangle(names: list) -> list:
     return out
 
 
+STEP_SCHEDULES = ("certified", "exact", "fast")  # the step part's graphed schedules
+STEP_FLEETS = (1, 2, 4)  # and fleet sizes
+
+
+EAGER_WARM, EAGER_WINDOWS, EAGER_STEPS = 2, 3, 12  # an eager twin's scans
+
+
+def eager_numbers(step, staged: list) -> dict:
+    """An eager twin's median scans/s over :data:`EAGER_WINDOWS` windows
+    of :data:`EAGER_STEPS` scans (each ending in a synchronisation) and
+    its median host enqueue ms a scan: ``step(s)`` on the first
+    :data:`EAGER_WARM` scans of ``staged``, then on the rest, from the
+    start again where they run out."""
+    for s in staged[:EAGER_WARM]:
+        step(s)
+    torch.cuda.synchronize()
+    scans = itertools.cycle(staged[EAGER_WARM:])
+    rates, enq = [], []
+    for _ in range(EAGER_WINDOWS):
+        t0 = time.perf_counter()
+        for _ in range(EAGER_STEPS):
+            s = next(scans)
+            t = time.perf_counter()
+            step(s)
+            enq.append((time.perf_counter() - t) * 1e3)
+        torch.cuda.synchronize()
+        rates.append(EAGER_STEPS / (time.perf_counter() - t0))
+    return {"scans_per_s": statistics.median(rates), "windows": rates,
+            "enqueue_ms_median": statistics.median(enq)}
+
+
 def step_numbers(device, n_warm: int = 3, n_timed: int = 8, n_prof: int = 2) -> dict:
-    """The end-to-end numbers a kernel change should move, graphed: the
-    bench's certified schedule (:func:`bench.run_schedule`, 3 windows of
-    12 scans: median scans/s, device busy ms and kernels a scan; then the
-    poses of 8 scans of a primed pipeline, to compare two trees) and a
-    B = 4 fleet (four sequences of the bench's drive, staggered by 5
-    scans; fleet scans/s over ``n_timed`` batched scans, device busy ms
-    and kernels a batched scan)."""
+    """The end-to-end numbers a kernel change should move, graphed and
+    eager: the bench's schedules of :data:`STEP_SCHEDULES`
+    (:func:`bench.run_schedule`, 3 windows of 12 scans each: median
+    scans/s, device busy ms and kernels a scan) beside an eager twin (a
+    second primed pipeline running the captured body,
+    :func:`eager_numbers`); for certified, the poses of 8 scans of a
+    primed pipeline (to compare two trees) and every kernel's µs a call
+    in two more (:func:`step_kernels`); and fleets of :data:`STEP_FLEETS`
+    sequences of the bench's drive, staggered by 5 scans (fleet scans/s
+    over ``n_timed`` batched scans, device busy ms and kernels a batched
+    scan), each beside an eager twin on the same batches (cycled)."""
     from madicp_tpu_torch import bench
+    from madicp_tpu_torch.models.step_graph import step_in_place
     from madicp_tpu_torch.parallel import Fleet
     from madicp_tpu_torch.utils.timing import device_kernels
 
     setup = bench.BenchSetup(device, 131072, 16, 16, 32768)
-    cert = bench.run_schedule(setup, "certified", 3, 12, 3)
-    out = {"certified": {k: cert[k] for k in ("median_scans_per_sec", "windows", "profile")}}
-    torch.cuda.empty_cache()
+    out = {}
+    for spec in STEP_SCHEDULES:
+        r = bench.run_schedule(setup, spec, 3, 12, 3)
+        out[spec] = {k: r[k] for k in ("median_scans_per_sec", "windows", "profile")}
+        twin = setup.make_pipe(spec)
+        setup.prime(twin)
+        staged = [twin.stage(setup.scan_at(i))
+                  for i in range(1, 1 + EAGER_WARM + EAGER_WINDOWS * EAGER_STEPS)]
+        out[spec]["eager"] = eager_numbers(
+            lambda s, twin=twin: step_in_place(twin.cfg, twin._graphs.state, s[0][None],
+                                               s[1][None]), staged)
+        del twin, staged
+        torch.cuda.empty_cache()
     pipe = setup.make_pipe("certified")
     setup.prime(pipe)
     poses = []
@@ -657,30 +717,39 @@ def step_numbers(device, n_warm: int = 3, n_timed: int = 8, n_prof: int = 2) -> 
         pipe.compute_device(0.1 * i, *pipe.stage(setup.scan_at(i)))
         poses.append(pipe._last.pose.double().cpu().numpy().tolist())
     out["certified"]["poses"] = poses
-    pipe = setup.make_pipe("certified")
+    out["certified"]["kernels"] = step_kernels(pipe, setup, 9)
+    cfg = pipe.cfg
     total = n_warm + n_timed + n_prof
-    staged = []
-    for k in range(total):
-        batch = [pipe.stage(setup.scan_at(1 + k + 5 * b)) for b in range(4)]
-        staged.append((torch.stack([p for p, _, _ in batch]),
-                       torch.stack([v for _, v, _ in batch])))
-    fleet = Fleet(pipe.cfg, 4, device=device)
-    del pipe
-    for k in range(n_warm):
-        fleet.compute(None, *staged[k])
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for k in range(n_warm, n_warm + n_timed):
-        fleet.compute(None, *staged[k])
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    by_name, wall_ms = device_kernels(
-        lambda: [fleet.compute(None, *staged[k]) for k in range(n_warm + n_timed, total)])
-    out["fleet_b4"] = {"fleet_scans_per_s": 4 * n_timed / wall,
-                       "device_busy_ms_per_batched_scan":
-                           sum(us for us, _ in by_name.values()) / 1e3 / n_prof,
-                       "kernels_per_batched_scan": sum(c for _, c in by_name.values()) / n_prof,
-                       "profiled_wall_ms_per_batched_scan": wall_ms / n_prof}
+    for B in STEP_FLEETS:
+        staged = []
+        for k in range(total):
+            batch = [pipe.stage(setup.scan_at(1 + k + 5 * b)) for b in range(B)]
+            staged.append((torch.stack([p for p, _, _ in batch]),
+                           torch.stack([v for _, v, _ in batch])))
+        fleet = Fleet(cfg, B, device=device)
+        for k in range(n_warm):
+            fleet.compute(None, *staged[k])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for k in range(n_warm, n_warm + n_timed):
+            fleet.compute(None, *staged[k])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        by_name, wall_ms = device_kernels(
+            lambda: [fleet.compute(None, *staged[k]) for k in range(n_warm + n_timed, total)])
+        twin = Fleet(cfg, B, device=device)
+        twin.compute(None, *staged[0])  # the bootstrap scan
+        eager = eager_numbers(lambda s: step_in_place(cfg, twin.states, *s), staged[1:])
+        out[f"fleet_b{B}"] = {
+            "fleet_scans_per_s": B * n_timed / wall,
+            "device_busy_ms_per_batched_scan": sum(us for us, _ in by_name.values()) / 1e3 / n_prof,
+            "kernels_per_batched_scan": sum(c for _, c in by_name.values()) / n_prof,
+            "profiled_wall_ms_per_batched_scan": wall_ms / n_prof,
+            "eager_fleet_scans_per_s": B * eager["scans_per_s"],
+            "eager_fleet_windows": [B * r for r in eager["windows"]],
+            "eager_enqueue_ms_median": eager["enqueue_ms_median"]}
+        del fleet, twin, staged
+        torch.cuda.empty_cache()
     return out
 
 
@@ -693,7 +762,7 @@ def main(argv=None) -> int:
     ap.add_argument("--paths", action="store_true",
                     help="every K8 and K9 level on every path, K7 with every cluster size")
     ap.add_argument("--parts", default=",".join(DEFAULT_PARTS),
-                    help=f"comma list of {', '.join(PARTS)} (default: all but step)")
+                    help=f"comma list of {', '.join(PARTS)} (default: all but step, pdl and launch)")
     a = ap.parse_args(argv)
     parts = set(a.parts.split(","))
     if parts - set(PARTS):
@@ -752,14 +821,22 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     if "gn" in parts:
         fl = fl or flagship_assoc(dev)
+        res = gn_resources()
+        emit("gn_resources", usage=res)
         for dtype in (torch.float32, torch.float64):
             for B in GN_BATCHES:
-                emit("gn", dtype=str(dtype).split(".")[1], B=B, **gn_trace(fl, dtype, B, a.reps))
+                K, L = fl.ring.shape[0], fl.leaves.pts.shape[0]
+                emit("gn", dtype=str(dtype).split(".")[1], B=B, **gn_trace(fl, dtype, B, a.reps),
+                     slack_launch=slack_occupancy(res["certify_slack"], B, K, L, dtype))
         torch.cuda.empty_cache()
     if "step" in parts:
-        del fl
+        fl = None
         torch.cuda.empty_cache()
         emit("step", **step_numbers(dev))
+    if "launch" in parts:
+        emit("launch", rows=launch_ab(fl or flagship_assoc(dev), a.reps))
+    if "pdl" in parts:
+        emit("pdl", **pdl_ab(dev))
     return 0
 
 
@@ -777,17 +854,20 @@ def flagship_terms_args(fl: Flagship, dtype):
 
 
 GN_BATCHES = (1, 4)  # a Pipeline and the fleet's B = 4
+GN_STAMP_CALLS = 20  # eager calls of the stamped K10 variant
+L2_FLUSH_BYTES = 128 << 20  # more than the H100's 50 MB L2
 
 
 def gn_inputs(fl: Flagship, dtype, B: int) -> dict:
     """A certified round's inputs at the flagship in ``dtype`` for ``B``
     sequences: the poses ``Xp`` (B, 4, 4) (scan 1's, 2 cm off, then 1 cm
-    apart along x), their normal equations ``H`` (B, 6, 6), ``b`` (B, 6)
-    over the 16 keyframes from the round-0 payload (what the step hands
-    the update), the updated poses ``X``, round 0's margins as the
-    ``slack`` (B, K, L), the leaves ``pts`` (B, L, 3), their norms
-    ``r_norm`` (B, L), ``leaves_valid`` (B, L), ``kf_live`` (B, K) and a
-    descent count ``n_descents`` (B,)."""
+    apart along x), the per-keyframe normal equations ``Hk`` (B, K, 6, 6),
+    ``bk`` (B, K, 6) from the round-0 payload (K7's output) with the
+    keyframe weights ``w`` (B, K) (every slot live), their sums ``H`` (B,
+    6, 6), ``b`` (B, 6) (what the step hands the update), the updated
+    poses ``X``, round 0's margins as the ``slack`` (B, K, L), the leaves
+    ``pts`` (B, L, 3), their norms ``r_norm`` (B, L), ``leaves_valid`` (B,
+    L), ``kf_live`` (B, K) and a descent count ``n_descents`` (B,)."""
     from madicp_tpu_torch.ops.icp_core import gn_se3_step
 
     inp = descent_inputs(fl, dtype)
@@ -795,18 +875,105 @@ def gn_inputs(fl: Flagship, dtype, B: int) -> dict:
     dev = fl.ring.device
     Xp = inp["X"].expand(B, 4, 4).clone()
     Xp[:, 0, 3] += 0.01 * torch.arange(B, device=dev, dtype=dtype)
-    H, b, _ = icp_terms.terms(inp["payload"][None], inp["pts"][:, None],
-                              fl.leaves.valid[None, None], Xp[:, None],
-                              b_max=fl.cfg.b_max, b_ratio=fl.cfg.b_ratio,
-                              rho_ker=fl.cfg.rho_ker)
-    H, b = H.sum(1), b.sum(1)
+    Hk, bk, _ = icp_terms.terms(inp["payload"][None], inp["pts"][:, None],
+                                fl.leaves.valid[None, None], Xp[:, None],
+                                b_max=fl.cfg.b_max, b_ratio=fl.cfg.b_ratio,
+                                rho_ker=fl.cfg.rho_ker)
+    w = torch.ones((B, K), dtype=dtype, device=dev)
+    H, b = terms_sum(w, Hk, bk)
     pts = inp["pts"].expand(B, L, 3).contiguous()
-    return dict(Xp=Xp, H=H, b=b, X=gn_se3_step(Xp, H, b),
+    return dict(Xp=Xp, Hk=Hk, bk=bk, w=w, H=H, b=b, X=gn_se3_step(Xp, H, b),
                 slack=inp["margin"][None].expand(B, K, L).contiguous(), pts=pts,
                 r_norm=torch.sqrt(torch.sum(pts * pts, dim=-1)),
                 leaves_valid=fl.leaves.valid[None].expand(B, L).contiguous(),
                 kf_live=torch.ones((B, K), dtype=torch.bool, device=dev),
                 n_descents=torch.zeros((B,), dtype=torch.int64, device=dev))
+
+
+def terms_sum(w, Hk, bk) -> tuple:
+    """The keyframe sums of ``icp_rounds``' ``terms_scan`` (two einsums)."""
+    return torch.einsum("bk,bkij->bij", w, Hk), torch.einsum("bk,bki->bi", w, bk)
+
+
+def folds(gn_update) -> bool:
+    """Whether the tree's K10 wrapper takes the per-keyframe terms."""
+    import inspect
+
+    return "w" in inspect.signature(gn_update.gn_update).parameters
+
+
+def gn_stamps(gn_update, g: dict, calls: int = GN_STAMP_CALLS) -> dict:
+    """Where K10's time goes: a variant of ``csrc/gn_update.cu`` with
+    ``clock64`` stamps at its phases (:func:`kernel_variants.stamp_source`),
+    called ``calls`` times eagerly (each launch lands on an SM that may
+    not hold its code) on the flagship's round: the median cycles of
+    each phase on block 0's thread 0, and of the whole."""
+    from madicp_tpu_torch.probes import kernel_variants as kv
+
+    holder = {}
+
+    def transform(text):
+        text, holder["labels"] = kv.stamp_source(text)
+        return text
+
+    lib, _ = kv.build_variant("gn_update", transform=transform)
+    labels = holder["labels"]
+    args = ((g["Xp"], g["Hk"], g["bk"], g["w"]) if folds(gn_update)
+            else (g["Xp"], g["H"], g["b"]))
+    runs = []
+    with kv.use_variant(gn_update._launch, lib):
+        for _ in range(calls):
+            gn_update.gn_update(*args)
+            torch.cuda.synchronize()
+            runs.append(kv.read_stamps(lib, len(labels)))
+    phases = {labels[i]: statistics.median(r[i + 1] - r[i] for r in runs)
+              for i in range(len(labels) - 1)}
+    return {"cycles": phases, "total_cycles": statistics.median(r[-1] - r[0] for r in runs),
+            "first_call_cycles": runs[0][-1] - runs[0][0], "calls": calls}
+
+
+def gn_resources() -> dict:
+    """Registers, stack and spills (``nvcc -Xptxas -v``) and SASS
+    instructions (``cuobjdump -sass``) of each K10 and K11 kernel."""
+    from madicp_tpu_torch.probes import kernel_variants as kv
+
+    usage = ptxas_usage(("gn_update", "certify_slack"))
+    for name in ("gn_update", "certify_slack"):
+        counts = kv.sass_counts(build.build_all((name,))[name])
+        for short, n in zip(demangle(list(counts)), counts.values()):
+            usage[name].setdefault(short, {})["sass_instructions"] = n
+    return usage
+
+
+def slack_occupancy(regs: dict, B: int, K: int, L: int, dtype) -> dict:
+    """K11's launch at (B, K, L): blocks, threads and their share of the
+    threads the card holds at its register count (no shared-memory
+    limit; 132 SMs). ``regs`` (:func:`gn_resources`) names the kernels:
+    the tiled design (``certify_slack_kernel<T, VEC>``: a block covers 64
+    x 16 bytes of leaves and 16 keyframes) or PR 14's one thread a leaf."""
+    threads = 256
+    f64 = dtype == torch.float64
+    tiled = [k for k in regs if ("double" in k) == f64 and "true" in k]
+    if tiled:
+        grid = (-(-L // (64 * 128 // torch.finfo(dtype).bits)), -(-K // 16), B)
+    else:
+        grid = (-(-L // threads), B)
+    name = (tiled or [k for k in regs if ("double" in k) == f64])[0]
+    blocks = math.prod(grid)
+    registers = regs[name]["registers"]
+    return {"kernel": name, "grid": list(grid), "blocks": blocks, "threads_a_block": threads,
+            "registers": registers,
+            "resident_share": blocks * threads / (132 * resident_threads(registers, threads))}
+
+
+def cold_us(fn, reps: int = 20) -> float:
+    """Device µs of ``fn()`` after an L2 flush: a graph of ``reps`` (flush,
+    call) pairs less a graph of ``reps`` flushes (:data:`L2_FLUSH_BYTES`
+    zeroed)."""
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    both = graph_ms(lambda: (flush.zero_(), fn()), reps)
+    alone = graph_ms(flush.zero_, reps)
+    return (both - alone) * 1e3
 
 
 def gn_trace(fl: Flagship, dtype, B: int, reps: int = REPS) -> dict:
@@ -818,37 +985,166 @@ def gn_trace(fl: Flagship, dtype, B: int, reps: int = REPS) -> dict:
 
     from madicp_tpu_torch.ops.icp_core import clamp_step, solve_gn
     from madicp_tpu_torch.ops.lie import exp_se3_split
-    from madicp_tpu_torch.probes import gn_cases
 
     g = gn_inputs(fl, dtype, B)
     Xp, H, b, X = g["Xp"], g["H"], g["b"], g["X"]
     dx = solve_gn(H, b)
     dxc = clamp_step(dx)
     dX = exp_se3_split(dxc)
-    A, rhs = gn_cases.scaled_system(H, b)
     out = {"gn_plain": launch_us(lambda: Xp @ exp_se3_split(clamp_step(solve_gn(H, b))), reps,
                                  {"solve": lambda: solve_gn(H, b),
                                   "clamp": lambda: clamp_step(dx),
                                   "exp": lambda: exp_se3_split(dxc),
                                   "product": lambda: Xp @ dX}),
-           "solve_ex": launch_us(lambda: torch.linalg.solve_ex(A, rhs), reps)}
-    for name, fn in (("solve", lambda: solve_gn(H, b)), ("clamp", lambda: clamp_step(dx)),
-                     ("exp", lambda: exp_se3_split(dxc)), ("product", lambda: Xp @ dX)):
-        out[f"gn_plain_{name}"] = launch_us(fn, reps)
+           "terms_sum": launch_us(lambda: terms_sum(g["w"], g["Hk"], g["bk"]), reps)}
+    if importlib.util.find_spec("madicp_tpu_torch.kernels.gn_update") is None:
+        return out
+    from madicp_tpu_torch.kernels import certify_slack, gn_update
+
+    out["gn_update"] = launch_us(lambda: gn_update.gn_update(Xp, H, b), reps)
+    if folds(gn_update):
+        out["gn_update_folded"] = launch_us(
+            lambda: gn_update.gn_update(Xp, g["Hk"], g["bk"], g["w"]), reps)
+        out["gn_update_plain_folded"] = launch_us(
+            lambda: gn_update.gn_update_plain(Xp, g["Hk"], g["bk"], g["w"]), reps)
+    else:  # the einsums and the update as the step ran them
+        out["terms_sum_then_gn_update"] = launch_us(
+            lambda: gn_update.gn_update(Xp, *terms_sum(g["w"], g["Hk"], g["bk"])), reps)
+    out["gn_update_plain"] = launch_us(lambda: gn_update.gn_update_plain(Xp, H, b), reps)
+    if folds(gn_update):  # the stamps mark the warp design's phases
+        out["gn_stamps"] = gn_stamps(gn_update, g)
     tail = (g["slack"], Xp, X, g["pts"], g["r_norm"], g["leaves_valid"], g["kf_live"],
             g["n_descents"])
-    out["slack_gemm"] = launch_us(lambda: gn_cases.gemm_slack_pass(*tail), reps)
-    out["slack_gemm"]["need"] = int(gn_cases.gemm_slack_pass(*tail)[3].sum())
-    if importlib.util.find_spec("madicp_tpu_torch.kernels.gn_update") is not None:
-        from madicp_tpu_torch.kernels import certify_slack, gn_update
-
-        out["gn_update"] = launch_us(lambda: gn_update.gn_update(Xp, H, b), reps)
-        out["gn_update_plain"] = launch_us(lambda: gn_update.gn_update_plain(Xp, H, b), reps)
-        work = tuple(t.clone() for t in tail)  # the slack and the count change in place
-        out["certify_slack"] = launch_us(lambda: certify_slack.certify_slack(*work), reps)
-        out["certify_slack_plain"] = launch_us(
-            lambda: certify_slack.certify_slack_plain(*work), reps)
+    work = tuple(t.clone() for t in tail)  # the slack and the count change in place
+    out["certify_slack"] = launch_us(lambda: certify_slack.certify_slack(*work), reps)
+    out["certify_slack"]["cold_l2_us"] = cold_us(lambda: certify_slack.certify_slack(*work))
+    out["certify_slack_plain"] = launch_us(
+        lambda: certify_slack.certify_slack_plain(*work), reps)
     return out
+
+
+def step_kernels(pipe, setup, first: int, n: int = 2) -> dict:
+    """{kernel: {"us_a_call", "calls_a_scan"}} of ``n`` graphed scans of a
+    primed pipeline from scan ``first``, every kernel of the profiled
+    window, by its short name."""
+    from madicp_tpu_torch.utils.timing import device_kernels
+
+    staged = [pipe.stage(setup.scan_at(i)) for i in range(first, first + n)]
+    by_name, _ = device_kernels(lambda: [pipe.compute_device(0.1 * (first + i), *s)
+                                         for i, s in enumerate(staged)])
+    rows = {}
+    for name, (us, cnt) in by_name.items():
+        key = short_name(name)
+        tot, c = rows.get(key, (0.0, 0))
+        rows[key] = (tot + us, c + cnt)
+    return {k: {"us_a_call": us / c, "calls_a_scan": c / n, "us_a_scan": us / n}
+            for k, (us, c) in sorted(rows.items(), key=lambda kv: -kv[1][0])}
+
+
+# K10's and K11's launch variants (:func:`kernel_variants.launch_source`):
+# name -> (what each kernel does where it would wait for the kernel before
+# it, how it is launched); "ordinary" is the package
+LAUNCH_VARIANTS = {"ordinary": (None, None), "launch_ex": (None, "ex"),
+                   "barrier": ("barrier", None),
+                   "griddepcontrol": ("griddepcontrol", None),
+                   "griddepcontrol_launch_ex": ("griddepcontrol", "ex")}
+
+
+def launch_ab(fl: Flagship, reps: int = REPS) -> list:
+    """K10 (the per-keyframe form) and K11 on a certified round's flagship
+    inputs (:func:`gn_inputs`, B = 1 and 4, both types) built in each of
+    :data:`LAUNCH_VARIANTS`, the variants in order and then in reverse:
+    graphed µs a call, device µs, and whether each result equals the
+    package's bit for bit."""
+    from madicp_tpu_torch.kernels import certify_slack, gn_update
+    from madicp_tpu_torch.probes import kernel_variants as kv
+
+    libs = {v: {m: kv.build_variant(m._launch.name, transform=lambda s, n=m._launch.name, a=a:
+                                    kv.launch_source(n, s, *a))[0]
+                for m in (gn_update, certify_slack)}
+            for v, a in LAUNCH_VARIANTS.items()}
+    cases = []
+    for dtype in (torch.float32, torch.float64):
+        for B in GN_BATCHES:
+            g = gn_inputs(fl, dtype, B)
+            tail = (g["slack"], g["Xp"], g["X"], g["pts"], g["r_norm"], g["leaves_valid"],
+                    g["kf_live"], g["n_descents"])
+            want = (gn_update.gn_update(g["Xp"], g["Hk"], g["bk"], g["w"]),
+                    certify_slack.certify_slack(*(t.clone() for t in tail)))
+            cases.append((dtype, B, g, tail, want))
+    rows = []
+    for v in list(LAUNCH_VARIANTS) + list(reversed(LAUNCH_VARIANTS)):
+        with contextlib.ExitStack() as stack:
+            for m, lib in libs[v].items():
+                stack.enter_context(kv.use_variant(m._launch, lib))
+            for dtype, B, g, tail, want in cases:
+                k10 = lambda g=g: gn_update.gn_update(g["Xp"], g["Hk"], g["bk"], g["w"])  # noqa: E731
+                work = tuple(t.clone() for t in tail)
+                need = certify_slack.certify_slack(*(t.clone() for t in tail))
+                same = (all(torch.equal(a, b) for a, b in zip(k10(), want[0]))
+                        and torch.equal(need, want[1]))
+                a, b = launch_us(k10, reps), launch_us(
+                    lambda work=work: certify_slack.certify_slack(*work), reps)
+                rows.append({"variant": v, "dtype": str(dtype).split(".")[1], "B": B,
+                             "equal": same, "gn_update_graph_us": a["graph_us"],
+                             "gn_update_device_us": [k["device_us"] for k in a["kernels"] or []],
+                             "certify_slack_graph_us": b["graph_us"],
+                             "certify_slack_device_us": [k["device_us"]
+                                                         for k in b["kernels"] or []]})
+    return rows
+
+
+PDL_PAIRS = 10  # (on, off) pairs of the A/B, alternating: on, off, off, on, ...
+
+
+def pdl_ab(device, pairs: int = PDL_PAIRS) -> dict:
+    """The certified schedule graphed with K10 and K11 launched as the
+    package launches them (``off``: ordinary launches) and as programmatic
+    dependents of the kernel before each (``on``: a variant,
+    :func:`kernel_variants.programmatic_source`), ``pairs`` times each in
+    the order on, off, off, on, ...: each run's median scans/s, device
+    busy ms and kernels a scan, the captured graph's edges and
+    programmatic edges, and whether its 8 graphed poses equal the first
+    ``off`` run's bit for bit; the medians and the on/off ratio."""
+    from madicp_tpu_torch import bench
+    from madicp_tpu_torch.kernels import certify_slack, gn_update
+    from madicp_tpu_torch.probes import kernel_variants as kv
+
+    libs = {"on": {m: kv.build_variant(
+        m._launch.name, transform=lambda s, n=m._launch.name: kv.programmatic_source(n, s))[0]
+        for m in (gn_update, certify_slack)}}
+    setup = bench.BenchSetup(device, 131072, 16, 16, 32768)
+    order = [("on", "off") if i % 2 == 0 else ("off", "on") for i in range(pairs)]
+    rows, ref = [], None
+    for variant in [v for pair in order for v in pair]:
+        with contextlib.ExitStack() as stack:
+            for m, lib in libs.get(variant, {}).items():
+                stack.enter_context(kv.use_variant(m._launch, lib))
+            r = bench.run_schedule(setup, "certified", 3, 12, 3)
+            fresh = bench.BenchSetup(device, 131072, 16, 16, 32768)  # the same rings each run
+            pipe = fresh.make_pipe("certified")
+            fresh.prime(pipe)
+            poses = []
+            for i in range(1, 9):  # scan 3 captures, the later ones replay
+                pipe.compute_device(0.1 * i, *pipe.stage(fresh.scan_at(i)))
+                poses.append(pipe._last.pose.clone())
+            edges = [kv.graph_edges(g.graph.raw_cuda_graph())
+                     for g in pipe._graphs._graphs.values()]
+        poses = torch.stack(poses)
+        if ref is None and variant == "off":
+            ref = poses
+        rows.append({"pdl": variant, "median_scans_per_sec": r["median_scans_per_sec"],
+                     "windows": r["windows"], "profile": r["profile"], "graph_edges": edges,
+                     "poses": poses})
+        del pipe, fresh
+        torch.cuda.empty_cache()
+    for row in rows:
+        row["poses_equal_off"] = bool(torch.equal(row.pop("poses"), ref))
+    med = {v: statistics.median(row["median_scans_per_sec"] for row in rows if row["pdl"] == v)
+           for v in ("on", "off")}
+    rate = {(i // 2, row["pdl"]): row["median_scans_per_sec"] for i, row in enumerate(rows)}
+    return {"runs": rows, "median_scans_per_sec": med, "on_over_off": med["on"] / med["off"],
+            "pairs_on_ahead": sum(rate[i, "on"] > rate[i, "off"] for i in range(pairs))}
 
 
 if __name__ == "__main__":

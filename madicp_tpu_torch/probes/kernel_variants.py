@@ -1,0 +1,222 @@
+"""Variants of the package's CUDA sources, built only here: for tracing
+where a kernel's time goes and for A/Bs that the package ships no switch
+for. Used by :mod:`madicp_tpu_torch.probes.kernel_trace` on the card.
+
+- :func:`build_variant` compiles ``csrc/<name>.cu`` with extra ``-D``
+  flags and/or a text transform into ``build/madicp_tpu_torch/variants/``
+  (keyed by a hash of the text and the flags) and loads it;
+  :func:`use_variant` makes a wrapper launch it in place of the package's
+  library (its argument handling, counts and checks unchanged).
+- :func:`stamp_source` inserts ``clock64`` stamps at a kernel's phase
+  boundaries (``// phase: <name>`` lines); :func:`read_stamps` reads the
+  cycles of block 0's thread 0 back.
+- :func:`launch_source` varies how K10's or K11's kernel is launched
+  and what it does where it would wait for the kernel before it;
+  :func:`programmatic_source` makes it a programmatic dependent of that
+  kernel (Hopper's programmatic dependent launch, which the package does
+  not ship: PERF.md §6, PR 15).
+- :func:`sass_counts` counts each kernel's SASS instructions
+  (``cuobjdump -sass``); :func:`graph_edges` counts a CUDA graph's edges
+  and its programmatic ones (libcuda).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import ctypes
+import hashlib
+import re
+import subprocess
+from pathlib import Path
+
+from madicp_tpu_torch.kernels import build
+
+VARIANT_DIR = build.BUILD_DIR / "variants"
+
+STAMP_HEADER = r"""
+__device__ long long madicp_stamps[32];
+#define MADICP_STAMP(i)                                                     \
+  do {                                                                      \
+    long long t_;                                                           \
+    asm volatile("mov.u64 %0, %%clock64;" : "=l"(t_)::"memory");           \
+    if (blockIdx.x == 0 && threadIdx.x == 0) madicp_stamps[i] = t_;         \
+  } while (0)
+"""
+STAMP_FOOTER = r"""
+extern "C" int madicp_read_stamps(long long* host, int n) {
+  return static_cast<int>(cudaMemcpyFromSymbol(host, madicp_stamps, n * sizeof(long long)));
+}
+"""
+
+
+def stamp_source(text: str) -> tuple:
+    """(instrumented source, phase labels): a ``MADICP_STAMP(i)`` before
+    each ``// phase: <label>`` line; phase i runs from stamp i to stamp
+    i + 1. The stamp's ``memory`` clobber keeps loads and stores on their
+    side of it, not the arithmetic, so the split is approximate."""
+    lines = text.split("\n")
+    marks = [(i, m.group(1)) for i, line in enumerate(lines)
+             if (m := re.match(r"^\s*// phase: (\w+)", line))]
+    if not marks:
+        raise ValueError("stamp_source: the source marks no phase")
+    out = list(lines)
+    for n, (i, label) in enumerate(reversed(marks)):
+        out.insert(i, f"  MADICP_STAMP({len(marks) - 1 - n});")
+    labels = [label for _, label in marks]
+    return STAMP_HEADER + "\n".join(out) + STAMP_FOOTER, labels
+
+
+# Programmatic dependent launch: a kernel launched with
+# cudaLaunchAttributeProgrammaticStreamSerialization may start while the
+# kernel before it on the stream still runs, once that kernel's blocks have
+# all executed griddepcontrol.launch_dependents (or exited). Until it
+# executes griddepcontrol.wait it may read only what the kernel right
+# before it does not write. Ordering rule of these variants: a kernel
+# releases its dependents only after its own wait, so when a dependent
+# starts, every launch before its predecessor has completed.
+LAUNCH_HEADER = r"""
+#include <cuda_runtime.h>
+template <int NATTRS, typename... Params, typename... Args>
+static cudaError_t madicp_launch_ex(void (*kernel)(Params...), dim3 grid, dim3 block,
+                                    cudaStream_t stream, Args... args) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = NATTRS;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+"""
+# where each kernel waits for the kernel before it: K10 before it reads
+# anything (H and b are K7's output); K11 after it has loaded the slack,
+# the leaves, their norms and flags (the slack's writer, K6, ran two
+# launches back), before it reads the poses (X is K10's output)
+PDL_WAIT_BEFORE = {"gn_update": r"^  if \(s >= n\) return;",
+                   "certify_slack": r"^  // phase: bound"}
+# what a variant puts at that point
+AT_WAIT = {"griddepcontrol": ('asm volatile("griddepcontrol.wait;" ::: "memory"); '
+                              'asm volatile("griddepcontrol.launch_dependents;" ::: "memory");'),
+           "barrier": 'asm volatile("" ::: "memory");'}  # a compiler barrier alone
+LAUNCH = re.compile(r"(\S+)<<<grid, block, 0, stream>>>\(")
+
+
+def launch_source(name: str, text: str, at_wait: str = None, launch: str = None) -> str:
+    """``csrc/<name>.cu``'s ``text`` (K10 or K11) with :data:`AT_WAIT`\
+    ``[at_wait]`` at its :data:`PDL_WAIT_BEFORE` point and its ``<<<>>>``
+    launch made by ``cudaLaunchKernelEx``: ``launch="ex"`` with no
+    attribute, ``"programmatic"`` as a programmatic dependent (the
+    launcher's ``cudaGetLastError`` still reports a refused launch)."""
+    lines = text.split("\n")
+    at = [i for i, line in enumerate(lines) if re.match(PDL_WAIT_BEFORE[name], line)]
+    if len(at) != 1 or len(LAUNCH.findall(text)) != 1:
+        raise ValueError(f"launch_source: {name}'s wait point or launch changed")
+    if at_wait:
+        lines.insert(at[0], "  " + AT_WAIT[at_wait])
+    text = "\n".join(lines)
+    if launch:
+        n = {"ex": 0, "programmatic": 1}[launch]
+        text = LAUNCH_HEADER + LAUNCH.sub(rf"madicp_launch_ex<{n}>(\1, grid, block, stream, ", text)
+    return text
+
+
+def programmatic_source(name: str, text: str) -> str:
+    """``text`` with its kernel waiting for, then releasing, the kernel
+    before it and launched as its programmatic dependent."""
+    return launch_source(name, text, "griddepcontrol", "programmatic")
+
+
+def build_variant(name: str, defines=(), transform=None, source: str = None) -> tuple:
+    """(loaded library, its path) of ``csrc/<name>.cu`` (or ``source``)
+    after ``transform`` (text to text), built with the package's flags
+    and ``-D`` each of ``defines``; the headers beside the sources are
+    found as the package's are."""
+    text = source if source is not None else (build.CSRC / f"{name}.cu").read_text()
+    if transform is not None:
+        text = transform(text)
+    flags = (*build.NVCC_FLAGS, f"-I{build.CSRC}", *(f"-D{d}" for d in defines))
+    h = hashlib.sha256((text + " ".join(flags)).encode()).hexdigest()[:16]
+    VARIANT_DIR.mkdir(parents=True, exist_ok=True)
+    src = VARIANT_DIR / f"{name}_{h}.cu"
+    lib = VARIANT_DIR / f"lib{name}_{h}.so"
+    if not lib.exists():
+        src.write_text(text)
+        proc = subprocess.run([build.nvcc(), *flags, "-o", str(lib), str(src)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for the {name} variant:\n{proc.stdout}"
+                               f"{proc.stderr}")
+    return ctypes.CDLL(str(lib)), lib
+
+
+@contextlib.contextmanager
+def use_variant(launcher: build.Launcher, lib: ctypes.CDLL):
+    """Within the block ``launcher`` (a wrapper's ``_launch``) calls
+    ``lib``'s entries in place of the package library's."""
+    saved_lib, saved_fns = build._loaded.get(launcher.name), launcher._fns
+    build._loaded[launcher.name], launcher._fns = lib, {}
+    try:
+        yield
+    finally:
+        launcher._fns = saved_fns
+        if saved_lib is None:
+            build._loaded.pop(launcher.name, None)
+        else:
+            build._loaded[launcher.name] = saved_lib
+
+
+def read_stamps(lib: ctypes.CDLL, n: int) -> list:
+    """The ``n`` clock64 stamps of the last launch of a stamped variant."""
+    buf = (ctypes.c_longlong * n)()
+    lib.madicp_read_stamps.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.madicp_read_stamps.restype = ctypes.c_int
+    build.raise_on_error(lib, lib.madicp_read_stamps(buf, n), "read_stamps")
+    return list(buf)
+
+
+def sass_counts(lib_path: Path) -> dict:
+    """{mangled kernel: SASS instructions} of a built library
+    (``cuobjdump -sass``; the NOP padding excluded)."""
+    tool = Path(build.nvcc()).parent / "cuobjdump"
+    text = subprocess.run([str(tool), "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True).stdout
+    out, cur = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            cur = m.group(1)
+            out[cur] = 0
+        elif cur and re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+\S", line) and " NOP" not in line:
+            out[cur] += 1
+    return out
+
+
+class _EdgeData(ctypes.Structure):  # CUgraphEdgeData
+    _fields_ = [("from_port", ctypes.c_ubyte), ("to_port", ctypes.c_ubyte),
+                ("type", ctypes.c_ubyte), ("reserved", ctypes.c_ubyte * 5)]
+
+
+CU_GRAPH_DEPENDENCY_TYPE_PROGRAMMATIC = 1
+
+
+def graph_edges(raw_graph: int) -> dict:
+    """{"edges", "programmatic"} of a captured CUDA graph (its
+    ``cudaGraph_t`` as an integer: ``CUDAGraph(keep_graph=True)``'s
+    ``raw_cuda_graph()``), from libcuda's ``cuGraphGetEdges_v2``."""
+    lib = ctypes.CDLL("libcuda.so.1")
+    fn = lib.cuGraphGetEdges_v2
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_size_t)]
+    n = ctypes.c_size_t(0)
+    rc = fn(raw_graph, None, None, None, ctypes.byref(n))
+    if rc:
+        raise RuntimeError(f"cuGraphGetEdges_v2 failed with CUresult {rc}")
+    nodes = (ctypes.c_void_p * max(n.value, 1))
+    data = (_EdgeData * max(n.value, 1))()
+    rc = fn(raw_graph, nodes(), nodes(), data, ctypes.byref(n))
+    if rc:
+        raise RuntimeError(f"cuGraphGetEdges_v2 failed with CUresult {rc}")
+    prog = sum(data[i].type == CU_GRAPH_DEPENDENCY_TYPE_PROGRAMMATIC for i in range(n.value))
+    return {"edges": n.value, "programmatic": prog}

@@ -1,33 +1,39 @@
 """The GN update and the certified slack pass of the PyTorch port: K10
-(``kernels/gn_update.py``, ``gn_se3_step``'s body) and K11
-(``kernels/certify_slack.py``, a certified later round's motion bound,
-slack, ``need`` and descent count).
+(``kernels/gn_update.py``, ``gn_se3_step``'s body and a round's keyframe
+sum) and K11 (``kernels/certify_slack.py``, a certified later round's
+motion bound, slack, ``need`` and descent count).
 
 On the CPU: ``gn_update_plain`` against the JAX package's ``gn_se3_step``
-at 1e-9 in float64, one sequence and a batch of four (real normal
-equations, an empty H, a singular one whose solve is not finite, steps beyond each trust
-bound, both branches of ``exp_so3``); ``certify_slack_plain`` against the
-GEMM form of the motion bound and ``eps_cert`` that ``icp_rounds`` used
-before it (within a few ulps), and its ``need`` and count against
-``uncert & live_kl`` as the rounds formed them; both wrappers' CPU dispatch
-and argument checks. Tests marked ``cuda`` hold each kernel to its plain
+at 1e-9 in float64, one sequence and batches of four (real normal
+equations, an empty H, a singular one whose solve is not finite, steps
+beyond each trust bound, both branches of ``exp_so3``, an infinite
+diagonal entry), and in its per-keyframe form against the JAX rounds'
+einsum and ``gn_se3_step``; its batched LU against the same LU written
+one scalar at a time; ``certify_slack_plain`` against the GEMM form
+of the motion bound and ``eps_cert`` that ``icp_rounds`` used before it
+(within a few ulps), and its ``need`` and count against ``uncert &
+live_kl`` as the rounds formed them; both wrappers' CPU dispatch and
+argument checks. Tests marked ``cuda`` hold each kernel to its plain
 version on the card (K10 within 5e-6 relative in float32 and 1e-12 in
 float64; K11's slack, ``need`` and count bit for bit) and a CUDA graph's
-replay to the eager call bit for bit, and skip without one. JAX is
-imported by the CPU tests only, so a machine with a card needs none."""
+replay to the eager calls bit for bit (K7 -> K10 -> K11 among them), and
+skip without one. JAX is imported by the CPU tests only, so a machine
+with a card needs none."""
 
 import numpy as np
 import pytest
 import torch
 
-from madicp_tpu_torch.kernels import certify_slack, gn_update
+from madicp_tpu_torch.kernels import certify_slack, gn_update, icp_terms
 from madicp_tpu_torch.probes.gn_cases import (
     BATCHES,
     GN_CASES,
+    TERMS_KW,
     gemm_slack_pass,
     gn_batch,
     gn_case,
-    plain_by_sequence,
+    keyframe_terms,
+    round_inputs,
     scaled_system,
     slack_inputs,
 )
@@ -72,9 +78,15 @@ def test_gn_update_cases_do_what_they_name(case):
     if case == "singular":  # the scaled solve is not finite where it zeroes
         A, rhs = scaled_system(H, b)
         assert float(A[2, 2]) == 0.0
-        y = torch.linalg.solve_ex(A, rhs)[0]
+        y = gn_update.lu_solve(A, rhs)
         assert not torch.isfinite(y[:3]).any() and torch.isfinite(y[3:]).all()
         assert not dx[:3].any() and dx[3:].all()
+    if case.startswith("inf_"):  # row and column i zero but for a NaN pivot
+        i = int(case[4:])
+        A, _ = scaled_system(H, b)
+        assert torch.isnan(A[i, i]) and not A[i].nan_to_num().any()
+        assert not A[:, i].nan_to_num().any()
+        assert not dx[:i + 1].any() and dx[i + 1:].all()
     theta_sq = float((dx[3:] ** 2).sum())
     if case == "clamp_t":
         assert float(dx[:3].norm()) == pytest.approx(gn_update.GN_STEP_MAX_T)
@@ -85,6 +97,105 @@ def test_gn_update_cases_do_what_they_name(case):
     if case != "small_angle":
         assert theta_sq >= 1e-8
     assert torch.isfinite(out).all() and not torch.equal(out, X)
+
+
+def scalar_lu_solve(A: np.ndarray, r: np.ndarray) -> np.ndarray:
+    """The LU rule of ``gn_update.lu_solve`` one scalar at a time (numpy,
+    A's type): LAPACK's first largest pivot (a NaN only where it comes
+    first), multipliers by the pivot's reciprocal, no elimination where
+    the pivot is zero or the column below it is, the substitution by the
+    pivots' reciprocals."""
+    A, r, n = A.copy(), r.copy(), A.shape[0]
+    one, inv = A.dtype.type(1), []
+    for k in range(n):
+        p = k
+        for j in range(k + 1, n):
+            if abs(A[j, k]) > abs(A[p, k]):
+                p = j
+        A[[k, p]], r[[k, p]] = A[[p, k]], r[[p, k]]
+        inv.append(one / A[k, k])
+        if A[k, k] == 0 or not A[k + 1:, k].any():
+            continue
+        for i in range(k + 1, n):
+            m = A[i, k] * inv[k]
+            A[i, k + 1:] = A[i, k + 1:] - m * A[k, k + 1:]
+            r[i] = r[i] - m * r[k]
+    y = np.empty_like(r)
+    for k in reversed(range(n)):
+        y[k] = r[k] * inv[k]
+        r[:k] = r[:k] - A[:k, k] * y[k]
+    return y
+
+
+LU_KINDS = ("random", "spd", "nan_pivot", "zero_pivot", "ties", "nan_below")
+
+
+def lu_systems(kind: str, n: int = 24, seed: int = 0) -> tuple:
+    """``n`` seeded 6x6 systems of ``kind``: a NaN pivot in a column and
+    row zero elsewhere (an infinite ``H_ii``), a zero column (a zero
+    pivot), integer entries (ties), a NaN below the diagonal."""
+    rng = np.random.default_rng(seed + LU_KINDS.index(kind))
+    A, r = rng.standard_normal((n, 6, 6)), rng.standard_normal((n, 6))
+    for i, a in enumerate(A):
+        c = i % 6
+        if kind == "spd":
+            A[i] = a @ a.T
+        elif kind == "nan_pivot":
+            a[c, :] = a[:, c] = 0
+            a[c, c] = np.nan
+        elif kind == "zero_pivot":
+            a[:, c] = 0
+        elif kind == "ties":
+            A[i] = np.round(2 * a)
+        elif kind == "nan_below":
+            a[(c + 1 + i % 5) % 6, c] = np.nan
+    return A, r
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("kind", LU_KINDS)
+def test_lu_solve_is_the_scalar_lu(kind, dtype):
+    """The batched LU of the plain solve equals the scalar LU bit for bit
+    (NaN where it is NaN) on every kind of system, singular ones too."""
+    A, r = (a.astype(dtype) for a in lu_systems(kind))
+    got = gn_update.lu_solve(torch.from_numpy(A), torch.from_numpy(r)).numpy()
+    with np.errstate(all="ignore"):
+        want = np.stack([scalar_lu_solve(a, v) for a, v in zip(A, r)])
+    np.testing.assert_array_equal(got, want)
+    if kind in ("random", "spd", "ties"):
+        assert np.isfinite(got).any()
+
+
+@pytest.mark.parametrize("K", [1, 4])
+def test_gn_update_plain_folds_the_keyframe_sum_as_jax(jax_icp, K):
+    """The per-keyframe form against the JAX rounds' keyframe sum
+    (``madicp_tpu/models/pipeline.py:432-433``'s einsum, an empty ring slot
+    weighted 0) and ``gn_se3_step``, float64 at 1e-9: the update and the
+    sums it returns."""
+    import jax.numpy as jnp
+
+    X, H, b, w = keyframe_terms(2, K, seed=K)
+    got, got_H, got_b = gn_update.gn_update_plain(*(torch.from_numpy(a) for a in (X, H, b, w)))
+    for i in range(2):
+        want_H = jnp.einsum("k,kij->ij", jnp.asarray(w[i]), jnp.asarray(H[i]))
+        want_b = jnp.einsum("k,ki->i", jnp.asarray(w[i]), jnp.asarray(b[i]))
+        want = jax_icp.gn_se3_step(jnp.asarray(X[i]), want_H, want_b)
+        np.testing.assert_allclose(got[i].numpy(), np.asarray(want), rtol=0, atol=1e-9)
+        np.testing.assert_allclose(got_H[i].numpy(), np.asarray(want_H), rtol=1e-12, atol=0)
+        np.testing.assert_allclose(got_b[i].numpy(), np.asarray(want_b), rtol=1e-12, atol=1e-12)
+    assert torch.equal(gn_update.gn_update(*(torch.from_numpy(a) for a in (X, H, b, w)))[0], got)
+
+
+def test_gn_update_rejects_weights_that_do_not_match():
+    """``w`` must be (..., K) with H's and b's K, on their device and type."""
+    X, H, b, w = (torch.from_numpy(a) for a in keyframe_terms(2, 4))
+    for bad in (w[:, :3], w[:, :, None], w.float(), w.to("meta")):
+        with pytest.raises((ValueError, TypeError)):
+            gn_update.gn_update(X, H, b, bad)
+    with pytest.raises(ValueError):
+        gn_update.gn_update(X, H[:, :3], b, w)
+    with pytest.raises(ValueError):
+        gn_update.gn_update(X, H[..., 0, :, :], b[..., 0, :], w)  # summed terms with w
 
 
 def test_gn_se3_step_dispatches_to_the_plain_version_on_cpu(monkeypatch):
@@ -210,20 +321,48 @@ def _gn_rel(got, want) -> float:
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("name", list(BATCHES))
 def test_gn_update_kernel_matches_the_plain_version_on_cuda(cuda_device, dtype, name):
-    """K10 against the plain version of each sequence on its own
-    (``gn_cases.plain_by_sequence``: the plain batched LU on the card zeroes
-    a singular system's whole step), and against the plain version on the
-    CPU, which holds the JAX reference."""
+    """K10 against the plain version on the card (the whole batch: its
+    explicit LU follows the kernel's rules) and on the CPU, which holds
+    the JAX reference."""
     X, H, b = _gn_on(name, dtype, cuda_device)
     before = gn_update.counter.launches
     got = gn_update.gn_update(X, H, b)
     torch.cuda.synchronize()
     assert gn_update.counter.launches == before + 1
-    assert _gn_rel(got, plain_by_sequence(X, H, b)) <= GN_TOL[dtype]
+    assert _gn_rel(got, gn_update.gn_update_plain(X, H, b)) <= GN_TOL[dtype]
     cpu = gn_update.gn_update_plain(*(t.cpu() for t in (X, H, b)))
     assert _gn_rel(got.cpu(), cpu) <= GN_TOL[dtype]
     if name == "empty":
         assert torch.equal(got, X)  # no step: X times the identity, exactly
+
+
+def _sum_bound(terms, w, dtype):
+    """Two orders of a K-term sum differ by at most 2 K eps times the sum
+    of the terms' magnitudes (entry by entry)."""
+    lead = w.shape + (1,) * (terms.dim() - w.dim())
+    return 2 * w.shape[-1] * torch.finfo(dtype).eps * (w.abs().view(lead) * terms.abs()).sum(1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("K", [1, 4, 16, 17])
+def test_gn_update_kernel_folds_the_keyframe_sum_on_cuda(cuda_device, dtype, K):
+    """K10 on per-keyframe terms (K up to past one load batch of 16)
+    against the plain version: the update within the tolerance, the sums
+    it returns within the two orders' bound; broadcast X and strided
+    terms give the same bits."""
+    X, H, b, w = (torch.as_tensor(a, dtype=dtype, device=cuda_device)
+                  for a in keyframe_terms(3, K, seed=K))
+    got, got_H, got_b = gn_update.gn_update(X, H, b, w)
+    want, want_H, want_b = gn_update.gn_update_plain(X, H, b, w)
+    assert _gn_rel(got, want) <= GN_TOL[dtype]
+    assert bool(((got_H - want_H).abs() <= _sum_bound(H, w, dtype)).all())
+    assert bool(((got_b - want_b).abs() <= _sum_bound(b, w, dtype)).all())
+    Ht = H.mT.contiguous().mT
+    assert all(torch.equal(g, o) for g, o in zip(gn_update.gn_update(X, Ht, b, w),
+                                                 (got, got_H, got_b)))
+    one = gn_update.gn_update(X[0], H, b, w)[0]  # X broadcast over the batch
+    assert _gn_rel(one, gn_update.gn_update_plain(X[0], H, b, w)[0]) <= GN_TOL[dtype]
 
 
 @pytest.mark.cuda
@@ -241,8 +380,13 @@ def test_gn_update_kernel_takes_broadcast_and_strided_operands_on_cuda(cuda_devi
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("B", [1, 2])
-def test_certify_slack_kernel_is_bitwise_the_plain_version_on_cuda(cuda_device, dtype, B):
-    s = slack_inputs(dtype, B=B, K=5, L=3000)
+@pytest.mark.parametrize("K, L", [(5, 3000), (5, 4095), (16, 4096), (3, 257)])
+def test_certify_slack_kernel_is_bitwise_the_plain_version_on_cuda(cuda_device, dtype, B, K,
+                                                                   L):
+    """Bit for bit, on tiles and keyframe groups with ragged edges (an L
+    that is no multiple of the tile or of the vector width, a K that is
+    no multiple of the keyframe group)."""
+    s = slack_inputs(dtype, B=B, K=K, L=L)
     a = {k: v.to(cuda_device) for k, v in s.items()}
     p = {k: v.clone() for k, v in a.items()}
     before = certify_slack.counter.launches
@@ -282,3 +426,52 @@ def test_gn_kernels_replay_in_a_cuda_graph(cuda_device):
     assert torch.equal(out_X, eager_X) and torch.equal(out_need, eager_need)
     for k in ("slack", "n_descents"):
         assert torch.equal(s[k], eager[k])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_round_kernels_replay_in_a_cuda_graph(cuda_device, dtype):
+    """K7 -> K10 (the per-keyframe form) -> K11, launched back to back as a
+    certified round launches them: a CUDA graph's replay equals the eager
+    calls bit for bit, and K10 and K11 equal their plain versions."""
+    r = {k: v.to(cuda_device) for k, v in round_inputs(dtype, K=16, L=4096).items()}
+    init = {k: r[k].clone() for k in ("slack", "n_descents")}
+
+    def one_round():
+        H, b, _ = icp_terms.terms(r["payload"], r["pts"][:, None], r["leaves_valid"][:, None],
+                                  r["Xp"][:, None], **TERMS_KW)
+        X, Hs, bs = gn_update.gn_update(r["Xp"], H, b, r["w"])
+        need = certify_slack.certify_slack(r["slack"], r["Xp"], X, r["pts"], r["r_norm"],
+                                           r["leaves_valid"], r["kf_live"], r["n_descents"])
+        return H, b, X, Hs, bs, need
+
+    def reset():
+        for k, v in init.items():
+            r[k].copy_(v)
+
+    eager = one_round()
+    eager_state = {k: r[k].clone() for k in init}
+    want = gn_update.gn_update_plain(r["Xp"], eager[0], eager[1], r["w"])
+    assert _gn_rel(eager[2], want[0]) <= GN_TOL[dtype]
+    reset()
+    p = {k: v.clone() for k, v in r.items()}
+    want_need = certify_slack.certify_slack_plain(p["slack"], p["Xp"], eager[2], p["pts"],
+                                                  p["r_norm"], p["leaves_valid"], p["kf_live"],
+                                                  p["n_descents"])
+    assert torch.equal(eager[5], want_need) and torch.equal(p["slack"], eager_state["slack"])
+    reset()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the capture stream
+        one_round()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = one_round()
+    for _ in range(2):
+        reset()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(o, e) for o, e in zip(out, eager))
+        for k in init:
+            assert torch.equal(r[k], eager_state[k])

@@ -74,6 +74,28 @@ script exits non-zero without the final line):
               this script): scans/s, device busy and kernels a scan of
               each, poses within 5e-4 m (y and z on the bench's world, the
               two-orientation world whole);
+3e. deskew    the deskew sweep (K12), the step's deskew, against its plain
+              PyTorch version on the card at flagship shapes (131072
+              points, 65,536 of an OS1-64 sweep valid, B = 1 and 4, one
+              sequence of four with do False), float32 and float64, both
+              modes: bins and cloud bit for bit; eager, graphed and plain
+              ms, the whole dispatch's (the reference mode's sort
+              included) and the bound. Then the deskewed main path on
+              sweeps of a sensor moving at 3 m/s and 0.2 rad/s through the
+              two-orientation world (madicp_tpu_torch/probes/deskew_drive.py),
+              the certified flagship graphed at the rate and range of
+              mulran (10 Hz, 0.7-120 m; both modes) and vbr_os1 (20 Hz,
+              1.3-120 m): graphed against an eager twin bit for bit, with
+              K12 on its plain version (plain_deskew, a patch of this
+              script) and in float64 within 5e-4 m, deskew on closer to
+              the truth than off once the naive velocity has settled,
+              scans/s, device busy and kernels a scan, one K12 launch a
+              scan; the CLI at its defaults with --dataset-config mulran
+              on KITTI .bin files of such a drive (from rest), deskew on
+              closer to the truth than off, its rate and K12's launches;
+              the fleet at B = 4 with deskew on, graphed, every sequence
+              within 5e-4 m of its single Pipeline; one deskewed step of a
+              captured configuration under set_sync_debug_mode("error");
 3b. probe     one run of the probe entry point (python -m
               madicp_tpu_torch.probes.scatter_probe), its launches counted
               from 0: it holds the four scatter-probe kernels
@@ -144,12 +166,13 @@ script exits non-zero without the final line):
               keyframe ring split, then the build too) within 5e-4 of
               one process on both ranks — plumbing, not scaling.
 
-Then the line {"kernels": [...]} (all eleven kernels: segsum_moments,
+Then the line {"kernels": [...]} (all twelve kernels: segsum_moments,
 build_nodes and build_points per flagship build, descend at a certified
 round 0 and icp_terms on its payload, gn_update and certify_slack on a
 certified flagship scan's round, each with its launches in the
-steady phase's main-path run; the probe kernels summed over one probe
-pass with the probe's launches), the
+steady phase's main-path run; deskew_sweep on one flagship sweep in the
+reference mode, with its launches in the MulRan drive's timed run; the
+probe kernels summed over one probe pass with the probe's launches), the
 nvidia-smi line, and last
 {"ok": true, "device": {...}}. Imports nothing of JAX or of the JAX
 package; the golden file is read with numpy. Needs one card.
@@ -217,6 +240,7 @@ def kernel_names() -> dict:
         build_nodes,
         build_points,
         certify_slack,
+        deskew,
         descent,
         gn_update,
         icp_terms,
@@ -224,7 +248,8 @@ def kernel_names() -> dict:
 
     return {"descend": descent.KERNEL_NAMES, "icp_terms": icp_terms.KERNEL_NAMES,
             "build_nodes": build_nodes.KERNEL_NAMES, "build_points": build_points.KERNEL_NAMES,
-            "gn_update": gn_update.KERNEL_NAMES, "certify_slack": certify_slack.KERNEL_NAMES}
+            "gn_update": gn_update.KERNEL_NAMES, "certify_slack": certify_slack.KERNEL_NAMES,
+            "deskew_sweep": deskew.KERNEL_NAMES}
 
 
 def reset_launches() -> None:
@@ -279,15 +304,10 @@ def golden_scans():
 def two_way_world(rng, density: int = 1):
     """Ground plus walls in BOTH orientations (scripts/accuracy_probe.py):
     x translation is observable, unlike in kitti_like_world. 40,800
-    points times ``density``."""
-    pts = [rng.uniform([-40, -40, -0.05], [40, 40, 0.05], (12000 * density, 3))]
-    for i in range(8):
-        y = -35 + 10 * i + rng.uniform(-2, 2)
-        pts.append(rng.uniform([-40, y - 0.03, 0], [40, y + 0.03, 6], (1800 * density, 3)))
-    for i in range(8):
-        x = -35 + 10 * i + rng.uniform(-2, 2)
-        pts.append(rng.uniform([x - 0.03, -40, 0], [x + 0.03, 40, 6], (1800 * density, 3)))
-    return np.concatenate(pts)
+    points times ``density`` (utils/fixtures.py)."""
+    from madicp_tpu_torch.utils.fixtures import two_orientation_world
+
+    return two_orientation_world(rng, density)
 
 
 def pipeline(**kw):
@@ -1037,6 +1057,394 @@ def check_folded(err: dict, tol: float, what: str) -> None:
     check(err["H_over_bound"] <= 1 and err["b_over_bound"] <= 1,
           f"{what}: the keyframe sums at {err['H_over_bound']:.2f}, {err['b_over_bound']:.2f} "
           "of the bound of two summation orders")
+
+
+# the deskew phase: K12 and the deskewed main path at MulRan's and VBR-OS1's
+# rate and range (madicp_tpu_torch/probes/deskew_drive.py)
+DESKEW_REPLACES = "madicp_tpu/ops/deskew.py:96 deskew_cloud; madicp_tpu/models/pipeline.py:707-714"
+DESKEW_REPS = 20  # calls a timing
+# scans of each deskew drive: warm (the bootstrap is scan 0; scan 1 the
+# warm-up, scan 2 the capture), timed windows, profiled
+DESKEW_DRIVE = dict(warm=3, steps=8, windows=2, profiled=2)
+# the naive velocity's transient (the first deskewed scans use the
+# velocity of two undeskewed ones) has settled after this many scans
+DESKEW_SETTLED = 10
+DESKEW_CLI_SCANS, DESKEW_CLI_REST = 16, 2  # the CLI's sequence: 2 scans at rest
+DESKEW_FLEET_SCANS = 8
+# the fleet's sequences: (body velocity m/s, yaw rad/s, scans at rest)
+DESKEW_FLEET = (((3.0, 0.0, 0.0), 0.2, 1), ((2.0, 0.5, 0.0), -0.1, 1),
+                ((1.0, 0.0, 0.0), 0.3, 2), ((3.5, -0.3, 0.0), 0.0, 1))
+# K12's operations a point: atan2 ~20, the bin ~4 (the reference mode's
+# scan ~4 more), the apply 15
+DESKEW_FLOPS_PER_POINT = {"binned": 39, "reference": 43}
+
+
+def plain_deskew():
+    """A context in which the deskew sweep takes its plain version on the
+    card too (K12's counter stands still): the yardstick of the ``deskew``
+    drives."""
+    import contextlib
+
+    from madicp_tpu_torch.kernels import deskew as k12
+
+    @contextlib.contextmanager
+    def patched():
+        real = k12.deskew_sweep
+        k12.deskew_sweep = k12.deskew_sweep_plain
+        try:
+            yield
+        finally:
+            k12.deskew_sweep = real
+
+    return patched()
+
+
+def deskew_batch(torch, setup, B: int, dtype):
+    """K12's arguments at the flagship shapes: scans 3.. of ``setup`` (B
+    of them, 65,536 points padded to 131072), their true bin motions, and
+    ``do`` False for the third sequence of four."""
+    from madicp_tpu_torch.ops.deskew import bin_motion
+
+    pipe = setup.make_pipe(dtype=dtype)
+    staged = [pipe.stage(setup.sweep(3 + b)) for b in range(B)]
+    del pipe
+    pts = torch.stack([p for p, _, _ in staged])
+    valid = torch.stack([v for _, v, _ in staged])
+    T = lambda ks: torch.as_tensor(np.stack([setup.truth(k) for k in ks]),  # noqa: E731
+                                   dtype=dtype, device=DEV)
+    R_bins, t_trans = bin_motion(T(range(2, 2 + B)), T(range(3, 3 + B)), setup.cf.sensor_hz,
+                                 dtype)
+    do = torch.ones(B, dtype=torch.bool, device=DEV)
+    if B > 2:
+        do[2] = False
+    return pts, valid, do, R_bins, t_trans
+
+
+def deskew_kernel_case(torch, args, mode: str, dname: str) -> dict:
+    """K12 against its plain version on ``args`` (bins and cloud bit for
+    bit), its eager, graphed and plain ms, the whole dispatch's (the
+    reference mode's sort included) and the bound."""
+    from madicp_tpu_torch.kernels import deskew as k12
+    from madicp_tpu_torch.probes import kernel_trace
+    from madicp_tpu_torch.utils.timing import bound_ms, event_ms, graph_ms
+
+    pts, valid, do, R_bins, t_trans = args
+    B, N, _ = pts.shape
+    az = k12.azimuth(pts)
+    order = k12.sweep_order(az, valid) if mode == "reference" else None
+    before = k12.counter.launches
+    got, bins = k12.launch(pts, valid, do, R_bins, t_trans, mode, az, order, return_bins=True)
+    want, want_bins = k12.deskew_sweep_plain(pts, valid, do, R_bins, t_trans, mode, az, order,
+                                             return_bins=True)
+    torch.cuda.synchronize()
+    check(k12.counter.launches == before + 1, f"deskew_sweep {dname} {mode}: launches "
+          f"{k12.counter.launches - before}, want 1")
+    kernel = lambda: k12.launch(pts, valid, do, R_bins, t_trans, mode, az, order)  # noqa: E731
+    plain = lambda: k12.deskew_sweep_plain(pts, valid, do, R_bins, t_trans, mode, az,  # noqa: E731
+                                           order)
+    dispatch = lambda: k12.deskew_sweep(pts, valid, do, R_bins, t_trans, mode)  # noqa: E731
+    esize = torch.finfo(pts.dtype).bits // 8
+    n_valid = int(valid.sum())
+    # points in and out, valid, do, the tables; the reference mode's order and azimuths
+    nbytes = B * N * (6 * esize + 1) + B + B * 1024 * 12 * esize
+    if mode == "reference":
+        nbytes += B * N * (8 + esize)
+    bound, by = bound_ms(nbytes, n_valid * DESKEW_FLOPS_PER_POINT[mode], dname)
+    bins_equal = torch.equal(bins.long(), want_bins)
+    equal = torch.equal(got, want)
+    row = {"B": B, "points": N, "valid": n_valid, "moved": int((do[:, None] & valid).sum()),
+           "bins_equal": bins_equal, "bins_differ": int((bins.long() != want_bins).sum()),
+           "equal": equal, "max_abs_err": float((got.double() - want.double()).abs().max()),
+           "ms": event_ms(kernel, DESKEW_REPS), "device_ms": graph_ms(kernel, DESKEW_REPS),
+           "plain_ms": event_ms(plain, DESKEW_REPS),
+           "plain_device_ms": graph_ms(plain, DESKEW_REPS),
+           "dispatch_ms": event_ms(dispatch, DESKEW_REPS),
+           "dispatch_device_ms": graph_ms(dispatch, DESKEW_REPS),
+           "bound_ms": bound, "bound_by": by, "bytes": nbytes, "library_ms": None}
+    if B == 1 and dname == "float32":
+        row["trace"] = kernel_trace.launch_us(kernel)
+        row["dispatch_trace"] = kernel_trace.launch_us(dispatch)
+        names = [r["kernel"].split("<")[0] for r in (row["trace"]["kernels"] or [])]
+        want_names = ["binned_kernel"] if mode == "binned" else ["tile_min_kernel",
+                                                                   "reference_kernel"]
+        check(row["trace"]["kernels"] is None or names == want_names,
+              f"deskew_sweep {mode}: a call ran {names}")
+    check(bins_equal, f"deskew_sweep {dname} {mode} B={B}: {row['bins_differ']} bins differ "
+          "from the plain version")
+    check(equal, f"deskew_sweep {dname} {mode} B={B}: the cloud differs from the plain "
+          f"version by {row['max_abs_err']:.3e}")
+    return row
+
+
+def deskew_drive(torch, setup, deskew: bool = True, mode: str = "reference", dtype=None,
+                 route: str = "kernels", twin: bool = False) -> dict:
+    """The certified flagship drive on ``setup``'s primed ring, graphed:
+    every scan's pose, the launches a scan and scans/s of the timed
+    windows, a profiled window, the distance to the truth (all scans and
+    the settled ones); with ``twin`` a second primed pipeline running the
+    captured body eagerly on the same scans (its poses). ``route``:
+    "kernels" or "plain_deskew" (K12 on its plain version)."""
+    import contextlib
+
+    from madicp_tpu_torch.models.step_graph import step_in_place
+    from madicp_tpu_torch.probes.deskew_drive import truth_error
+
+    dtype = dtype or torch.float32
+    w, n, nw, npr = (DESKEW_DRIVE[k] for k in ("warm", "steps", "windows", "profiled"))
+    last = w + n * nw + npr
+    ctx = plain_deskew() if route == "plain_deskew" else contextlib.nullcontext()
+    with ctx:
+        pipe = setup.make_pipe(deskew=deskew, mode=mode, dtype=dtype)
+        setup.prime(pipe)
+        staged = setup.staged(pipe, 1, last)
+        poses = []
+
+        def step(k):
+            pipe.compute_device(0.1 * k, *staged[k])
+            poses.append(pipe._last.pose)
+
+        for k in range(1, 1 + w):
+            step(k)
+        torch.cuda.synchronize()
+        reset_launches()  # the timed run starts here
+        rates, lo = [], 1 + w
+        for _ in range(nw):
+            t0 = time.perf_counter()
+            for k in range(lo, lo + n):
+                step(k)
+            torch.cuda.synchronize()
+            rates.append(n / (time.perf_counter() - t0))
+            lo += n
+        counts = launches()  # read right after it
+        prof = profile_window(lambda: [step(k) for k in range(lo, lo + npr)], npr)
+        (capture_ms, nodes, _), = pipe._graphs.captured().values()
+        eager = None
+        if twin:
+            tw = setup.make_pipe(deskew=deskew, mode=mode, dtype=dtype)
+            setup.prime(tw)
+            eager = torch.stack([step_in_place(tw.cfg, tw._graphs.state, staged[k][0][None],
+                                               staged[k][1][None]).pose[0]
+                                 for k in range(1, last + 1)])
+            eager = eager.double().cpu().numpy()
+            del tw
+    got = torch.stack(poses).double().cpu().numpy()
+    truths = np.stack([setup.truth(k) for k in range(1, last + 1)])
+    settled = slice(DESKEW_SETTLED, None)
+    out = {"dataset": setup.dataset, "deskew": mode if deskew else "off",
+           "dtype": str(dtype).split(".")[1], "route": route, "scans": last,
+           "scans_per_s": float(np.median(rates)), "windows": rates,
+           "launches_per_scan": {k: v / (n * nw) for k, v in counts.items()},
+           "deskew_launches": counts["deskew_sweep"], "capture_ms": capture_ms, "nodes": nodes,
+           "profile": prof, "from_truth": truth_error(got, truths),
+           "from_truth_settled": truth_error(got[settled], truths[settled]),
+           "poses": got, "eager_poses": eager}
+    del pipe, staged
+    torch.cuda.empty_cache()
+    return out
+
+
+def deskew_dataset(torch, dataset: str, modes) -> dict:
+    """Every drive of one dataset's configuration: K12 graphed beside its
+    eager twin, on its plain version, in float64, deskew off, and the
+    other ``modes``; their checks. Returns the rows (poses dropped)."""
+    from madicp_tpu_torch.probes.deskew_drive import SweepSetup
+
+    setup = SweepSetup(DEV, dataset)
+    main = deskew_drive(torch, setup, twin=True)
+    others = {"plain_deskew": deskew_drive(torch, setup, route="plain_deskew"),
+              "float64": deskew_drive(torch, setup, dtype=torch.float64),
+              "off": deskew_drive(torch, setup, deskew=False),
+              "float64_off": deskew_drive(torch, setup, deskew=False, dtype=torch.float64)}
+    for mode in modes:
+        others[mode] = deskew_drive(torch, setup, mode=mode)
+    eager_gap = pose_gap(main["poses"], main.pop("eager_poses"))
+    gaps = {name: pose_gap(main["poses"], d["poses"]) for name, d in others.items()}
+    # float32 against float64 with deskew off: the pipeline's own float32 gap
+    gaps["off_vs_float64_off"] = pose_gap(others["off"]["poses"], others["float64_off"]["poses"])
+    out = {"dataset": dataset, "sensor_hz": setup.cf.sensor_hz,
+           "range_m": [setup.cf.min_range, setup.cf.max_range], "mode": "reference",
+           "main": main, **others, "graphed_vs_eager": eager_gap, "gaps": gaps}
+    for d in (main, *others.values()):
+        d.pop("poses")
+        d.pop("eager_poses", None)
+    what = f"deskew {dataset}"
+    check(eager_gap["max_abs"] == 0.0, f"{what}: graphed and eager poses differ: {eager_gap}")
+    for name in ("plain_deskew", "float64"):
+        g = max(gaps[name]["x_m"], gaps[name]["y_m"], gaps[name]["z_m"])
+        check(g <= ASSOC_BOUND_M, f"{what}: {name} drive {g:.2e} m from the kernels' "
+              f"(bound {ASSOC_BOUND_M})")
+    on, off = (main["from_truth_settled"]["mean_m"], others["off"]["from_truth_settled"]["mean_m"])
+    check(on < off, f"{what}: deskew on is {on:.4f} m from the truth, off {off:.4f} m")
+    for mode in modes:
+        m = others[mode]["from_truth_settled"]["mean_m"]
+        check(m < off, f"{what}: {mode} deskew {m:.4f} m from the truth, off {off:.4f} m")
+    for d in (main, *(others[m] for m in modes), others["float64"]):
+        lps = d["launches_per_scan"]
+        check(lps["deskew_sweep"] == 1, f"{what} {d['deskew']} {d['dtype']}: deskew_sweep "
+              f"launched {lps['deskew_sweep']} times a scan")
+        check_launched(lps, f"{what} {d['deskew']} {d['dtype']}", certified=True)
+    for d in (others["plain_deskew"], others["off"], others["float64_off"]):
+        check(d["launches_per_scan"]["deskew_sweep"] == 0,
+              f"{what} {d['route']} {d['deskew']}: deskew_sweep was launched")
+    return out
+
+
+def deskew_cli(torch) -> dict:
+    """The CLI at its defaults with ``--dataset-config mulran`` on KITTI
+    .bin files of a MulRan-shaped sequence (two scans at rest, then 3 m/s
+    and 0.2 rad/s), and with the same configuration's deskew off: the
+    poses against the truth, the rate, K12's launches."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from madicp_tpu_torch.probes.deskew_drive import SweepSetup, truth_error
+    from madicp_tpu_torch.utils.config import DATASET_CONFIGS, dump_yaml
+    from madicp_tpu_torch.utils.trajectory import load_kitti_poses
+
+    setup = SweepSetup(DEV, "mulran", rest=DESKEW_CLI_REST, seed=3)
+    E = DATASET_CONFIGS["mulran"].lidar_to_base
+    truths = np.stack([setup.truth(k) for k in range(DESKEW_CLI_SCANS)])
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_deskew_"))
+    try:
+        data = work / "data"
+        data.mkdir()
+        for k in range(DESKEW_CLI_SCANS):
+            p = setup.sweep(k)
+            np.concatenate([p, np.ones((len(p), 1), np.float32)], axis=1).tofile(
+                data / f"{k:06d}.bin")
+        off_cfg = work / "mulran_off.yaml"
+        dump_yaml(dataclasses.replace(DATASET_CONFIGS["mulran"], deskew=False), off_cfg)
+        out = {}
+        for name, cfg in (("mulran", "mulran"), ("mulran_deskew_off", off_cfg)):
+            run = run_cli(["--data-path", data, "--estimate-path", work / name,
+                           "--dataset-config", cfg, "--noviz", "--device", DEV])
+            est = load_kitti_poses(work / name / "estimate.txt")
+            lidar = np.linalg.inv(E) @ est @ E  # the estimate is conjugated by the extrinsics
+            run["from_truth"] = truth_error(lidar, truths)
+            run["from_truth_settled"] = truth_error(lidar[DESKEW_SETTLED:],
+                                                    truths[DESKEW_SETTLED:])
+            out[name] = run
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    on, off = out["mulran"], out["mulran_deskew_off"]
+    check(on["launches"]["deskew_sweep"] == DESKEW_CLI_SCANS - 1,
+          f"cli mulran: deskew_sweep launched {on['launches']['deskew_sweep']} times in "
+          f"{DESKEW_CLI_SCANS} scans")
+    check(off["launches"]["deskew_sweep"] == 0, "cli mulran, deskew off: deskew_sweep launched")
+    check(on["from_truth_settled"]["mean_m"] < off["from_truth_settled"]["mean_m"],
+          f"cli mulran: deskew on {on['from_truth_settled']['mean_m']:.4f} m from the truth, "
+          f"off {off['from_truth_settled']['mean_m']:.4f} m")
+    check(on["from_truth"]["max_m"] < 0.1, f"cli mulran: {on['from_truth']['max_m']:.3f} m "
+          "from the truth (a third of a scan's motion)")
+    return {"scans": DESKEW_CLI_SCANS, "rest_scans": DESKEW_CLI_REST, **out}
+
+
+def deskew_fleet(torch) -> dict:
+    """The fleet at B = 4 with deskew on (mulran, reference mode),
+    graphed, against one single Pipeline a sequence (each graphed):
+    every sequence within 5e-4 m at every scan; fleet scans/s."""
+    from madicp_tpu_torch.parallel import Fleet
+    from madicp_tpu_torch.probes.deskew_drive import SweepSetup
+
+    setups = [SweepSetup(DEV, "mulran", seed=10 + b, v_lin=v, omega=(0.0, 0.0, yaw), rest=r)
+              for b, (v, yaw, r) in enumerate(DESKEW_FLEET)]
+    B, S = len(setups), DESKEW_FLEET_SCANS
+    pipes = [s.make_pipe() for s in setups]
+    staged = [[p.stage(s.sweep(k)) for k in range(S)] for p, s in zip(pipes, setups)]
+    single = np.zeros((S, B, 4, 4))
+    for b, (pipe, st) in enumerate(zip(pipes, staged)):
+        for k in range(S):
+            pipe.compute_device(0.1 * k, *st[k])
+            single[k, b] = pipe._last.pose.double().cpu().numpy()
+    fleet = Fleet(pipes[0].cfg, B, device=DEV)
+    del pipes
+    batches = [(torch.stack([staged[b][k][0] for b in range(B)]),
+                torch.stack([staged[b][k][1] for b in range(B)])) for k in range(S)]
+    reset_launches()
+    gaps, t0 = [], time.perf_counter()
+    for k in range(S):
+        out = fleet.compute(None, *batches[k])
+        gaps.append(float(np.abs(out.pose.double().cpu().numpy() - single[k]).max()))
+    wall = time.perf_counter() - t0
+    counts = launches()
+    (capture_ms, nodes, _), = fleet._graphs.captured().values()
+    row = {"B": B, "scans": S, "max_abs_gap_per_scan": gaps, "bound_m": FLEET_BOUND_M,
+           "fleet_scans_per_s_incl_warmup": B * S / wall, "launches": counts,
+           "capture_ms": capture_ms, "nodes": nodes}
+    check(max(gaps) <= FLEET_BOUND_M, f"deskew fleet: {max(gaps):.2e} from its single "
+          "Pipelines")
+    check(counts["deskew_sweep"] == S - 1, f"deskew fleet: deskew_sweep launched "
+          f"{counts['deskew_sweep']} times in {S} batched scans, want {S - 1}")
+    del fleet, staged, batches
+    torch.cuda.empty_cache()
+    return row
+
+
+def deskew_no_sync(torch) -> dict:
+    """One deskewed step of a captured configuration (the MulRan drive's,
+    after its capture) run eagerly under ``set_sync_debug_mode("error")``."""
+    from madicp_tpu_torch.models.step_graph import step_in_place
+    from madicp_tpu_torch.probes.deskew_drive import SweepSetup
+
+    setup = SweepSetup(DEV, "mulran")
+    pipe = setup.make_pipe()
+    setup.prime(pipe)
+    staged = setup.staged(pipe, 1, 3)
+    for k in (1, 2):
+        pipe.compute_device(0.1 * k, *staged[k])
+    check(len(pipe._graphs.captured()) == 1, "deskew no-sync: the step was not captured")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = step_in_place(pipe.cfg, pipe._graphs.state, staged[3][0][None], staged[3][1][None])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(out.pose).all()), "deskew no-sync: non-finite pose")
+    del pipe
+    torch.cuda.empty_cache()
+    return {"step": "step_in_place under set_sync_debug_mode('error')", "synced": False}
+
+
+def phase_deskew(torch, nvidia_smi: str) -> dict:
+    """The deskew sweep (K12) against its plain version on the card at
+    flagship shapes (131072 points, 65,536 of an OS1-64 sweep valid; B =
+    1 and 4; float32 and float64; both modes): bins and cloud bit for
+    bit; eager, graphed and plain ms and the bound. Then the deskewed
+    main path: the MulRan- and VBR-OS1-shaped drives (certified flagship,
+    graphed; beside an eager twin, on K12's plain version, in float64,
+    deskew off; MulRan in the binned mode too), the CLI with
+    ``--dataset-config mulran``, the fleet at B = 4 and a deskewed step
+    under ``set_sync_debug_mode("error")``."""
+    from madicp_tpu_torch.kernels import deskew as k12
+    from madicp_tpu_torch.probes.deskew_drive import SweepSetup
+
+    t_phase = time.perf_counter()
+    out = {"phase": "deskew", "nvidia_smi": nvidia_smi, "kernel": {}}
+    setup = SweepSetup(DEV, "mulran")
+    for dtype in (torch.float32, torch.float64):
+        dname = str(dtype).split(".")[1]
+        rows = {}
+        for B in (1, 4):
+            args = deskew_batch(torch, setup, B, dtype)
+            for mode in k12.MODES:
+                rows[f"{mode}_B{B}"] = deskew_kernel_case(torch, args, mode, dname)
+            del args
+        out["kernel"][dname] = rows
+        emit({"phase": "deskew", "part": f"kernel_{dname}", "nvidia_smi": nvidia_smi, **rows})
+    del setup
+    torch.cuda.empty_cache()
+    for dataset, modes in (("mulran", ("binned",)), ("vbr_os1", ())):
+        out[dataset] = deskew_dataset(torch, dataset, modes)
+        emit({"phase": "deskew", "part": dataset, "nvidia_smi": nvidia_smi, **out[dataset]})
+    out["cli"] = deskew_cli(torch)
+    out["fleet"] = deskew_fleet(torch)
+    out["no_sync"] = deskew_no_sync(torch)
+    out["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "deskew", "part": "apps", "nvidia_smi": nvidia_smi, "cli": out["cli"],
+          "fleet": out["fleet"], "no_sync": out["no_sync"], "seconds": out["seconds"]})
+    return out
 
 
 def phase_gn(torch, nvidia_smi: str) -> dict:
@@ -2201,6 +2609,7 @@ def main() -> int:
     assoc = phase_assoc(torch, dev["nvidia_smi"])
     tree = phase_tree(torch, dev["nvidia_smi"])
     gn = phase_gn(torch, dev["nvidia_smi"])
+    desk = phase_deskew(torch, dev["nvidia_smi"])
     probe = phase_probe(torch)
     phase_precision(torch)
     phase_golden(torch)
@@ -2259,6 +2668,15 @@ def main() -> int:
                                        "bound_ms", "bound_by", "library_ms")},
             "library_device_ms": None,
         })
+    k = desk["kernel"]["float32"]["reference_B1"]  # the CLI's default mode, one sequence
+    rows.append({
+        "name": "deskew_sweep", "route": "cuda",
+        "source": "madicp_tpu_torch/kernels/csrc/deskew.cu", "replaces": DESKEW_REPLACES,
+        "launches": desk["mulran"]["main"]["deskew_launches"],
+        **{key: k[key] for key in ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+                                   "bound_by", "library_ms")},
+        "library_device_ms": None,
+    })
     for name, replaces in PROBE_KERNELS.items():
         k = probe[name]
         rows.append({

@@ -36,7 +36,7 @@ NVCC_FLAGS = (
     "-fPIC",
 )
 SOURCES = ("segsum_moments", "scatter_probe", "descent", "icp_terms", "build_nodes",
-           "build_points", "gn_update", "certify_slack")
+           "build_points", "gn_update", "certify_slack", "deskew")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 

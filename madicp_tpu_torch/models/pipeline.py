@@ -53,7 +53,7 @@ import torch
 from madicp_tpu_torch.kernels import certify_slack, gn_update, segsum
 from madicp_tpu_torch.models.vel_estimator import estimate_velocity
 from madicp_tpu_torch.ops.constants import FRAME_WINDOW, MAX_ICP_ITS, SMOOTHING_T
-from madicp_tpu_torch.ops.deskew import deskew_cloud
+from madicp_tpu_torch.ops.deskew import deskew_scan
 from madicp_tpu_torch.ops.icp_core import (
     associate_ring,
     gn_se3_step,
@@ -583,12 +583,8 @@ def _odometry_step(cfg, state, points, valid, timer, icp_rounds_fn, kf_offset,
     # ---- deskew (pipeline.cpp:137-138, 79-123) ----
     if cfg.deskew:
         with phase(timer, "deskew"):
-            do = state.traj_count >= 2
-            skewed = deskew_cloud(
-                points, state.traj[:, -2], state.traj[:, -1], hz,
-                valid=valid, mode=cfg.deskew_mode,
-            )
-            points = torch.where((do[:, None] & valid)[..., None], skewed, points)
+            points = deskew_scan(points, valid, state.traj_count >= 2, state.traj[:, -2],
+                                 state.traj[:, -1], hz, cfg.deskew_mode)
 
     # ---- current-scan tree (pipeline.cpp:140-144) ----
     if points_shard is not None:

@@ -46,6 +46,7 @@ from madicp_tpu_torch.kernels import (
     build_nodes,
     build_points,
     certify_slack,
+    deskew,
     descent,
     gn_update,
     icp_terms,
@@ -65,7 +66,7 @@ from madicp_tpu_torch.ops.tree import SearchTree
 COUNTERS = {"segsum_moments": segsum.counter, "descend": descent.counter,
             "icp_terms": icp_terms.counter, "build_nodes": build_nodes.counter,
             "build_points": build_points.counter, "gn_update": gn_update.counter,
-            "certify_slack": certify_slack.counter}
+            "certify_slack": certify_slack.counter, "deskew_sweep": deskew.counter}
 
 
 def _tensors(state: PipelineState):

@@ -7,26 +7,30 @@ rigidly moving each point by ``exp(v * t_bin)`` (``pipeline.cpp:79-123``).
 - ``mode="reference"``: the reference's literal once-per-point bin
   advance, whose recurrence has the closed form ``k_j = min(j+1, j +
   prefixmin(ceil(q)_+ - j))`` over descending azimuth — one stable sort
-  plus one ``cummin``.
+  plus one prefix minimum.
 - ``mode="binned"``: pure binning, a point's bin a direct function of its
   azimuth (identical on sweeps that occupy every bin).
 
-Both keep the cloud in its original order.
+Both keep the cloud in its original order. The per-point math (bins and
+the apply, in one explicit order) is the deskew sweep's, K12
+(:mod:`madicp_tpu_torch.kernels.deskew`): :func:`deskew_cloud` is its
+plain version on every point, :func:`deskew_scan` the step's entry, which
+reaches the kernel on the card.
 """
 
 from __future__ import annotations
 
-import math
-
 import torch
 
+from madicp_tpu_torch.kernels import deskew as k12
 from madicp_tpu_torch.ops.constants import CHUNKS
 from madicp_tpu_torch.ops.lie import exp_so3, log_so3, se3_inverse
 
 
-def _bin_times_and_motion(T_prev, T_now, sensor_hz, dtype):
-    """Naive velocity + per-bin rigid motions (``pipeline.cpp:82-108``);
-    leading axes of the poses carry through."""
+def bin_motion(T_prev, T_now, sensor_hz, dtype):
+    """Naive velocity + per-bin rigid motions ``(R_bins (..., CHUNKS, 3,
+    3), t_trans (..., CHUNKS, 3))`` (``pipeline.cpp:82-108``); leading axes
+    of the poses carry through."""
     dev = T_now.device
     ts = 1.0 / torch.as_tensor(sensor_hz, dtype=dtype, device=dev)
     T_rel = se3_inverse(T_prev) @ T_now
@@ -41,40 +45,6 @@ def _bin_times_and_motion(T_prev, T_now, sensor_hz, dtype):
     return R_bins, t_trans
 
 
-def _bins_pure(azimuth: torch.Tensor) -> torch.Tensor:
-    """Direct binning: bin = floor((pi - az) / res), clamped."""
-    resolution = 2.0 * math.pi / CHUNKS
-    return torch.clamp(
-        torch.floor((math.pi - azimuth) / resolution).long(), 0, CHUNKS - 1
-    )
-
-
-def _bins_reference(azimuth: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    """Once-per-point bin advance over descending azimuth, vectorised
-    over the last axis (one sweep per leading index).
-
-    The traversal is descending azimuth with ties in REVERSE original
-    order (the reference sorts ascending and walks backwards,
-    ``pipeline.cpp:97-110``), hence a STABLE ascending argsort flipped.
-    ``valid=False`` points sort to the end (azimuth -inf).
-    """
-    dtype = azimuth.dtype
-    az = torch.where(valid, azimuth, -math.inf)
-    order = torch.flip(torch.argsort(az, dim=-1, stable=True), dims=(-1,))
-    az_desc = torch.gather(az, -1, order)
-
-    resolution = 2.0 * math.pi / CHUNKS
-    q = (math.pi - az_desc) / resolution - 1.0
-    c = torch.clamp(torch.ceil(q), 0.0, float(CHUNKS - 1))
-    j = torch.arange(az.shape[-1], dtype=dtype, device=az.device)
-    pref = torch.cummin(c - j, dim=-1).values
-    k_desc = torch.minimum(j + 1.0, j + pref).long()
-    k_desc = torch.clamp(k_desc, 0, CHUNKS - 1)
-
-    # scatter the advance counts back to the original point order
-    return torch.zeros_like(k_desc).scatter_(-1, order, k_desc)
-
-
 def deskew_cloud(
     points: torch.Tensor,
     T_prev: torch.Tensor,
@@ -87,25 +57,23 @@ def deskew_cloud(
     is their finite difference over one scan period, and each azimuth bin
     gets the rigid motion ``[exp(w t) | v t]`` from scan start (t = -ts,
     azimuth +pi) to scan end (t = 0, azimuth -pi). A batch of clouds
-    (B, N, 3) takes poses (B, 4, 4) and masks (B, N), one sweep each."""
-    R_bins, t_trans = _bin_times_and_motion(T_prev, T_now, sensor_hz, points.dtype)
-
-    azimuth = torch.atan2(points[..., 1], points[..., 0])
-    if mode == "reference":
-        if valid is None:
-            valid = torch.ones(points.shape[:-1], dtype=torch.bool, device=points.device)
-        bins = _bins_reference(azimuth, valid)
-    elif mode == "binned":
-        bins = _bins_pure(azimuth)
-    else:
+    (B, N, 3) takes poses (B, 4, 4) and masks (B, N), one sweep each.
+    Every point moves, valid or not (the mask only orders the sweep);
+    plain tensor ops on every device."""
+    if mode not in k12.MODES:
         raise ValueError(f"deskew mode must be 'reference' or 'binned', got {mode!r}")
+    R_bins, t_trans = bin_motion(T_prev, T_now, sensor_hz, points.dtype)
+    if valid is None:
+        valid = torch.ones(points.shape[:-1], dtype=torch.bool, device=points.device)
+    bins = k12.sweep_bins(points, valid, mode)
+    return k12.apply_motion(points, bins, R_bins, t_trans)
 
-    if points.dim() == 2:
-        Rp = R_bins.index_select(0, bins)  # (N, 3, 3)
-        tp = t_trans.index_select(0, bins)
-    else:  # each cloud reads its own bins: flat rows b * CHUNKS + bin
-        B = points.shape[0]
-        rows = (bins + (torch.arange(B, device=bins.device) * CHUNKS)[:, None]).reshape(-1)
-        Rp = R_bins.reshape(B * CHUNKS, 3, 3).index_select(0, rows).view(bins.shape + (3, 3))
-        tp = t_trans.reshape(B * CHUNKS, 3).index_select(0, rows).view(bins.shape + (3,))
-    return torch.einsum("...nij,...nj->...ni", Rp, points) + tp
+
+def deskew_scan(points, valid, do, T_prev, T_now, sensor_hz, mode: str) -> torch.Tensor:
+    """The step's deskew of a batch (B, N, 3): each valid point of a
+    sequence with ``do`` (B,) moved as :func:`deskew_cloud` moves it, the
+    others passed through. The bin motions are tensor ops; the sweep is
+    K12 on the card and its plain version on the CPU
+    (:func:`madicp_tpu_torch.kernels.deskew.deskew_sweep`)."""
+    R_bins, t_trans = bin_motion(T_prev, T_now, sensor_hz, points.dtype)
+    return k12.deskew_sweep(points, valid, do, R_bins, t_trans, mode)

@@ -48,6 +48,14 @@ parts named by ``--parts`` (default: all but ``step``, ``pdl`` and ``launch``):
 - ``launch``: K10 and K11 on a certified round's inputs in each launch
   variant of :data:`LAUNCH_VARIANTS` (:func:`launch_ab`): graphed and
   device µs, bit for bit against the package. Not in the default.
+- ``deskew``: the step's deskew (``ops/deskew.py`` ``deskew_scan``) of a
+  MulRan-shaped sweep (``probes/deskew_drive.py``) in both modes: every
+  kernel of one graphed call with its device µs (the sort's and the
+  prefix minimum's shares among them), graphed and eager µs a call, and
+  whether a capture runs with no host sync; then the certified flagship
+  drive graphed with deskew off and in both modes, twice in turns
+  (:func:`deskew_rates`: scans/s, device busy ms and kernels a scan, the
+  deskew phase's ms, the distance to the truth). Not in the default.
 
 ``--paths`` adds the A/Bs that set the plans: every K8 level on every
 path that can take it (:data:`build_points.PATHS`), every K9 call on both
@@ -81,8 +89,8 @@ from madicp_tpu_torch.utils.timing import bound_ms, device_trace, graph_ms
 
 REPS = 5  # graph replays a trace
 PARTS = ("build", "terms", "descent", "ring", "nodes", "resources", "gn", "step", "pdl",
-         "launch")
-DEFAULT_PARTS = PARTS[:-3]
+         "launch", "deskew")
+DEFAULT_PARTS = PARTS[:-4]
 # a later certified round's uncertified share: a certified flagship scan
 # descends 1.71 M entries, 0.52 M of them in round 0, and each of the other
 # 14 rounds hands the descent 0.52 M entries of which ~16% are live
@@ -837,6 +845,10 @@ def main(argv=None) -> int:
         emit("launch", rows=launch_ab(fl or flagship_assoc(dev), a.reps))
     if "pdl" in parts:
         emit("pdl", **pdl_ab(dev))
+    if "deskew" in parts:
+        for mode in DESKEW_MODES:
+            emit("deskew", mode=mode, **deskew_trace(dev, mode, a.reps))
+        emit("deskew_rates", **deskew_rates(dev))
     return 0
 
 
@@ -1145,6 +1157,127 @@ def pdl_ab(device, pairs: int = PDL_PAIRS) -> dict:
     rate = {(i // 2, row["pdl"]): row["median_scans_per_sec"] for i, row in enumerate(rows)}
     return {"runs": rows, "median_scans_per_sec": med, "on_over_off": med["on"] / med["off"],
             "pairs_on_ahead": sum(rate[i, "on"] > rate[i, "off"] for i in range(pairs))}
+
+
+DESKEW_MODES = ("reference", "binned")
+DESKEW_SCAN = 3  # a sweep the drive deskews with the velocity of scans 1 and 2
+DESKEW_DRIVE = dict(warm=3, steps=8, windows=3, phase=2, profiled=2)
+
+
+def deskew_kind(name: str) -> str:
+    """The part of the step's deskew a CUDA kernel belongs to, by its
+    name: the stable sort (cub's radix sort), the prefix minimum
+    (``torch.cummin``), K12, or the other tensor ops."""
+    low = name.lower()
+    if "sort" in low or "radix" in low:
+        return "sort"
+    if "scan" in low and ("innermost" in low or "cummin" in low or "cumulative" in low):
+        return "cummin"
+    if any(k in name for k in ("binned_kernel", "tile_min_kernel", "reference_kernel")):
+        return "k12"
+    return "other"
+
+
+def deskew_trace(device, mode: str, reps: int = REPS) -> dict:
+    """The step's deskew of scan :data:`DESKEW_SCAN` of the MulRan-shaped
+    drive (65,536 points padded to 131072, float32) with its true
+    velocity: the kernels of one graphed call in order with their median
+    device µs and kind (:func:`deskew_kind`), the µs of each kind, graphed
+    and eager µs a call, and whether a capture under
+    ``set_sync_debug_mode("error")`` went through."""
+    from madicp_tpu_torch.ops.deskew import deskew_scan
+    from madicp_tpu_torch.probes.deskew_drive import SweepSetup
+    from madicp_tpu_torch.utils.timing import event_ms
+
+    setup = SweepSetup(device)
+    pts, valid, _ = setup.make_pipe(mode=mode).stage(setup.sweep(DESKEW_SCAN))
+    poses = [torch.as_tensor(setup.truth(k), dtype=torch.float32, device=device)[None]
+             for k in (DESKEW_SCAN - 1, DESKEW_SCAN)]
+    hz = torch.full((), setup.cf.sensor_hz, dtype=torch.float32, device=device)
+    do = torch.ones(1, dtype=torch.bool, device=device)
+    call = lambda: deskew_scan(pts[None], valid[None], do, *poses, hz, mode)  # noqa: E731
+    call()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.cuda.graph(graph):
+            call()
+        capture = "no host sync"
+    except RuntimeError as e:
+        capture = f"failed: {str(e)[:300]}"
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    del graph
+    runs = graphed_records(call, reps)
+    kernels = [{"kernel": name, "kind": deskew_kind(name),
+                "device_us": statistics.median(r[j][1] for r in runs)}
+               for j, (name, _) in enumerate(runs[0])]
+    by_kind: dict = {}
+    for k in kernels:
+        by_kind[k["kind"]] = by_kind.get(k["kind"], 0.0) + k["device_us"]
+    total = sum(by_kind.values())
+    return {"points": int(valid.sum()), "n_points": pts.shape[0], "capture": capture,
+            "kernels": kernels, "device_us": total, "launches": len(kernels),
+            "us_by_kind": by_kind, "share_by_kind": {k: v / total for k, v in by_kind.items()},
+            "graph_us": graph_ms(call, 20) * 1e3, "eager_us": event_ms(call, 20) * 1e3}
+
+
+def deskew_rates(device, rounds: int = 2) -> dict:
+    """The certified flagship drive on the MulRan-shaped sweeps, graphed,
+    with deskew off and in both modes, in turns ``rounds`` times (off,
+    reference, binned, then the reverse): each run's median scans/s over
+    :data:`DESKEW_DRIVE`'s windows, device busy ms and kernels a scan
+    (profiled), the deskew phase's ms and the step's (eager, under a
+    PhaseTimer), and its distance to the truth."""
+    from madicp_tpu_torch.probes.deskew_drive import SweepSetup, truth_error
+    from madicp_tpu_torch.utils.timing import PhaseTimer, device_kernels
+
+    w, n, nw, nph, npr = (DESKEW_DRIVE[k] for k in ("warm", "steps", "windows", "phase",
+                                                    "profiled"))
+    setup = SweepSetup(device)
+    last = w + n * nw + nph + npr
+    order = [None, "reference", "binned"]
+    runs = []
+    for r in range(rounds):
+        for mode in (order if r % 2 == 0 else order[::-1]):
+            pipe = setup.make_pipe(deskew=mode is not None, mode=mode or "reference")
+            setup.prime(pipe)
+            staged = setup.staged(pipe, 1, last)
+            poses = []
+
+            def run(lo, hi):
+                for k in range(lo, hi):
+                    pipe.compute_device(0.1 * k, *staged[k])
+                    poses.append(pipe._last.pose)
+
+            run(1, 1 + w)
+            torch.cuda.synchronize()
+            rates, lo = [], 1 + w
+            for _ in range(nw):
+                t0 = time.perf_counter()
+                run(lo, lo + n)
+                torch.cuda.synchronize()
+                rates.append(n / (time.perf_counter() - t0))
+                lo += n
+            pipe.timer = timer = PhaseTimer(device)
+            run(lo, lo + nph)
+            phases = {k: v / nph for k, v in timer.totals_ms().items()}
+            pipe.timer = None
+            lo += nph
+            by_name, wall_ms = device_kernels(lambda: run(lo, lo + npr))
+            got = torch.stack(poses).double().cpu().numpy()
+            runs.append({
+                "deskew": mode or "off", "median_scans_per_s": statistics.median(rates),
+                "windows": rates,
+                "device_busy_ms_per_scan": sum(us for us, _ in by_name.values()) / 1e3 / npr,
+                "kernels_per_scan": sum(c for _, c in by_name.values()) / npr,
+                "phase_ms": phases,
+                "from_truth": truth_error(got, np.stack([setup.truth(k)
+                                                         for k in range(1, last + 1)]))})
+            del pipe, staged
+            torch.cuda.empty_cache()
+    return {"dataset": setup.dataset, "scans": last, **DESKEW_DRIVE, "runs": runs}
 
 
 if __name__ == "__main__":

@@ -15,6 +15,7 @@ import madicp_tpu.ops.lie as jax_lie
 from madicp_tpu.ops.eigh3 import eigh3 as jax_eigh3
 from madicp_tpu.ops.constants import SMOOTHING_T
 from madicp_tpu.ops.tree import _segsum_moments_pallas
+from madicp_tpu_torch.kernels import deskew as k12
 from madicp_tpu_torch.kernels.segsum import counter, segsum_moments, segsum_moments_ref
 from madicp_tpu_torch.models.vel_estimator import VelEstimator, estimate_velocity
 import madicp_tpu_torch.ops.deskew as pt_deskew
@@ -203,7 +204,8 @@ def test_deskew_matches_jax(rng, mode):
     if mode == "reference":
         az = np.arctan2(pts[:, 1], pts[:, 0])
         b_j = np.asarray(jax_deskew._bins_reference(jnp.asarray(az), jnp.asarray(valid)))
-        b_t = _np(pt_deskew._bins_reference(_pt(az), torch.from_numpy(valid)))
+        valid_t = torch.from_numpy(valid)
+        b_t = _np(k12.reference_bins(_pt(az), valid_t, k12.sweep_order(_pt(az), valid_t)))
         np.testing.assert_array_equal(b_t, b_j)
 
 

@@ -43,6 +43,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         "import madicp_tpu_torch.probes.segsum_levels\n"
         "import madicp_tpu_torch.probes.build_levels\n"
         "import madicp_tpu_torch.probes.profile_windows\n"
+        "import madicp_tpu_torch.probes.deskew_drive, madicp_tpu_torch.kernels.deskew\n"
         "import madicp_tpu_torch.bench\n"
         "import madicp_tpu_torch.models.schedules_experimental\n"
         "import madicp_tpu_torch.native, madicp_tpu_torch.native.loader\n"

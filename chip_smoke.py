@@ -74,13 +74,16 @@ script exits non-zero without the final line):
               this script): scans/s, device busy and kernels a scan of
               each, poses within 5e-4 m (y and z on the bench's world, the
               two-orientation world whole);
-3e. deskew    the deskew sweep (K12), the step's deskew, against its plain
-              PyTorch version on the card at flagship shapes (131072
-              points, 65,536 of an OS1-64 sweep valid, B = 1 and 4, one
-              sequence of four with do False), float32 and float64, both
-              modes: bins and cloud bit for bit; eager, graphed and plain
-              ms, the whole dispatch's (the reference mode's sort
-              included) and the bound. Then the deskewed main path on
+3e. deskew    the deskew sweep (K12), the step's deskew with its bin
+              motions, against its plain PyTorch version on the card at
+              flagship shapes (131072 points, 65,536 of an OS1-64 sweep
+              valid, B = 1 and 4, one sequence of four with do False),
+              float32 and float64, both modes, each sweep in draw order
+              and in column (capture-time) order, on the poses of a
+              turning, a straight and a resting sensor: bins and cloud
+              bit for bit; on the turning poses eager, graphed and plain
+              ms, the deskew call's (the reference mode's sort included,
+              its kernels counted) and the bound. Then the deskewed main path on
               sweeps of a sensor moving at 3 m/s and 0.2 rad/s through the
               two-orientation world (madicp_tpu_torch/probes/deskew_drive.py),
               the certified flagship graphed at the rate and range of
@@ -1061,7 +1064,8 @@ def check_folded(err: dict, tol: float, what: str) -> None:
 
 # the deskew phase: K12 and the deskewed main path at MulRan's and VBR-OS1's
 # rate and range (madicp_tpu_torch/probes/deskew_drive.py)
-DESKEW_REPLACES = "madicp_tpu/ops/deskew.py:96 deskew_cloud; madicp_tpu/models/pipeline.py:707-714"
+DESKEW_REPLACES = ("madicp_tpu/ops/deskew.py:96 deskew_cloud, :37 _bin_times_and_motion; "
+                   "madicp_tpu/models/pipeline.py:707-714")
 DESKEW_REPS = 20  # calls a timing
 # scans of each deskew drive: warm (the bootstrap is scan 0; scan 1 the
 # warm-up, scan 2 the capture), timed windows, profiled
@@ -1074,9 +1078,14 @@ DESKEW_FLEET_SCANS = 8
 # the fleet's sequences: (body velocity m/s, yaw rad/s, scans at rest)
 DESKEW_FLEET = (((3.0, 0.0, 0.0), 0.2, 1), ((2.0, 0.5, 0.0), -0.1, 1),
                 ((1.0, 0.0, 0.0), 0.3, 2), ((3.5, -0.3, 0.0), 0.0, 1))
-# K12's operations a point: atan2 ~20, the bin ~4 (the reference mode's
-# scan ~4 more), the apply 15
-DESKEW_FLOPS_PER_POINT = {"binned": 39, "reference": 43}
+# K12's operations a moved point: the bin (binned: atan2 ~20 and ~4;
+# reference: its own c and four of the window's, ~30), the motion of its
+# bin (t_k, exp_so3 with two sines at ~20 each: ~100), the apply ~18
+DESKEW_FLOPS_PER_POINT = {"binned": 140, "reference": 150}
+# the pose cases K12 is held to on the flagship sweeps (turning: the
+# drive's truth; straight: the same rotation, 0.3 m along the sensor's x;
+# at rest: the same pose twice)
+DESKEW_MOTIONS = ("turning", "straight", "rest")
 
 
 def plain_deskew():
@@ -1099,80 +1108,93 @@ def plain_deskew():
     return patched()
 
 
-def deskew_batch(torch, setup, B: int, dtype):
+def deskew_batch(torch, setup, B: int, dtype, column: bool = False,
+                 motion: str = "turning") -> tuple:
     """K12's arguments at the flagship shapes: scans 3.. of ``setup`` (B
-    of them, 65,536 points padded to 131072), their true bin motions, and
-    ``do`` False for the third sequence of four."""
-    from madicp_tpu_torch.ops.deskew import bin_motion
+    of them, 65,536 points padded to 131072; in capture-time order with
+    ``column``), the poses of ``motion`` (:data:`DESKEW_MOTIONS`), the
+    rate, and ``do`` False for the third sequence of four."""
+    from madicp_tpu_torch.probes.deskew_drive import sweep_batch
 
-    pipe = setup.make_pipe(dtype=dtype)
-    staged = [pipe.stage(setup.sweep(3 + b)) for b in range(B)]
-    del pipe
-    pts = torch.stack([p for p, _, _ in staged])
-    valid = torch.stack([v for _, v, _ in staged])
-    T = lambda ks: torch.as_tensor(np.stack([setup.truth(k) for k in ks]),  # noqa: E731
-                                   dtype=dtype, device=DEV)
-    R_bins, t_trans = bin_motion(T(range(2, 2 + B)), T(range(3, 3 + B)), setup.cf.sensor_hz,
-                                 dtype)
+    pts, valid, T_prev, T_now, hz = sweep_batch(setup, 3, B, dtype, column)
+    if motion == "rest":
+        T_now = T_prev.clone()
+    elif motion == "straight":
+        T_now = T_prev.clone()
+        T_now[:, :3, 3] += 0.3 * T_prev[:, :3, 0]
     do = torch.ones(B, dtype=torch.bool, device=DEV)
     if B > 2:
         do[2] = False
-    return pts, valid, do, R_bins, t_trans
+    return pts, valid, do, T_prev, T_now, hz
 
 
-def deskew_kernel_case(torch, args, mode: str, dname: str) -> dict:
+def deskew_equal(torch, args, mode: str, what: str) -> dict:
     """K12 against its plain version on ``args`` (bins and cloud bit for
-    bit), its eager, graphed and plain ms, the whole dispatch's (the
-    reference mode's sort included) and the bound."""
+    bit, one count a call); fails where they differ."""
     from madicp_tpu_torch.kernels import deskew as k12
+
+    pts, valid = args[:2]
+    keys, order = k12.sweep_order(k12.azimuth(pts), valid) if mode == "reference" else (None,
+                                                                                         None)
+    before = k12.counter.launches
+    got, bins = k12.launch(*args, mode, keys, order, return_bins=True)
+    want, want_bins = k12.deskew_sweep_plain(*args, mode, keys, order, return_bins=True)
+    torch.cuda.synchronize()
+    check(k12.counter.launches == before + 1, f"deskew_sweep {what}: launches "
+          f"{k12.counter.launches - before}, want 1")
+    row = {"bins_equal": torch.equal(bins.long(), want_bins),
+           "bins_differ": int((bins.long() != want_bins).sum()), "equal": torch.equal(got, want),
+           "max_abs_err": float((got.double() - want.double()).abs().max())}
+    check(row["bins_equal"], f"deskew_sweep {what}: {row['bins_differ']} bins differ from the "
+          "plain version")
+    check(row["equal"], f"deskew_sweep {what}: the cloud differs from the plain version by "
+          f"{row['max_abs_err']:.3e}")
+    return row
+
+
+def deskew_kernel_case(torch, args, mode: str, dname: str, what: str) -> dict:
+    """K12 against its plain version on ``args`` (:func:`deskew_equal`),
+    its eager, graphed and plain ms, the deskew call's (the step's
+    ``deskew_scan``: the reference mode's sort included) and the bound;
+    at B = 1 in float32 each call's kernels by name."""
+    from madicp_tpu_torch.kernels import deskew as k12
+    from madicp_tpu_torch.ops.deskew import deskew_scan
     from madicp_tpu_torch.probes import kernel_trace
     from madicp_tpu_torch.utils.timing import bound_ms, event_ms, graph_ms
 
-    pts, valid, do, R_bins, t_trans = args
+    pts, valid, do, T_prev, T_now, hz = args
     B, N, _ = pts.shape
-    az = k12.azimuth(pts)
-    order = k12.sweep_order(az, valid) if mode == "reference" else None
-    before = k12.counter.launches
-    got, bins = k12.launch(pts, valid, do, R_bins, t_trans, mode, az, order, return_bins=True)
-    want, want_bins = k12.deskew_sweep_plain(pts, valid, do, R_bins, t_trans, mode, az, order,
-                                             return_bins=True)
-    torch.cuda.synchronize()
-    check(k12.counter.launches == before + 1, f"deskew_sweep {dname} {mode}: launches "
-          f"{k12.counter.launches - before}, want 1")
-    kernel = lambda: k12.launch(pts, valid, do, R_bins, t_trans, mode, az, order)  # noqa: E731
-    plain = lambda: k12.deskew_sweep_plain(pts, valid, do, R_bins, t_trans, mode, az,  # noqa: E731
-                                           order)
-    dispatch = lambda: k12.deskew_sweep(pts, valid, do, R_bins, t_trans, mode)  # noqa: E731
+    keys, order = k12.sweep_order(k12.azimuth(pts), valid) if mode == "reference" else (None,
+                                                                                         None)
+    row = deskew_equal(torch, args, mode, what)
+    kernel = lambda: k12.launch(*args, mode, keys, order)  # noqa: E731
+    plain = lambda: k12.deskew_sweep_plain(*args, mode, keys, order)  # noqa: E731
+    call = lambda: deskew_scan(*args, mode)  # noqa: E731
     esize = torch.finfo(pts.dtype).bits // 8
     n_valid = int(valid.sum())
-    # points in and out, valid, do, the tables; the reference mode's order and azimuths
-    nbytes = B * N * (6 * esize + 1) + B + B * 1024 * 12 * esize
-    if mode == "reference":
-        nbytes += B * N * (8 + esize)
+    # points in and out, do, the poses and the rate; binned the masks,
+    # reference the sorted keys and their order
+    nbytes = B * N * 6 * esize + B + (32 * B + 1) * esize
+    nbytes += B * N * (esize + 8) if mode == "reference" else B * N
     bound, by = bound_ms(nbytes, n_valid * DESKEW_FLOPS_PER_POINT[mode], dname)
-    bins_equal = torch.equal(bins.long(), want_bins)
-    equal = torch.equal(got, want)
-    row = {"B": B, "points": N, "valid": n_valid, "moved": int((do[:, None] & valid).sum()),
-           "bins_equal": bins_equal, "bins_differ": int((bins.long() != want_bins).sum()),
-           "equal": equal, "max_abs_err": float((got.double() - want.double()).abs().max()),
-           "ms": event_ms(kernel, DESKEW_REPS), "device_ms": graph_ms(kernel, DESKEW_REPS),
-           "plain_ms": event_ms(plain, DESKEW_REPS),
-           "plain_device_ms": graph_ms(plain, DESKEW_REPS),
-           "dispatch_ms": event_ms(dispatch, DESKEW_REPS),
-           "dispatch_device_ms": graph_ms(dispatch, DESKEW_REPS),
-           "bound_ms": bound, "bound_by": by, "bytes": nbytes, "library_ms": None}
+    row.update({"B": B, "points": N, "valid": n_valid,
+                "moved": int((do[:, None] & valid).sum()),
+                "ms": event_ms(kernel, DESKEW_REPS), "device_ms": graph_ms(kernel, DESKEW_REPS),
+                "plain_ms": event_ms(plain, DESKEW_REPS),
+                "plain_device_ms": graph_ms(plain, DESKEW_REPS),
+                "call_ms": event_ms(call, DESKEW_REPS),
+                "call_device_ms": graph_ms(call, DESKEW_REPS),
+                "bound_ms": bound, "bound_by": by, "bytes": nbytes, "library_ms": None})
     if B == 1 and dname == "float32":
         row["trace"] = kernel_trace.launch_us(kernel)
-        row["dispatch_trace"] = kernel_trace.launch_us(dispatch)
+        row["call_trace"] = kernel_trace.launch_us(call)
         names = [r["kernel"].split("<")[0] for r in (row["trace"]["kernels"] or [])]
-        want_names = ["binned_kernel"] if mode == "binned" else ["tile_min_kernel",
-                                                                   "reference_kernel"]
+        want_names = ["binned_kernel"] if mode == "binned" else ["reference_kernel"]
         check(row["trace"]["kernels"] is None or names == want_names,
               f"deskew_sweep {mode}: a call ran {names}")
-    check(bins_equal, f"deskew_sweep {dname} {mode} B={B}: {row['bins_differ']} bins differ "
-          "from the plain version")
-    check(equal, f"deskew_sweep {dname} {mode} B={B}: the cloud differs from the plain "
-          f"version by {row['max_abs_err']:.3e}")
+        ks = row["call_trace"]["kernels"]
+        row["call_kernels"] = None if ks is None else len(ks)
+        row["call_kernels_device_us"] = None if ks is None else sum(k["device_us"] for k in ks)
     return row
 
 
@@ -1410,8 +1432,10 @@ def deskew_no_sync(torch) -> dict:
 def phase_deskew(torch, nvidia_smi: str) -> dict:
     """The deskew sweep (K12) against its plain version on the card at
     flagship shapes (131072 points, 65,536 of an OS1-64 sweep valid; B =
-    1 and 4; float32 and float64; both modes): bins and cloud bit for
-    bit; eager, graphed and plain ms and the bound. Then the deskewed
+    1 and 4; float32 and float64; both modes; draw and column order; the
+    poses of :data:`DESKEW_MOTIONS`): bins and cloud bit for bit; on the
+    turning poses eager, graphed and plain ms, the deskew call's and the
+    bound. Then the deskewed
     main path: the MulRan- and VBR-OS1-shaped drives (certified flagship,
     graphed; beside an eager twin, on K12's plain version, in float64,
     deskew off; MulRan in the binned mode too), the CLI with
@@ -1427,10 +1451,18 @@ def phase_deskew(torch, nvidia_smi: str) -> dict:
         dname = str(dtype).split(".")[1]
         rows = {}
         for B in (1, 4):
-            args = deskew_batch(torch, setup, B, dtype)
-            for mode in k12.MODES:
-                rows[f"{mode}_B{B}"] = deskew_kernel_case(torch, args, mode, dname)
-            del args
+            for column in (False, True):
+                where = f"B{B}_column" if column else f"B{B}"
+                args = deskew_batch(torch, setup, B, dtype, column)
+                for mode in k12.MODES:
+                    what = f"{dname} {mode} {where}"
+                    rows[f"{mode}_{where}"] = deskew_kernel_case(torch, args, mode, dname, what)
+                for motion in DESKEW_MOTIONS[1:]:
+                    args = deskew_batch(torch, setup, B, dtype, column, motion)
+                    for mode in k12.MODES:
+                        rows[f"{mode}_{where}_{motion}"] = deskew_equal(
+                            torch, args, mode, f"{dname} {mode} {where} {motion}")
+                del args
         out["kernel"][dname] = rows
         emit({"phase": "deskew", "part": f"kernel_{dname}", "nvidia_smi": nvidia_smi, **rows})
     del setup

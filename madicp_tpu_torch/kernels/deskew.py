@@ -1,18 +1,25 @@
 """The deskew sweep (K12): CUDA kernel and plain version.
 
 From a batch of clouds ``points (B, N, 3)``, their masks ``valid (B, N)``,
-a flag a sequence ``do (B,)`` (the trajectory holds two poses) and each
-sequence's per-bin motions ``R_bins (B, CHUNKS, 3, 3)``, ``t_trans (B,
-CHUNKS, 3)`` (:func:`madicp_tpu_torch.ops.deskew.bin_motion`): every valid
-point of a ``do`` sequence moved by its azimuth bin's rigid motion, every
-other point passed through, in the cloud's own order. It is what
-``deskew_cloud`` and the step's ``where`` compute
-(``madicp_tpu_torch/ops/deskew.py``, ``models/pipeline.py`` ``_odometry_step``),
-the counterparts of the JAX package's ``madicp_tpu/ops/deskew.py``
-``deskew_cloud`` and ``madicp_tpu/models/pipeline.py:707-714``. XLA
-lowered those, so no Pallas kernel stands behind them. The kernels live in
-``csrc/deskew.cu`` (design and bound in its header);
-:func:`deskew_sweep_plain` is the same math in tensor ops.
+a flag a sequence ``do (B,)`` (the trajectory holds two poses), each
+sequence's last two trajectory poses ``T_prev, T_now (B, 4, 4)`` and the
+sensor rate ``hz`` (a 0-dim tensor): every valid point of a ``do``
+sequence moved by its azimuth bin's rigid motion, every other point
+passed through, in the cloud's own order. It is what ``deskew_cloud``
+and the step's ``where`` compute (``madicp_tpu_torch/ops/deskew.py``,
+``models/pipeline.py`` ``_odometry_step``), the counterparts of the JAX
+package's ``madicp_tpu/ops/deskew.py`` ``deskew_cloud`` (its bin motions
+``_bin_times_and_motion`` included) and
+``madicp_tpu/models/pipeline.py:707-714``. XLA lowered those, so no
+Pallas kernel stands behind them. The kernels live in ``csrc/deskew.cu``
+(design and bound in its header); :func:`deskew_sweep_plain` is the same
+math in tensor ops.
+
+A bin's motion (``pipeline.cpp:82-108``, :func:`bin_motion_plain`): the
+naive velocity ``v_lin = t_rel / ts``, ``v_ang = log_so3(R_rel) / ts`` of
+``T_prev^-1 T_now`` over one scan period ``ts = 1 / hz``, and at bin
+``k`` the time ``t_k = -ts + k ts / (CHUNKS - 1)``, the rotation
+``exp_so3(v_ang t_k)`` and the translation ``v_lin t_k``.
 
 A point's bin (``pipeline.cpp:79-123``):
 
@@ -20,27 +27,29 @@ A point's bin (``pipeline.cpp:79-123``):
   azimuth ``az = atan2(y, x)``, ``res = 2 pi / CHUNKS``;
 - ``reference``: the reference's once-per-point advance over the sweep in
   descending azimuth (:func:`sweep_order`): with ``c_j = clamp(ceil((pi -
-  az_j) / res - 1), 0, CHUNKS - 1)`` (``CHUNKS - 1`` for an invalid point)
-  at sorted position ``j``, ``k_j = min(j + 1, j + min_{i <= j} (c_i -
-  i))``, clamped, is the bin of point ``order[j]``.
+  key_j) / res - 1), 0, CHUNKS - 1)`` at sorted position ``j`` (an invalid
+  point's key is -inf, so its ``c`` is ``CHUNKS - 1``), ``k_j = min(j + 1,
+  j + min_{i <= j} (c_i - i))``, clamped, is the bin of point ``order[j]``.
 
 Both versions form every value in one explicit order, one rounding an
-operation: ``pi`` and ``res`` are values of the working type and the
-division is a true division (torch's CUDA division by a host scalar
-multiplies by its reciprocal instead, so the plain version divides by a
-0-dim tensor), and the apply is ``((R_c0 x + R_c1 y) + R_c2 z) + t_c`` (no
-einsum, whose sum order is cuBLAS's). The reference mode's sort stays
-``torch.argsort(stable=True)``: the kernel takes its order and the
-azimuths it sorted. The kernel equals the plain version bit for bit where
-its ``atan2`` equals torch's (the binned mode forms its own; torch's CUDA
-``atan2`` calls the same ``atan2f``/``atan2``).
+operation, on per-component tensors: the relative pose as the products
+of ``T_prev^-1 T_now`` written out, ``log_so3`` with its near-pi
+sub-branches, regular and Taylor branches, ``exp_so3`` with its
+``theta^2 < 1e-8`` branch and ``K K`` in closed form, the apply as ``((R_c0
+x + R_c1 y) + R_c2 z) + t_c``; no ``@``, einsum or ``torch.sum``, whose
+order is torch's or cuBLAS's. Constants are 0-dim tensors of the working
+type, so a division by one is a true division on every device (torch's
+CUDA division by a Python scalar multiplies by its reciprocal). The
+reference mode's sort stays ``torch.sort(stable=True)``: the kernel
+takes the sorted keys and their order. The kernel equals the plain
+version bit for bit where the CUDA math library's ``atan2``, ``acos`` and
+``sin`` equal torch's (torch's CUDA ops call the same functions).
 
 Dispatch is by the tensors' device and nothing else: CPU tensors take the
-plain version, CUDA tensors take the kernel (one call a step: one launch
-in the binned mode, a pair in the reference mode, whatever B is) or the
-call raises. The wrapper allocates only its outputs and a per-call table
-of tile minima, reads nothing back to the host and launches on the
-current stream, so it runs inside CUDA graph capture.
+plain version, CUDA tensors take the kernel (one launch a call in either
+mode, whatever B is) or the call raises. The wrapper allocates only its
+outputs, reads nothing back to the host and launches on the current
+stream, so it runs inside CUDA graph capture.
 """
 
 from __future__ import annotations
@@ -55,24 +64,21 @@ from madicp_tpu_torch.ops.constants import CHUNKS
 
 MODES = ("reference", "binned")
 RESOLUTION = 2.0 * math.pi / CHUNKS  # azimuth bin width
-TILE = 1024  # sorted positions a block of the reference mode (csrc/deskew.cu TILE)
 
 counter = build.LaunchCounter()
 # the __global__ functions of csrc/deskew.cu, as a CUDA trace names them
-KERNEL_NAMES = ("binned_kernel", "tile_min_kernel", "reference_kernel")
+KERNEL_NAMES = ("binned_kernel", "reference_kernel")
 _launch = build.Launcher("deskew", {  # the stream last
-    "deskew_binned": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_double] * 2
+    "deskew_binned": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_double] * 2
     + [ctypes.c_void_p] * 3,
     "deskew_reference": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2 + [ctypes.c_double] * 2
-    + [ctypes.c_void_p] * 4,
+    + [ctypes.c_void_p] * 3,
 }, counter)
 
 
-def _constants(like: torch.Tensor) -> tuple:
-    """``pi`` and the bin width as 0-dim tensors of ``like``'s type and
-    device: a division by them is a true division on every device."""
-    return tuple(torch.full((), v, dtype=like.dtype, device=like.device)
-                 for v in (math.pi, RESOLUTION))
+def _constants(like: torch.Tensor, *values) -> tuple:
+    """``values`` as 0-dim tensors of ``like``'s type and device."""
+    return tuple(torch.full((), v, dtype=like.dtype, device=like.device) for v in values)
 
 
 def azimuth(points: torch.Tensor) -> torch.Tensor:
@@ -80,33 +86,140 @@ def azimuth(points: torch.Tensor) -> torch.Tensor:
     return torch.atan2(points[..., 1], points[..., 0])
 
 
+# ------------------------------------------------------------ bin motions --
+def _relative(T_prev: torch.Tensor, T_now: torch.Tensor) -> tuple:
+    """``T_prev^-1 T_now`` as the reference forms it (``se3_inverse`` then
+    the product): ``R[i][j] = (P_0i Q_0j + P_1i Q_1j) + P_2i Q_2j`` and
+    ``t_i = ((P_0i Q_03 + P_1i Q_13) + P_2i Q_23) + s_i`` with ``s_i =
+    -((P_0i P_03 + P_1i P_13) + P_2i P_23)``, per component (...)."""
+    P = [[T_prev[..., r, c] for c in range(4)] for r in range(3)]
+    Q = [[T_now[..., r, c] for c in range(4)] for r in range(3)]
+
+    def col(i, M, c):  # (P_0i M_0c + P_1i M_1c) + P_2i M_2c
+        return (P[0][i] * M[0][c] + P[1][i] * M[1][c]) + P[2][i] * M[2][c]
+
+    R = [[col(i, Q, j) for j in range(3)] for i in range(3)]
+    t = [col(i, Q, 3) + -col(i, P, 3) for i in range(3)]
+    return R, t
+
+
+def _log_so3(R: list) -> list:
+    """``log_so3`` (``ops/lie.py``, ``lie_algebra.h:54-89``) of a rotation
+    given as per-component tensors, in the kernel's order."""
+    like = R[0][0]
+    one, two, half, twelve, pi = _constants(like, 1.0, 2.0, 0.5, 12.0, math.pi)
+    tiny, near, axis_tol, taylor = _constants(like, 1e-30, 1e-10, 1e-5, -1e-7)
+    tr = (R[0][0] + R[1][1]) + R[2][2]
+
+    def axis(i, a, b, c):  # (pi / sqrt(max(2 + 2 R_ii, 1e-30))) [a, b, c]
+        f = pi / torch.sqrt(torch.clamp(two + two * R[i][i], min=tiny))
+        return [f * a, f * b, f * c]
+
+    b2 = axis(2, R[0][2], R[1][2], one + R[2][2])
+    b1 = axis(1, R[0][1], one + R[1][1], R[2][1])
+    b0 = axis(0, one + R[0][0], R[1][0], R[2][0])
+    use2 = torch.abs(R[2][2] + one) > axis_tol
+    use1 = torch.abs(R[1][1] + one) > axis_tol
+    pi_w = [torch.where(use2, x2, torch.where(use1, x1, x0)) for x2, x1, x0 in zip(b2, b1, b0)]
+
+    tr3 = tr - 3.0
+    theta = torch.arccos(torch.clamp((tr - one) * half, -1.0, 1.0))
+    sn = torch.sin(theta)
+    mag_reg = theta / torch.where(torch.abs(sn) < tiny, one, two * sn)
+    mag_taylor = half - (tr3 * tr3) / twelve
+    mag = torch.where(tr3 < taylor, mag_reg, mag_taylor)
+    main = [mag * (R[2][1] - R[1][2]), mag * (R[0][2] - R[2][0]), mag * (R[1][0] - R[0][1])]
+    near_pi = (tr + one) < near
+    return [torch.where(near_pi, a, b) for a, b in zip(pi_w, main)]
+
+
+def _exp_so3(w: list) -> list:
+    """``exp_so3`` (``ops/lie.py``, ``lie_algebra.h:39-52``) of per-component
+    tensors, in the kernel's order: ``I + W`` where ``theta^2 < 1e-8``,
+    else ``R_ii = 1 + omc KK_ii`` and ``R_ij = sn K_ij + omc KK_ij`` with
+    ``K = W / theta``, ``sn = sin(theta)``, ``omc = 2 sin(theta / 2)^2`` and
+    ``KK = K K`` in closed form (``KK_ii = -(k_a^2 + k_b^2)``, ``KK_ij =
+    k_i k_j``). Returns the nine entries, row-major."""
+    wx, wy, wz = w
+    one, two, half, small_sq = _constants(wx, 1.0, 2.0, 0.5, 1e-8)
+    theta_sq = (wx * wx + wy * wy) + wz * wz
+    small = theta_sq < small_sq
+    theta = torch.sqrt(torch.where(small, one, theta_sq))
+    k = [c / theta for c in w]
+    sn = torch.sin(theta)
+    h = torch.sin(theta * half)
+    omc = two * (h * h)
+    sq = [c * c for c in k]
+    Kx = [[None, -k[2], k[1]], [k[2], None, -k[0]], [-k[1], k[0], None]]
+    full = []
+    for i in range(3):
+        for j in range(3):
+            if i == j:
+                a, b = [m for m in range(3) if m != i]
+                full.append(one + omc * -(sq[a] + sq[b]))
+            else:
+                full.append(sn * Kx[i][j] + omc * (k[i] * k[j]))
+    ones = one.expand_as(wx)
+    W = [ones, -wz, wy, wz, ones, -wx, -wy, wx, ones]
+    return [torch.where(small, s, f) for s, f in zip(W, full)]
+
+
+def bin_motion_plain(T_prev: torch.Tensor, T_now: torch.Tensor, hz: torch.Tensor) -> tuple:
+    """Naive velocity + per-bin rigid motions ``(R_bins (..., CHUNKS, 3, 3),
+    t_trans (..., CHUNKS, 3))`` of poses ``(..., 4, 4)`` and a 0-dim rate
+    ``hz`` (``pipeline.cpp:82-108``; the JAX package's
+    ``_bin_times_and_motion``), every value in the kernel's order."""
+    one, last = _constants(T_now, 1.0, float(CHUNKS - 1))
+    ts = one / hz
+    R_rel, t_rel = _relative(T_prev, T_now)
+    v_lin = [c / ts for c in t_rel]
+    v_ang = [c / ts for c in _log_so3(R_rel)]
+    delta = ts / last
+    t_bins = -ts + delta * torch.arange(CHUNKS, dtype=T_now.dtype, device=T_now.device)
+    R = _exp_so3([c[..., None] * t_bins for c in v_ang])  # (..., CHUNKS) each
+    R_bins = torch.stack(R, dim=-1).unflatten(-1, (3, 3))
+    t_trans = torch.stack([c[..., None] * t_bins for c in v_lin], dim=-1)
+    return R_bins, t_trans
+
+
+# ------------------------------------------------------------------ bins --
 def binned_bins(az: torch.Tensor) -> torch.Tensor:
     """Direct binning: ``clamp(floor((pi - az) / res), 0, CHUNKS - 1)``."""
-    pi, res = _constants(az)
+    pi, res = _constants(az, math.pi, RESOLUTION)
     return torch.clamp(torch.floor((pi - az) / res).long(), 0, CHUNKS - 1)
 
 
-def sweep_order(az: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    """The reference's traversal along the last axis: descending azimuth,
-    ties in REVERSE original order (the reference sorts ascending and
-    walks backwards, ``pipeline.cpp:97-110``), hence a STABLE ascending
-    argsort flipped; invalid points sort to the end (azimuth -inf)."""
-    key = torch.where(valid, az, -math.inf)
-    return torch.flip(torch.argsort(key, dim=-1, stable=True), dims=(-1,))
+def sweep_order(az: torch.Tensor, valid: torch.Tensor) -> tuple:
+    """``(keys, order)`` along the last axis: the azimuths with invalid
+    points at -inf, sorted ascending by a STABLE sort, and their indices.
+    The reference's traversal is descending azimuth with ties in reverse
+    original order (it sorts ascending and walks backwards,
+    ``pipeline.cpp:97-110``): these arrays read from the end."""
+    return torch.sort(torch.where(valid, az, -math.inf), dim=-1, stable=True)
 
 
-def reference_bins(az: torch.Tensor, valid: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
-    """Once-per-point bin advance over the sweep ``order``, in the cloud's
-    order: the recurrence ``k_j = k_{j-1} + [k_{j-1} < q_j]`` in closed
-    form, a prefix minimum (``madicp_tpu/ops/deskew.py`` ``_bins_reference``)."""
-    pi, res = _constants(az)
-    az_desc = torch.gather(torch.where(valid, az, -math.inf), -1, order)
-    q = (pi - az_desc) / res - 1.0
-    c = torch.clamp(torch.ceil(q), 0.0, float(CHUNKS - 1))
-    j = torch.arange(az.shape[-1], dtype=az.dtype, device=az.device)
+def reference_bins(keys: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
+    """Once-per-point bin advance over the sweep of :func:`sweep_order`'s
+    ``keys`` and ``order``, in the cloud's order: the recurrence ``k_j =
+    k_{j-1} + [k_{j-1} < q_j]`` in closed form, a prefix minimum
+    (``madicp_tpu/ops/deskew.py`` ``_bins_reference``)."""
+    pi, res = _constants(keys, math.pi, RESOLUTION)
+    desc = torch.flip(keys, dims=(-1,))  # traversal order
+    c = torch.clamp(torch.ceil((pi - desc) / res - 1.0), 0.0, float(CHUNKS - 1))
+    j = torch.arange(keys.shape[-1], dtype=keys.dtype, device=keys.device)
     pref = torch.cummin(c - j, dim=-1).values
     k_desc = torch.clamp(torch.minimum(j + 1.0, j + pref).long(), 0, CHUNKS - 1)
-    return torch.zeros_like(k_desc).scatter_(-1, order, k_desc)
+    return torch.zeros_like(k_desc).scatter_(-1, torch.flip(order, dims=(-1,)), k_desc)
+
+
+def sweep_bins(points, valid, mode: str, keys=None, order=None) -> torch.Tensor:
+    """Every point's bin (..., N) in ``mode``; the reference mode sorts
+    (:func:`sweep_order`) unless given the ``keys`` and their ``order``."""
+    if mode == "binned":
+        return binned_bins(azimuth(points))
+    if keys is None:
+        keys, order = sweep_order(azimuth(points), valid)
+    return reference_bins(keys, order)
 
 
 def apply_motion(points, bins, R_bins, t_trans) -> torch.Tensor:
@@ -125,41 +238,32 @@ def apply_motion(points, bins, R_bins, t_trans) -> torch.Tensor:
                         + tp[..., c] for c in range(3)], dim=-1)
 
 
-def sweep_bins(points, valid, mode: str, az=None, order=None) -> torch.Tensor:
-    """Every point's bin (..., N) in ``mode``; the reference mode sorts
-    (:func:`sweep_order`) unless given the ``order`` of ``az``."""
-    az = azimuth(points) if az is None else az
-    if mode == "binned":
-        return binned_bins(az)
-    if order is None:
-        order = sweep_order(az, valid)
-    return reference_bins(az, valid, order)
-
-
-def deskew_sweep_plain(points, valid, do, R_bins, t_trans, mode: str, az=None, order=None,
+# -------------------------------------------------------------- the sweep --
+def deskew_sweep_plain(points, valid, do, T_prev, T_now, hz, mode: str, keys=None, order=None,
                        return_bins: bool = False):
     """Plain version: the deskewed clouds (B, N, 3) (and, with
     ``return_bins``, every point's bin (B, N), int64)."""
-    bins = sweep_bins(points, valid, mode, az, order)
+    R_bins, t_trans = bin_motion_plain(T_prev, T_now, hz)
+    bins = sweep_bins(points, valid, mode, keys, order)
     moved = apply_motion(points, bins, R_bins, t_trans)
     out = torch.where((do[:, None] & valid)[..., None], moved, points)
     return (out, bins) if return_bins else out
 
 
-def _check(points, valid, do, R_bins, t_trans, mode, az, order) -> None:
+def _check(points, valid, do, T_prev, T_now, hz, mode, keys, order) -> None:
     """Raise on what neither version takes (every device)."""
     dev, dtype = points.device, points.dtype
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"deskew_sweep: unsupported device {dev}")
     if mode not in MODES:
         raise ValueError(f"deskew mode must be 'reference' or 'binned', got {mode!r}")
-    ts = [t for t in (valid, do, R_bins, t_trans, az, order) if t is not None]
+    ts = [t for t in (valid, do, T_prev, T_now, hz, keys, order) if t is not None]
     if any(t.device != dev for t in ts):
         raise ValueError("deskew_sweep: operands on different devices")
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"deskew_sweep: points must be float32/float64, got {dtype}")
-    if any(t.dtype != dtype for t in (R_bins, t_trans) + ((az,) if az is not None else ())):
-        raise TypeError(f"deskew_sweep: the tables and azimuths must be the points' {dtype}")
+    if any(t.dtype != dtype for t in (T_prev, T_now, hz) + ((keys,) if keys is not None else ())):
+        raise TypeError(f"deskew_sweep: the poses, rate and keys must be the points' {dtype}")
     if valid.dtype != torch.bool or do.dtype != torch.bool:
         raise TypeError("deskew_sweep: valid and do must be bool")
     if order is not None and order.dtype != torch.int64:
@@ -167,50 +271,52 @@ def _check(points, valid, do, R_bins, t_trans, mode, az, order) -> None:
     if points.dim() != 3 or points.shape[-1] != 3:
         raise ValueError(f"deskew_sweep: want points (B, N, 3), got {tuple(points.shape)}")
     B, N, _ = points.shape
-    want = {"valid": (valid, (B, N)), "do": (do, (B,)), "R_bins": (R_bins, (B, CHUNKS, 3, 3)),
-            "t_trans": (t_trans, (B, CHUNKS, 3)), "az": (az, (B, N)), "order": (order, (B, N))}
+    want = {"valid": (valid, (B, N)), "do": (do, (B,)), "T_prev": (T_prev, (B, 4, 4)),
+            "T_now": (T_now, (B, 4, 4)), "hz": (hz, ()), "keys": (keys, (B, N)),
+            "order": (order, (B, N))}
     for name, (t, shape) in want.items():
         if t is not None and tuple(t.shape) != shape:
             raise ValueError(f"deskew_sweep: want {name} {shape}, got {tuple(t.shape)}")
 
 
-def deskew_sweep(points, valid, do, R_bins, t_trans, mode: str):
+def deskew_sweep(points, valid, do, T_prev, T_now, hz, mode: str):
     """The deskewed clouds of :func:`deskew_sweep_plain` (same arguments):
     the plain version for CPU tensors, the kernel for CUDA ones. The
     reference mode sorts the azimuths here (:func:`sweep_order`) and hands
-    the kernel their order."""
-    _check(points, valid, do, R_bins, t_trans, mode, None, None)
+    the kernel the sorted keys and their order."""
+    _check(points, valid, do, T_prev, T_now, hz, mode, None, None)
     if points.device.type == "cpu":
-        return deskew_sweep_plain(points, valid, do, R_bins, t_trans, mode)
+        return deskew_sweep_plain(points, valid, do, T_prev, T_now, hz, mode)
     if mode == "binned":
-        return launch(points, valid, do, R_bins, t_trans, mode)
-    az = azimuth(points)
-    return launch(points, valid, do, R_bins, t_trans, mode, az, sweep_order(az, valid))
+        return launch(points, valid, do, T_prev, T_now, hz, mode)
+    return launch(points, valid, do, T_prev, T_now, hz, mode,
+                  *sweep_order(azimuth(points), valid))
 
 
-def launch(points, valid, do, R_bins, t_trans, mode: str, az=None, order=None,
+def launch(points, valid, do, T_prev, T_now, hz, mode: str, keys=None, order=None,
            return_bins: bool = False):
-    """Run the kernels on CUDA tensors (arguments and results as
-    :func:`deskew_sweep_plain`; the reference mode needs ``az`` and its
-    sweep ``order``, a permutation of each row); one count. ``return_bins``
-    also writes every point's bin (int32)."""
-    _check(points, valid, do, R_bins, t_trans, mode, az, order)
-    if mode == "reference" and (az is None or order is None):
-        raise ValueError("deskew_sweep: the reference mode's kernel takes az and order")
+    """Run the kernel on CUDA tensors (arguments and results as
+    :func:`deskew_sweep_plain`; the reference mode needs the sorted
+    ``keys`` and their ``order`` of :func:`sweep_order`); one count.
+    ``return_bins`` also writes every point's bin (int32)."""
+    _check(points, valid, do, T_prev, T_now, hz, mode, keys, order)
+    if mode == "reference" and (keys is None or order is None):
+        raise ValueError("deskew_sweep: the reference mode's kernel takes keys and order")
     B, N, _ = points.shape
     if N >= 1 << 24:  # c - j and j + 1 stay exact integers in float32
         raise ValueError(f"deskew_sweep: {N} points a cloud, at most {(1 << 24) - 1}")
     dev, dtype = points.device, points.dtype
-    ins = [t.contiguous() for t in (points, valid, do, R_bins, t_trans)]
     out = torch.empty((B, N, 3), dtype=dtype, device=dev)
     bins = torch.empty((B, N), dtype=torch.int32, device=dev) if return_bins else None
     bins_ptr = None if bins is None else bins.data_ptr()
+    poses = [t.contiguous() for t in (T_prev, T_now, hz)]
     if mode == "binned":
+        ins = [points.contiguous(), valid.contiguous(), do.contiguous()] + poses
         _launch("deskew_binned", dtype, dev, *(t.data_ptr() for t in ins), B, N, math.pi,
                 RESOLUTION, out.data_ptr(), bins_ptr)
     else:
-        extra = [az.contiguous(), order.contiguous()]
-        tile_min = torch.empty((B, -(-N // TILE)), dtype=torch.int32, device=dev)
-        _launch("deskew_reference", dtype, dev, *(t.data_ptr() for t in ins + extra), B, N,
-                math.pi, RESOLUTION, tile_min.data_ptr(), out.data_ptr(), bins_ptr)
+        ins = [points.contiguous(), do.contiguous()] + poses + [keys.contiguous(),
+                                                                 order.contiguous()]
+        _launch("deskew_reference", dtype, dev, *(t.data_ptr() for t in ins), B, N, math.pi,
+                RESOLUTION, out.data_ptr(), bins_ptr)
     return (out, bins) if return_bins else out

@@ -89,6 +89,31 @@ class SweepSetup:
         return {k: pipe.stage(self.sweep(k)) for k in range(first, last + 1)}
 
 
+def sweep_batch(setup: SweepSetup, first: int, B: int, dtype=torch.float32,
+                column: bool = False) -> tuple:
+    """The step's deskew inputs for scans ``first`` to ``first + B - 1``
+    of ``setup``: ``points (B, n_points, 3)`` (each sweep padded with
+    invalid zeros), ``valid (B, n_points)``, the true poses of the scan
+    before and of the scan ``T_prev, T_now (B, 4, 4)`` and the sensor
+    rate ``hz`` (0-dim), on the device. With ``column`` each sweep comes
+    in capture-time order (descending azimuth, as an Ouster sensor
+    delivers its columns); else in the world's draw order."""
+    dev, N = setup.device, setup.n_points
+    pts = np.zeros((B, N, 3))
+    valid = np.zeros((B, N), bool)
+    for b in range(B):
+        s = setup.sweep(first + b).astype(np.float64)
+        if column:
+            s = s[np.argsort(-np.arctan2(s[:, 1], s[:, 0]), kind="stable")]
+        pts[b, :len(s)], valid[b, :len(s)] = s, True
+    T = lambda ks: torch.as_tensor(np.stack([setup.truth(k) for k in ks]),  # noqa: E731
+                                   dtype=dtype, device=dev)
+    scans = range(first, first + B)
+    return (torch.as_tensor(pts, dtype=dtype, device=dev), torch.as_tensor(valid, device=dev),
+            T([k - 1 for k in scans]), T(scans),
+            torch.full((), setup.cf.sensor_hz, dtype=dtype, device=dev))
+
+
 def truth_error(poses: np.ndarray, truths: np.ndarray) -> dict:
     """Translation error of (S, 4, 4) poses against their truths (m): the
     largest and the mean over the scans, and each scan's."""

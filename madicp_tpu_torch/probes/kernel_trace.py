@@ -48,10 +48,11 @@ parts named by ``--parts`` (default: all but ``step``, ``pdl`` and ``launch``):
 - ``launch``: K10 and K11 on a certified round's inputs in each launch
   variant of :data:`LAUNCH_VARIANTS` (:func:`launch_ab`): graphed and
   device µs, bit for bit against the package. Not in the default.
-- ``deskew``: the step's deskew (``ops/deskew.py`` ``deskew_scan``) of a
-  MulRan-shaped sweep (``probes/deskew_drive.py``) in both modes: every
-  kernel of one graphed call with its device µs (the sort's and the
-  prefix minimum's shares among them), graphed and eager µs a call, and
+- ``deskew``: the step's deskew (``ops/deskew.py`` ``deskew_scan``) of
+  MulRan-shaped sweeps (``probes/deskew_drive.py``) in both modes, float32
+  and float64, B = 1 and 4, each sweep in draw order and in column
+  order: every kernel of one graphed call with its device µs and kind
+  (the sort, K12, the other tensor ops), graphed and eager µs a call, and
   whether a capture runs with no host sync; then the certified flagship
   drive graphed with deskew off and in both modes, twice in turns
   (:func:`deskew_rates`: scans/s, device busy ms and kernels a scan, the
@@ -846,8 +847,16 @@ def main(argv=None) -> int:
     if "pdl" in parts:
         emit("pdl", **pdl_ab(dev))
     if "deskew" in parts:
-        for mode in DESKEW_MODES:
-            emit("deskew", mode=mode, **deskew_trace(dev, mode, a.reps))
+        from madicp_tpu_torch.probes.deskew_drive import SweepSetup
+
+        setup = SweepSetup(dev)
+        for dtype, B, column, mode in itertools.product(
+                (torch.float32, torch.float64), DESKEW_BATCHES, (False, True), DESKEW_MODES):
+            emit("deskew", mode=mode, dtype=str(dtype).split(".")[1], B=B,
+                 order="column" if column else "random",
+                 **deskew_trace(setup, mode, dtype, B, column, a.reps))
+        del setup
+        torch.cuda.empty_cache()
         emit("deskew_rates", **deskew_rates(dev))
     return 0
 
@@ -1160,42 +1169,43 @@ def pdl_ab(device, pairs: int = PDL_PAIRS) -> dict:
 
 
 DESKEW_MODES = ("reference", "binned")
-DESKEW_SCAN = 3  # a sweep the drive deskews with the velocity of scans 1 and 2
+DESKEW_SCAN = 3  # the first sweep a trace deskews (with the true poses of scans 2 and 3)
+DESKEW_BATCHES = (1, 4)
 DESKEW_DRIVE = dict(warm=3, steps=8, windows=3, phase=2, profiled=2)
 
 
 def deskew_kind(name: str) -> str:
     """The part of the step's deskew a CUDA kernel belongs to, by its
-    name: the stable sort (cub's radix sort), the prefix minimum
-    (``torch.cummin``), K12, or the other tensor ops."""
+    name: the stable sort (cub's radix sort), K12 (the ``__global__``
+    functions of ``csrc/deskew.cu``), or the other tensor ops (the
+    azimuths, the sort's key, its copies and fills, and the bin motions in
+    trees that form them in tensor ops)."""
+    from madicp_tpu_torch.kernels.deskew import KERNEL_NAMES
+
     low = name.lower()
     if "sort" in low or "radix" in low:
         return "sort"
-    if "scan" in low and ("innermost" in low or "cummin" in low or "cumulative" in low):
-        return "cummin"
-    if any(k in name for k in ("binned_kernel", "tile_min_kernel", "reference_kernel")):
+    if any(k in name for k in KERNEL_NAMES):
         return "k12"
     return "other"
 
 
-def deskew_trace(device, mode: str, reps: int = REPS) -> dict:
-    """The step's deskew of scan :data:`DESKEW_SCAN` of the MulRan-shaped
-    drive (65,536 points padded to 131072, float32) with its true
-    velocity: the kernels of one graphed call in order with their median
-    device µs and kind (:func:`deskew_kind`), the µs of each kind, graphed
-    and eager µs a call, and whether a capture under
-    ``set_sync_debug_mode("error")`` went through."""
+def deskew_trace(setup, mode: str, dtype=torch.float32, B: int = 1, column: bool = False,
+                 reps: int = REPS) -> dict:
+    """The step's deskew (``ops/deskew.py`` ``deskew_scan``) of ``B``
+    sweeps of ``setup``'s drive from scan :data:`DESKEW_SCAN` on (65,536
+    points padded to 131072; in capture-time order with ``column``) with
+    their true velocity: the kernels of one graphed call in order with
+    their median device µs and kind (:func:`deskew_kind`), the µs and
+    kernels of each kind, graphed and eager µs a call, and whether a
+    capture under ``set_sync_debug_mode("error")`` went through."""
     from madicp_tpu_torch.ops.deskew import deskew_scan
-    from madicp_tpu_torch.probes.deskew_drive import SweepSetup
+    from madicp_tpu_torch.probes.deskew_drive import sweep_batch
     from madicp_tpu_torch.utils.timing import event_ms
 
-    setup = SweepSetup(device)
-    pts, valid, _ = setup.make_pipe(mode=mode).stage(setup.sweep(DESKEW_SCAN))
-    poses = [torch.as_tensor(setup.truth(k), dtype=torch.float32, device=device)[None]
-             for k in (DESKEW_SCAN - 1, DESKEW_SCAN)]
-    hz = torch.full((), setup.cf.sensor_hz, dtype=torch.float32, device=device)
-    do = torch.ones(1, dtype=torch.bool, device=device)
-    call = lambda: deskew_scan(pts[None], valid[None], do, *poses, hz, mode)  # noqa: E731
+    pts, valid, T_prev, T_now, hz = sweep_batch(setup, DESKEW_SCAN, B, dtype, column)
+    do = torch.ones(B, dtype=torch.bool, device=pts.device)
+    call = lambda: deskew_scan(pts, valid, do, T_prev, T_now, hz, mode)  # noqa: E731
     call()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
@@ -1209,18 +1219,24 @@ def deskew_trace(device, mode: str, reps: int = REPS) -> dict:
     finally:
         torch.cuda.set_sync_debug_mode(0)
     del graph
-    runs = graphed_records(call, reps)
+    out = {"points": int(valid.sum()), "n_points": pts.shape[1], "capture": capture,
+           "graph_us": graph_ms(call, 20) * 1e3, "eager_us": event_ms(call, 20) * 1e3}
+    try:
+        runs = graphed_records(call, reps)
+    except RuntimeError as e:  # the trace is lost, the graphed times stand
+        return {**out, "kernels": None, "profiler": str(e)}
     kernels = [{"kernel": name, "kind": deskew_kind(name),
                 "device_us": statistics.median(r[j][1] for r in runs)}
                for j, (name, _) in enumerate(runs[0])]
     by_kind: dict = {}
     for k in kernels:
-        by_kind[k["kind"]] = by_kind.get(k["kind"], 0.0) + k["device_us"]
-    total = sum(by_kind.values())
-    return {"points": int(valid.sum()), "n_points": pts.shape[0], "capture": capture,
-            "kernels": kernels, "device_us": total, "launches": len(kernels),
-            "us_by_kind": by_kind, "share_by_kind": {k: v / total for k, v in by_kind.items()},
-            "graph_us": graph_ms(call, 20) * 1e3, "eager_us": event_ms(call, 20) * 1e3}
+        us, n = by_kind.get(k["kind"], (0.0, 0))
+        by_kind[k["kind"]] = (us + k["device_us"], n + 1)
+    total = sum(us for us, _ in by_kind.values())
+    return {**out, "kernels": kernels, "device_us": total, "launches": len(kernels),
+            "us_by_kind": {k: us for k, (us, _) in by_kind.items()},
+            "kernels_by_kind": {k: n for k, (_, n) in by_kind.items()},
+            "share_by_kind": {k: us / total for k, (us, _) in by_kind.items()}}
 
 
 def deskew_rates(device, rounds: int = 2) -> dict:

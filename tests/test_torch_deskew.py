@@ -1,34 +1,82 @@
 """The deskew sweep of the PyTorch port: K12 (``kernels/deskew.py``, the
-bins, the apply and the step's select) and its entries in ``ops/deskew.py``,
-on skewed sweeps of ``utils/fixtures.py``.
+bin motions, the bins, the apply and the step's select) and its entries
+in ``ops/deskew.py``, on skewed sweeps of ``utils/fixtures.py``.
 
-On the CPU: the explicit-order plain version against the JAX package's
+On the CPU: the explicit-order bin motions against the JAX package's
+``_bin_times_and_motion`` (at rest, straight, turning, every near-pi
+sub-branch, a batch), the explicit-order plain version against its
 ``deskew_cloud`` at 1e-9 in float64 (both modes, bins exactly), its
 batched branch against the JAX function run once a sequence, the
 dispatching entries against the plain version bit for bit (a sequence
-with ``do`` False, an all-invalid one), a CPU ``Fleet`` with deskew on
-against one ``Pipeline`` a sequence, and the sweep fixture itself. Tests
-marked ``cuda`` hold K12 to its plain version on the card bit for bit
-(ties in azimuth, ragged tiles, the do/valid select, B = 1 and 3), and
-skip without one. JAX is imported by the CPU tests only, so a machine
-with a card needs none."""
+with ``do`` False, an all-invalid one), the window the kernel's prefix
+minimum reads and the steps of the advance its table of motions rests
+on, a CPU ``Fleet`` with deskew on against one ``Pipeline`` a sequence,
+and the sweep fixture itself. Tests marked ``cuda`` hold K12 to its
+plain version on the card bit for bit (the motions of every pose case,
+ties in azimuth, ragged tiles, the do/valid select, draw and column
+order, B = 1 to 4), and skip without one. JAX is imported by the CPU
+tests only, so a machine with a card needs none."""
 
 import dataclasses
+import math
 
 import numpy as np
 import pytest
 import torch
+from scipy.spatial.transform import Rotation
 
 from madicp_tpu_torch.kernels import deskew as k12
 from madicp_tpu_torch.models.pipeline import Pipeline, PipelineConfig
 from madicp_tpu_torch.ops import deskew as ops_deskew
 from madicp_tpu_torch.ops.constants import CHUNKS
 from madicp_tpu_torch.parallel import Fleet
-from madicp_tpu_torch.utils.fixtures import SweepDrive, skewed_sweep, spinning_scan
+from madicp_tpu_torch.utils.fixtures import SweepDrive, _exp_so3, skewed_sweep, spinning_scan
 
 torch.set_num_threads(2)
 
 MODES = ("reference", "binned")
+MOTIONS = ("rest", "straight", "turning", "near_pi")
+# the plain motions against the JAX function: float64 within 1e-12 (a few
+# ulps of the entries, which are at most 1 and 0.3 m); float32 within
+# 1e-6 (two orders of summation and libm against XLA's trig, a few ulps)
+MOTION_ATOL = {torch.float64: 1e-12, torch.float32: 1e-6}
+
+
+def _pose(rotvec, t) -> np.ndarray:
+    T = np.eye(4)
+    T[:3, :3], T[:3, 3] = _exp_so3(np.asarray(rotvec, dtype=np.float64)), t
+    return T
+
+
+# relative rotations of pi: about z, y and x reach log_so3's three near-pi
+# sub-branches (R33, R22, R11 not -1 in turn), about (1, 1, 1) the first
+# with every diagonal entry -1/3; from the identity, so the trace is -1
+# to the last bit in float32 too
+NEAR_PI = [(_pose([0.0, 0.0, 0.0], [1.0, 2.0, 3.0]), _pose([0.0, 0.0, math.pi], [1.2, 2.0, 3.0])),
+           (np.eye(4), _pose([0.0, math.pi, 0.0], [0.1, 0.0, 0.0])),
+           (np.eye(4), _pose([math.pi, 0.0, 0.0], [0.1, 0.0, 0.0])),
+           (np.eye(4), _pose(np.full(3, math.pi / math.sqrt(3.0)), [0.0, 0.3, 0.0]))]
+
+
+def motion_poses(kind: str, B: int, seed: int = 0) -> tuple:
+    """``(T_prev, T_now)`` (B, 4, 4) of a pose case: a sensor ``at rest``
+    (the Taylor branch of log_so3, exp_so3's small branch at every bin), a
+    ``straight`` line (no rotation, 0.3 m a scan), the drive's true
+    ``turning`` poses, or a relative rotation ``near_pi`` (sequence b
+    takes :data:`NEAR_PI` ``[b]``; one sequence takes the x sub-branch)."""
+    T_prev, T_now = np.zeros((B, 4, 4)), np.zeros((B, 4, 4))
+    for b in range(B):
+        d = drive(seed + b)
+        T_prev[b] = d.truth(2 + b)
+        if kind == "rest":
+            T_now[b] = T_prev[b]
+        elif kind == "straight":
+            T_now[b] = T_prev[b] @ _pose([0.0, 0.0, 0.0], [0.3, 0.02 * b, 0.0])
+        elif kind == "turning":
+            T_now[b] = d.truth(3 + b)
+        else:
+            T_prev[b], T_now[b] = NEAR_PI[2 if B == 1 else b % len(NEAR_PI)]
+    return T_prev, T_now
 
 
 def room_world(rng, n: int = 6000) -> np.ndarray:
@@ -120,9 +168,96 @@ def test_batched_branch_matches_jax_per_sequence(jax_deskew, mode):
         np.testing.assert_array_equal(bins[b], _jax_bins(jax_deskew, pts[b], valid[b], mode))
 
 
+def _jax_motion(jax_deskew, T_prev, T_now, hz, np_dtype):
+    import jax.numpy as jnp
+
+    R, t = jax_deskew._bin_times_and_motion(jnp.asarray(T_prev.astype(np_dtype)),
+                                            jnp.asarray(T_now.astype(np_dtype)), hz, np_dtype)
+    return np.asarray(R), np.asarray(t)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", ["rest", "straight", "turning", "near_pi_z", "near_pi_y",
+                                  "near_pi_x", "near_pi_diagonal", "batch"])
+def test_bin_motions_match_jax(jax_deskew, dtype, case):
+    """The explicit-order bin motions (``bin_motion_plain``) against the
+    JAX package's ``_bin_times_and_motion`` (:data:`MOTION_ATOL`), each
+    pose case on the branches it is meant to reach; ``batch``: three
+    sequences (turning, at rest, straight) at once against the JAX
+    function run once a sequence."""
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
+    if case == "batch":
+        pairs = [motion_poses(k, 1, seed=s) for k, s in (("turning", 4), ("rest", 5),
+                                                          ("straight", 6))]
+        T_prev, T_now = (np.concatenate(a) for a in zip(*pairs))
+    elif case.startswith("near_pi"):
+        i = ("z", "y", "x", "diagonal").index(case.split("_")[-1])
+        T_prev, T_now = (a[None] for a in NEAR_PI[i])
+    else:
+        T_prev, T_now = motion_poses(case, 1)
+    t = lambda a: torch.as_tensor(a.astype(np_dtype))  # noqa: E731
+    R, tr = k12.bin_motion_plain(t(T_prev), t(T_now), torch.full((), 20.0, dtype=dtype))
+    assert R.shape == (len(T_prev), CHUNKS, 3, 3) and tr.shape == (len(T_prev), CHUNKS, 3)
+    for b in range(len(T_prev)):
+        R_j, t_j = _jax_motion(jax_deskew, T_prev[b], T_now[b], 20.0, np_dtype)
+        np.testing.assert_allclose(R[b].numpy(), R_j, rtol=0, atol=MOTION_ATOL[dtype])
+        np.testing.assert_allclose(tr[b].numpy(), t_j, rtol=0, atol=MOTION_ATOL[dtype])
+    # the branches each case reaches, from the relative rotation in float64
+    R_rel = np.swapaxes(T_prev[:, :3, :3], 1, 2) @ T_now[:, :3, :3]
+    tr3 = np.trace(R_rel, axis1=1, axis2=2) - 3.0
+    t_k = -1.0 / 20.0 + np.arange(CHUNKS) / 20.0 / (CHUNKS - 1)
+    theta_sq = (np.linalg.norm(Rotation.from_matrix(R_rel).as_rotvec(), axis=1)[:, None]
+                * 20.0 * t_k) ** 2
+    if case in ("rest", "straight"):  # the Taylor branch; I + W at every bin
+        assert np.all(tr3 >= -1e-7) and np.all(theta_sq < 1e-8)
+    elif case in ("turning", "batch"):  # the regular branch; both exp branches
+        assert tr3[0] < -1e-7 and (theta_sq[0] < 1e-8).any() and (theta_sq[0] >= 1e-8).any()
+    else:  # near pi, on the sub-branch of the diagonal entry that is not -1
+        assert np.all(tr3 + 4.0 < 1e-10)
+        d = np.diagonal(R_rel[0])
+        sub = 2 if abs(d[2] + 1.0) > 1e-5 else 1 if abs(d[1] + 1.0) > 1e-5 else 0
+        assert sub == {"z": 2, "y": 1, "x": 0, "diagonal": 2}[case.split("_")[-1]]
+
+
+def test_the_prefix_minimum_needs_only_the_last_chunks_positions():
+    """The kernel's premise (``csrc/deskew.cu``): with every ``c_i`` in
+    ``[0, CHUNKS - 1]``, ``min_{i <= j} (c_i - i)`` is the minimum over the
+    window ``[j - CHUNKS + 1, j]``, so a tile of sorted positions needs its
+    own keys and the ``CHUNKS`` before it (no pass over the tiles before),
+    for any ``c`` in that range, sorted (a sweep) or not."""
+    rng = np.random.default_rng(0)
+    n, tile = 40_000, 256
+    runs = np.repeat(rng.integers(0, 60, 2000), rng.integers(1, 50, 2000))[:n]
+    for c in (np.minimum(np.cumsum(runs > 50), CHUNKS - 1), np.sort(rng.integers(0, CHUNKS, n)),
+              rng.integers(0, CHUNKS, n)):
+        v = c - np.arange(len(c))
+        want = np.minimum.accumulate(v)
+        got = np.empty_like(v)
+        for f in range(0, len(v), tile):
+            carry = v[max(0, f - CHUNKS):f].min(initial=np.iinfo(v.dtype).max)
+            got[f:f + tile] = np.minimum(carry, np.minimum.accumulate(v[f:f + tile]))
+        assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("seed,n_invalid", [(1, 0), (2, 2000)])
+def test_the_advance_moves_at_most_one_bin_a_position(seed, n_invalid):
+    """The kernel's premise for its table of motions (``csrc/deskew.cu``):
+    along the reference's traversal the bin never falls and rises by at
+    most one a position, so a tile of 256 sorted positions covers one run
+    of at most 256 bins; on a sweep with a wide azimuth gap too."""
+    pts, _, _, valid = sweep_case(seed, n_invalid=n_invalid)
+    az = np.arctan2(pts[:, 1], pts[:, 0])
+    pts = pts[(az < 0.5) | (az > 1.5)]  # a gap of ~60 bins
+    valid = valid[:len(pts)]
+    keys, order = k12.sweep_order(k12.azimuth(torch.from_numpy(pts)), torch.from_numpy(valid))
+    k = k12.reference_bins(keys, order)[torch.flip(order, dims=(-1,))].numpy()
+    step = np.diff(k)
+    assert step.min() >= 0 and step.max() <= 1 and k[-1] > k[0]
+
+
 def _batch(dtype=torch.float64, seeds=(5, 6, 7), n_invalid=(0, 300, 3000)):
-    """A batch of three sweeps and their bin motions: points, valid (the
-    last sequence all invalid), T_prev, T_now."""
+    """A batch of three sweeps and their poses: points, valid (the last
+    sequence all invalid), T_prev, T_now."""
     cases = [sweep_case(s, n_invalid=n) for s, n in zip(seeds, n_invalid)]
     pts, T_prev, T_now, valid = (torch.from_numpy(np.stack(a)) for a in zip(*cases))
     return pts.to(dtype), valid, T_prev.to(dtype), T_now.to(dtype)
@@ -135,12 +270,17 @@ def test_dispatch_on_the_cpu_is_the_plain_version(mode):
     point pass through unchanged; K12's counter stands still."""
     pts, valid, T_prev, T_now = _batch()
     do = torch.tensor([True, False, True])
-    R_bins, t_trans = ops_deskew.bin_motion(T_prev, T_now, 10.0, pts.dtype)
+    hz = torch.full((), 10.0, dtype=pts.dtype)
     before = k12.counter.launches
-    got = k12.deskew_sweep(pts, valid, do, R_bins, t_trans, mode)
-    want, bins = k12.deskew_sweep_plain(pts, valid, do, R_bins, t_trans, mode, return_bins=True)
+    got = k12.deskew_sweep(pts, valid, do, T_prev, T_now, hz, mode)
+    want, bins = k12.deskew_sweep_plain(pts, valid, do, T_prev, T_now, hz, mode,
+                                        return_bins=True)
     assert torch.equal(got, want) and k12.counter.launches == before
     assert torch.equal(ops_deskew.deskew_scan(pts, valid, do, T_prev, T_now, 10.0, mode), want)
+    assert torch.equal(ops_deskew.deskew_scan(pts, valid, do, T_prev, T_now, hz, mode), want)
+    keys, order = k12.sweep_order(k12.azimuth(pts), valid)
+    assert torch.equal(k12.deskew_sweep_plain(pts, valid, do, T_prev, T_now, hz, mode, keys,
+                                              order), want)
     keep = ~(do[:, None] & valid)
     assert torch.equal(got[keep], pts[keep]) and keep[1].all() and keep[2].all()
     moved = ops_deskew.deskew_cloud(pts, T_prev, T_now, 10.0, valid=valid, mode=mode)
@@ -166,18 +306,24 @@ def test_the_apply_is_the_explicit_order():
 
 def test_argument_checks():
     pts, valid, T_prev, T_now = _batch()
-    R_bins, t_trans = ops_deskew.bin_motion(T_prev, T_now, 10.0, pts.dtype)
+    hz = torch.full((), 10.0, dtype=pts.dtype)
     do = torch.ones(3, dtype=torch.bool)
     with pytest.raises(ValueError):
-        k12.deskew_sweep(pts, valid, do, R_bins, t_trans, "bogus")
+        k12.deskew_sweep(pts, valid, do, T_prev, T_now, hz, "bogus")
     with pytest.raises(ValueError):
-        k12.deskew_sweep(pts[0], valid[0], do[:1], R_bins[:1], t_trans[:1], "binned")
+        k12.deskew_sweep(pts[0], valid[0], do[:1], T_prev[:1], T_now[:1], hz, "binned")
     with pytest.raises(TypeError):
-        k12.deskew_sweep(pts, valid, do, R_bins.float(), t_trans, "binned")
+        k12.deskew_sweep(pts, valid, do, T_prev.float(), T_now, hz, "binned")
     with pytest.raises(TypeError):
-        k12.deskew_sweep(pts, valid.int(), do, R_bins, t_trans, "binned")
+        k12.deskew_sweep(pts, valid, do, T_prev, T_now, hz.float(), "binned")
+    with pytest.raises(TypeError):
+        k12.deskew_sweep(pts, valid.int(), do, T_prev, T_now, hz, "binned")
     with pytest.raises(ValueError):
-        k12.deskew_sweep(pts, valid, do[:2], R_bins, t_trans, "reference")
+        k12.deskew_sweep(pts, valid, do[:2], T_prev, T_now, hz, "reference")
+    with pytest.raises(ValueError):
+        k12.deskew_sweep(pts, valid, do, T_prev[:, :3], T_now, hz, "reference")
+    with pytest.raises(ValueError):
+        k12.deskew_sweep(pts, valid, do, T_prev, T_now, hz[None], "reference")
     with pytest.raises(ValueError):
         ops_deskew.deskew_cloud(pts[0], T_prev[0], T_now[0], 10.0, mode="bogus")
 
@@ -254,28 +400,48 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _card_case(device, dtype, B, N, seed=0, ties=True):
+def _card_case(device, dtype, B, N, seed=0, ties=True, motion="turning", column=False):
     """B sweeps of N points on the card (N need not be a multiple of the
-    tile), padded with invalid zeros past 90% of the last sequence, with
-    runs of equal azimuths; the motions of their true poses."""
+    block), padded with invalid zeros past 90% of the last sequence, with
+    runs of equal azimuths; with ``column`` each cloud in descending
+    azimuth (capture-time) order. The poses of ``motion``
+    (:func:`motion_poses`) and the rate (20 Hz)."""
     rng = np.random.default_rng(seed)
     pts = np.zeros((B, N, 3))
-    T_prev, T_now = np.tile(np.eye(4), (B, 1, 1)), np.tile(np.eye(4), (B, 1, 1))
     for b in range(B):
-        d = drive(seed + b, points=min(N, 3000))
-        cloud = d.sweep(3, np.float64)
+        cloud = drive(seed + b, points=min(N, 3000)).sweep(3, np.float64)
         pts[b] = cloud[rng.integers(0, len(cloud), N)] * rng.uniform(0.5, 2.0, (N, 1))
-        T_prev[b], T_now[b] = d.truth(2), d.truth(3)
     if ties:  # runs of one azimuth (a scaled copy of a point)
         pts[:, 7:19] = pts[:, 6:7] * np.linspace(0.5, 3.0, 12)[None, :, None]
+    if column:
+        for b in range(B):
+            pts[b] = pts[b][np.argsort(-np.arctan2(pts[b, :, 1], pts[b, :, 0]), kind="stable")]
     valid = np.ones((B, N), bool)
     valid[-1, int(0.9 * N):] = False
     pts[~valid] = 0.0
     valid[:, 3::17] = False  # scattered invalid points keep their values
+    T_prev, T_now = motion_poses(motion, B, seed)
     t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)  # noqa: E731
-    pts, T_prev, T_now = t(pts), t(T_prev), t(T_now)
-    R_bins, t_trans = ops_deskew.bin_motion(T_prev, T_now, 10.0, dtype)
-    return pts, torch.as_tensor(valid, device=device), R_bins, t_trans
+    return (t(pts), torch.as_tensor(valid, device=device), t(T_prev), t(T_now),
+            torch.full((), 20.0, dtype=dtype, device=device))
+
+
+def _check_k12(case, mode, do):
+    """K12 (``launch``, bins returned) and the dispatching entry against
+    the plain version on ``case``, bit for bit; one count a call."""
+    pts, valid, T_prev, T_now, hz = case
+    keys, order = k12.sweep_order(k12.azimuth(pts), valid) if mode == "reference" else (None,
+                                                                                         None)
+    before = k12.counter.launches
+    got, bins = k12.launch(pts, valid, do, T_prev, T_now, hz, mode, keys, order,
+                           return_bins=True)
+    torch.cuda.synchronize()
+    assert k12.counter.launches == before + 1
+    want, want_bins = k12.deskew_sweep_plain(pts, valid, do, T_prev, T_now, hz, mode, keys,
+                                             order, return_bins=True)
+    assert torch.equal(bins.long(), want_bins)
+    assert torch.equal(got, want)
+    assert torch.equal(k12.deskew_sweep(pts, valid, do, T_prev, T_now, hz, mode), want)
 
 
 @pytest.mark.cuda
@@ -284,22 +450,42 @@ def _card_case(device, dtype, B, N, seed=0, ties=True):
 @pytest.mark.parametrize("B,N", [(1, 4095), (3, 1025), (1, 1000), (3, 131072), (2, 3 * 1024)])
 def test_k12_matches_the_plain_version_on_cuda(cuda_device, dtype, mode, B, N):
     """K12 against its plain version on the card bit for bit: bins and
-    cloud, with ties, a ragged last tile, invalid points and a sequence
+    cloud, with ties, a ragged last block, invalid points and a sequence
     with ``do`` False; one count a call."""
-    pts, valid, R_bins, t_trans = _card_case(cuda_device, dtype, B, N, seed=B * N)
     do = torch.ones(B, dtype=torch.bool, device=cuda_device)
     do[B // 2] = B == 1
-    az = k12.azimuth(pts)
-    order = k12.sweep_order(az, valid) if mode == "reference" else None
-    before = k12.counter.launches
-    got, bins = k12.launch(pts, valid, do, R_bins, t_trans, mode, az, order, return_bins=True)
-    torch.cuda.synchronize()
-    assert k12.counter.launches == before + 1
-    want, want_bins = k12.deskew_sweep_plain(pts, valid, do, R_bins, t_trans, mode,
-                                             return_bins=True)
-    assert torch.equal(bins.long(), want_bins)
-    assert torch.equal(got, want)
-    assert torch.equal(k12.deskew_sweep(pts, valid, do, R_bins, t_trans, mode), want)
+    _check_k12(_card_case(cuda_device, dtype, B, N, seed=B * N), mode, do)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("motion", MOTIONS)
+@pytest.mark.parametrize("column", [False, True], ids=["draw", "column"])
+def test_k12_forms_the_motions_of_the_plain_version_on_cuda(cuda_device, dtype, mode, B, motion,
+                                                            column):
+    """The motions K12 forms from the poses, on every branch (at rest,
+    straight, turning, near pi), bit for bit with the plain version's, in
+    draw and column order, with every sequence moving."""
+    do = torch.ones(B, dtype=torch.bool, device=cuda_device)
+    _check_k12(_card_case(cuda_device, dtype, B, 20_000, seed=B, motion=motion, column=column),
+               mode, do)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("mode", MODES)
+def test_k12_takes_points_off_a_pair_boundary_on_cuda(cuda_device, dtype, mode):
+    """Points that start one value past a pair boundary (a view at an odd
+    offset) take K12's scalar accesses: still bit for bit."""
+    pts, valid, T_prev, T_now, hz = _card_case(cuda_device, dtype, 2, 5000, seed=11)
+    flat = torch.empty(pts.numel() + 1, dtype=dtype, device=cuda_device)
+    shifted = flat[1:].view(pts.shape)
+    shifted.copy_(pts)
+    assert shifted.data_ptr() % (2 * pts.element_size()) != 0
+    do = torch.ones(2, dtype=torch.bool, device=cuda_device)
+    _check_k12((shifted, valid, T_prev, T_now, hz), mode, do)
 
 
 @pytest.mark.cuda
@@ -308,9 +494,9 @@ def test_k12_replays_its_eager_call_on_cuda(cuda_device, mode):
     """The step's deskew (sort included) captured in a CUDA graph: the
     replay equals the eager call bit for bit, and the capture syncs
     nothing."""
-    pts, valid, R_bins, t_trans = _card_case(cuda_device, torch.float32, 2, 131072, seed=3)
+    pts, valid, T_prev, T_now, hz = _card_case(cuda_device, torch.float32, 2, 131072, seed=3)
     do = torch.ones(2, dtype=torch.bool, device=cuda_device)
-    call = lambda: k12.deskew_sweep(pts, valid, do, R_bins, t_trans, mode)  # noqa: E731
+    call = lambda: ops_deskew.deskew_scan(pts, valid, do, T_prev, T_now, hz, mode)  # noqa: E731
     want = call()
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())

@@ -205,7 +205,7 @@ def test_deskew_matches_jax(rng, mode):
         az = np.arctan2(pts[:, 1], pts[:, 0])
         b_j = np.asarray(jax_deskew._bins_reference(jnp.asarray(az), jnp.asarray(valid)))
         valid_t = torch.from_numpy(valid)
-        b_t = _np(k12.reference_bins(_pt(az), valid_t, k12.sweep_order(_pt(az), valid_t)))
+        b_t = _np(k12.reference_bins(*k12.sweep_order(_pt(az), valid_t)))
         np.testing.assert_array_equal(b_t, b_j)
 
 

@@ -99,6 +99,21 @@ script exits non-zero without the final line):
               the fleet at B = 4 with deskew on, graphed, every sequence
               within 5e-4 m of its single Pipeline; one deskewed step of a
               captured configuration under set_sync_debug_mode("error");
+3f. tail      step_scalars (K14: the constant-velocity prediction and the
+              step's tail: inlier ratio, velocity estimate, -log det, the
+              frame window and the promotion's bookkeeping) and ring_write
+              (K13: the frame record and the promotion's tree copy)
+              against their plain PyTorch versions on the card bit for
+              bit, on the inputs of a recorded certified flagship step,
+              float32 and float64, B = 1 and 4, with no sequence
+              promoting, every one promoting an older window frame and
+              every one promoting its own scan; eager, graphed and plain
+              ms and the bound of each. Then the certified flagship
+              drive, graphed, with the kernels and with all three on their
+              plain versions (plain_tail, a patch of this script):
+              scans/s, device busy and kernels a scan, two step_scalars
+              and one ring_write launch a scan, the poses (equal bit for
+              bit);
 3b. probe     one run of the probe entry point (python -m
               madicp_tpu_torch.probes.scatter_probe), its launches counted
               from 0: it holds the four scatter-probe kernels
@@ -169,13 +184,16 @@ script exits non-zero without the final line):
               keyframe ring split, then the build too) within 5e-4 of
               one process on both ranks — plumbing, not scaling.
 
-Then the line {"kernels": [...]} (all twelve kernels: segsum_moments,
+Then the line {"kernels": [...]} (all fourteen kernels: segsum_moments,
 build_nodes and build_points per flagship build, descend at a certified
 round 0 and icp_terms on its payload, gn_update and certify_slack on a
 certified flagship scan's round, each with its launches in the
 steady phase's main-path run; deskew_sweep on one flagship sweep in the
-reference mode, with its launches in the MulRan drive's timed run; the
-probe kernels summed over one probe pass with the probe's launches), the
+reference mode, with its launches in the MulRan drive's timed run;
+step_scalars (predict and tail summed) and ring_write on a recorded
+flagship step that does not promote, with their launches in the steady
+phase's run; the probe kernels summed over one probe pass with the
+probe's launches), the
 nvidia-smi line, and last
 {"ok": true, "device": {...}}. Imports nothing of JAX or of the JAX
 package; the golden file is read with numpy. Needs one card.
@@ -188,8 +206,9 @@ compute_batch or Fleet.compute without a mesh replays captured CUDA
 graphs from the second odometry scan on; a capture that fails raises.
 Every run of the step (every schedule, the fleet, the CLI, the demos)
 counts its kernels' launches from 0 and fails if build_nodes,
-build_points, descend, icp_terms or gn_update (and certify_slack on the
-certified and compact schedules) was never launched; a scan launches
+build_points, descend, icp_terms, gn_update, step_scalars or ring_write
+(and certify_slack on the certified and compact schedules) was never
+launched; a scan launches
 gn_update once a GN round (15) and certify_slack once a later round of
 the certified rounds (14). The realtime
 scenario of phase 8b derives its sensor rate from the graphed certified
@@ -227,7 +246,10 @@ def check(cond: bool, what: str) -> None:
 ASSOC_KERNELS = ("descend", "icp_terms")  # the association's and the terms' kernels
 BUILD_KERNELS = ("build_nodes", "build_points")  # the tree build's level pass and pick
 GN_KERNELS = ("gn_update", "certify_slack")  # the GN update and the certified slack pass
-STEP_KERNELS = BUILD_KERNELS + ASSOC_KERNELS + ("gn_update",)  # every schedule's
+TAIL_KERNELS = ("step_scalars", "ring_write")  # the prediction and tail's scalars, the rings
+# a registration's (MADicp: no odometry step, so no tail)
+REGISTRATION_KERNELS = BUILD_KERNELS + ASSOC_KERNELS + ("gn_update",)
+STEP_KERNELS = REGISTRATION_KERNELS + TAIL_KERNELS  # every schedule's step
 ROUNDS = 15  # GN rounds a scan: one gn_update each, a certify_slack each after the first
 
 
@@ -249,10 +271,13 @@ def kernel_names() -> dict:
         icp_terms,
     )
 
+    from madicp_tpu_torch.kernels import ring_write, step_scalars
+
     return {"descend": descent.KERNEL_NAMES, "icp_terms": icp_terms.KERNEL_NAMES,
             "build_nodes": build_nodes.KERNEL_NAMES, "build_points": build_points.KERNEL_NAMES,
             "gn_update": gn_update.KERNEL_NAMES, "certify_slack": certify_slack.KERNEL_NAMES,
-            "deskew_sweep": deskew.KERNEL_NAMES}
+            "deskew_sweep": deskew.KERNEL_NAMES, "step_scalars": step_scalars.KERNEL_NAMES,
+            "ring_write": ring_write.KERNEL_NAMES}
 
 
 def reset_launches() -> None:
@@ -523,14 +548,37 @@ def plain_gn():
     return patched()
 
 
+def plain_tail():
+    """A context in which the step's prediction, tail and ring write take
+    their plain versions on the card too (K13's and K14's counters stand
+    still): the yardstick of the ``tail`` drive."""
+    import contextlib
+
+    from madicp_tpu_torch.kernels import ring_write, step_scalars
+
+    @contextlib.contextmanager
+    def patched():
+        real = step_scalars.predict, step_scalars.tail, ring_write.ring_write
+        step_scalars.predict = step_scalars.predict_plain
+        step_scalars.tail = step_scalars.tail_plain
+        ring_write.ring_write = ring_write.ring_write_plain
+        try:
+            yield
+        finally:
+            step_scalars.predict, step_scalars.tail, ring_write.ring_write = real
+
+    return patched()
+
+
 def route_context(route: str):
     """The context of a drive's route: the kernels, or the association and
-    terms (``plain_association``), the build (``plain_build``) or the GN
-    update and slack pass (``plain_gn``) on their plain versions."""
+    terms (``plain_association``), the build (``plain_build``), the GN
+    update and slack pass (``plain_gn``) or the prediction, tail and ring
+    write (``plain_tail``) on their plain versions."""
     import contextlib
 
     return {"kernels": contextlib.nullcontext, "plain_association": plain_association,
-            "plain_build": plain_build, "plain_gn": plain_gn}[route]()
+            "plain_build": plain_build, "plain_gn": plain_gn, "plain_tail": plain_tail}[route]()
 
 
 def certified_drive(torch, route: str) -> dict:
@@ -1479,6 +1527,212 @@ def phase_deskew(torch, nvidia_smi: str) -> dict:
     return out
 
 
+# the tail phase: K14 (the prediction and the tail's scalars) and K13 (the
+# frame record and the promotion's tree copy) on flagship states
+TAIL_REPLACES = {
+    "step_scalars": ("madicp_tpu/models/pipeline.py:723 (madicp_tpu/ops/lie.py:147 "
+                     "exp_se3_split), :736-792 without the tree copies; "
+                     "madicp_tpu/models/vel_estimator.py:21; madicp_tpu/ops/icp_core.py:262"),
+    "ring_write": ("madicp_tpu/ops/tree.py:939 transform_tree; madicp_tpu/models/pipeline.py:287, "
+                   "751 _set_slot; :768-779 do_promote's tree copy"),
+}
+TAIL_REPS = 20  # calls a timing
+TAIL_WARM = 3  # eager steps before the recorded one: older frames in the window
+# the cases K13 and K14 are held to: p_th below every ratio (no sequence
+# promotes), above every ratio with every older frame valid and its
+# weight lowered by 1e6 (every sequence promotes an older frame; the
+# warm-up steps wrote finite weights) and with every older
+# frame's weight inf (every one promotes its own scan's slot)
+TAIL_CASES = {"no_promote": -1.0, "promote": 2.0, "promote_head": 2.0}
+# operations a sequence: predict ~90 (six divisions, exp_so3, 16 entries
+# of 5); the tail ~1,600 (9 pairs of ~110: the relative pose 60, two
+# atan2 and an asin, the residual, norm, clamp and weight; the LU ~150 and
+# six logs; the sums 63; the window ~60) plus 2 a flag pair of the counts
+TAIL_FLOPS = {"predict": 90, "tail": 1600}
+RING_FLOPS_PER_PANEL = 18  # 9 products and 9 additions
+
+
+def record_tail(torch, cfg, state, pts, valid) -> dict:
+    """The arguments of the step's predict, tail and ring write in one
+    eager ``step_in_place`` of ``state`` (which it advances), cloned as
+    they were handed over."""
+    from madicp_tpu_torch.kernels import ring_write, step_scalars
+    from madicp_tpu_torch.models.step_graph import step_in_place
+    from madicp_tpu_torch.ops.tree import SearchTree
+
+    rec = {}
+    real = step_scalars.predict, step_scalars.tail, ring_write.ring_write
+
+    def predict(*args):
+        rec["predict"] = tuple(a.clone() for a in args)
+        return real[0](*args)
+
+    def tail(state, *args, **kw):
+        # the scalars of the state (the tail reads no tree)
+        scalars = type(state)(*(None if isinstance(v, SearchTree) else v.clone() for v in state))
+        rec["tail"] = (scalars, tuple(a.clone() for a in args), dict(kw))
+        return real[1](state, *args, **kw)
+
+    def ring(nav, X, plan, fr, kf):
+        rec["ring"] = (nav.clone(), X.clone())
+        return real[2](nav, X, plan, fr, kf)
+
+    step_scalars.predict, step_scalars.tail, ring_write.ring_write = predict, tail, ring
+    try:
+        step_in_place(cfg, state, pts, valid)
+    finally:
+        step_scalars.predict, step_scalars.tail, ring_write.ring_write = real
+    return rec
+
+
+def tensors_equal(torch, a, b) -> bool:
+    return torch.equal(a, b) or (a.is_floating_point() and torch.equal(a.isnan(), b.isnan())
+                                 and torch.equal(a.nan_to_num(), b.nan_to_num()))
+
+
+def tail_bytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def tail_case(torch, rec: dict, state, case: str, dname: str, what: str, timed: bool) -> dict:
+    """K14 (predict, tail) and K13 on a recorded flagship step's inputs
+    with ``p_th`` of :data:`TAIL_CASES` ``[case]``, against their plain
+    versions bit for bit (one count each a call); with ``timed`` eager,
+    graphed and plain ms of each and the bound."""
+    from madicp_tpu_torch.kernels import ring_write, step_scalars
+    from madicp_tpu_torch.utils.timing import bound_ms, event_ms, graph_ms
+
+    st, (X, H, matched, valid, hz), kw = rec["tail"]
+    kw = dict(kw, p_th=TAIL_CASES[case])
+    if case == "promote_head":  # no old frame outweighs the record
+        st = st._replace(fr_weight=torch.full_like(st.fr_weight, float("inf")))
+    elif case == "promote":  # every old frame valid and outweighing it
+        st = st._replace(fr_weight=st.fr_weight - 1e6,
+                         fr_valid=torch.ones_like(st.fr_valid))
+    nav, Xr = rec["ring"]
+    Xp, vp, hzp = rec["predict"]
+    B = X.shape[0]
+    c13, c14 = ring_write.counter.launches, step_scalars.counter.launches
+    p_k, p_p = step_scalars.launch_predict(Xp, vp, hzp), step_scalars.predict_plain(Xp, vp, hzp)
+    t_k = step_scalars.launch_tail(st, X, H, matched, valid, hz, **kw)
+    t_p = step_scalars.tail_plain(st, X, H, matched, valid, hz, **kw)
+    rings = [(state.fr_tree.nav.clone(), state.kf_tree.nav.clone()) for _ in range(2)]
+    ring_write.launch(nav, Xr, t_k.plan, *rings[0])
+    ring_write.ring_write_plain(nav, Xr, t_p.plan, *rings[1])
+    torch.cuda.synchronize()
+    check((ring_write.counter.launches - c13, step_scalars.counter.launches - c14) == (1, 2),
+          f"tail {what}: launches {ring_write.counter.launches - c13}, "
+          f"{step_scalars.counter.launches - c14}, want 1 and 2")
+    unequal = [name for name, a, b in zip(step_scalars.Tail._fields, t_k, t_p)
+               if not tensors_equal(torch, a, b)]
+    check(tensors_equal(torch, p_k, p_p), f"tail {what}: predict differs from the plain version "
+          f"by {float((p_k.double() - p_p.double()).abs().max()):.3e}")
+    check(not unequal, f"tail {what}: the tail's {unequal} differ from the plain version")
+    check(torch.equal(rings[0][0], rings[1][0]) and torch.equal(rings[0][1], rings[1][1]),
+          f"tail {what}: the rings differ from the plain version's")
+    head, best, slot, write = t_k.plan.cpu().tolist()[0]
+    row = {"B": B, "promote": t_k.promote.cpu().tolist(), "plan_0": [head, best, slot, write],
+           "equal": True, "max_abs_err": 0.0}
+    want_promote = case != "no_promote"
+    check(all(p == want_promote for p in row["promote"]), f"tail {what}: promote "
+          f"{row['promote']}")
+    check((best == head) == (case == "promote_head") or case == "no_promote",
+          f"tail {what}: best {best}, head {head}")
+    del rings
+    if not timed:
+        return row
+    esize = torch.finfo(X.dtype).bits // 8
+    tree = nav[0].numel() * esize
+    copies = 0 if case == "no_promote" else 1 if case == "promote_head" else 2
+    rings = (state.fr_tree.nav.clone(), state.kf_tree.nav.clone())
+    kernels = {
+        "predict": (lambda: step_scalars.launch_predict(Xp, vp, hzp),
+                    lambda: step_scalars.predict_plain(Xp, vp, hzp),
+                    tail_bytes((Xp, vp, hzp)) + Xp.numel() * esize,
+                    B * TAIL_FLOPS["predict"]),
+        "tail": (lambda: step_scalars.launch_tail(st, X, H, matched, valid, hz, **kw),
+                 lambda: step_scalars.tail_plain(st, X, H, matched, valid, hz, **kw),
+                 tail_bytes([X, H, matched, valid, hz] + [getattr(st, f) for f, _, _ in
+                                                          step_scalars._STATE])
+                 + tail_bytes(t_k), B * TAIL_FLOPS["tail"] + 2 * matched.numel()),
+        "ring_write": (lambda: ring_write.launch(nav, Xr, t_k.plan, *rings),
+                       lambda: ring_write.ring_write_plain(nav, Xr, t_k.plan, *rings),
+                       B * tree * (2 + copies) + tail_bytes((Xr, t_k.plan)),
+                       B * nav.shape[1] * 7 * RING_FLOPS_PER_PANEL),
+    }
+    for name, (kernel, plain, nbytes, flops) in kernels.items():
+        bound, by = bound_ms(nbytes, flops, dname)
+        row[name] = {"ms": event_ms(kernel, TAIL_REPS), "device_ms": graph_ms(kernel, TAIL_REPS),
+                     "plain_ms": event_ms(plain, TAIL_REPS),
+                     "plain_device_ms": graph_ms(plain, TAIL_REPS), "bound_ms": bound,
+                     "bound_by": by, "bytes": nbytes, "library_ms": None}
+    del rings
+    return row
+
+
+def phase_tail(torch, nvidia_smi: str) -> dict:
+    """K14 (``step_scalars``: the prediction and the tail's scalars) and
+    K13 (``ring_write``: the frame record and the promotion's tree copy)
+    against their plain versions on the card bit for bit, on the inputs of
+    a recorded certified flagship step (the bench's primed ring, 16
+    keyframes, 32768 leaves, 131072-point trees), float32 and float64, B =
+    1 and 4, no sequence promoting, every one promoting from an older
+    window frame, and every one promoting its own scan; eager, graphed and
+    plain ms and the bound of each. Then
+    the certified flagship drive, graphed, with the kernels and with all
+    three on their plain versions (``plain_tail``): scans/s, device busy
+    and kernels a scan, launches a scan, the poses (equal bit for bit:
+    the kernels write their plain versions' bits)."""
+    from madicp_tpu_torch import bench
+    from madicp_tpu_torch.models.pipeline import _map
+    from madicp_tpu_torch.models.step_graph import step_in_place
+    from madicp_tpu_torch.probes.kernel_trace import tail_pipe
+
+    t_phase = time.perf_counter()
+    out = {"phase": "tail", "nvidia_smi": nvidia_smi, "kernel": {}}
+    setup = bench.BenchSetup(DEV, N_POINTS, KEYFRAMES, DEPTH, MAX_LEAVES)
+    for dtype in (torch.float32, torch.float64):
+        dname = str(dtype).split(".")[1]
+        pipe = tail_pipe(setup, dtype)
+        rows = {}
+        for B in (1, 4):
+            state = _map(lambda t: t[None].repeat((B,) + (1,) * t.dim()).contiguous(),
+                         pipe.state)
+            staged = [pipe.stage(setup.scan_at(3 + b)) for b in range(B)]
+            pts = torch.stack([p for p, _, _ in staged])
+            valid = torch.stack([v for _, v, _ in staged])
+            for _ in range(TAIL_WARM):  # the frame window fills (nothing promotes)
+                step_in_place(pipe.cfg, state, pts, valid)
+            rec = record_tail(torch, pipe.cfg, state, pts, valid)
+            for case in TAIL_CASES:
+                rows[f"{case}_B{B}"] = tail_case(torch, rec, state, case, dname,
+                                                 f"{dname} {case} B={B}", timed=True)
+            del state, rec
+            torch.cuda.empty_cache()
+        out["kernel"][dname] = rows
+        emit({"phase": "tail", "part": f"kernel_{dname}", "nvidia_smi": nvidia_smi, **rows})
+        del pipe
+        torch.cuda.empty_cache()
+    drives = [certified_drive(torch, route) for route in ("kernels", "plain_tail")]
+    gap = pose_gap(drives[0]["poses"], drives[1].pop("poses"))
+    drives[0].pop("poses")
+    out["drive"] = {"schedule": "certified", "graphed": True, **ASSOC_DRIVE,
+                    "kernels": drives[0], "plain_tail": drives[1], "bench_world_gap": gap,
+                    "poses_equal": gap["max_abs"] == 0.0}
+    out["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "tail", "part": "drive", **out["drive"], "seconds": out["seconds"]})
+    lps = drives[0]["launches_per_scan"]
+    check_launched(lps, "tail drive", certified=True)
+    check(lps["step_scalars"] == 2 and lps["ring_write"] == 1,
+          f"tail drive: step_scalars {lps['step_scalars']} and ring_write {lps['ring_write']} "
+          "launches a scan, want 2 and 1")
+    for name in TAIL_KERNELS:
+        check(drives[1]["launches_per_scan"][name] == 0, f"tail plain drive: {name} launched")
+    check(out["drive"]["poses_equal"],
+          f"tail: kernel and plain_tail drives {gap} apart on the bench's world, want equal")
+    return out
+
+
 def phase_gn(torch, nvidia_smi: str) -> dict:
     """The GN update (K10) and the certified slack pass (K11) against
     their plain versions on the card, float32 and float64: the test cases
@@ -2260,7 +2514,8 @@ def phase_apps(torch, nvidia_smi: str) -> dict:
         for name, d in demos.items():
             check(d["launches"]["segsum_moments"] > 0, f"{name}: no segment-sum launch")
         check(demos["nn_search"]["launches"]["descend"] > 0, "nn_search: no descent launch")
-        check_launched(demos["mad_registration"]["launches"], "mad_registration")
+        check_launched(demos["mad_registration"]["launches"], "mad_registration",
+                       REGISTRATION_KERNELS)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2642,6 +2897,7 @@ def main() -> int:
     tree = phase_tree(torch, dev["nvidia_smi"])
     gn = phase_gn(torch, dev["nvidia_smi"])
     desk = phase_deskew(torch, dev["nvidia_smi"])
+    tail = phase_tail(torch, dev["nvidia_smi"])
     probe = phase_probe(torch)
     phase_precision(torch)
     phase_golden(torch)
@@ -2709,6 +2965,19 @@ def main() -> int:
                                    "bound_by", "library_ms")},
         "library_device_ms": None,
     })
+    f32 = tail["kernel"]["float32"]["no_promote_B1"]  # a scan that does not promote
+    for name, parts in (("step_scalars", ("predict", "tail")), ("ring_write", ("ring_write",))):
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"madicp_tpu_torch/kernels/csrc/{name}.cu",
+            "replaces": TAIL_REPLACES[name], "launches": steady["launches"][name],
+            "max_abs_err": f32["max_abs_err"],  # bit for bit
+            # a step's launches: predict and tail for K14
+            **{key: sum(f32[p][key] for p in parts)
+               for key in ("ms", "device_ms", "plain_ms", "bound_ms")},
+            "bound_by": f32[parts[-1]]["bound_by"], "library_ms": None,
+            "library_device_ms": None,
+        })
     for name, replaces in PROBE_KERNELS.items():
         k = probe[name]
         rows.append({

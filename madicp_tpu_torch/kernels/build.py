@@ -36,7 +36,7 @@ NVCC_FLAGS = (
     "-fPIC",
 )
 SOURCES = ("segsum_moments", "scatter_probe", "descent", "icp_terms", "build_nodes",
-           "build_points", "gn_update", "certify_slack", "deskew")
+           "build_points", "gn_update", "certify_slack", "deskew", "step_scalars", "ring_write")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 

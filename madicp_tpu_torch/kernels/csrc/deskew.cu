@@ -89,28 +89,17 @@
 #include <climits>
 
 #include "arith.cuh"
+#include "lie.cuh"
 
 namespace {
 
 using madicp::Arith;
+using madicp::Trig;
 
 constexpr int CHUNKS = 1024;
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr unsigned FULL_MASK = 0xffffffffu;
-
-template <typename T>
-struct Trig;
-template <>
-struct Trig<float> {
-  static __device__ __forceinline__ float atan2(float y, float x) { return atan2f(y, x); }
-  static __device__ __forceinline__ float sin(float x) { return sinf(x); }
-};
-template <>
-struct Trig<double> {
-  static __device__ __forceinline__ double atan2(double y, double x) { return ::atan2(y, x); }
-  static __device__ __forceinline__ double sin(double x) { return ::sin(x); }
-};
 
 // a sequence's naive velocity and the bins' time step
 template <typename T>
@@ -126,17 +115,8 @@ struct Velocity {
 template <typename T>
 __device__ Velocity<T> velocity(const T* __restrict__ P, const T* __restrict__ Q, T hz, T pi) {
   using A = Arith<T>;
-  auto col = [&](int i, const T* M, int c) {
-    return A::add(A::add(A::mul(P[i], M[c]), A::mul(P[4 + i], M[4 + c])),
-                  A::mul(P[8 + i], M[8 + c]));
-  };
   T R[3][3], t[3];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-#pragma unroll
-    for (int j = 0; j < 3; ++j) R[i][j] = col(i, Q, j);
-    t[i] = A::add(col(i, Q, 3), -col(i, P, 3));
-  }
+  madicp::relative_pose(P, Q, R, t);
   const T tr = A::add(A::add(R[0][0], R[1][1]), R[2][2]);
   T w[3];
   if (A::add(tr, T(1)) < T(1e-10)) {
@@ -175,8 +155,8 @@ __device__ Velocity<T> velocity(const T* __restrict__ P, const T* __restrict__ Q
   return v;
 }
 
-// bin k's rigid motion [exp_so3(v_ang t_k) | v_lin t_k] (exp_so3:
-// ops/lie.py, lie_algebra.h:39-52), the rotation row-major
+// bin k's rigid motion [exp_so3(v_ang t_k) | v_lin t_k] (exp_so3 of
+// lie.cuh), the rotation row-major
 template <typename T>
 struct Motion {
   T R[9], t[3];
@@ -187,34 +167,8 @@ __device__ __forceinline__ Motion<T> bin_motion(const Velocity<T>& v, int k) {
   using A = Arith<T>;
   const T tk = A::add(-v.ts, A::mul(v.delta, static_cast<T>(k)));
   const T wx = A::mul(v.ang[0], tk), wy = A::mul(v.ang[1], tk), wz = A::mul(v.ang[2], tk);
-  const T theta_sq = A::add(A::add(A::mul(wx, wx), A::mul(wy, wy)), A::mul(wz, wz));
   Motion<T> m;
-  if (theta_sq < T(1e-8)) {  // I + W
-    m.R[0] = T(1), m.R[1] = -wz, m.R[2] = wy;
-    m.R[3] = wz, m.R[4] = T(1), m.R[5] = -wx;
-    m.R[6] = -wy, m.R[7] = wx, m.R[8] = T(1);
-  } else {
-    const T theta = A::sqrt(theta_sq);
-    const T k3[3] = {A::div(wx, theta), A::div(wy, theta), A::div(wz, theta)};
-    const T sn = Trig<T>::sin(theta);
-    const T h = Trig<T>::sin(A::mul(theta, T(0.5)));
-    const T omc = A::mul(T(2), A::mul(h, h));
-    const T sq[3] = {A::mul(k3[0], k3[0]), A::mul(k3[1], k3[1]), A::mul(k3[2], k3[2])};
-    // K = W / theta: K01 = -kz, K02 = ky, K10 = kz, K12 = -kx, K20 = -ky, K21 = kx
-    const T K[3][3] = {{T(0), -k3[2], k3[1]}, {k3[2], T(0), -k3[0]}, {-k3[1], k3[0], T(0)}};
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-#pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        if (i == j) {
-          const int a = i == 0 ? 1 : 0, b = i == 2 ? 1 : 2;
-          m.R[4 * i] = A::add(T(1), A::mul(omc, -A::add(sq[a], sq[b])));
-        } else {
-          m.R[3 * i + j] = A::add(A::mul(sn, K[i][j]), A::mul(omc, A::mul(k3[i], k3[j])));
-        }
-      }
-    }
-  }
+  madicp::exp_so3(wx, wy, wz, m.R);
 #pragma unroll
   for (int c = 0; c < 3; ++c) m.t[c] = A::mul(v.lin[c], tk);
   return m;

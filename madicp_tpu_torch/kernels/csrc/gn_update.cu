@@ -49,27 +49,27 @@
 // all K keyframes' loads in flight before the first add. The sums pass through shared
 // memory to lanes 0-5, which hold a row each of the scaled system and its
 // right-hand side and form one scale each (a square root and a
-// reciprocal: no division in the scaling); shuffles share them. The
-// LU swaps no data: `order` (3 bits a position, the same on every lane)
-// says which lane holds which position; each pivot step gathers the
-// column by position with shuffles, every lane runs the pivot search on
-// it, the pivot row comes by shuffles, and the rows below eliminate in
-// parallel. The substitution broadcasts one unknown a step. Every lane
-// forms the clamp and exp_so3 from the broadcast unknowns; lanes 0-15
-// form one entry each of X dX. Each value is a fixed sequence of
-// operations with no atomics, so the same inputs give the same bits on
-// every rank of a keyframe-sharded step and in every replay of a CUDA
-// graph. The LU and the substitution round one operation at a time in
-// the plain version's order (_rn), as do the scaling and the step; sqrt
-// and sin are the CUDA math library's IEEE functions (no fast math).
-// The keyframe sum, the clamp's norms, exp_so3 and the product may round
-// otherwise than the plain version's einsum and products, so the result
-// agrees with it to a tolerance.
+// reciprocal: no division in the scaling); shuffles share them. The LU
+// is lu6.cuh's (shared with K14): it swaps no data, `order` (3 bits a
+// position, the same on every lane) says which lane holds which
+// position. The substitution broadcasts one unknown a step. Every lane
+// forms the clamp and exp_so3 (lie.cuh's) from the broadcast unknowns;
+// lanes 0-15 form one entry each of X dX (lie.cuh's se3_entry). Each
+// value is a fixed sequence of operations with no atomics, so the same
+// inputs give the same bits on every rank of a keyframe-sharded step and
+// in every replay of a CUDA graph. The LU and the substitution round one
+// operation at a time in the plain version's order (_rn), as do the
+// scaling, the step, exp_so3 and the product; sqrt and sin are the CUDA
+// math library's IEEE functions (no fast math). The keyframe sum and the
+// clamp's norms may round otherwise than the plain version's einsum and
+// sums, so the result agrees with it to a tolerance.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include "arith.cuh"
+#include "lie.cuh"
+#include "lu6.cuh"
 
 namespace {
 
@@ -79,16 +79,8 @@ constexpr int WARPS = 4;  // sequences a block
 constexpr int THREADS = 32 * WARPS;
 constexpr int NV = 42;    // values of a sequence's system: H (36), then b (6)
 constexpr int KC = 16;    // keyframes whose terms a lane has in flight at once
-constexpr unsigned FULL_MASK = 0xffffffffu;
-// position j -> the lane that holds it, 3 bits a position: lane j at first
-constexpr unsigned IDENTITY_ORDER = 0u | 1u << 3 | 2u << 6 | 3u << 9 | 4u << 12 | 5u << 15;
-
-__device__ __forceinline__ float sin_(float x) { return sinf(x); }
-__device__ __forceinline__ double sin_(double x) { return sin(x); }
-
-__device__ __forceinline__ int lane_at(unsigned order, int pos) {
-  return static_cast<int>((order >> (3 * pos)) & 7u);
-}
+constexpr unsigned FULL_MASK = madicp::LU_FULL_MASK;
+using madicp::lane_at;
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
@@ -163,50 +155,10 @@ __global__ void __launch_bounds__(THREADS)
   T r = -A::mul(sys[warp][36 + row], ei);
 
   // phase: lu
-  unsigned order = IDENTITY_ORDER;
-  int pos = lane < 6 ? lane : 7;  // this lane's row's position
-  T ru = T(0);                    // the reciprocal of its pivot, once it is one
-#pragma unroll
-  for (int k = 0; k < 6; ++k) {
-    const T col = a[k];
-    T c[6];
-#pragma unroll
-    for (int j = k; j < 6; ++j) c[j] = __shfl_sync(FULL_MASK, col, lane_at(order, j));
-    int p = k;
-    T best = fabs(c[k]), piv = c[k];
-    int nonzero = c[k] != T(0);
-#pragma unroll
-    for (int j = k + 1; j < 6; ++j) {
-      const T m = fabs(c[j]);
-      if (m > best) {
-        best = m;
-        p = j;
-        piv = c[j];
-      }
-      nonzero += c[j] != T(0);
-    }
-    const bool skip = piv == T(0) || nonzero == 1;  // only the pivot is nonzero
-    const int pl = lane_at(order, p), kl = lane_at(order, k);
-    order = (order & ~(7u << (3 * k)) & ~(7u << (3 * p))) | (static_cast<unsigned>(pl) << (3 * k)) |
-            (static_cast<unsigned>(kl) << (3 * p));
-    if (lane == pl) {
-      pos = k;
-    } else if (lane == kl) {
-      pos = p;
-    }
-    const T rp = A::rcp(piv);
-    if (lane == pl) ru = rp;
-    T prow[6];
-#pragma unroll
-    for (int j = k + 1; j < 6; ++j) prow[j] = __shfl_sync(FULL_MASK, a[j], pl);
-    const T pr = __shfl_sync(FULL_MASK, r, pl);
-    if (pos > k && !skip) {
-      const T l = A::mul(col, rp);
-#pragma unroll
-      for (int j = k + 1; j < 6; ++j) a[j] = A::sub(a[j], A::mul(l, prow[j]));
-      r = A::sub(r, A::mul(l, pr));
-    }
-  }
+  unsigned order;
+  int pos, swaps;
+  T ru, u;
+  madicp::lu6(a, r, lane, order, pos, ru, u, swaps);
 
   // phase: substitution
   T y[6];
@@ -232,39 +184,17 @@ __global__ void __launch_bounds__(THREADS)
   for (int j = 0; j < 6; ++j) dx[j] *= scale;
 
   // phase: exp_so3
-  const T wx = dx[3], wy = dx[4], wz = dx[5];
-  const T theta_sq = wx * wx + wy * wy + wz * wz;
-  T R[3][3];
-  if (theta_sq < T(1e-8)) {
-    R[0][0] = T(1), R[0][1] = -wz, R[0][2] = wy;
-    R[1][0] = wz, R[1][1] = T(1), R[1][2] = -wx;
-    R[2][0] = -wy, R[2][1] = wx, R[2][2] = T(1);
-  } else {
-    const T theta = A::sqrt(theta_sq);
-    const T kx = A::div(wx, theta), ky = A::div(wy, theta), kz = A::div(wz, theta);
-    const T sn = sin_(theta);
-    const T h = sin_(theta / T(2));
-    const T omc = T(2) * (h * h);
-    const T Kx[3][3] = {{T(0), -kz, ky}, {kz, T(0), -kx}, {-ky, kx, T(0)}};
-    const T KK[3][3] = {{-(ky * ky + kz * kz), kx * ky, kx * kz},
-                        {ky * kx, -(kx * kx + kz * kz), ky * kz},
-                        {kz * kx, kz * ky, -(kx * kx + ky * ky)}};
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-#pragma unroll
-      for (int j = 0; j < 3; ++j) R[i][j] = (T(i == j) + sn * Kx[i][j]) + omc * KK[i][j];
-    }
-  }
+  T R[9];
+  madicp::exp_so3(dx[3], dx[4], dx[5], R);
 
   // phase: product
   // X <- X dX, dX = [R | dx_t; 0 0 0 1]: lane 4 i + j forms entry (i, j)
   if (lane < 16) {
     const int j = lane & 3;
-    const T c0 = j == 0 ? R[0][0] : j == 1 ? R[0][1] : j == 2 ? R[0][2] : dx[0];
-    const T c1 = j == 0 ? R[1][0] : j == 1 ? R[1][1] : j == 2 ? R[1][2] : dx[1];
-    const T c2 = j == 0 ? R[2][0] : j == 1 ? R[2][1] : j == 2 ? R[2][2] : dx[2];
-    const T o = x0 * c0 + x1 * c1 + x2 * c2;
-    out[s * 16 + lane] = j == 3 ? o + x3 : o;
+    const T c0 = j == 3 ? dx[0] : R[j];
+    const T c1 = j == 3 ? dx[1] : R[3 + j];
+    const T c2 = j == 3 ? dx[2] : R[6 + j];
+    out[s * 16 + lane] = madicp::se3_entry(x0, x1, x2, x3, c0, c1, c2, j == 3);
   }
   // phase: end
 }

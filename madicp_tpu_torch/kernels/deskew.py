@@ -61,6 +61,7 @@ import torch
 
 from madicp_tpu_torch.kernels import build
 from madicp_tpu_torch.ops.constants import CHUNKS
+from madicp_tpu_torch.ops.lie import exp_so3_components, relative_pose, scalars
 
 MODES = ("reference", "binned")
 RESOLUTION = 2.0 * math.pi / CHUNKS  # azimuth bin width
@@ -76,39 +77,18 @@ _launch = build.Launcher("deskew", {  # the stream last
 }, counter)
 
 
-def _constants(like: torch.Tensor, *values) -> tuple:
-    """``values`` as 0-dim tensors of ``like``'s type and device."""
-    return tuple(torch.full((), v, dtype=like.dtype, device=like.device) for v in values)
-
-
 def azimuth(points: torch.Tensor) -> torch.Tensor:
     """``atan2(y, x)`` of every point (..., N)."""
     return torch.atan2(points[..., 1], points[..., 0])
 
 
 # ------------------------------------------------------------ bin motions --
-def _relative(T_prev: torch.Tensor, T_now: torch.Tensor) -> tuple:
-    """``T_prev^-1 T_now`` as the reference forms it (``se3_inverse`` then
-    the product): ``R[i][j] = (P_0i Q_0j + P_1i Q_1j) + P_2i Q_2j`` and
-    ``t_i = ((P_0i Q_03 + P_1i Q_13) + P_2i Q_23) + s_i`` with ``s_i =
-    -((P_0i P_03 + P_1i P_13) + P_2i P_23)``, per component (...)."""
-    P = [[T_prev[..., r, c] for c in range(4)] for r in range(3)]
-    Q = [[T_now[..., r, c] for c in range(4)] for r in range(3)]
-
-    def col(i, M, c):  # (P_0i M_0c + P_1i M_1c) + P_2i M_2c
-        return (P[0][i] * M[0][c] + P[1][i] * M[1][c]) + P[2][i] * M[2][c]
-
-    R = [[col(i, Q, j) for j in range(3)] for i in range(3)]
-    t = [col(i, Q, 3) + -col(i, P, 3) for i in range(3)]
-    return R, t
-
-
 def _log_so3(R: list) -> list:
     """``log_so3`` (``ops/lie.py``, ``lie_algebra.h:54-89``) of a rotation
     given as per-component tensors, in the kernel's order."""
     like = R[0][0]
-    one, two, half, twelve, pi = _constants(like, 1.0, 2.0, 0.5, 12.0, math.pi)
-    tiny, near, axis_tol, taylor = _constants(like, 1e-30, 1e-10, 1e-5, -1e-7)
+    one, two, half, twelve, pi = scalars(like, 1.0, 2.0, 0.5, 12.0, math.pi)
+    tiny, near, axis_tol, taylor = scalars(like, 1e-30, 1e-10, 1e-5, -1e-7)
     tr = (R[0][0] + R[1][1]) + R[2][2]
 
     def axis(i, a, b, c):  # (pi / sqrt(max(2 + 2 R_ii, 1e-30))) [a, b, c]
@@ -133,50 +113,19 @@ def _log_so3(R: list) -> list:
     return [torch.where(near_pi, a, b) for a, b in zip(pi_w, main)]
 
 
-def _exp_so3(w: list) -> list:
-    """``exp_so3`` (``ops/lie.py``, ``lie_algebra.h:39-52``) of per-component
-    tensors, in the kernel's order: ``I + W`` where ``theta^2 < 1e-8``,
-    else ``R_ii = 1 + omc KK_ii`` and ``R_ij = sn K_ij + omc KK_ij`` with
-    ``K = W / theta``, ``sn = sin(theta)``, ``omc = 2 sin(theta / 2)^2`` and
-    ``KK = K K`` in closed form (``KK_ii = -(k_a^2 + k_b^2)``, ``KK_ij =
-    k_i k_j``). Returns the nine entries, row-major."""
-    wx, wy, wz = w
-    one, two, half, small_sq = _constants(wx, 1.0, 2.0, 0.5, 1e-8)
-    theta_sq = (wx * wx + wy * wy) + wz * wz
-    small = theta_sq < small_sq
-    theta = torch.sqrt(torch.where(small, one, theta_sq))
-    k = [c / theta for c in w]
-    sn = torch.sin(theta)
-    h = torch.sin(theta * half)
-    omc = two * (h * h)
-    sq = [c * c for c in k]
-    Kx = [[None, -k[2], k[1]], [k[2], None, -k[0]], [-k[1], k[0], None]]
-    full = []
-    for i in range(3):
-        for j in range(3):
-            if i == j:
-                a, b = [m for m in range(3) if m != i]
-                full.append(one + omc * -(sq[a] + sq[b]))
-            else:
-                full.append(sn * Kx[i][j] + omc * (k[i] * k[j]))
-    ones = one.expand_as(wx)
-    W = [ones, -wz, wy, wz, ones, -wx, -wy, wx, ones]
-    return [torch.where(small, s, f) for s, f in zip(W, full)]
-
-
 def bin_motion_plain(T_prev: torch.Tensor, T_now: torch.Tensor, hz: torch.Tensor) -> tuple:
     """Naive velocity + per-bin rigid motions ``(R_bins (..., CHUNKS, 3, 3),
     t_trans (..., CHUNKS, 3))`` of poses ``(..., 4, 4)`` and a 0-dim rate
     ``hz`` (``pipeline.cpp:82-108``; the JAX package's
     ``_bin_times_and_motion``), every value in the kernel's order."""
-    one, last = _constants(T_now, 1.0, float(CHUNKS - 1))
+    one, last = scalars(T_now, 1.0, float(CHUNKS - 1))
     ts = one / hz
-    R_rel, t_rel = _relative(T_prev, T_now)
+    R_rel, t_rel = relative_pose(T_prev, T_now)
     v_lin = [c / ts for c in t_rel]
     v_ang = [c / ts for c in _log_so3(R_rel)]
     delta = ts / last
     t_bins = -ts + delta * torch.arange(CHUNKS, dtype=T_now.dtype, device=T_now.device)
-    R = _exp_so3([c[..., None] * t_bins for c in v_ang])  # (..., CHUNKS) each
+    R = exp_so3_components([c[..., None] * t_bins for c in v_ang])  # (..., CHUNKS) each
     R_bins = torch.stack(R, dim=-1).unflatten(-1, (3, 3))
     t_trans = torch.stack([c[..., None] * t_bins for c in v_lin], dim=-1)
     return R_bins, t_trans
@@ -185,7 +134,7 @@ def bin_motion_plain(T_prev: torch.Tensor, T_now: torch.Tensor, hz: torch.Tensor
 # ------------------------------------------------------------------ bins --
 def binned_bins(az: torch.Tensor) -> torch.Tensor:
     """Direct binning: ``clamp(floor((pi - az) / res), 0, CHUNKS - 1)``."""
-    pi, res = _constants(az, math.pi, RESOLUTION)
+    pi, res = scalars(az, math.pi, RESOLUTION)
     return torch.clamp(torch.floor((pi - az) / res).long(), 0, CHUNKS - 1)
 
 
@@ -203,7 +152,7 @@ def reference_bins(keys: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
     ``keys`` and ``order``, in the cloud's order: the recurrence ``k_j =
     k_{j-1} + [k_{j-1} < q_j]`` in closed form, a prefix minimum
     (``madicp_tpu/ops/deskew.py`` ``_bins_reference``)."""
-    pi, res = _constants(keys, math.pi, RESOLUTION)
+    pi, res = scalars(keys, math.pi, RESOLUTION)
     desc = torch.flip(keys, dims=(-1,))  # traversal order
     c = torch.clamp(torch.ceil((pi - desc) / res - 1.0), 0.0, float(CHUNKS - 1))
     j = torch.arange(keys.shape[-1], dtype=keys.dtype, device=keys.device)

@@ -15,11 +15,13 @@ per-keyframe form), the counterparts of the JAX package's
 ``madicp_tpu/models/pipeline.py:432-433``. The kernel lives in
 ``csrc/gn_update.cu`` (design and bound in its header);
 :func:`gn_update_plain` is the same chain in tensor ops. The two agree to
-a tolerance: the keyframe sum, the clamp's norms, ``exp_so3`` and the
-product round otherwise than torch's einsum, reductions and matrix
-products.
+a tolerance: the keyframe sum and the clamp's norms round otherwise than
+torch's einsum and reductions (the solve, ``exp_so3`` and the product
+follow one written order on both sides: ``csrc/lu6.cuh`` and
+``csrc/lie.cuh``, :func:`lu_factor` and ``ops/lie.py``).
 
-The solve is an explicit LU (:func:`lu_solve`), not ``torch.linalg``'s:
+The solve is an explicit LU (:func:`lu_solve` on :func:`lu_factor`), not
+``torch.linalg``'s:
 a column that is zero below its pivot eliminates nothing, as in the JAX
 reference's LU. An ``H`` with an infinite diagonal entry then gets the
 reference's step (the components that do not depend on that row), where
@@ -42,7 +44,7 @@ import math
 import torch
 
 from madicp_tpu_torch.kernels import build
-from madicp_tpu_torch.ops.lie import exp_se3_split
+from madicp_tpu_torch.ops.lie import exp_se3_split, se3_compose
 
 counter = build.LaunchCounter()
 # the __global__ functions of csrc/gn_update.cu, as a CUDA trace names them
@@ -58,37 +60,52 @@ GN_STEP_MAX_T = 1.0  # metres
 GN_STEP_MAX_R = 0.5  # radians
 
 
-def lu_solve(A: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
-    """Solve ``A y = r`` for ``A (..., 6, 6)``, ``r (..., 6)`` by an LU
-    with partial pivoting, the kernel's steps in tensor ops: the pivot is
-    the first largest magnitude on or below the diagonal (LAPACK's
-    ``i?amax``: a NaN is taken only where it comes first); the
-    multipliers are the column times the pivot's reciprocal, and a column
-    that is zero below its pivot, or whose pivot is zero, eliminates
-    nothing; the substitution multiplies by the pivots' reciprocals. Each
-    value rounds one operation at a time. Returns ``y``, non-finite where
-    the system is singular."""
-    M = torch.cat((A, r[..., None]), dim=-1)  # [A | r], rows swapped and eliminated in place
-    n = A.shape[-1]
-    rows = torch.arange(n, device=A.device)
-    inv_piv = []
+def lu_factor(M: torch.Tensor, n: int) -> tuple:
+    """The elimination of an LU with partial pivoting of the leading ``n``
+    columns of ``M (..., n, n + c)`` (a matrix, or a system with its
+    right-hand sides beside it), in place: the kernels' steps in tensor
+    ops (``csrc/lu6.cuh``, shared by K10 and K14). The pivot is the first
+    largest magnitude on or below the diagonal (LAPACK's ``i?amax``: a NaN
+    is taken only where it comes first); the multipliers are the column
+    times the pivot's reciprocal, and a column that is zero below its
+    pivot, or whose pivot is zero, eliminates nothing. Each value rounds
+    one operation at a time. Returns ``(pivots, reciprocals, swaps)``: the
+    n pivots and their reciprocals in position order and the count of
+    steps whose pivot row was not the diagonal's (...)."""
+    rows = torch.arange(n, device=M.device)
+    pivots, inv_piv = [], []
+    swaps = torch.zeros(M.shape[:-2], dtype=torch.int64, device=M.device)
     for k in range(n - 1):  # the last pivot is the last row's, with nothing below
         mag = M[..., k:, k].abs()
         # argmax takes the first NaN: only the diagonal's may be the pivot
         mag[..., 1:].nan_to_num_(nan=-1.0, posinf=math.inf)
         p = torch.argmax(mag, dim=-1, keepdim=True)  # (..., 1), from row k
+        swaps = swaps + (p[..., 0] != 0)
         perm = torch.where(rows[:n - k] == p, 0, rows[:n - k])
         perm[..., 0] = p[..., 0]  # rows k and k + p swapped
         M[..., k:, :] = torch.take_along_dim(M[..., k:, :], perm[..., None], dim=-2)
-        piv = M[..., k, k]
+        piv = M[..., k, k].clone()
         rp = torch.reciprocal(piv)
+        pivots.append(piv)
         inv_piv.append(rp)
         below = M[..., k + 1:, k]
         skip = ((piv == 0) | (below == 0).all(dim=-1))[..., None, None]
         trail = M[..., k + 1:, k + 1:]
         trail.copy_(torch.where(skip, trail, trail - (below * rp[..., None])[..., None]
                                 * M[..., k, None, k + 1:]))
-    inv_piv.append(torch.reciprocal(M[..., n - 1, n - 1]))
+    pivots.append(M[..., n - 1, n - 1].clone())
+    inv_piv.append(torch.reciprocal(pivots[-1]))
+    return pivots, inv_piv, swaps
+
+
+def lu_solve(A: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """Solve ``A y = r`` for ``A (..., 6, 6)``, ``r (..., 6)`` by
+    :func:`lu_factor`; the substitution multiplies by the pivots'
+    reciprocals. Each value rounds one operation at a time. Returns ``y``,
+    non-finite where the system is singular."""
+    M = torch.cat((A, r[..., None]), dim=-1)  # [A | r], rows swapped and eliminated in place
+    n = A.shape[-1]
+    _, inv_piv, _ = lu_factor(M, n)
     y = torch.empty_like(r)
     for k in reversed(range(n)):
         y[..., k] = M[..., k, n] * inv_piv[k]
@@ -136,9 +153,9 @@ def gn_update_plain(X: torch.Tensor, H: torch.Tensor, b: torch.Tensor, w=None):
     (``mad_icp.cpp:105-117``); with ``w``, of the keyframe sums of ``H``
     and ``b``, returned beside it as ``(X dX, H, b)``."""
     if w is None:
-        return X @ exp_se3_split(clamp_step(solve_gn(H, b)))
+        return se3_compose(X, exp_se3_split(clamp_step(solve_gn(H, b))))
     H, b = keyframe_sums(H, b, w)
-    return X @ exp_se3_split(clamp_step(solve_gn(H, b))), H, b
+    return se3_compose(X, exp_se3_split(clamp_step(solve_gn(H, b)))), H, b
 
 
 def _lead(X, H, b, w=None) -> tuple:

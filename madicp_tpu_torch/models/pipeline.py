@@ -50,24 +50,20 @@ from typing import Any, NamedTuple, Optional
 import numpy as np
 import torch
 
-from madicp_tpu_torch.kernels import certify_slack, gn_update, segsum
-from madicp_tpu_torch.models.vel_estimator import estimate_velocity
+from madicp_tpu_torch.kernels import certify_slack, gn_update, ring_write, segsum, step_scalars
 from madicp_tpu_torch.ops.constants import FRAME_WINDOW, MAX_ICP_ITS, SMOOTHING_T
 from madicp_tpu_torch.ops.deskew import deskew_scan
 from madicp_tpu_torch.ops.icp_core import (
     associate_ring,
     gn_se3_step,
-    neg_logdet,
     terms_from_payload,
 )
-from madicp_tpu_torch.ops.lie import exp_se3_split
 from madicp_tpu_torch.ops.tree import (
     NAV_WIDTH,
     PointShard,
     SearchTree,
     build_tree,
     get_leaves,
-    transform_tree,
     tree_arena_size,
 )
 from madicp_tpu_torch.utils.device import resolve_device, synchronize
@@ -213,13 +209,6 @@ def _lift(nt):
 def _drop(nt):
     """The only sequence of a batch of one (views)."""
     return _map(lambda t: t[0], nt)
-
-
-def _rows(i: torch.Tensor, n: int) -> torch.Tensor:
-    """Flat row ``b * n + i[b]`` of each sequence's slot ``i`` (B,) in a
-    ``(B * n, ...)`` view of per-sequence rings."""
-    i = i.long()
-    return i + torch.arange(i.shape[0], device=i.device) * n
 
 
 def initialize_step(
@@ -548,10 +537,12 @@ def odometry_step(
 
     The state is batched (leading B on every field, points (B, N, 3),
     valid (B, N)) or a single sequence's, which steps as a batch of one.
-    Promotion is per sequence, with masks and no host read: the promoted
-    window tree of each sequence overwrites its ring slot through one
-    ``index_copy_`` (a sequence that does not promote, or a process that
-    does not hold the slot, writes the slot's own tree back).
+    Promotion is per sequence, with no host read: the prediction and the
+    tail's scalars are :mod:`~madicp_tpu_torch.kernels.step_scalars`
+    (K14), the frame record and the promoted window tree's copy into its
+    ring slot :mod:`~madicp_tpu_torch.kernels.ring_write` (K13; on the
+    card a sequence that does not promote, or a process that does not hold
+    the slot, copies no tree).
 
     For a keyframe ring split over processes: ``icp_rounds_fn(kf_tree,
     kf_valid, leaves, X0) -> (X, H_last, matched, n_descents)`` replaces
@@ -576,7 +567,6 @@ def _odometry_step(cfg, state, points, valid, timer, icp_rounds_fn, kf_offset,
                    points_shard):
     """:func:`odometry_step` on a batched state."""
     dtype, dev = cfg.dtype, points.device
-    B = points.shape[0]
     # filled in on the device: a copy from the host would synchronise
     hz = torch.full((), cfg.sensor_hz, dtype=dtype, device=dev)
 
@@ -598,7 +588,8 @@ def _odometry_step(cfg, state, points, valid, timer, icp_rounds_fn, kf_offset,
         leaves = get_leaves(tree, cfg.leaves_cap)
 
     # ---- constant-velocity prediction + ICP (pipeline.cpp:146-193) ----
-    X0 = state.X @ exp_se3_split(state.velocity / hz)
+    # X exp_se3_split(velocity / hz): K14's predict on the card
+    X0 = step_scalars.predict(state.X, state.velocity, hz)
     if icp_rounds_fn is None:
         X, H_last, matched, n_descents = icp_rounds(
             cfg, state.kf_tree, state.kf_valid.to(dtype),
@@ -609,81 +600,39 @@ def _odometry_step(cfg, state, points, valid, timer, icp_rounds_fn, kf_offset,
             state.kf_tree, state.kf_valid, leaves, X0)
 
     with phase(timer, "rings"):
-        # ---- inlier ratio over final-round matches (pipeline.cpp:197-204)
-        n_leaves = leaves.valid.sum(-1)
-        ratio = (matched & leaves.valid).sum(-1).to(dtype) / torch.clamp(
-            n_leaves, min=1
-        ).to(dtype)
-
-        # ---- trajectory + velocity smoothing (pipeline.cpp:206-217) ----
-        traj = torch.cat([state.traj[:, 1:], X[:, None]], dim=1)
-        traj_count = state.traj_count + 1
-        velocity = estimate_velocity(state.velocity, traj, traj_count, 1.0 / hz)
-
-        # ---- frame record (pipeline.cpp:219-232), ring slot in place ----
-        F, K = FRAME_WINDOW, cfg.num_keyframes
-        head = state.fr_head
-        at = torch.arange(F, device=dev) == head[:, None]  # (B, F)
-        tree_map_frame = transform_tree(tree, X[:, :3, :3], X[:, :3, 3])
-        fr_nav = state.fr_tree.nav
-        fr_rings = fr_nav.view((B * F,) + fr_nav.shape[2:])
-        fr_rings.index_copy_(0, _rows(head, F), tree_map_frame.nav)
-        fr_valid = state.fr_valid | at
-        fr_weight = torch.where(at, neg_logdet(H_last)[:, None], state.fr_weight)
-        fr_seq = torch.where(at, state.seq[:, None], state.fr_seq)
-        fr_pose = torch.where(at[..., None, None], X[:, None], state.fr_pose)
-        fr_head = (head + 1) % F
-
-        # ---- keyframe promotion (pipeline.cpp:234-262) ----
-        promote = ratio < cfg.p_th  # (B,)
-        best = torch.argmin(torch.where(fr_valid, fr_weight, float("inf")), dim=-1)
-        kf_nav = state.kf_tree.nav
-        K_l = kf_nav.shape[1]
-        kf_rings = kf_nav.view((B * K_l,) + kf_nav.shape[2:])
-        kf_head = state.kf_head
-        # per sequence, masked: only where it promotes and this process
-        # holds its ring head
-        slot = kf_head.long() - kf_offset
-        write = promote & (slot >= 0) & (slot < K_l)
-        rows = _rows(torch.clamp(slot, 0, K_l - 1), K_l)
-        kf_rings.index_copy_(0, rows, torch.where(
-            write[:, None, None], fr_rings.index_select(0, _rows(best, F)),
-            kf_rings.index_select(0, rows)))
-        kf_valid = state.kf_valid | (write[:, None]
-                                     & (torch.arange(K_l, device=dev) == slot[:, None]))
-        kf_head = torch.where(promote, (kf_head + 1) % K, kf_head)
-        # drop window frames at or before the promoted one
-        # (pipeline.cpp:246-251)
-        best_seq = torch.gather(fr_seq, 1, best[:, None])
-        fr_valid = torch.where(promote[:, None], fr_valid & (fr_seq > best_seq), fr_valid)
-        keyframe_to_map = torch.where(
-            promote[:, None, None], fr_pose[torch.arange(B, device=dev), best],
-            state.keyframe_to_map)
-        seq_keyframe = torch.where(promote, best_seq[:, 0], state.seq_keyframe)
+        # ---- inlier ratio, trajectory and velocity, frame record and
+        # promotion (pipeline.cpp:197-262): the scalars by K14's tail, the
+        # trees by K13 on the card. The rings are written in place: the
+        # moved scan into its window slot, the promoted window tree into
+        # the keyframe ring only where a sequence promotes and this process
+        # holds its ring head.
+        tail = step_scalars.tail(state, X, H_last, matched, leaves.valid, hz, p_th=cfg.p_th,
+                                 num_keyframes=cfg.num_keyframes, kf_offset=kf_offset)
+        ring_write.ring_write(tree.nav, X, tail.plan, state.fr_tree.nav, state.kf_tree.nav)
 
     new_state = PipelineState(
         X=X,
-        velocity=velocity,
-        traj=traj,
-        traj_count=traj_count,
+        velocity=tail.velocity,
+        traj=tail.traj,
+        traj_count=tail.traj_count,
         kf_tree=state.kf_tree,
-        kf_valid=kf_valid,
-        kf_head=kf_head,
-        keyframe_to_map=keyframe_to_map,
+        kf_valid=tail.kf_valid,
+        kf_head=tail.kf_head,
+        keyframe_to_map=tail.keyframe_to_map,
         fr_tree=state.fr_tree,
-        fr_valid=fr_valid,
-        fr_weight=fr_weight,
-        fr_seq=fr_seq,
-        fr_pose=fr_pose,
-        fr_head=fr_head,
-        seq=state.seq + 1,
-        seq_keyframe=seq_keyframe,
+        fr_valid=tail.fr_valid,
+        fr_weight=tail.fr_weight,
+        fr_seq=tail.fr_seq,
+        fr_pose=tail.fr_pose,
+        fr_head=tail.fr_head,
+        seq=tail.seq,
+        seq_keyframe=tail.seq_keyframe,
     )
     out = StepOutput(
         pose=X,
-        inlier_ratio=ratio,
-        map_updated=promote,
-        n_leaves=n_leaves,
+        inlier_ratio=tail.ratio,
+        map_updated=tail.promote,
+        n_leaves=tail.n_leaves,
         leaves_pts=leaves.pts @ X[:, :3, :3].mT + X[:, None, :3, 3],
         leaves_valid=leaves.valid,
         n_leaves_dropped=torch.clamp(leaves.total - cfg.leaves_cap, min=0),

@@ -27,8 +27,9 @@ buffers and leaves the new state in the state's own tensors.
   count) is captured at its first scan. A capture that fails raises:
   nothing falls back to an eager step.
 - A replay launches the step's kernels (the segment-sum, the build's node
-  and point passes, the descent, the ICP terms, the GN update and the
-  certified slack pass) without passing
+  and point passes, the descent, the ICP terms, the GN update, the
+  certified slack pass, the deskew sweep, the prediction and tail's
+  scalars and the ring write) without passing
   through their wrappers, so each graph
   adds the launches its capture recorded to each kernel's counter on
   every replay.
@@ -50,7 +51,9 @@ from madicp_tpu_torch.kernels import (
     descent,
     gn_update,
     icp_terms,
+    ring_write,
     segsum,
+    step_scalars,
 )
 from madicp_tpu_torch.models.pipeline import (
     PipelineState,
@@ -66,7 +69,8 @@ from madicp_tpu_torch.ops.tree import SearchTree
 COUNTERS = {"segsum_moments": segsum.counter, "descend": descent.counter,
             "icp_terms": icp_terms.counter, "build_nodes": build_nodes.counter,
             "build_points": build_points.counter, "gn_update": gn_update.counter,
-            "certify_slack": certify_slack.counter, "deskew_sweep": deskew.counter}
+            "certify_slack": certify_slack.counter, "deskew_sweep": deskew.counter,
+            "step_scalars": step_scalars.counter, "ring_write": ring_write.counter}
 
 
 def _tensors(state: PipelineState):

@@ -5,6 +5,13 @@ one Gauss-Newton round per scan over the last <= ``SMOOTHING_T`` poses,
 residual per pose pair ``dt * v - [trans; eulerXYZ](T_prev^-1 T_now)``,
 ``J = dt * I6``, linearly decaying weights toward older poses and a robust
 clamp at ``chi > E_THRESHOLD_VEL``, masked to the actual window length.
+
+:func:`estimate_velocity` is written one operation at a time on
+per-component tensors, in the order of the step's tail kernel
+(``kernels/csrc/step_scalars.cu``, K14): each pair's relative pose,
+residual, norm, clamp and weight, then the sums over the pairs in pair
+order; constants are 0-dim tensors of the working type. K14's plain
+version calls it, so the kernel equals it bit for bit.
 """
 
 from __future__ import annotations
@@ -13,7 +20,7 @@ import numpy as np
 import torch
 
 from madicp_tpu_torch.ops.constants import E_THRESHOLD_VEL, SMOOTHING_T
-from madicp_tpu_torch.ops.lie import euler_xyz, se3_inverse
+from madicp_tpu_torch.ops.lie import euler_xyz, relative_pose, scalars
 from madicp_tpu_torch.utils.device import resolve_device
 
 
@@ -32,7 +39,7 @@ def estimate_velocity(
         count: number of valid poses occupying the trailing slots
                (window length n = min(count, W)); an int or a tensor of
                the batch's shape.
-        ts: scan period (1 / sensor_hz).
+        ts: scan period (1 / sensor_hz): a number or a 0-dim tensor.
 
     Slot ``i`` pairs with the newest pose using ``dt = (W-1-i) * ts`` and
     weight ``1 - (W-2-i)/(n-1)``, masked to ``i >= W-n``
@@ -41,32 +48,37 @@ def estimate_velocity(
     dtype, dev = traj.dtype, traj.device
     W = traj.shape[-3]
     ts = torch.as_tensor(ts, dtype=dtype, device=dev)
+    one, two, zero, thr, tiny = scalars(traj, 1.0, 2.0, 0.0, E_THRESHOLD_VEL, 1e-30)
     n = torch.clamp(torch.as_tensor(count, device=dev), max=W).to(dtype)[..., None]
+    i = torch.arange(W - 1, dtype=dtype, device=dev)  # the pairs: (W-1,)
+    dt = torch.arange(W - 1, 0, -1, dtype=dtype, device=dev) * ts  # (W - 1 - i) ts
+    active = (i >= W - n) & (n >= two)
+    weight = one - torch.arange(W - 2, -1, -1, dtype=dtype, device=dev) / torch.clamp(
+        n - one, min=1.0)  # 1 - (W - 2 - i) / max(n - 1, 1)
 
-    T_now = traj[..., -1:, :, :]
-    T_prev = traj[..., :-1, :, :]  # (..., W-1, 4, 4)
-    i = torch.arange(W - 1, dtype=dtype, device=dev)
-    active = (i >= (W - n)) & (n >= 2)
-    dt = (W - 1 - i) * ts
-    denom = torch.clamp(n - 1.0, min=1.0)
-    weight = 1.0 - (W - 2 - i) / denom
+    R, t = relative_pose(traj[..., :-1, :, :], traj[..., -1:, :, :])  # (..., W-1) each
+    eul = euler_xyz(torch.stack([torch.stack(r, dim=-1) for r in R], dim=-2)).unbind(-1)
+    v = [v0[..., c, None] for c in range(6)]
+    e = [dt * v[c] - t[c] for c in range(3)] + [dt * v[3 + c] - eul[c] for c in range(3)]
+    chi2 = e[0] * e[0]
+    for c in range(1, 6):
+        chi2 = chi2 + e[c] * e[c]
+    chi = torch.sqrt(chi2)
+    scale = torch.where(chi > thr, thr / torch.clamp(chi, min=tiny), one)
+    s = (scale * weight) * active.to(dtype)
 
-    T_rel = se3_inverse(T_prev) @ T_now  # (..., W-1, 4, 4)
-    e_t = dt[:, None] * v0[..., None, :3] - T_rel[..., :3, 3]
-    e_r = dt[:, None] * v0[..., None, 3:] - euler_xyz(T_rel[..., :3, :3])
-    e = torch.cat([e_t, e_r], dim=-1)  # (..., W-1, 6)
-
-    chi = torch.sqrt(torch.sum(e * e, dim=-1))
-    thr = E_THRESHOLD_VEL
-    scale = torch.where(chi > thr, thr / torch.clamp(chi, min=1e-30), 1.0)
-    s = scale * weight * active.to(dtype)
-
-    # J = dt * I6 -> H is (sum s dt^2) * I6, b = sum s dt e
-    h = torch.sum(s * dt * dt, dim=-1, keepdim=True)
-    b = torch.einsum("...w,...wi->...i", s * dt, e)
-    dx = -b / torch.clamp(h, min=1e-30)
-    dx = torch.where(h > 0, dx, torch.zeros_like(dx))
-    return v0 + dx
+    # J = dt * I6 -> H is (sum s dt^2) * I6, b = sum s dt e, over the pairs
+    # in order
+    sdt = s * dt
+    h_terms = sdt * dt
+    b_terms = [sdt * c for c in e]
+    h, b = h_terms[..., 0], [bt[..., 0] for bt in b_terms]
+    for w in range(1, W - 1):
+        h = h + h_terms[..., w]
+        b = [bc + bt[..., w] for bc, bt in zip(b, b_terms)]
+    h_c = torch.clamp(h, min=tiny)
+    return torch.stack([v0[..., c] + torch.where(h > zero, -b[c] / h_c, zero)
+                        for c in range(6)], dim=-1)
 
 
 class VelEstimator:

@@ -184,8 +184,21 @@ def gn_se3_step(X: torch.Tensor, H: torch.Tensor, b: torch.Tensor) -> torch.Tens
 
 
 def neg_logdet(H: torch.Tensor) -> torch.Tensor:
-    """``-log det H``: the reference ranks frames by ``det(H^{-1})``
-    (``pipeline.cpp:223, 234-244``); this orders identically and stays
-    finite in float32. The dtype's max where ``det H <= 0``."""
-    sign, logdet = torch.linalg.slogdet(H)
-    return torch.where(sign > 0, -logdet, torch.finfo(H.dtype).max)
+    """``-log det H`` of (..., 6, 6): the reference ranks frames by
+    ``det(H^{-1})`` (``pipeline.cpp:223, 234-244``); this orders
+    identically and stays finite in float32. The dtype's max where ``det
+    H <= 0`` (or is not a number). Formed in K14's order
+    (``kernels/csrc/step_scalars.cu``): the LU of
+    :func:`~madicp_tpu_torch.kernels.gn_update.lu_factor`, then ``-((log
+    |u_0| + log |u_1|) + ... + log |u_5|)`` over the pivots in position
+    order; the sign of the determinant is that of the row swaps and the
+    negative pivots."""
+    pivots, _, swaps = gn_update.lu_factor(H.clone(), H.shape[-1])
+    total, negative = None, swaps
+    bad = torch.zeros(H.shape[:-2], dtype=torch.bool, device=H.device)
+    for u in pivots:
+        log_u = torch.log(torch.abs(u))
+        total = log_u if total is None else total + log_u
+        negative = negative + (u < 0)
+        bad = bad | ~((u < 0) | (u > 0))
+    return torch.where(~bad & (negative % 2 == 0), -total, torch.finfo(H.dtype).max)

@@ -5,6 +5,14 @@ Numerical conventions follow the reference implementation
 ``mad_icp/src/odometry/vel_estimator.cpp:53-56``), written as batched
 tensor code at any float dtype. All functions broadcast over leading
 batch dimensions.
+
+The maps the hand-written kernels also form (:func:`exp_so3`,
+:func:`relative_pose`, :func:`se3_compose`) are written one operation at
+a time on per-component tensors, in the order of the kernels' shared
+header ``kernels/csrc/lie.cuh``, with constants as 0-dim tensors of the
+working type (a division by one is a true division on every device): no
+``@``, einsum or ``torch.sum``, whose order is torch's. So a kernel and
+its plain version that use them agree bit for bit.
 """
 
 from __future__ import annotations
@@ -31,8 +39,42 @@ def skew(v: torch.Tensor) -> torch.Tensor:
     )
 
 
-def _eye3(like: torch.Tensor) -> torch.Tensor:
-    return torch.eye(3, dtype=like.dtype, device=like.device)
+def scalars(like: torch.Tensor, *values) -> tuple:
+    """``values`` as 0-dim tensors of ``like``'s type and device."""
+    return tuple(torch.full((), v, dtype=like.dtype, device=like.device) for v in values)
+
+
+def exp_so3_components(w: list) -> list:
+    """:func:`exp_so3` of per-component tensors ``w = [w_x, w_y, w_z]``,
+    in the kernels' order (``lie.cuh``): ``I + W`` where ``theta^2 < 1e-8``,
+    else ``R_ii = 1 + omc KK_ii`` and ``R_ij = sn K_ij + omc KK_ij`` with
+    ``theta^2 = (w_x^2 + w_y^2) + w_z^2``, ``K = W / theta``, ``sn =
+    sin(theta)``, ``omc = 2 sin(theta / 2)^2`` and ``KK = K K`` in closed
+    form (``KK_ii = -(k_a^2 + k_b^2)``, ``KK_ij = k_i k_j``). Returns the
+    nine entries, row-major."""
+    wx, wy, wz = w
+    one, two, half, small_sq = scalars(wx, 1.0, 2.0, 0.5, 1e-8)
+    theta_sq = (wx * wx + wy * wy) + wz * wz
+    small = theta_sq < small_sq
+    # guard the division so the untaken branch stays finite
+    theta = torch.sqrt(torch.where(small, one, theta_sq))
+    k = [c / theta for c in w]
+    sn = torch.sin(theta)
+    h = torch.sin(theta * half)
+    omc = two * (h * h)
+    sq = [c * c for c in k]
+    Kx = [[None, -k[2], k[1]], [k[2], None, -k[0]], [-k[1], k[0], None]]
+    full = []
+    for i in range(3):
+        for j in range(3):
+            if i == j:
+                a, b = [m for m in range(3) if m != i]
+                full.append(one + omc * -(sq[a] + sq[b]))
+            else:
+                full.append(sn * Kx[i][j] + omc * (k[i] * k[j]))
+    ones = one.expand_as(wx)
+    W = [ones, -wz, wy, wz, ones, -wx, -wy, wx, ones]
+    return [torch.where(small, s, f) for s, f in zip(W, full)]
 
 
 def exp_so3(omega: torch.Tensor) -> torch.Tensor:
@@ -40,23 +82,11 @@ def exp_so3(omega: torch.Tensor) -> torch.Tensor:
 
     Small-angle branch at ``theta^2 < 1e-8`` returns ``I + W`` exactly like
     the reference (``lie_algebra.h:39-52``); the regular branch uses the
-    ``2 sin^2(theta/2)`` form of ``1 - cos(theta)``.
+    ``2 sin^2(theta/2)`` form of ``1 - cos(theta)``
+    (:func:`exp_so3_components`).
     """
-    theta_sq = torch.sum(omega * omega, dim=-1)
-    small = theta_sq < 1e-8
-    # guard the division so the untaken branch stays finite
-    theta = torch.sqrt(torch.where(small, torch.ones_like(theta_sq), theta_sq))
-    W = skew(omega)
-    K = W / theta[..., None, None]
-    eye = _eye3(omega).expand(W.shape)
-    one_minus_cos = 2.0 * torch.sin(theta / 2.0) ** 2
-    R_full = (
-        eye
-        + torch.sin(theta)[..., None, None] * K
-        + one_minus_cos[..., None, None] * (K @ K)
-    )
-    R_small = eye + W
-    return torch.where(small[..., None, None], R_small, R_full)
+    R = exp_so3_components(list(omega.unbind(-1)))
+    return torch.stack(R, dim=-1).unflatten(-1, (3, 3))
 
 
 def log_so3(R: torch.Tensor) -> torch.Tensor:
@@ -130,6 +160,39 @@ def se3_matrix(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     bottom = torch.eye(4, dtype=R.dtype, device=R.device)[3].expand(
         batch + (4,))[..., None, :]
     return torch.cat([top, bottom], dim=-2)
+
+
+def relative_pose(T_prev: torch.Tensor, T_now: torch.Tensor) -> tuple:
+    """``T_prev^-1 T_now`` of (..., 4, 4) rigid poses as the reference
+    forms it (``se3_inverse`` then the product), per component in the
+    kernels' order: ``R[i][j] = (P_0i Q_0j + P_1i Q_1j) + P_2i Q_2j`` and
+    ``t_i = ((P_0i Q_03 + P_1i Q_13) + P_2i Q_23) + s_i`` with ``s_i =
+    -((P_0i P_03 + P_1i P_13) + P_2i P_23)``. Returns ``(R, t)``: a 3 x 3
+    nested list and a list of 3 tensors of the leading shape."""
+    P = [[T_prev[..., r, c] for c in range(4)] for r in range(3)]
+    Q = [[T_now[..., r, c] for c in range(4)] for r in range(3)]
+
+    def col(i, M, c):  # (P_0i M_0c + P_1i M_1c) + P_2i M_2c
+        return (P[0][i] * M[0][c] + P[1][i] * M[1][c]) + P[2][i] * M[2][c]
+
+    R = [[col(i, Q, j) for j in range(3)] for i in range(3)]
+    t = [col(i, Q, 3) + -col(i, P, 3) for i in range(3)]
+    return R, t
+
+
+def se3_compose(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """``A B`` of (..., 4, 4) transforms, ``B`` rigid (last row ``[0 0 0
+    1]``), per component in the kernels' order: entry ``(i, j)`` is
+    ``(A_i0 B_0j + A_i1 B_1j) + A_i2 B_2j``, plus ``A_i3`` where ``j = 3``
+    (every row of ``A``, its last included)."""
+    a = [[A[..., i, c] for c in range(4)] for i in range(4)]
+    b = [[B[..., r, j] for j in range(4)] for r in range(3)]
+    rows = []
+    for i in range(4):
+        row = [(a[i][0] * b[0][j] + a[i][1] * b[1][j]) + a[i][2] * b[2][j] for j in range(4)]
+        row[3] = row[3] + a[i][3]
+        rows.append(torch.stack(torch.broadcast_tensors(*row), dim=-1))
+    return torch.stack(rows, dim=-2)
 
 
 def se3_inverse(T: torch.Tensor) -> torch.Tensor:

@@ -362,15 +362,22 @@ def transform_tree(tree: SearchTree, R: torch.Tensor, t: torch.Tensor) -> Search
     """Rigidly move a tree into another frame (reference
     ``applyTransform``, ``mad_tree.cpp:165-172``). Every ``nav`` block is
     ``[position(3), direction(3), scalar(2)]``, so the table moves as one
-    affine map per block: positions ``R p + t``, directions ``R n`` (every
-    row, padding included, as in the JAX package's ``nav @ A + c``). A
-    batch of trees (B, M, 56) takes one pose each, R (B, 3, 3) and t
-    (B, 3)."""
+    affine map per block (every row, padding included, as in the JAX
+    package's ``nav @ A + c``), written one operation at a time in the
+    order of the ring write's kernel (``kernels/csrc/ring_write.cu``, K13):
+    positions ``((R_c0 x + R_c1 y) + R_c2 z) + t_c``, directions ``(R_c0
+    n_x + R_c1 n_y) + R_c2 n_z``, the scalars copied. A batch of trees (B,
+    M, 56) takes one pose each, R (B, 3, 3) and t (B, 3)."""
     nav = tree.nav
     blocks = nav.reshape(nav.shape[:-2] + (-1, 8))  # (..., M * 7, 8)
-    Rt = R.to(nav.dtype).mT
+    R = R.to(nav.dtype)[..., None, :, :]  # one pose for every block of a tree
     t = t.to(nav.dtype)[..., None, :]
-    pos = blocks[..., 0:3] @ Rt + t
-    dirs = blocks[..., 3:6] @ Rt
-    moved = torch.cat([pos, dirs, blocks[..., 6:8]], dim=-1)
+    x = [blocks[..., k] for k in range(6)]
+
+    def rot(c, o):  # (R_c0 v_o + R_c1 v_o+1) + R_c2 v_o+2
+        return (R[..., c, 0] * x[o] + R[..., c, 1] * x[o + 1]) + R[..., c, 2] * x[o + 2]
+
+    moved = torch.stack([rot(c, 0) + t[..., c] for c in range(3)]
+                        + [rot(c, 3) for c in range(3)]
+                        + [blocks[..., 6], blocks[..., 7]], dim=-1)
     return SearchTree(nav=moved.reshape(nav.shape))

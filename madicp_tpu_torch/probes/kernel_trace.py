@@ -57,6 +57,26 @@ parts named by ``--parts`` (default: all but ``step``, ``pdl`` and ``launch``):
   drive graphed with deskew off and in both modes, twice in turns
   (:func:`deskew_rates`: scans/s, device busy ms and kernels a scan, the
   deskew phase's ms, the distance to the truth). Not in the default.
+- ``tail``: the step's constant-velocity prediction and its tail
+  (everything after the round loop up to the new state,
+  :func:`tail_region`) for the certified flagship, float32 and float64,
+  B = 1 and 4, on a scan where every sequence promotes and on one where
+  none does: every kernel with its device µs and the line of
+  ``_odometry_step`` and the innermost package line that issued it (a
+  marker kernel a line, :func:`step_lines`), and from a replay of the
+  step captured whole, the prediction's and the tail's graphed device µs
+  and kernel counts (:func:`tail_trace`). Not in the default.
+- ``rates``: the deskew part's certified flagship drive alone
+  (:func:`deskew_rates`, one round: deskew off, reference, binned). Not
+  in the default.
+- ``ring_split``: K13 ``ring_write`` in one launch (the package) and as
+  two (the frame record, then the promotion: variants built here,
+  :func:`kernel_variants.ring_write_split_source`) on flagship rings,
+  float32 and float64, B = 1 and 4, with no sequence promoting, each
+  promoting an older window frame and each promoting its own scan:
+  graphed device ms of both forms in the order one, two, two, one, and
+  whether the two write the same rings bit for bit (:func:`ring_split_ab`).
+  Not in the default.
 
 ``--paths`` adds the A/Bs that set the plans: every K8 level on every
 path that can take it (:data:`build_points.PATHS`), every K9 call on both
@@ -90,8 +110,8 @@ from madicp_tpu_torch.utils.timing import bound_ms, device_trace, graph_ms
 
 REPS = 5  # graph replays a trace
 PARTS = ("build", "terms", "descent", "ring", "nodes", "resources", "gn", "step", "pdl",
-         "launch", "deskew")
-DEFAULT_PARTS = PARTS[:-4]
+         "launch", "deskew", "tail", "rates", "ring_split")
+DEFAULT_PARTS = PARTS[:-7]
 # a later certified round's uncertified share: a certified flagship scan
 # descends 1.71 M entries, 0.52 M of them in round 0, and each of the other
 # 14 rounds hands the descent 0.52 M entries of which ~16% are live
@@ -771,7 +791,8 @@ def main(argv=None) -> int:
     ap.add_argument("--paths", action="store_true",
                     help="every K8 and K9 level on every path, K7 with every cluster size")
     ap.add_argument("--parts", default=",".join(DEFAULT_PARTS),
-                    help=f"comma list of {', '.join(PARTS)} (default: all but step, pdl and launch)")
+                    help=f"comma list of {', '.join(PARTS)} (default: all but step, pdl, "
+                    "launch, deskew, tail and rates)")
     a = ap.parse_args(argv)
     parts = set(a.parts.split(","))
     if parts - set(PARTS):
@@ -858,6 +879,14 @@ def main(argv=None) -> int:
         del setup
         torch.cuda.empty_cache()
         emit("deskew_rates", **deskew_rates(dev))
+    if "tail" in parts:
+        for row in tail_traces(dev, a.reps):
+            emit("tail", **row)
+    if "rates" in parts:
+        emit("deskew_rates", **deskew_rates(dev, rounds=1))
+    if "ring_split" in parts:
+        for row in ring_split_ab(dev):
+            emit("ring_split", **row)
     return 0
 
 
@@ -1294,6 +1323,298 @@ def deskew_rates(device, rounds: int = 2) -> dict:
             del pipe, staged
             torch.cuda.empty_cache()
     return {"dataset": setup.dataset, "scans": last, **DESKEW_DRIVE, "runs": runs}
+
+
+TAIL_SCAN = 3  # the bench scan the first sequence of a tail trace steps
+TAIL_BATCHES = (1, 4)
+# p_th of a scan that promotes (every ratio is below it) and of one that does not
+TAIL_P_TH = {True: 2.0, False: -1.0}
+PACKAGE = "madicp_tpu_torch"
+
+
+@contextlib.contextmanager
+def line_marks(mark, skip=("/kernels/", "/utils/", "/probes/")):
+    """While open, call ``mark(chain)`` at every line the package's own
+    Python runs (its modules under ``madicp_tpu_torch/`` but ``skip``):
+    ``chain`` is the list of ``"path:line func"`` of every package frame
+    on the stack, outermost first (marked again where a call returns to
+    its caller's line). On the card ``mark`` launches a marker
+    kernel, so the kernels between two markers of a device trace are the
+    ones that line issued (:func:`step_lines`)."""
+    import sys
+
+    stack: list = []  # [frame, label] of the package frames, outermost first
+
+    def rel(frame):
+        path = frame.f_code.co_filename
+        return path[path.rindex(PACKAGE):]
+
+    def local(frame, event, arg):
+        if event == "line":
+            stack[-1][1] = f"{rel(frame)}:{frame.f_lineno} {frame.f_code.co_name}"
+            mark([label for _, label in stack])
+        elif event == "return":
+            stack.pop()
+            if stack:  # back in the caller's line: its later kernels are its own
+                mark([label for _, label in stack])
+        return local
+
+    def call(frame, event, arg):
+        path = frame.f_code.co_filename
+        if PACKAGE not in path or any(s in path for s in skip):
+            return None
+        stack.append([frame, None])
+        return local
+
+    sys.settrace(call)
+    try:
+        yield
+    finally:
+        sys.settrace(None)
+
+
+def step_lines(fn, reps: int = REPS) -> list:
+    """The CUDA kernels of one eager ``fn()`` in launch order, each with
+    the package line that issued it: ``[(kernel, device µs, chain)]`` with
+    ``chain`` as :func:`line_marks` gives it. A marker kernel
+    (``torch.cuda._sleep(0)``) is launched at every line; the trace is
+    taken in up to ``5 reps`` profiled windows until one keeps every
+    marker and the most kernels (the profiler on the card drops records).
+    Raises where no window kept every marker."""
+    chains: list = []
+    best, full = None, 0
+    for _ in range(5 * reps):
+        chains.clear()
+
+        def run():
+            with line_marks(lambda chain: (chains.append(chain), torch.cuda._sleep(0))):
+                fn()
+
+        records, _ = device_trace(run)
+        marks = [i for i, (name, _, _) in enumerate(records) if "spin" in name.lower()]
+        if len(marks) != len(chains):
+            continue
+        full += 1
+        if best is None or len(records) > len(best[0]):
+            best = (records, marks, list(chains))
+        if full == reps:
+            break
+    if best is None:
+        raise RuntimeError(f"no profiled window of {5 * reps} kept every line marker")
+    records, marks, chain_of = best
+    out, m = [], -1
+    for i, (name, _, us) in enumerate(records):
+        if m + 1 < len(marks) and marks[m + 1] == i:
+            m += 1
+            continue
+        out.append((short_name(name), us, chain_of[m] if m >= 0 else []))
+    return out
+
+
+def tail_region(pipeline_path: str) -> tuple:
+    """``(prediction lines, tail lines)`` of ``_odometry_step`` in
+    ``models/pipeline.py``: the line that forms ``X0``, and every line from
+    ``with phase(timer, "rings"):`` up to ``new_state = PipelineState(``
+    (everything after the round loop up to the new state)."""
+    lines = open(pipeline_path).read().splitlines()
+    start = next(i for i, s in enumerate(lines) if s.startswith("def _odometry_step(")) + 1
+    find = lambda text: next(i for i in range(start, len(lines))  # noqa: E731
+                             if lines[i - 1].strip().startswith(text))
+    x0 = find("X0 =")
+    return {x0}, set(range(find('with phase(timer, "rings")'),
+                           find("new_state = PipelineState(")))
+
+
+def _in(chain, func: str, lines: set):
+    """The line of ``func``'s frame in ``chain`` if it is one of ``lines``."""
+    for label in chain:
+        where, name = label.split(" ")
+        if name == func:
+            line = int(where.rsplit(":", 1)[1])
+            return line if line in lines else None
+    return None
+
+
+def tail_pipe(setup, dtype):
+    """A certified flagship pipeline in ``dtype``, primed as the bench
+    primes its own."""
+    from madicp_tpu_torch.bench import schedule_kwargs
+    from madicp_tpu_torch.models.pipeline import Pipeline
+
+    pipe = Pipeline(sensor_hz=10.0, deskew=False, b_max=0.2, rho_ker=0.1, p_th=0.8, b_min=0.1,
+                    b_ratio=0.02, num_keyframes=setup.num_keyframes, n_points=setup.n_points,
+                    depth=setup.depth, max_leaves=setup.max_leaves, dtype=dtype,
+                    device=setup.device, **schedule_kwargs("certified"))
+    setup.prime(pipe)
+    return pipe
+
+
+def tail_trace(setup, pipe, B: int, promote: bool, reps: int = REPS) -> dict:
+    """The step's prediction and tail (:func:`tail_region`) for ``B``
+    sequences stepping the bench's scans from :data:`TAIL_SCAN` on, each
+    from ``pipe``'s primed state, with a ``p_th`` that makes every
+    sequence promote or none: every kernel of an eager step with the line
+    of ``_odometry_step`` and the innermost package line that issued it
+    (:func:`step_lines`), their device µs and kernels by step line and by
+    source, and, from a replay of the step captured whole in a CUDA graph
+    (its kernels in the eager step's order), the prediction's and the
+    tail's graphed device µs (busy and first start to last end) and
+    kernel counts."""
+    import dataclasses
+
+    from madicp_tpu_torch.models import pipeline as pipeline_mod
+    from madicp_tpu_torch.models.pipeline import _map
+    from madicp_tpu_torch.models.step_graph import step_in_place
+
+    cfg = dataclasses.replace(pipe.cfg, p_th=TAIL_P_TH[promote])
+    single = pipe.state
+    state = _map(lambda t: t[None].repeat((B,) + (1,) * t.dim()).contiguous(), single)
+    staged = [pipe.stage(setup.scan_at(TAIL_SCAN + b)) for b in range(B)]
+    pts = torch.stack([p for p, _, _ in staged])
+    valid = torch.stack([v for _, v, _ in staged])
+    step = lambda: step_in_place(cfg, state, pts, valid)  # noqa: E731
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    eager = step_lines(step, reps)
+    predict_lines, tail_lines = tail_region(pipeline_mod.__file__)
+    rows = []
+    for j, (name, us, chain) in enumerate(eager):
+        for part, lines in (("predict", predict_lines), ("tail", tail_lines)):
+            line = _in(chain, "_odometry_step", lines)
+            if line is not None:
+                rows.append({"index": j, "part": part, "step_line": line,
+                             "source": chain[-1] if chain else None, "kernel": name,
+                             "device_us": us})
+    out = {"B": B, "promote": promote, "step_kernels_eager": len(eager), "kernels": rows}
+    for key in ("step_line", "source"):
+        groups: dict = {}
+        for r in rows:
+            k = f"{r['part']} {r[key]}"
+            us, n = groups.get(k, (0.0, 0))
+            groups[k] = (us + r["device_us"], n + 1)
+        out[f"by_{key}"] = {k: {"device_us": us, "kernels": n} for k, (us, n) in groups.items()}
+    for part in ("predict", "tail"):
+        mine = [r for r in rows if r["part"] == part]
+        out[f"{part}_eager_busy_us"] = sum(r["device_us"] for r in mine)
+        out[f"{part}_kernels"] = len(mine)
+    # the graphed step: its replay's kernels are the eager step's, in order
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        step()
+    graph.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(5):
+        graph.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    out["step_graph_us"] = t0.elapsed_time(t1) / 5 * 1e3
+    kept = None
+    for _ in range(5 * reps):
+        recs, _ = device_trace(graph.replay)
+        if len(recs) >= len(eager) and (kept is None or len(recs) > len(kept)):
+            kept = recs
+        if kept is not None and len(kept) >= len(eager):
+            break
+    names = None if kept is None else [short_name(n) for n, _, _ in kept]
+    if names is None or names[:len(eager)] != [e[0] for e in eager]:
+        out["graph"] = ("the replay's kernels are not the eager step's"
+                        if names is not None else "no profiled replay kept every kernel")
+    else:
+        out["step_kernels_graphed"] = len(kept)
+        for part in ("predict", "tail"):
+            idx = [r["index"] for r in rows if r["part"] == part]
+            if idx:
+                sel = [kept[i] for i in idx]
+                out[f"{part}_graphed_busy_us"] = sum(us for _, _, us in sel)
+                out[f"{part}_graphed_span_us"] = (kept[idx[-1]][1] + kept[idx[-1]][2]
+                                                  - kept[idx[0]][1])
+    del graph, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def tail_traces(device, reps: int = REPS):
+    """:func:`tail_trace` in float32 and float64, at each of
+    :data:`TAIL_BATCHES`, promoting and not (yields one dict each)."""
+    from madicp_tpu_torch import bench
+
+    setup = bench.BenchSetup(device, 131072, 16, 16, 32768)
+    for dtype in (torch.float32, torch.float64):
+        pipe = tail_pipe(setup, dtype)
+        for B, promote in itertools.product(TAIL_BATCHES, (False, True)):
+            yield {"dtype": str(dtype).split(".")[1], **tail_trace(setup, pipe, B, promote, reps)}
+        del pipe
+        torch.cuda.empty_cache()
+
+
+RING_SPLIT_REPS = 20  # graphed calls a timing
+# (head, best, slot, write) of every sequence in each case of ring_split_ab
+RING_SPLIT_PLANS = {"no_promote": (1, 0, 0, 0), "promote": (1, 0, 1, 1),
+                    "promote_head": (1, 1, 1, 1)}
+
+
+def ring_split_ab(device, reps: int = RING_SPLIT_REPS):
+    """K13 as the package launches it (one launch) and in its two-launch
+    form (:func:`kernel_variants.ring_write_split_source`) on the rings of
+    the primed certified flagship pipeline (:func:`tail_pipe`), its first
+    keyframe tree as the scan's tree: for float32 and float64, B = 1 and 4
+    and each plan of :data:`RING_SPLIT_PLANS`, whether both forms write
+    the same rings bit for bit, and each form's graphed device ms (one,
+    two, two, one; yields one dict each)."""
+    from madicp_tpu_torch import bench
+    from madicp_tpu_torch.kernels import ring_write
+    from madicp_tpu_torch.models.pipeline import _map
+    from madicp_tpu_torch.probes import kernel_variants as kv
+
+    libs = {part: kv.build_variant("ring_write", transform=lambda s, part=part:
+                                   kv.ring_write_split_source(s, part))[0]
+            for part in ("frame", "promote")}
+
+    def two(*args):
+        for part in ("frame", "promote"):
+            with kv.use_variant(ring_write._launch, libs[part]):
+                ring_write.launch(*args)
+
+    setup = bench.BenchSetup(device, 131072, 16, 16, 32768)
+    for dtype in (torch.float32, torch.float64):
+        pipe = tail_pipe(setup, dtype)
+        F = pipe.state.fr_tree.nav.shape[0]
+        if F < 2:
+            raise ValueError(f"ring_split_ab: a window of {F} frame cannot promote an older one")
+        for B in (1, 4):
+            state = _map(lambda t: t[None].repeat((B,) + (1,) * t.dim()).contiguous(),
+                         pipe.state)
+            nav = state.kf_tree.nav[:, 0].contiguous()
+            for case, plan in RING_SPLIT_PLANS.items():
+                plan = torch.tensor([plan] * B, dtype=torch.int32, device=device)
+                rings = {form: (state.fr_tree.nav.clone(), state.kf_tree.nav.clone())
+                         for form in ("one", "two")}
+                ring_write.launch(nav, state.X, plan, *rings["one"])
+                two(nav, state.X, plan, *rings["two"])
+                torch.cuda.synchronize()
+                equal = all(torch.equal(a, b) for a, b in zip(rings["one"], rings["two"]))
+                fns = {"one": lambda: ring_write.launch(nav, state.X, plan, *rings["one"]),
+                       "two": lambda: two(nav, state.X, plan, *rings["two"])}
+                ms = {"one": [], "two": []}
+                for form in ("one", "two", "two", "one"):
+                    ms[form].append(graph_ms(fns[form], reps))
+                yield {"dtype": str(dtype).split(".")[1], "B": B, "case": case,
+                       "plan": plan[0].tolist(), "equal": equal, "one_device_ms": ms["one"],
+                       "two_device_ms": ms["two"]}
+                del rings
+            del state, nav
+            torch.cuda.empty_cache()
+        del pipe
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

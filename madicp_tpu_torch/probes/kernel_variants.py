@@ -15,6 +15,9 @@ for. Used by :mod:`madicp_tpu_torch.probes.kernel_trace` on the card.
   :func:`programmatic_source` makes it a programmatic dependent of that
   kernel (Hopper's programmatic dependent launch, which the package does
   not ship: PERF.md §6, PR 15).
+- :func:`ring_write_split_source` cuts K13 into the two launches of its
+  rejected form, the frame record alone and then the promotion alone
+  (PERF.md §6, PR 18).
 - :func:`sass_counts` counts each kernel's SASS instructions
   (``cuobjdump -sass``); :func:`graph_edges` counts a CUDA graph's edges
   and its programmatic ones (libcuda).
@@ -127,6 +130,36 @@ def programmatic_source(name: str, text: str) -> str:
     """``text`` with its kernel waiting for, then releasing, the kernel
     before it and launched as its programmatic dependent."""
     return launch_source(name, text, "griddepcontrol", "programmatic")
+
+
+# K13's lines the two-launch form cuts at: the merged kernel's promotion
+# store, and the statement before which the promotion alone returns
+RING_PROMOTE = r"^  if \(write\) \*key = pl\.y == pl\.x \? ov : \*src;$"
+RING_FRAME_START = r"^  V v = \{\};$"
+RING_PROMOTE_ONLY = ("  if (!write) return;  // the whole block: b is the block's\n"
+                     "  if (in) *key = *src;\n  return;")
+
+
+def ring_write_split_source(text: str, part: str) -> str:
+    """``csrc/ring_write.cu``'s ``text`` as one of the two launches of its
+    two-launch form: ``part="frame"`` writes the moved tree into the
+    window and copies nothing; ``part="promote"``, launched after it with
+    the same arguments, copies the window's tree ``best`` into the
+    keyframe slot where ``write`` (a block of a sequence that does not
+    write reads one flag and exits) and moves nothing."""
+    lines = text.split("\n")
+    at = {key: [i for i, line in enumerate(lines) if re.match(pattern, line)]
+          for key, pattern in (("promote", RING_PROMOTE), ("frame", RING_FRAME_START))}
+    if any(len(v) != 1 for v in at.values()):
+        raise ValueError("ring_write_split_source: the kernel's promotion store or frame "
+                         "record changed")
+    if part == "frame":
+        del lines[at["promote"][0]]
+    elif part == "promote":
+        lines.insert(at["frame"][0], RING_PROMOTE_ONLY)
+    else:
+        raise ValueError(f"ring_write_split_source: part must be frame or promote, got {part!r}")
+    return "\n".join(lines)
 
 
 def build_variant(name: str, defines=(), transform=None, source: str = None) -> tuple:

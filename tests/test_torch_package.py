@@ -44,6 +44,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         "import madicp_tpu_torch.probes.build_levels\n"
         "import madicp_tpu_torch.probes.profile_windows\n"
         "import madicp_tpu_torch.probes.deskew_drive, madicp_tpu_torch.kernels.deskew\n"
+        "import madicp_tpu_torch.kernels.ring_write, madicp_tpu_torch.kernels.step_scalars\n"
         "import madicp_tpu_torch.bench\n"
         "import madicp_tpu_torch.models.schedules_experimental\n"
         "import madicp_tpu_torch.native, madicp_tpu_torch.native.loader\n"
@@ -710,19 +711,19 @@ def test_a_host_sync_in_the_step_makes_its_capture_raise_on_cuda(cuda_device, mo
     scan that would capture it raises, and no graph is kept (there is no
     silent eager fallback). Last in the file: a failed capture may leave
     torch's capture bookkeeping behind."""
-    import madicp_tpu_torch.models.pipeline as pipeline_mod
+    from madicp_tpu_torch.kernels import step_scalars
 
-    real = pipeline_mod.neg_logdet
+    real = step_scalars.tail  # the step's tail, called through its module
 
-    def syncing(H):
+    def syncing(state, X, H, *args, **kw):
         float(H.sum())  # a host read
-        return real(H)
+        return real(state, X, H, *args, **kw)
 
     pipe = Pipeline(**GRAPH_KW, device=cuda_device)
     scans = _rooms([[0.05 * i, 0.02 * i, 0] for i in range(3)])
     for i in range(2):  # the bootstrap and the warm-up run eagerly
         pipe.compute(0.1 * i, scans[i])
-    monkeypatch.setattr(pipeline_mod, "neg_logdet", syncing)
+    monkeypatch.setattr(step_scalars, "tail", syncing)
     with pytest.raises(RuntimeError):
         pipe.compute(0.2, scans[2])
     assert not pipe._graphs.captured()

@@ -107,13 +107,20 @@ script exits non-zero without the final line):
               bit, on the inputs of a recorded certified flagship step,
               float32 and float64, B = 1 and 4, with no sequence
               promoting, every one promoting an older window frame and
-              every one promoting its own scan; eager, graphed and plain
-              ms and the bound of each. Then the certified flagship
-              drive, graphed, with the kernels and with all three on their
-              plain versions (plain_tail, a patch of this script):
-              scans/s, device busy and kernels a scan, two step_scalars
-              and one ring_write launch a scan, the poses (equal bit for
-              bit);
+              every one promoting its own scan; the tail with fresh
+              outputs and in place (the state its own destination, as
+              the step calls it: every destination kept), both routes;
+              eager, graphed and plain ms and the bound of each, and the
+              tail's graphed ms against its one-block design (the probe's
+              copy, built by kernel_variants) and in place, in turns. Then
+              the certified flagship drive, graphed, with the kernels,
+              with all three on their plain versions (plain_tail) and
+              with the state copied after the step as before the tail
+              wrote it in place (state_copies; both patches of this
+              script): scans/s, device busy and kernels a scan, two
+              step_scalars and one ring_write launch a scan, the poses
+              (equal bit for bit), the graph's nodes (14 fewer than with
+              the copies) and the state's buffers kept across the steps;
 3b. probe     one run of the probe entry point (python -m
               madicp_tpu_torch.probes.scatter_probe), its launches counted
               from 0: it holds the four scatter-probe kernels
@@ -570,15 +577,44 @@ def plain_tail():
     return patched()
 
 
+def state_copies():
+    """A context in which the step forms the new state in fresh tensors
+    and copies it into the state's buffers afterwards (``write_state``:
+    14 copies a step), as it did before the tail wrote the state in
+    place: the yardstick of the ``tail`` drive's graph nodes."""
+    import contextlib
+
+    from madicp_tpu_torch.models import step_graph
+    from madicp_tpu_torch.models.pipeline import odometry_step
+
+    def step_in_place(cfg, state, points, valid, timer=None, **kw):
+        new, out = odometry_step(cfg, state, points, valid, None, timer, **kw)
+        step_graph.write_state(state, new)
+        return out
+
+    @contextlib.contextmanager
+    def patched():
+        real = step_graph.step_in_place
+        step_graph.step_in_place = step_in_place
+        try:
+            yield
+        finally:
+            step_graph.step_in_place = real
+
+    return patched()
+
+
 def route_context(route: str):
     """The context of a drive's route: the kernels, or the association and
     terms (``plain_association``), the build (``plain_build``), the GN
     update and slack pass (``plain_gn``) or the prediction, tail and ring
-    write (``plain_tail``) on their plain versions."""
+    write (``plain_tail``) on their plain versions, or the kernels with
+    the state copied after the step (``state_copies``)."""
     import contextlib
 
     return {"kernels": contextlib.nullcontext, "plain_association": plain_association,
-            "plain_build": plain_build, "plain_gn": plain_gn, "plain_tail": plain_tail}[route]()
+            "plain_build": plain_build, "plain_gn": plain_gn, "plain_tail": plain_tail,
+            "state_copies": state_copies}[route]()
 
 
 def certified_drive(torch, route: str) -> dict:
@@ -603,6 +639,7 @@ def certified_drive(torch, route: str) -> dict:
 
         for i in range(1, 1 + n_warm):
             step(i)
+        ptrs = [getattr(t, "nav", t).data_ptr() for t in pipe._graphs.state]
         reset_launches()  # the timed run starts here
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -611,12 +648,13 @@ def certified_drive(torch, route: str) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = launches()  # read right after it
+        kept = ptrs == [getattr(t, "nav", t).data_ptr() for t in pipe._graphs.state]
         prof = profile_window(
             lambda: [step(i) for i in range(1 + n_warm + n_timed, 1 + total)], n_prof)
         (capture_ms, nodes, _), = pipe._graphs.captured().values()
     out = {"route": route, "scans_per_s": n_timed / wall,
            "launches_per_scan": {k: v / n_timed for k, v in counts.items()},
-           "capture_ms": capture_ms, "nodes": nodes, "profile": prof,
+           "capture_ms": capture_ms, "nodes": nodes, "state_buffers_kept": kept, "profile": prof,
            "poses": torch.stack(poses).cpu().numpy().astype(np.float64)}
     truth = np.stack([np.eye(4) for _ in range(total)])
     for i in range(total):
@@ -1549,40 +1587,11 @@ TAIL_CASES = {"no_promote": -1.0, "promote": 2.0, "promote_head": 2.0}
 # atan2 and an asin, the residual, norm, clamp and weight; the LU ~150 and
 # six logs; the sums 63; the window ~60) plus 2 a flag pair of the counts
 TAIL_FLOPS = {"predict": 90, "tail": 1600}
+# the state's fields the tail writes (and X)
+IN_PLACE_FIELDS = ("velocity", "traj", "traj_count", "fr_valid", "fr_weight", "fr_seq",
+                   "fr_pose", "fr_head", "kf_valid", "kf_head", "keyframe_to_map", "seq",
+                   "seq_keyframe")
 RING_FLOPS_PER_PANEL = 18  # 9 products and 9 additions
-
-
-def record_tail(torch, cfg, state, pts, valid) -> dict:
-    """The arguments of the step's predict, tail and ring write in one
-    eager ``step_in_place`` of ``state`` (which it advances), cloned as
-    they were handed over."""
-    from madicp_tpu_torch.kernels import ring_write, step_scalars
-    from madicp_tpu_torch.models.step_graph import step_in_place
-    from madicp_tpu_torch.ops.tree import SearchTree
-
-    rec = {}
-    real = step_scalars.predict, step_scalars.tail, ring_write.ring_write
-
-    def predict(*args):
-        rec["predict"] = tuple(a.clone() for a in args)
-        return real[0](*args)
-
-    def tail(state, *args, **kw):
-        # the scalars of the state (the tail reads no tree)
-        scalars = type(state)(*(None if isinstance(v, SearchTree) else v.clone() for v in state))
-        rec["tail"] = (scalars, tuple(a.clone() for a in args), dict(kw))
-        return real[1](state, *args, **kw)
-
-    def ring(nav, X, plan, fr, kf):
-        rec["ring"] = (nav.clone(), X.clone())
-        return real[2](nav, X, plan, fr, kf)
-
-    step_scalars.predict, step_scalars.tail, ring_write.ring_write = predict, tail, ring
-    try:
-        step_in_place(cfg, state, pts, valid)
-    finally:
-        step_scalars.predict, step_scalars.tail, ring_write.ring_write = real
-    return rec
 
 
 def tensors_equal(torch, a, b) -> bool:
@@ -1597,9 +1606,16 @@ def tail_bytes(tensors) -> int:
 def tail_case(torch, rec: dict, state, case: str, dname: str, what: str, timed: bool) -> dict:
     """K14 (predict, tail) and K13 on a recorded flagship step's inputs
     with ``p_th`` of :data:`TAIL_CASES` ``[case]``, against their plain
-    versions bit for bit (one count each a call); with ``timed`` eager,
-    graphed and plain ms of each and the bound."""
+    versions bit for bit (one count each a call), the tail both with
+    fresh outputs and in place (the state its own destination, as the
+    step calls it: the destination's tensors kept); with ``timed`` eager,
+    graphed and plain ms of each and the bound (the tail's in place, as
+    the step runs it), and the tail's graphed ms in place, with fresh
+    outputs and in its one-block design (``probes/csrc/tail_one_block.cu``,
+    built by ``kernel_variants``), in turns."""
     from madicp_tpu_torch.kernels import ring_write, step_scalars
+    from madicp_tpu_torch.probes import kernel_variants as kv
+    from madicp_tpu_torch.probes.kernel_trace import clone_scalars
     from madicp_tpu_torch.utils.timing import bound_ms, event_ms, graph_ms
 
     st, (X, H, matched, valid, hz), kw = rec["tail"]
@@ -1616,18 +1632,35 @@ def tail_case(torch, rec: dict, state, case: str, dname: str, what: str, timed: 
     p_k, p_p = step_scalars.launch_predict(Xp, vp, hzp), step_scalars.predict_plain(Xp, vp, hzp)
     t_k = step_scalars.launch_tail(st, X, H, matched, valid, hz, **kw)
     t_p = step_scalars.tail_plain(st, X, H, matched, valid, hz, **kw)
+    # in place: each route's own copy of the state is its destination
+    places = {route: clone_scalars(st) for route in ("kernel", "plain")}
+    ptrs = {route: [getattr(d, f).data_ptr() for f in ("X",) + IN_PLACE_FIELDS]
+            for route, d in places.items()}
+    d = places["kernel"]
+    i_k = step_scalars.launch_tail(d, X, H, matched, valid, hz, **kw, out=d)
+    d = places["plain"]
+    i_p = step_scalars.tail_plain(d, X, H, matched, valid, hz, **kw, out=d)
     rings = [(state.fr_tree.nav.clone(), state.kf_tree.nav.clone()) for _ in range(2)]
     ring_write.launch(nav, Xr, t_k.plan, *rings[0])
     ring_write.ring_write_plain(nav, Xr, t_p.plan, *rings[1])
     torch.cuda.synchronize()
-    check((ring_write.counter.launches - c13, step_scalars.counter.launches - c14) == (1, 2),
+    check((ring_write.counter.launches - c13, step_scalars.counter.launches - c14) == (1, 3),
           f"tail {what}: launches {ring_write.counter.launches - c13}, "
-          f"{step_scalars.counter.launches - c14}, want 1 and 2")
+          f"{step_scalars.counter.launches - c14}, want 1 and 3")
     unequal = [name for name, a, b in zip(step_scalars.Tail._fields, t_k, t_p)
                if not tensors_equal(torch, a, b)]
     check(tensors_equal(torch, p_k, p_p), f"tail {what}: predict differs from the plain version "
           f"by {float((p_k.double() - p_p.double()).abs().max()):.3e}")
     check(not unequal, f"tail {what}: the tail's {unequal} differ from the plain version")
+    for route, got in (("kernel", i_k), ("plain", i_p)):
+        d = places[route]
+        unequal = [name for name, a, b in zip(step_scalars.Tail._fields, got, t_p)
+                   if not tensors_equal(torch, a, b)]
+        check(not unequal and torch.equal(d.X, X), f"tail {what}: the {route} route in place: "
+              f"{unequal or ['X']} differ from the plain version's fresh outputs")
+        check(all(getattr(got, f) is getattr(d, f) for f in IN_PLACE_FIELDS)
+              and ptrs[route] == [getattr(d, f).data_ptr() for f in ("X",) + IN_PLACE_FIELDS],
+              f"tail {what}: the {route} route in place moved a destination")
     check(torch.equal(rings[0][0], rings[1][0]) and torch.equal(rings[0][1], rings[1][1]),
           f"tail {what}: the rings differ from the plain version's")
     head, best, slot, write = t_k.plan.cpu().tolist()[0]
@@ -1650,8 +1683,11 @@ def tail_case(torch, rec: dict, state, case: str, dname: str, what: str, timed: 
                     lambda: step_scalars.predict_plain(Xp, vp, hzp),
                     tail_bytes((Xp, vp, hzp)) + Xp.numel() * esize,
                     B * TAIL_FLOPS["predict"]),
-        "tail": (lambda: step_scalars.launch_tail(st, X, H, matched, valid, hz, **kw),
-                 lambda: step_scalars.tail_plain(st, X, H, matched, valid, hz, **kw),
+        # in place, as the step calls it (each route on its own copy)
+        "tail": (lambda: step_scalars.launch_tail(places["kernel"], X, H, matched, valid, hz,
+                                                  **kw, out=places["kernel"]),
+                 lambda: step_scalars.tail_plain(places["plain"], X, H, matched, valid, hz,
+                                                 **kw, out=places["plain"]),
                  tail_bytes([X, H, matched, valid, hz] + [getattr(st, f) for f, _, _ in
                                                           step_scalars._STATE])
                  + tail_bytes(t_k), B * TAIL_FLOPS["tail"] + 2 * matched.numel()),
@@ -1666,6 +1702,19 @@ def tail_case(torch, rec: dict, state, case: str, dname: str, what: str, timed: 
                      "plain_ms": event_ms(plain, TAIL_REPS),
                      "plain_device_ms": graph_ms(plain, TAIL_REPS), "bound_ms": bound,
                      "bound_by": by, "bytes": nbytes, "library_ms": None}
+    # the tail in place (the step's form), with fresh outputs and in its
+    # earlier one-block design, in turns (in place, one block, fresh,
+    # fresh, one block, in place), and the eager ms of the fresh call
+    one_block = kv.build_variant("tail_one_block", source=kv.TAIL_ONE_BLOCK.read_text())[0]
+    forms = {"in_place": kernels["tail"][0],
+             "one_block": lambda: kv.tail_one_block(one_block, st, X, H, matched, valid, hz,
+                                                    **kw),
+             "fresh": lambda: step_scalars.launch_tail(st, X, H, matched, valid, hz, **kw)}
+    ab = {form: [] for form in forms}
+    for form in ("in_place", "one_block", "fresh", "fresh", "one_block", "in_place"):
+        ab[form].append(graph_ms(forms[form], TAIL_REPS))
+    row["tail"]["ab_device_ms"] = ab
+    row["tail"]["fresh_ms"] = event_ms(forms["fresh"], TAIL_REPS)
     del rings
     return row
 
@@ -1686,7 +1735,7 @@ def phase_tail(torch, nvidia_smi: str) -> dict:
     from madicp_tpu_torch import bench
     from madicp_tpu_torch.models.pipeline import _map
     from madicp_tpu_torch.models.step_graph import step_in_place
-    from madicp_tpu_torch.probes.kernel_trace import tail_pipe
+    from madicp_tpu_torch.probes.kernel_trace import record_tail, tail_pipe
 
     t_phase = time.perf_counter()
     out = {"phase": "tail", "nvidia_smi": nvidia_smi, "kernel": {}}
@@ -1703,7 +1752,7 @@ def phase_tail(torch, nvidia_smi: str) -> dict:
             valid = torch.stack([v for _, v, _ in staged])
             for _ in range(TAIL_WARM):  # the frame window fills (nothing promotes)
                 step_in_place(pipe.cfg, state, pts, valid)
-            rec = record_tail(torch, pipe.cfg, state, pts, valid)
+            rec = record_tail(pipe.cfg, state, pts, valid)
             for case in TAIL_CASES:
                 rows[f"{case}_B{B}"] = tail_case(torch, rec, state, case, dname,
                                                  f"{dname} {case} B={B}", timed=True)
@@ -1713,12 +1762,17 @@ def phase_tail(torch, nvidia_smi: str) -> dict:
         emit({"phase": "tail", "part": f"kernel_{dname}", "nvidia_smi": nvidia_smi, **rows})
         del pipe
         torch.cuda.empty_cache()
-    drives = [certified_drive(torch, route) for route in ("kernels", "plain_tail")]
+    drives = [certified_drive(torch, route)
+              for route in ("kernels", "plain_tail", "state_copies")]
     gap = pose_gap(drives[0]["poses"], drives[1].pop("poses"))
-    drives[0].pop("poses")
+    copies_gap = pose_gap(drives[0].pop("poses"), drives[2].pop("poses"))
     out["drive"] = {"schedule": "certified", "graphed": True, **ASSOC_DRIVE,
-                    "kernels": drives[0], "plain_tail": drives[1], "bench_world_gap": gap,
-                    "poses_equal": gap["max_abs"] == 0.0}
+                    "kernels": drives[0], "plain_tail": drives[1], "state_copies": drives[2],
+                    "bench_world_gap": gap, "poses_equal": gap["max_abs"] == 0.0,
+                    "state_copies_gap": copies_gap,
+                    "nodes_saved": drives[2]["nodes"] - drives[0]["nodes"],
+                    "kernels_saved": (drives[2]["profile"]["kernels_per_scan"]
+                                      - drives[0]["profile"]["kernels_per_scan"])}
     out["seconds"] = time.perf_counter() - t_phase
     emit({"phase": "tail", "part": "drive", **out["drive"], "seconds": out["seconds"]})
     lps = drives[0]["launches_per_scan"]
@@ -1728,8 +1782,16 @@ def phase_tail(torch, nvidia_smi: str) -> dict:
           "launches a scan, want 2 and 1")
     for name in TAIL_KERNELS:
         check(drives[1]["launches_per_scan"][name] == 0, f"tail plain drive: {name} launched")
-    check(out["drive"]["poses_equal"],
-          f"tail: kernel and plain_tail drives {gap} apart on the bench's world, want equal")
+    check(out["drive"]["poses_equal"] and copies_gap["max_abs"] == 0.0,
+          f"tail: the kernel drive {gap} from the plain_tail drive and {copies_gap} from the "
+          "state_copies drive on the bench's world, want equal")
+    # a replay copies no state: the graph holds the state copies' drive's
+    # nodes less write_state's 14 copies, and the buffers stay in place
+    check(out["drive"]["nodes_saved"] == len(IN_PLACE_FIELDS) + 1,
+          f"tail drive: {drives[0]['nodes']} graph nodes against {drives[2]['nodes']} with the "
+          f"state copied, want {len(IN_PLACE_FIELDS) + 1} fewer")
+    check(all(dr["state_buffers_kept"] for dr in drives),
+          "tail drive: a step moved a state buffer")
     return out
 
 

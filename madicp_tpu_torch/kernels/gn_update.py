@@ -44,7 +44,7 @@ import math
 import torch
 
 from madicp_tpu_torch.kernels import build
-from madicp_tpu_torch.ops.lie import exp_se3_split, se3_compose
+from madicp_tpu_torch.ops.lie import broadcast_shape, exp_se3_split, se3_compose
 
 counter = build.LaunchCounter()
 # the __global__ functions of csrc/gn_update.cu, as a CUDA trace names them
@@ -181,8 +181,8 @@ def _lead(X, H, b, w=None) -> tuple:
         raise ValueError(f"gn_update: want w (..., K) of H's and b's K, got {tuple(w.shape)} "
                          f"for H {tuple(H.shape)} and b {tuple(b.shape)}")
     try:
-        return tuple(torch.broadcast_shapes(X.shape[:-2], H.shape[:-2 - k], b.shape[:-1 - k],
-                                            *(() if w is None else (w.shape[:-1],))))
+        return broadcast_shape(X.shape[:-2], H.shape[:-2 - k], b.shape[:-1 - k],
+                               *(() if w is None else (w.shape[:-1],)))
     except RuntimeError as err:
         raise ValueError(f"gn_update: leading axes do not broadcast: {err}") from None
 

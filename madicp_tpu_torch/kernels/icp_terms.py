@@ -33,6 +33,7 @@ from typing import NamedTuple
 import torch
 
 from madicp_tpu_torch.kernels import build
+from madicp_tpu_torch.ops.lie import broadcast_shape
 
 counter = build.LaunchCounter()
 # the __global__ functions of csrc/icp_terms.cu, as a CUDA trace names them
@@ -203,8 +204,8 @@ def _lead(payload, moving_pts, moving_valid, X) -> tuple:
         raise ValueError(f"icp_terms: {L} payload entries, {moving_pts.shape[-2]} points, "
                          f"{moving_valid.shape[-1]} valid flags")
     try:
-        return tuple(torch.broadcast_shapes(payload.shape[:-2], moving_pts.shape[:-2],
-                                            moving_valid.shape[:-1], X.shape[:-2]))
+        return broadcast_shape(payload.shape[:-2], moving_pts.shape[:-2],
+                               moving_valid.shape[:-1], X.shape[:-2])
     except RuntimeError as err:
         raise ValueError(f"icp_terms: leading axes do not broadcast: {err}") from None
 

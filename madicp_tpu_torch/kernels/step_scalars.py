@@ -31,6 +31,12 @@ its plain version bit for bit where the CUDA math library's ``sin``,
 ``atan2``, ``asin`` and ``log`` equal torch's (torch's CUDA ops call the
 same functions).
 
+:func:`tail` writes the new state's fields into the tensors of ``out``
+where it is given: the step hands over the state itself
+(``models/step_graph.py`` ``step_in_place``), so a step writes its state
+in place and copies nothing afterwards; the plain version copies its
+results into them. Without ``out`` every field is a fresh tensor.
+
 Dispatch is by the tensors' device and nothing else: CPU tensors take the
 plain version, CUDA tensors take the kernel or the call raises. The
 wrappers allocate only their outputs, read nothing back to the host and
@@ -59,11 +65,15 @@ _launch = build.Launcher("step_scalars", {  # the stream last
 }, counter)
 MAX_FRAMES = 32  # the tail kernel holds a frame a lane
 MAX_WINDOW = 33  # and a pose pair a lane
+# TailIn's pointers, then TailOut's (csrc/step_scalars.cu), in one array
+_TAIL_PTRS = ctypes.c_void_p * 36
+_TAIL_DIMS = ctypes.c_int * 6
 
 
 class Tail(NamedTuple):
-    """What :func:`tail` returns: the new state's fields it forms, the
-    step's outputs, and the ring write's ``plan``."""
+    """What :func:`tail` returns: the new state's fields it forms (the
+    destination's own tensors where ``out`` is given), the step's
+    outputs, and the ring write's ``plan``."""
 
     velocity: torch.Tensor        # (B, 6)
     traj: torch.Tensor            # (B, W, 4, 4)
@@ -140,7 +150,7 @@ def launch_predict(X: torch.Tensor, v: torch.Tensor, hz: torch.Tensor) -> torch.
 
 # ----------------------------------------------------------------- tail --
 def tail_plain(state, X, H, matched, valid, hz, *, p_th: float, num_keyframes: int,
-               kf_offset: int = 0) -> Tail:
+               kf_offset: int = 0, out=None) -> Tail:
     """Plain version of the step's tail for B sequences: ``state`` holds
     the batched fields of :data:`_STATE` (a ``PipelineState``), ``X (B,
     4, 4)`` the rounds' pose, ``H (B, 6, 6)`` the last round's normal
@@ -148,7 +158,11 @@ def tail_plain(state, X, H, matched, valid, hz, *, p_th: float, num_keyframes: i
     the leaf mask, ``hz`` the 0-dim rate; ``p_th`` the promotion
     threshold, ``num_keyframes`` the ring's global size and ``kf_offset``
     the global slot of this state's first keyframe (a process writes only
-    a slot it holds)."""
+    a slot it holds). ``out``: a state whose tensors (those of
+    :data:`_STATE` and ``X``) take the new state, usually ``state``
+    itself (:func:`tail`); the result's fields are then those tensors."""
+    if out is not None:
+        _check_out(out, state)
     dtype, dev = X.dtype, X.device
     B = X.shape[0]
     F, K_l = state.fr_valid.shape[1], state.kf_valid.shape[1]
@@ -179,7 +193,7 @@ def tail_plain(state, X, H, matched, valid, hz, *, p_th: float, num_keyframes: i
     fr_valid = torch.where(promote[:, None], fr_valid & (fr_seq > best_seq[:, None]), fr_valid)
     plan = torch.stack([head, best.to(torch.int32), torch.clamp(slot, 0, K_l - 1),
                         write.to(torch.int32)], dim=-1).to(torch.int32)
-    return Tail(
+    new = Tail(
         velocity=velocity,
         traj=traj,
         traj_count=traj_count,
@@ -199,6 +213,13 @@ def tail_plain(state, X, H, matched, valid, hz, *, p_th: float, num_keyframes: i
         seq=state.seq + 1,
         plan=plan,
     )
+    if out is None:
+        return new
+    # every value is formed before the first copy: reads before writes
+    out.X.copy_(X)
+    for name, _, _ in _STATE:
+        getattr(out, name).copy_(getattr(new, name))
+    return new._replace(**{name: getattr(out, name) for name, _, _ in _STATE})
 
 
 def _contiguous(what: str, **tensors) -> None:
@@ -246,49 +267,77 @@ def _check_tail(state, X, H, matched, valid, hz, num_keyframes, kf_offset) -> tu
     return B, L, sizes["W"], sizes["F"], sizes["K"]
 
 
+def _check_out(out, state) -> None:
+    """Raise unless every destination in ``out`` (the fields of
+    :data:`_STATE` and ``X``) has its state field's shape, type and
+    device and is contiguous (the kernel writes it as one block; a copy
+    made here would leave the caller's tensor unwritten)."""
+    for name in ("X",) + tuple(name for name, _, _ in _STATE):
+        d, s = getattr(out, name), getattr(state, name)
+        if d.dtype != s.dtype or d.device != s.device:
+            raise TypeError(f"step_scalars.tail: out.{name} is {d.dtype} on {d.device}, the "
+                            f"state's {s.dtype} on {s.device}")
+        if d.shape != s.shape:
+            raise ValueError(f"step_scalars.tail: out.{name} {tuple(d.shape)}, the state's "
+                             f"{tuple(s.shape)}")
+        if not d.is_contiguous():
+            raise ValueError(f"step_scalars.tail: out.{name} must be contiguous")
+
+
 def tail(state, X, H, matched, valid, hz, *, p_th: float, num_keyframes: int,
-         kf_offset: int = 0) -> Tail:
+         kf_offset: int = 0, out=None) -> Tail:
     """The step's tail of :func:`tail_plain` (same arguments): the plain
     version for CPU tensors, the kernel for CUDA ones (on contiguous
-    copies of operands that are not)."""
-    _check_tail(state, X, H, matched, valid, hz, num_keyframes, kf_offset)
+    copies of operands that are not; a destination in ``out`` must be
+    contiguous)."""
+    dims = _check_tail(state, X, H, matched, valid, hz, num_keyframes, kf_offset)
     kw = dict(p_th=p_th, num_keyframes=num_keyframes, kf_offset=kf_offset)
     if X.device.type == "cpu":
-        return tail_plain(state, X, H, matched, valid, hz, **kw)
+        return tail_plain(state, X, H, matched, valid, hz, **kw, out=out)
+    if out is not None:
+        _check_out(out, state)
     # a copy only where an operand is not contiguous (the keyframe-sharded
     # step's all-reduced H)
-    state = state._replace(**{name: getattr(state, name).contiguous() for name, _, _ in _STATE})
-    return launch_tail(state, *(t.contiguous() for t in (X, H, matched, valid)), hz, **kw)
+    ops = [t if t.is_contiguous() else t.contiguous() for t in (X, H, matched, valid)]
+    if not all(getattr(state, name).is_contiguous() for name, _, _ in _STATE):
+        state = state._replace(**{name: getattr(state, name).contiguous()
+                                  for name, _, _ in _STATE})
+    return _launch_tail(state, *ops, hz, dims, out, **kw)
 
 
 def launch_tail(state, X, H, matched, valid, hz, *, p_th: float, num_keyframes: int,
-                kf_offset: int = 0) -> Tail:
+                kf_offset: int = 0, out=None) -> Tail:
     """Run the tail kernel on CUDA tensors (every operand contiguous;
     arguments and result as :func:`tail`); one count."""
-    B, L, W, F, K_l = _check_tail(state, X, H, matched, valid, hz, num_keyframes, kf_offset)
-    ins = [X, H, matched, valid, hz] + [getattr(state, name) for name, _, _ in _STATE]
-    _contiguous("step_scalars.tail", **{f"operand {i}": t for i, t in enumerate(ins)})
+    dims = _check_tail(state, X, H, matched, valid, hz, num_keyframes, kf_offset)
+    if out is not None:
+        _check_out(out, state)
+    _contiguous("step_scalars.tail", X=X, H=H, matched=matched, valid=valid,
+                **{name: getattr(state, name) for name, _, _ in _STATE})
+    return _launch_tail(state, X, H, matched, valid, hz, dims, out, p_th=p_th,
+                        num_keyframes=num_keyframes, kf_offset=kf_offset)
+
+
+def _launch_tail(state, X, H, matched, valid, hz, dims, out, *, p_th: float,
+                 num_keyframes: int, kf_offset: int) -> Tail:
+    B, L, W, F, K_l = dims
     dev, dtype = X.device, X.dtype
-    f = dict(dtype=dtype, device=dev)
-    i32 = dict(dtype=torch.int32, device=dev)
-    flag = dict(dtype=torch.bool, device=dev)
-    out = Tail(
-        velocity=torch.empty((B, 6), **f), traj=torch.empty((B, W, 4, 4), **f),
-        traj_count=torch.empty(B, **i32), ratio=torch.empty(B, **f),
-        n_leaves=torch.empty(B, dtype=torch.int64, device=dev), promote=torch.empty(B, **flag),
-        fr_valid=torch.empty((B, F), **flag), fr_weight=torch.empty((B, F), **f),
-        fr_seq=torch.empty((B, F), **i32), fr_pose=torch.empty((B, F, 4, 4), **f),
-        fr_head=torch.empty(B, **i32), kf_valid=torch.empty((B, K_l), **flag),
-        kf_head=torch.empty(B, **i32), keyframe_to_map=torch.empty((B, 4, 4), **f),
-        seq_keyframe=torch.empty(B, **i32), seq=torch.empty(B, **i32),
-        plan=torch.empty((B, 4), **i32))
-    # the order of TailIn and TailOut in csrc/step_scalars.cu
-    outs = [out.velocity, out.traj, out.traj_count, out.ratio, out.n_leaves, out.promote,
-            out.fr_valid, out.fr_weight, out.fr_seq, out.fr_pose, out.fr_head, out.kf_valid,
-            out.kf_head, out.keyframe_to_map, out.seq_keyframe, out.seq, out.plan]
-    in_ptrs = (ctypes.c_void_p * len(ins))(*(t.data_ptr() for t in ins))
-    out_ptrs = (ctypes.c_void_p * len(outs))(*(t.data_ptr() for t in outs))
-    dims = (ctypes.c_int * 6)(L, W, F, K_l, num_keyframes, kf_offset)
-    _launch("tail", dtype, dev, ctypes.addressof(in_ptrs), ctypes.addressof(out_ptrs),
+    names = [name for name, _, _ in _STATE]
+    dst = [getattr(out, name) for name in names] if out is not None else [
+        torch.empty_like(getattr(state, name)) for name in names]
+    new = Tail(**dict(zip(names, dst)), ratio=torch.empty(B, dtype=dtype, device=dev),
+               n_leaves=torch.empty(B, dtype=torch.int64, device=dev),
+               promote=torch.empty(B, dtype=torch.bool, device=dev),
+               plan=torch.empty((B, 4), dtype=torch.int32, device=dev))
+    # TailIn, then TailOut (csrc/step_scalars.cu): X (0 where not written),
+    # the state's fields, then the step's outputs
+    ptrs = _TAIL_PTRS(X.data_ptr(), H.data_ptr(), matched.data_ptr(), valid.data_ptr(),
+                      hz.data_ptr(), *(getattr(state, name).data_ptr() for name in names),
+                      out.X.data_ptr() if out is not None else 0,
+                      *(t.data_ptr() for t in dst), new.ratio.data_ptr(),
+                      new.n_leaves.data_ptr(), new.promote.data_ptr(), new.plan.data_ptr())
+    at = ctypes.addressof(ptrs)
+    dims = _TAIL_DIMS(L, W, F, K_l, num_keyframes, kf_offset)
+    _launch("tail", dtype, dev, at, at + 18 * ctypes.sizeof(ctypes.c_void_p),
             ctypes.addressof(dims), float(p_th), B)
-    return out
+    return new

@@ -529,11 +529,17 @@ def odometry_step(
     icp_rounds_fn=None,
     kf_offset: int = 0,
     points_shard: Optional[PointShard] = None,
+    into: Optional[PipelineState] = None,
 ) -> tuple[PipelineState, StepOutput]:
     """One full odometry step (reference ``Pipeline::compute``,
     ``pipeline.cpp:125-265``). Updates ``state.fr_tree`` and
     ``state.kf_tree`` in place. ``timer``: an optional
-    :class:`~madicp_tpu_torch.utils.timing.PhaseTimer`.
+    :class:`~madicp_tpu_torch.utils.timing.PhaseTimer`. ``into``: a state
+    (shaped as ``state``, contiguous) whose tensors take the new state's
+    fields, usually ``state`` itself (the step in place:
+    :func:`~madicp_tpu_torch.models.step_graph.step_in_place`); the new
+    state returned is then made of them. Without it every field of the
+    new state but the trees is a fresh tensor.
 
     The state is batched (leading B on every field, points (B, N, 3),
     valid (B, N)) or a single sequence's, which steps as a batch of one.
@@ -557,14 +563,15 @@ def odometry_step(
     del stamp
     if state.X.dim() == 2:
         state, out = _odometry_step(cfg, _lift(state), points[None], valid[None], timer,
-                                    icp_rounds_fn, kf_offset, points_shard)
+                                    icp_rounds_fn, kf_offset, points_shard,
+                                    None if into is None else _lift(into))
         return _drop(state), _drop(out)
     return _odometry_step(cfg, state, points, valid, timer, icp_rounds_fn, kf_offset,
-                          points_shard)
+                          points_shard, into)
 
 
 def _odometry_step(cfg, state, points, valid, timer, icp_rounds_fn, kf_offset,
-                   points_shard):
+                   points_shard, into):
     """:func:`odometry_step` on a batched state."""
     dtype, dev = cfg.dtype, points.device
     # filled in on the device: a copy from the host would synchronise
@@ -601,17 +608,18 @@ def _odometry_step(cfg, state, points, valid, timer, icp_rounds_fn, kf_offset,
 
     with phase(timer, "rings"):
         # ---- inlier ratio, trajectory and velocity, frame record and
-        # promotion (pipeline.cpp:197-262): the scalars by K14's tail, the
-        # trees by K13 on the card. The rings are written in place: the
-        # moved scan into its window slot, the promoted window tree into
-        # the keyframe ring only where a sequence promotes and this process
-        # holds its ring head.
+        # promotion (pipeline.cpp:197-262): the scalars by K14's tail (into
+        # ``into``'s tensors where given), the trees by K13 on the card. The
+        # rings are written in place: the moved scan into its window slot,
+        # the promoted window tree into the keyframe ring only where a
+        # sequence promotes and this process holds its ring head.
         tail = step_scalars.tail(state, X, H_last, matched, leaves.valid, hz, p_th=cfg.p_th,
-                                 num_keyframes=cfg.num_keyframes, kf_offset=kf_offset)
+                                 num_keyframes=cfg.num_keyframes, kf_offset=kf_offset,
+                                 out=into)
         ring_write.ring_write(tree.nav, X, tail.plan, state.fr_tree.nav, state.kf_tree.nav)
 
     new_state = PipelineState(
-        X=X,
+        X=X if into is None else into.X,
         velocity=tail.velocity,
         traj=tail.traj,
         traj_count=tail.traj_count,

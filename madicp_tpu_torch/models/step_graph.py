@@ -6,9 +6,10 @@ program that updates the state's buffers in place; here a scan is the
 replay of one ``torch.cuda.CUDAGraph`` that reads its inputs from static
 buffers and leaves the new state in the state's own tensors.
 
-- :func:`step_in_place` is the captured body: ``odometry_step``, then the
-  new state copied into the state's tensors (the rings are written in
-  place already). It is a plain function on tensors; every eager step
+- :func:`step_in_place` is the captured body: ``odometry_step`` with the
+  state as its own destination, so the tail (K14) writes the new state
+  into the state's tensors and the ring write (K13) the rings: nothing is
+  copied afterwards. It is a plain function on tensors; every eager step
   (on the CPU, the first scans, under a timer, on a mesh) runs it too.
 - :class:`StepGraphs` holds one batch's static buffers — the state's 16
   fields, the points ``(B, N, 3)`` and the masks ``(B, N)`` — and one
@@ -94,10 +95,12 @@ def write_state(dst: PipelineState, src: PipelineState) -> None:
 def step_in_place(cfg, state: PipelineState, points, valid, timer=None,
                   **kw) -> StepOutput:
     """One odometry step that leaves the new state in ``state``'s own
-    tensors; returns the step's output, which aliases none of them.
-    ``kw``: :func:`~madicp_tpu_torch.models.pipeline.odometry_step`'s
-    keywords (the keyframe-sharded step's)."""
-    new, out = odometry_step(cfg, state, points, valid, None, timer, **kw)
+    tensors (the tail writes them in place: :func:`write_state` finds
+    every field already there and copies nothing); returns the step's
+    output, which aliases none of them. ``kw``:
+    :func:`~madicp_tpu_torch.models.pipeline.odometry_step`'s keywords
+    (the keyframe-sharded step's)."""
+    new, out = odometry_step(cfg, state, points, valid, None, timer, into=state, **kw)
     write_state(state, new)
     return out
 

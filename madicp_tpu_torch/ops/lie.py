@@ -149,9 +149,23 @@ def euler_xyz(R: torch.Tensor) -> torch.Tensor:
     return torch.stack([ax, ay, az], dim=-1)
 
 
+def broadcast_shape(*shapes) -> tuple:
+    """The shape ``shapes`` broadcast to, as ``torch.broadcast_shapes``
+    gives it (a ``RuntimeError`` where they do not broadcast), without
+    that function's first-use import of sympy (~1 s a process)."""
+    n = max((len(s) for s in shapes), default=0)
+    out = []
+    for dims in zip(*((1,) * (n - len(s)) + tuple(s) for s in shapes)):
+        sizes = {d for d in dims if d != 1}
+        if len(sizes) > 1:
+            raise RuntimeError(f"shapes {[tuple(s) for s in shapes]} do not broadcast")
+        out.append(sizes.pop() if sizes else 1)
+    return tuple(out)
+
+
 def se3_matrix(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """Assemble a homogeneous (..., 4, 4) transform from (...,3,3) and (...,3)."""
-    batch = torch.broadcast_shapes(R.shape[:-2], t.shape[:-1])
+    batch = broadcast_shape(R.shape[:-2], t.shape[:-1])
     R = R.expand(batch + (3, 3))
     t = t.expand(batch + (3,))
     top = torch.cat([R, t[..., :, None]], dim=-1)

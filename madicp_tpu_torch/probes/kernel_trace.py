@@ -63,9 +63,16 @@ parts named by ``--parts`` (default: all but ``step``, ``pdl`` and ``launch``):
   B = 1 and 4, on a scan where every sequence promotes and on one where
   none does: every kernel with its device µs and the line of
   ``_odometry_step`` and the innermost package line that issued it (a
-  marker kernel a line, :func:`step_lines`), and from a replay of the
-  step captured whole, the prediction's and the tail's graphed device µs
-  and kernel counts (:func:`tail_trace`). Not in the default.
+  marker kernel a line, :func:`step_lines`), the copies ``write_state``
+  makes after the step by its line, and from a replay of the step
+  captured whole, the prediction's, the tail's and the copies' graphed
+  device µs and kernel counts (:func:`tail_trace`); then the
+  ``tail_designs`` part. Not in the default.
+- ``tail_designs``: K14's tail on a recorded flagship step's operands,
+  float32 and float64, B = 1 and 4: the package's kernel fresh and in
+  place, its one-block design and that design cut to the flag counts
+  alone and to the chain alone (:func:`tail_designs`), graphed device
+  µs in turns. Not in the default.
 - ``rates``: the deskew part's certified flagship drive alone
   (:func:`deskew_rates`, one round: deskew off, reference, binned). Not
   in the default.
@@ -110,8 +117,8 @@ from madicp_tpu_torch.utils.timing import bound_ms, device_trace, graph_ms
 
 REPS = 5  # graph replays a trace
 PARTS = ("build", "terms", "descent", "ring", "nodes", "resources", "gn", "step", "pdl",
-         "launch", "deskew", "tail", "rates", "ring_split")
-DEFAULT_PARTS = PARTS[:-7]
+         "launch", "deskew", "tail", "rates", "ring_split", "tail_designs")
+DEFAULT_PARTS = PARTS[:-8]
 # a later certified round's uncertified share: a certified flagship scan
 # descends 1.71 M entries, 0.52 M of them in round 0, and each of the other
 # 14 rounds hands the descent 0.52 M entries of which ~16% are live
@@ -792,7 +799,7 @@ def main(argv=None) -> int:
                     help="every K8 and K9 level on every path, K7 with every cluster size")
     ap.add_argument("--parts", default=",".join(DEFAULT_PARTS),
                     help=f"comma list of {', '.join(PARTS)} (default: all but step, pdl, "
-                    "launch, deskew, tail and rates)")
+                    "launch, deskew, tail, rates, ring_split and tail_designs)")
     a = ap.parse_args(argv)
     parts = set(a.parts.split(","))
     if parts - set(PARTS):
@@ -882,6 +889,9 @@ def main(argv=None) -> int:
     if "tail" in parts:
         for row in tail_traces(dev, a.reps):
             emit("tail", **row)
+    if parts & {"tail", "tail_designs"}:
+        for row in tail_design_traces(dev):
+            emit("tail_designs", **row)
     if "rates" in parts:
         emit("deskew_rates", **deskew_rates(dev, rounds=1))
     if "ring_split" in parts:
@@ -1425,13 +1435,14 @@ def tail_region(pipeline_path: str) -> tuple:
                            find("new_state = PipelineState(")))
 
 
-def _in(chain, func: str, lines: set):
-    """The line of ``func``'s frame in ``chain`` if it is one of ``lines``."""
+def _in(chain, func: str, lines: set = None):
+    """The line of ``func``'s frame in ``chain`` if it is one of ``lines``
+    (any line where ``lines`` is None)."""
     for label in chain:
         where, name = label.split(" ")
         if name == func:
             line = int(where.rsplit(":", 1)[1])
-            return line if line in lines else None
+            return line if lines is None or line in lines else None
     return None
 
 
@@ -1459,7 +1470,9 @@ def tail_trace(setup, pipe, B: int, promote: bool, reps: int = REPS) -> dict:
     source, and, from a replay of the step captured whole in a CUDA graph
     (its kernels in the eager step's order), the prediction's and the
     tail's graphed device µs (busy and first start to last end) and
-    kernel counts."""
+    kernel counts; the same for the copies of the new state into the
+    state's tensors that ``write_state`` makes after the step (part
+    ``write_state``, by its line)."""
     import dataclasses
 
     from madicp_tpu_torch.models import pipeline as pipeline_mod
@@ -1480,8 +1493,10 @@ def tail_trace(setup, pipe, B: int, promote: bool, reps: int = REPS) -> dict:
     predict_lines, tail_lines = tail_region(pipeline_mod.__file__)
     rows = []
     for j, (name, us, chain) in enumerate(eager):
-        for part, lines in (("predict", predict_lines), ("tail", tail_lines)):
-            line = _in(chain, "_odometry_step", lines)
+        for part, func, lines in (("predict", "_odometry_step", predict_lines),
+                                  ("tail", "_odometry_step", tail_lines),
+                                  ("write_state", "write_state", None)):
+            line = _in(chain, func, lines)
             if line is not None:
                 rows.append({"index": j, "part": part, "step_line": line,
                              "source": chain[-1] if chain else None, "kernel": name,
@@ -1494,7 +1509,7 @@ def tail_trace(setup, pipe, B: int, promote: bool, reps: int = REPS) -> dict:
             us, n = groups.get(k, (0.0, 0))
             groups[k] = (us + r["device_us"], n + 1)
         out[f"by_{key}"] = {k: {"device_us": us, "kernels": n} for k, (us, n) in groups.items()}
-    for part in ("predict", "tail"):
+    for part in ("predict", "tail", "write_state"):
         mine = [r for r in rows if r["part"] == part]
         out[f"{part}_eager_busy_us"] = sum(r["device_us"] for r in mine)
         out[f"{part}_kernels"] = len(mine)
@@ -1530,7 +1545,7 @@ def tail_trace(setup, pipe, B: int, promote: bool, reps: int = REPS) -> dict:
                         if names is not None else "no profiled replay kept every kernel")
     else:
         out["step_kernels_graphed"] = len(kept)
-        for part in ("predict", "tail"):
+        for part in ("predict", "tail", "write_state"):
             idx = [r["index"] for r in rows if r["part"] == part]
             if idx:
                 sel = [kept[i] for i in idx]
@@ -1552,6 +1567,159 @@ def tail_traces(device, reps: int = REPS):
         pipe = tail_pipe(setup, dtype)
         for B, promote in itertools.product(TAIL_BATCHES, (False, True)):
             yield {"dtype": str(dtype).split(".")[1], **tail_trace(setup, pipe, B, promote, reps)}
+        del pipe
+        torch.cuda.empty_cache()
+
+
+def record_tail(cfg, state, pts, valid) -> dict:
+    """The arguments of the step's predict, tail and ring write in one
+    eager ``step_in_place`` of ``state`` (which it advances), cloned as
+    they were handed over: ``{"predict": (X, v, hz), "tail": (the state's
+    scalars (its trees None), (X, H, matched, valid, hz), keywords but
+    ``out``), "ring": (nav, X)}``."""
+    from madicp_tpu_torch.kernels import ring_write, step_scalars
+    from madicp_tpu_torch.models.step_graph import step_in_place
+    from madicp_tpu_torch.ops.tree import SearchTree
+
+    rec = {}
+    real = step_scalars.predict, step_scalars.tail, ring_write.ring_write
+
+    def predict(*args):
+        rec["predict"] = tuple(a.clone() for a in args)
+        return real[0](*args)
+
+    def tail(state, *args, **kw):
+        # the scalars of the state (the tail reads no tree)
+        scalars = type(state)(*(None if isinstance(v, SearchTree) else v.clone() for v in state))
+        rec["tail"] = (scalars, tuple(a.clone() for a in args),
+                       {k: v for k, v in kw.items() if k != "out"})
+        return real[1](state, *args, **kw)
+
+    def ring(nav, X, plan, fr, kf):
+        rec["ring"] = (nav.clone(), X.clone())
+        return real[2](nav, X, plan, fr, kf)
+
+    step_scalars.predict, step_scalars.tail, ring_write.ring_write = predict, tail, ring
+    try:
+        step_in_place(cfg, state, pts, valid)
+    finally:
+        step_scalars.predict, step_scalars.tail, ring_write.ring_write = real
+    return rec
+
+
+def clone_scalars(state):
+    """A copy of a recorded state's scalars (its trees stay None)."""
+    return type(state)(*(None if v is None else v.clone() for v in state))
+
+
+TAIL_DESIGN_REPS = 20  # graphed calls a timing
+
+
+def tail_designs(rec: dict, reps: int = TAIL_DESIGN_REPS) -> dict:
+    """K14's tail on one recorded step's operands (:func:`record_tail`):
+    the package's kernel with fresh outputs and, where the package takes
+    ``out``, in place (the state its own destination, as the step calls
+    it); the one-block design (:data:`kernel_variants.TAIL_ONE_BLOCK`)
+    and its two cuts, the counts alone and the chain alone
+    (:func:`kernel_variants.tail_cut_source`). Each one's graphed device
+    µs, taken in the order of the list and then in reverse; whether the
+    one-block design and the in-place call give the fresh call's bits;
+    the eager ms of ``step_scalars.tail`` (the wrapper the step calls,
+    host work included), fresh and in place."""
+    import inspect
+
+    from madicp_tpu_torch.kernels import step_scalars
+    from madicp_tpu_torch.probes import kernel_variants as kv
+    from madicp_tpu_torch.utils.timing import event_ms
+
+    st, args, kw = rec["tail"]
+    text = kv.TAIL_ONE_BLOCK.read_text()
+    libs = {name: kv.build_variant("tail_one_block", source=src)[0] for name, src in
+            (("one_block", text), ("counts_only", kv.tail_cut_source(text, "counts")),
+             ("chain_only", kv.tail_cut_source(text, "chain")))}
+    fns = {"package": lambda: step_scalars.launch_tail(st, *args, **kw)}
+    fresh = fns["package"]()
+    same = {"one_block": kv.tail_one_block(libs["one_block"], st, *args, **kw)}
+    eager = {"tail": lambda: step_scalars.tail(st, *args, **kw)}
+    if "out" in inspect.signature(step_scalars.launch_tail).parameters:
+        dst = clone_scalars(st)
+        same["package_in_place"] = step_scalars.launch_tail(dst, *args, **kw, out=dst)
+        fns["package_in_place"] = lambda: step_scalars.launch_tail(dst, *args, **kw, out=dst)
+        eager["tail_in_place"] = lambda: step_scalars.tail(dst, *args, **kw, out=dst)
+    for name, lib in libs.items():
+        fns[name] = lambda lib=lib: kv.tail_one_block(lib, st, *args, **kw)
+    torch.cuda.synchronize()
+    equal = {name: all(torch.equal(a, b) or (a.is_floating_point() and torch.equal(
+        a.nan_to_num(), b.nan_to_num()) and torch.equal(a.isnan(), b.isnan()))
+        for a, b in zip(t, fresh)) for name, t in same.items()}
+    us: dict = {name: [] for name in fns}
+    for name in list(fns) + list(reversed(fns)):
+        us[name].append(graph_ms(fns[name], reps) * 1e3)
+    return {"B": st.X.shape[0], "L": args[2].shape[-1], "equal_to_fresh": equal,
+            "graphed_device_us": us,
+            "eager_ms": {name: event_ms(fn, reps) for name, fn in eager.items()}}
+
+
+def tail_stamps(rec: dict) -> dict:
+    """Where K14's tail spends its cycles on one recorded step
+    (:func:`record_tail`): the package's kernel in place and the
+    one-block design, each built with a ``clock64`` stamp at every
+    ``// phase:`` line of its source kept by each warp of block 0
+    (:func:`kernel_variants.stamp_source` with ``per_warp``), launched
+    once eagerly: {design: {phase: {warp: cycles after the first
+    stamp}}}."""
+    import inspect
+
+    from madicp_tpu_torch.kernels import build as kbuild
+    from madicp_tpu_torch.kernels import step_scalars
+    from madicp_tpu_torch.probes import kernel_variants as kv
+
+    st, args, kw = rec["tail"]
+    out = {}
+    text = kv.TAIL_ONE_BLOCK.read_text()
+    stamped, labels = kv.stamp_source(text, per_warp=True)
+    lib, _ = kv.build_variant("tail_one_block", source=stamped)
+    kv.clear_stamps(lib)
+    kv.tail_one_block(lib, st, *args, **kw)
+    torch.cuda.synchronize()
+    out["one_block"] = kv.read_warp_stamps(lib, labels)
+    if "out" in inspect.signature(step_scalars.launch_tail).parameters:
+        stamped, labels = kv.stamp_source((kbuild.CSRC / "step_scalars.cu").read_text(),
+                                          per_warp=True)
+        lib, _ = kv.build_variant("step_scalars", source=stamped)
+        dst = clone_scalars(st)
+        with kv.use_variant(step_scalars._launch, lib):
+            kv.clear_stamps(lib)
+            step_scalars.launch_tail(dst, *args, **kw, out=dst)
+            torch.cuda.synchronize()
+        out["package_in_place"] = kv.read_warp_stamps(lib, labels)
+    return out
+
+
+def tail_design_traces(device):
+    """:func:`tail_designs` on a step of the primed certified flagship
+    (:func:`tail_pipe`) after two warm steps, float32 and float64, at each
+    of :data:`TAIL_BATCHES` (yields one dict each)."""
+    from madicp_tpu_torch import bench
+    from madicp_tpu_torch.models.pipeline import _map
+    from madicp_tpu_torch.models.step_graph import step_in_place
+
+    setup = bench.BenchSetup(device, 131072, 16, 16, 32768)
+    for dtype in (torch.float32, torch.float64):
+        pipe = tail_pipe(setup, dtype)
+        for B in TAIL_BATCHES:
+            state = _map(lambda t: t[None].repeat((B,) + (1,) * t.dim()).contiguous(),
+                         pipe.state)
+            staged = [pipe.stage(setup.scan_at(TAIL_SCAN + b)) for b in range(B)]
+            pts = torch.stack([p for p, _, _ in staged])
+            valid = torch.stack([v for _, v, _ in staged])
+            for _ in range(2):
+                step_in_place(pipe.cfg, state, pts, valid)
+            rec = record_tail(pipe.cfg, state, pts, valid)
+            yield {"dtype": str(dtype).split(".")[1], **tail_designs(rec),
+                   "stamps": tail_stamps(rec)}
+            del state, rec
+            torch.cuda.empty_cache()
         del pipe
         torch.cuda.empty_cache()
 

@@ -18,16 +18,20 @@ ring split, every rank within the certified float32 bound of one
 process.
 
 Sizes are those of tests/distributed_worker.py (512 points, depth 10, 2
-keyframes, 3 scans). The ranks import no JAX.
+keyframes, 3 scans). The ranks import no JAX. The rank jobs run in one
+launch, every job in turn in one process group, whose poses the tests
+share (computed once for every pytest-xdist worker: ``torch_shared``).
 
 Rank script: python -m torch.distributed.run --standalone --nproc-per-node 2 \\
-    tests/test_torch_distributed.py <job> <out_dir>
+    tests/test_torch_distributed.py <job|all> <out_dir>
 """
 
+import functools
 import json
 import os
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 import numpy as np
@@ -39,6 +43,7 @@ from madicp_tpu_torch.apps import fleet_eval
 from madicp_tpu_torch.models.pipeline import Pipeline, PipelineConfig
 from madicp_tpu_torch.utils.config import DatasetConfig, MADParams, dump_yaml
 from madicp_tpu_torch.utils.trajectory import load_kitti_poses
+from torch_shared import shared_arrays
 
 REPO = Path(__file__).resolve().parents[1]
 # the worker's scans are one cloud moved (inlier ratio 1): above 1 every
@@ -90,17 +95,19 @@ def drive_fleet(cfg, n_seq, mesh=None, shard_points=False) -> np.ndarray:
 
 
 def _worker(job: str, out: Path) -> None:
-    """One rank of ``job``: writes its poses to ``out/<job>.rank<r>.npy``."""
+    """One rank of ``job`` (every job of :data:`JOBS` in turn for
+    ``all``): writes its poses to ``out/<job>.rank<r>.npy``."""
     from madicp_tpu_torch.parallel import distributed
     from madicp_tpu_torch.parallel.mesh import make_mesh
 
-    seq, kf, n_seq, shard_points, schedule = JOBS[job]
     topo = distributed.initialize(device="cpu")
     try:
         assert topo["process_count"] == 2 and topo["backend"] == "gloo", topo
-        poses = drive_fleet(config(schedule), n_seq, make_mesh(kf=kf, seq=seq),
-                            shard_points)
-        np.save(out / f"{job}.rank{topo['process_index']}.npy", poses)
+        for name in JOBS if job == "all" else [job]:
+            seq, kf, n_seq, shard_points, schedule = JOBS[name]
+            poses = drive_fleet(config(schedule), n_seq, make_mesh(kf=kf, seq=seq),
+                                shard_points)
+            np.save(out / f"{name}.rank{topo['process_index']}.npy", poses)
     finally:
         distributed.shutdown()
     assert "jax" not in sys.modules, "a rank imported JAX"
@@ -119,10 +126,20 @@ def _torchrun(*args) -> str:
     return r.stdout
 
 
-def _run_job(job: str, out: Path) -> list:
+@functools.lru_cache(maxsize=None)
+def _all_jobs() -> dict:
+    """{"<job>.rank<r>": poses} of every job of :data:`JOBS`, from one
+    launch of two ranks."""
+    with tempfile.TemporaryDirectory() as out:
+        _torchrun(__file__, "all", out)
+        return {f"{job}.rank{r}": np.load(Path(out) / f"{job}.rank{r}.npy")
+                for job in JOBS for r in range(2)}
+
+
+def _run_job(job: str, request) -> list:
     """Every rank's poses of ``job``."""
-    _torchrun(__file__, job, str(out))
-    return [np.load(out / f"{job}.rank{r}.npy") for r in range(2)]
+    got = shared_arrays(request, "test_torch_distributed_jobs", _all_jobs)
+    return [got[f"{job}.rank{r}"] for r in range(2)]
 
 
 def _pipeline_poses(schedule: str):
@@ -136,23 +153,23 @@ def _pipeline_poses(schedule: str):
     return np.stack(poses), promoted
 
 
-def test_seq_sharded_fleet_matches_one_process(tmp_path):
+def test_seq_sharded_fleet_matches_one_process(request):
     want = drive_fleet(config("certified"), N_SEQ)
-    for got in _run_job("seq", tmp_path):
+    for got in _run_job("seq", request):
         np.testing.assert_allclose(got, want, atol=1e-9)
 
 
 @pytest.mark.parametrize("schedule", list(SCHEDULES))
-def test_kf_sharded_step_matches_pipeline_on_every_rank(tmp_path, schedule):
+def test_kf_sharded_step_matches_pipeline_on_every_rank(request, schedule):
     want, promoted = _pipeline_poses(schedule)
     assert promoted[1], "scan 1 must promote into the slot rank 1 holds"
-    for got in _run_job(f"kf-{schedule}", tmp_path):
+    for got in _run_job(f"kf-{schedule}", request):
         np.testing.assert_allclose(got[:, 0], want, atol=1e-9)
 
 
-def test_points_sharded_build_matches_pipeline(tmp_path):
+def test_points_sharded_build_matches_pipeline(request):
     want, _ = _pipeline_poses("certified")
-    for got in _run_job("kf+points", tmp_path):
+    for got in _run_job("kf+points", request):
         np.testing.assert_allclose(got[:, 0], want, atol=1e-6)
 
 

@@ -18,6 +18,7 @@ from madicp_tpu_torch.parallel import Fleet, state_shardings
 from madicp_tpu_torch.parallel.mesh import make_global, make_mesh
 from madicp_tpu_torch.utils.convert import kf_shard, kf_unshard, state_from_numpy
 from tests_fixtures_helper import synthetic_room_scans
+from torch_shared import shared_arrays
 
 torch.set_num_threads(2)
 
@@ -57,9 +58,23 @@ def batches():
 
 
 @pytest.fixture(scope="module")
-def jax_drive(batches):
+def jax_drive(batches, request):
     """The JAX Fleet (no mesh) over every scan: per scan its poses and
-    promotions, and its state after scan 1 as numpy."""
+    promotions, and its state after scan 1 as numpy; computed once for
+    every pytest-xdist worker (``torch_shared``)."""
+
+    def compute():
+        poses, promoted, state1 = _jax_drive(batches)
+        return dict(poses=poses, promoted=promoted,
+                    **{f"state1_{name}": v for name, v in state1.items()})
+
+    got = shared_arrays(request, "test_torch_parallel_jax_drive", compute)
+    return (got["poses"], got["promoted"],
+            {name[7:]: v for name, v in got.items() if name.startswith("state1_")})
+
+
+def _jax_drive(batches):
+    """:func:`jax_drive`'s numbers, computed here."""
     import jax
     import jax.numpy as jnp
 
@@ -98,6 +113,23 @@ def test_fleet_matches_jax_fleet(batches, jax_drive):
     assert any(len(set(p)) > 1 for p in promoted), promoted
 
 
+def test_jax_fleet_state_continues_in_the_port(batches, jax_drive):
+    """The JAX fleet's state after scan 1, read as numpy, becomes the
+    port fleet's state; both then drive the remaining scans and agree at
+    1e-9."""
+    want, _, state1 = jax_drive
+    fleet = Fleet(CFG, B, device="cpu")
+    fleet.states = state_from_numpy(CFG, state1, "cpu")
+    fleet._initialized = True
+    assert fleet.states.kf_tree.nav.shape == (B, K, CFG.arena, 56)
+    for i in range(2, N_SCANS):
+        pts, val = batches[i]
+        fleet.compute(np.full(B, 0.1 * i), pts, val)
+        np.testing.assert_allclose(fleet.poses(), want[i], atol=1e-9)
+    with pytest.raises(ValueError, match="leading"):
+        state_from_numpy(CFG, dict(state1, seq=state1["seq"][:2]), "cpu")
+
+
 @pytest.mark.parametrize("schedule", list(SCHEDULES))
 def test_fleet_matches_one_pipeline_per_sequence(batches, schedule):
     """The batched step equals B port Pipelines stepped one by one (the
@@ -116,23 +148,6 @@ def test_fleet_matches_one_pipeline_per_sequence(batches, schedule):
         assert out.n_descents.tolist() == [p.descents() for p in pipes]
         np.testing.assert_allclose(out.inlier_ratio.numpy(),
                                    [p.inlier_ratio() for p in pipes], atol=1e-12)
-
-
-def test_jax_fleet_state_continues_in_the_port(batches, jax_drive):
-    """The JAX fleet's state after scan 1, read as numpy, becomes the
-    port fleet's state; both then drive the remaining scans and agree at
-    1e-9."""
-    want, _, state1 = jax_drive
-    fleet = Fleet(CFG, B, device="cpu")
-    fleet.states = state_from_numpy(CFG, state1, "cpu")
-    fleet._initialized = True
-    assert fleet.states.kf_tree.nav.shape == (B, K, CFG.arena, 56)
-    for i in range(2, N_SCANS):
-        pts, val = batches[i]
-        fleet.compute(np.full(B, 0.1 * i), pts, val)
-        np.testing.assert_allclose(fleet.poses(), want[i], atol=1e-9)
-    with pytest.raises(ValueError, match="leading"):
-        state_from_numpy(CFG, dict(state1, seq=state1["seq"][:2]), "cpu")
 
 
 @pytest.mark.parametrize("batch", [None, 2])

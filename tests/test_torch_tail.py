@@ -19,10 +19,15 @@ wrappers' CPU dispatch and argument checks. Float64 is held at 1e-12 on
 scalars and 1e-9 on positions (as ``tests/test_torch_graphs.py``);
 float32 at 2e-5 on poses and velocities and 1e-4 on ``-log det`` (a few
 ulps of values up to ~40 in two orders of rounding against XLA's
-fused, reassociated float32). Tests marked ``cuda`` hold both kernels to
-their plain versions on the card bit for bit in every case, float32 and
-float64, B = 1 and 4, and skip without one. JAX is imported by the CPU
-tests only, so a machine with a card needs none."""
+fused, reassociated float32). The tail written in place (``out``, the
+step's form) equals the fresh tail bit for bit and keeps its
+destinations; a CPU drive of ``step_in_place`` equals the functional
+``odometry_step`` and copies no state field; the probe's one-block
+variants of K14 cut its source where they say. Tests marked ``cuda``
+hold both kernels to their plain versions on the card bit for bit in
+every case, float32 and float64, B = 1 and 4, fresh and in place, and
+skip without one. JAX is imported by the CPU tests only, so a machine
+with a card needs none."""
 
 import numpy as np
 import pytest
@@ -374,6 +379,145 @@ def test_cpu_tensors_take_the_plain_versions():
     assert (ring_write.counter.launches, step_scalars.counter.launches) == (c13, c14)
 
 
+STATE_FIELDS = ("X",) + tuple(name for name, _, _ in step_scalars._STATE)
+
+
+def _scalars(state):
+    """A copy of a state's tensors but its trees (None)."""
+    return type(state)(*(None if f is None or isinstance(f, SearchTree) else f.clone()
+                         for f in state))
+
+
+def _pointers(state) -> list:
+    return [getattr(state, name).data_ptr() for name in STATE_FIELDS]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", CASES)
+def test_the_tail_in_place_equals_the_fresh_tail(dtype, case):
+    """The state as its own destination (``out``, as the step hands it
+    over): every field of the result is the state's own tensor, holding
+    the fresh tail's bits (X the rounds' pose), and no destination
+    moved; the same through the wrapper and the plain version."""
+    state, X, H, matched, valid, hz, nav, kw = tail_case(case, dtype)
+    want = step_scalars.tail_plain(state, X, H, matched, valid, hz, **kw)
+    for fn in (step_scalars.tail, step_scalars.tail_plain):
+        dst = _scalars(state)
+        ptrs = _pointers(dst)
+        got = fn(dst, X, H, matched, valid, hz, **kw, out=dst)
+        for name, g, w in zip(step_scalars.Tail._fields, got, want):
+            assert torch.equal(g, w), name
+            if name in STATE_FIELDS:
+                assert g is getattr(dst, name), name
+        assert torch.equal(dst.X, X) and dst.X.data_ptr() != X.data_ptr()
+        assert _pointers(dst) == ptrs
+
+
+def test_the_tail_in_place_reads_before_it_writes():
+    """In place, the trajectory's shift reads the slots it overwrites
+    (slot w takes the old slot w + 1) and, where the best frame is the
+    scan's own record (``best == head``), the keyframe pose is X and the
+    window's head slot too."""
+    state, X, H, matched, valid, hz, nav, kw = tail_case("best_is_head", torch.float64)
+    old = _scalars(state)
+    got = step_scalars.tail(state, X, H, matched, valid, hz, **kw, out=state)
+    assert torch.equal(state.traj[:, :-1], old.traj[:, 1:])
+    assert torch.equal(state.traj[:, -1], X)
+    assert torch.equal(state.traj_count, old.traj_count + 1)
+    head, best = got.plan[0, 0], got.plan[0, 1]
+    assert head == best and got.promote[0]
+    assert torch.equal(state.keyframe_to_map[0], X[0]) and torch.equal(state.fr_pose[0, head],
+                                                                      X[0])
+    others = torch.arange(state.fr_pose.shape[1]) != old.fr_head[0]
+    assert torch.equal(state.fr_pose[0, others], old.fr_pose[0, others])
+
+
+def test_a_destination_that_is_not_contiguous_raises():
+    """A destination the kernel could not write as one block raises, on
+    the wrapper and the plain version, before anything is written."""
+    state, X, H, matched, valid, hz, nav, kw = tail_case("promote_one", torch.float32)
+    for name in ("traj", "X"):
+        t = getattr(state, name)
+        bent = t.transpose(-1, -2).contiguous().transpose(-1, -2)
+        dst = _scalars(state)._replace(**{name: bent})
+        before = _scalars(dst)
+        for fn in (step_scalars.tail, step_scalars.tail_plain):
+            with pytest.raises(ValueError, match="contiguous"):
+                fn(state, X, H, matched, valid, hz, **kw, out=dst)
+        assert all(torch.equal(getattr(dst, f), getattr(before, f)) for f in STATE_FIELDS)
+    with pytest.raises(ValueError):
+        step_scalars.tail(state, X, H, matched, valid, hz, **kw,
+                          out=_scalars(state)._replace(traj=state.traj[:, 1:].clone()))
+    with pytest.raises(TypeError):
+        step_scalars.tail(state, X, H, matched, valid, hz, **kw,
+                          out=_scalars(state)._replace(seq=state.seq.long()))
+
+
+def _room_drive(n_scans: int = 6, n_points: int = 1024):
+    """A small room drive (no JAX) whose inlier ratios fall on both sides
+    of ``p_th`` = 0.7: scans 1 and 2 promote, 3-5 do not."""
+    from tests_fixtures_helper import synthetic_room_scans
+
+    from madicp_tpu_torch.models.pipeline import PipelineConfig
+
+    scans, _ = synthetic_room_scans(np.random.default_rng(3), n_scans=n_scans, n_points=600,
+                                    step=0.2)
+    cfg = PipelineConfig(sensor_hz=HZ, num_keyframes=3, n_points=n_points, depth=7, p_th=0.7,
+                         max_icp_iterations=4, dtype=torch.float64)
+    batches = []
+    for scan in scans:
+        pts = torch.zeros((1, n_points, 3), dtype=torch.float64)
+        pts[0, :len(scan)] = torch.as_tensor(scan)
+        val = torch.zeros((1, n_points), dtype=torch.bool)
+        val[0, :len(scan)] = True
+        batches.append((pts, val))
+    return cfg, batches
+
+
+def test_step_in_place_equals_odometry_step_and_copies_nothing(monkeypatch):
+    """A CPU drive of ``step_in_place`` (the captured body) against the
+    functional ``odometry_step`` on a copy, bit for bit, over scans that
+    promote and scans that do not. After every step each state field is
+    still the buffers' own tensor and ``write_state`` found each field of
+    the new state already there (it copied none)."""
+    from madicp_tpu_torch.models import step_graph
+    from madicp_tpu_torch.models.pipeline import init_state, initialize_step, odometry_step
+
+    cfg, batches = _room_drive()
+    state = init_state(cfg, "cpu", batch=1)
+    state, _ = initialize_step(cfg, state, *batches[0], None)
+    state = type(state)(*(SearchTree(nav=f.nav.clone()) if isinstance(f, SearchTree)
+                          else f.clone() for f in state))
+    twin = type(state)(*(SearchTree(nav=f.nav.clone()) if isinstance(f, SearchTree)
+                         else f.clone() for f in state))
+    fields = lambda s: [f.nav if isinstance(f, SearchTree) else f for f in s]  # noqa: E731
+    buffers = fields(state)
+    ptrs = [t.data_ptr() for t in buffers]
+    copied = []
+    real = step_graph.write_state
+
+    def spy(dst, src):
+        copied.append([name for name, d, s in zip(dst._fields, fields(dst), fields(src))
+                       if s is not d])
+        real(dst, src)
+
+    monkeypatch.setattr(step_graph, "write_state", spy)
+    promoted = []
+    for pts, val in batches[1:]:
+        out = step_graph.step_in_place(cfg, state, pts, val)
+        twin, want = odometry_step(cfg, twin, pts, val, None)
+        promoted.append(bool(out.map_updated[0]))
+        for name, a, b in zip(state._fields, fields(state), fields(twin)):
+            assert torch.equal(a, b), name
+        for a, b in zip(out, want):
+            assert torch.equal(a, b)
+        assert out.pose.data_ptr() != state.X.data_ptr()
+        assert all(a is b for a, b in zip(fields(state), buffers))
+        assert [t.data_ptr() for t in fields(state)] == ptrs
+    assert copied == [[]] * len(batches[1:])
+    assert any(promoted) and not all(promoted), promoted
+
+
 def test_wrong_operands_raise():
     """Wrong dtypes, shapes and devices raise on every device, and the
     kernels' launch functions refuse non-contiguous or misaligned
@@ -435,6 +579,36 @@ def test_k13_two_launch_variant_sources_cut_the_kernel_at_its_promotion():
         kv.ring_write_split_source(text, "both")
     with pytest.raises(ValueError):
         kv.ring_write_split_source(text.replace("*key = pl.y", "*key = pl.z"), "frame")
+
+
+def test_k14_one_block_variant_sources_cut_the_kernel_where_they_say():
+    """The probe's cuts of K14's one-block design: ``counts`` turns the
+    three chain warps' branches off and gives the count branch the warps
+    that count; ``chain`` replaces the count's loads by constants and
+    changes nothing else; a source whose branches changed, or an unknown
+    cut, raises."""
+    from madicp_tpu_torch.probes import kernel_variants as kv
+
+    text = kv.TAIL_ONE_BLOCK.read_text()
+    lines = text.split("\n")
+    counts = kv.tail_cut_source(text, "counts").split("\n")
+    assert len(counts) == len(lines)
+    changed = [(a, b) for a, b in zip(lines, counts) if a != b]
+    assert changed == [("  if (warp == 1) {", "  if (false) {"),
+                       ("  } else if (warp == 2) {", "  } else if (false) {"),
+                       ("  } else if (warp == 3) {", "  } else if (false) {"),
+                       ("  } else {", kv.TAIL_COUNT_ONLY)]
+    chain = kv.tail_cut_source(text, "chain").split("\n")
+    at = chain.index(kv.TAIL_CONSTANT_COUNTS)
+    end = lines.index("#pragma unroll", lines.index("    int nv = 0, nm = 0, done = 0;"))
+    assert chain[:at] == lines[:at] and chain[at + 1:] == lines[end:]
+    assert all("m4[" not in line and "v[i]" not in line for line in lines[:at] + lines[end:])
+    assert any("m4[" in line for line in lines[at:end])
+    with pytest.raises(ValueError):
+        kv.tail_cut_source(text, "both")
+    with pytest.raises(ValueError):
+        kv.tail_cut_source(text.replace("  } else if (warp == 2) {", "  } else if (2 == warp) {"),
+                           "counts")
 
 
 # ------------------------------------------------------------------ card --
@@ -556,3 +730,73 @@ def test_a_replay_of_predict_tail_and_ring_write_equals_the_eager_calls_on_cuda(
     torch.cuda.synchronize()
     assert all(_equal(o, e) for o, e in zip(out, eager))
     assert torch.equal(fr_g, fr_e) and torch.equal(kf_g, kf_e)
+
+
+def _flags(t: torch.Tensor, layout: str) -> torch.Tensor:
+    """``t`` (B, L) bools as the layout asks: as is, or one byte past a
+    16-byte boundary (contiguous: the kernel's byte-at-a-time path)."""
+    if layout != "unaligned":
+        return t
+    store = torch.empty(t.numel() + 16, dtype=torch.bool, device=t.device)
+    out = store[1:1 + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("case", ["no_promote", "promote_one", "best_is_head"])
+@pytest.mark.parametrize("layout", ["L16", "ragged", "unaligned", "empty"])
+def test_k14_tail_fresh_and_in_place_equal_the_plain_version_on_cuda(cuda_device, dtype, B,
+                                                                      case, layout):
+    """The tail kernel with fresh outputs and in place (the state its own
+    destination) against the plain version, bit for bit, at L = 8192
+    (every flag in 16-byte words), 4099 (a ragged end and rows off a
+    16-byte boundary), with flags one byte off a boundary and L = 0; the
+    in-place call keeps its destinations."""
+    L = {"L16": 8192, "ragged": 4099, "unaligned": 8192, "empty": 0}[layout]
+    state, X, H, matched, valid, hz, nav, kw = tail_case(case, dtype, B=B, seed=B,
+                                                         device=cuda_device, L=L)
+    matched, valid = _flags(matched, layout), _flags(valid, layout)
+    want = step_scalars.tail_plain(state, X, H, matched, valid, hz, **kw)
+    got = step_scalars.tail(state, X, H, matched, valid, hz, **kw)
+    dst = _scalars(state)
+    ptrs = _pointers(dst)
+    placed = step_scalars.tail(dst, X, H, matched, valid, hz, **kw, out=dst)
+    torch.cuda.synchronize()
+    for name, g, p, w in zip(step_scalars.Tail._fields, got, placed, want):
+        assert _equal(g, w) and _equal(p, w), name
+    assert torch.equal(dst.X, X) and _pointers(dst) == ptrs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_a_replay_of_the_tail_in_place_equals_the_eager_steps_on_cuda(cuda_device, dtype):
+    """Three steps of predict and the in-place tail on one state, eagerly
+    and as three replays of one captured step on a copy: the same state
+    bit for bit after each, with the destinations where they were."""
+    state, X, H, matched, valid, hz, nav, kw = tail_case("promote_one", dtype, B=4,
+                                                         device=cuda_device)
+    eager, graphed = _scalars(state), _scalars(state)
+
+    def step(s):
+        X0 = step_scalars.predict(s.X, s.velocity, hz)
+        return step_scalars.tail(s, X0, H, matched, valid, hz, **kw, out=s).plan
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step(_scalars(state))
+    torch.cuda.current_stream().wait_stream(side)
+    ptrs = _pointers(graphed)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        plan = step(graphed)
+    for _ in range(3):
+        want = step(eager)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(plan, want)
+        assert all(torch.equal(getattr(graphed, f), getattr(eager, f)) for f in STATE_FIELDS)
+    assert _pointers(graphed) == ptrs

@@ -587,8 +587,8 @@ def state_copies():
     from madicp_tpu_torch.models import step_graph
     from madicp_tpu_torch.models.pipeline import odometry_step
 
-    def step_in_place(cfg, state, points, valid, timer=None, **kw):
-        new, out = odometry_step(cfg, state, points, valid, None, timer, **kw)
+    def step_in_place(cfg, state, points, valid, stamps=None, **kw):
+        new, out = odometry_step(cfg, state, points, valid, None, stamps, **kw)
         step_graph.write_state(state, new)
         return out
 
@@ -1062,12 +1062,11 @@ def record_gn_calls(torch) -> dict:
     before the call."""
     from madicp_tpu_torch import bench
     from madicp_tpu_torch.kernels import certify_slack, gn_update
-    from madicp_tpu_torch.utils.timing import PhaseTimer
+    from madicp_tpu_torch.models.step_graph import step_in_place
 
     setup = bench.BenchSetup(DEV, N_POINTS, KEYFRAMES, DEPTH, MAX_LEAVES)
     pipe = setup.make_pipe("certified")
     setup.prime(pipe)
-    pipe.timer = PhaseTimer(torch.device(DEV))  # eager: every call passes the wrappers
     calls = {"gn_update": [], "certify_slack": []}
     real = {"gn_update": (gn_update, gn_update.gn_update),
             "certify_slack": (certify_slack, certify_slack.certify_slack)}
@@ -1084,7 +1083,8 @@ def record_gn_calls(torch) -> dict:
     try:
         for name, (mod, _) in real.items():
             setattr(mod, name, recorder(name))
-        pipe.compute_device(0.2, *pipe.stage(setup.scan_at(2)))
+        pts, valid, _ = pipe.stage(setup.scan_at(2))  # eager: every call passes the wrappers
+        step_in_place(pipe.cfg, pipe._graphs.state, pts[None], valid[None])
     finally:
         for name, (mod, fn) in real.items():
             setattr(mod, name, fn)
@@ -2079,7 +2079,7 @@ def profile_window(run, n_scans: int) -> dict:
 
 def phase_steady(torch) -> dict:
     from madicp_tpu_torch.bench import BenchSetup
-    from madicp_tpu_torch.utils.timing import PHASES, PhaseTimer
+    from madicp_tpu_torch.utils.timing import Trace, layer_ms
 
     setup = BenchSetup(DEV, N_POINTS, KEYFRAMES, DEPTH, MAX_LEAVES)
     scan_at = setup.scan_at
@@ -2088,7 +2088,7 @@ def phase_steady(torch) -> dict:
     setup.prime(pipe)
 
     n_warm, n_timed, n_phase = 3, 12, 4
-    total = n_warm + n_timed + 2 * n_phase
+    total = n_warm + n_timed + 2 * n_phase + 1
     staged = {i: pipe.stage(scan_at(i)) for i in range(1, 1 + total)}
     for i in range(1, 1 + n_warm):
         pipe.compute_device(0.1 * i, *staged[i])
@@ -2110,13 +2110,14 @@ def phase_steady(torch) -> dict:
     counts = launches()  # read right after the run
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
-    timer = PhaseTimer(torch.device(DEV))
-    pipe.timer = timer
-    for i in range(lo + n_timed, lo + n_timed + n_phase):
+    pipe.trace = Trace(DEV)
+    pipe.compute_device(0.1 * (lo + n_timed), *staged[lo + n_timed])  # the traced capture
+    pipe.trace.drain()
+    for i in range(lo + n_timed + 1, lo + n_timed + 1 + n_phase):
         pipe.compute_device(0.1 * i, *staged[i])
-    per_phase = {k: v / n_phase for k, v in timer.totals_ms().items()}
-    pipe.timer = None
-    i0 = lo + n_timed + n_phase
+    per_phase = {k: ms / n_phase for k, ms in layer_ms(pipe.trace.drain()).items()}
+    pipe.trace = None
+    i0 = lo + n_timed + 1 + n_phase
 
     def run():
         for i in range(i0, i0 + n_phase):
@@ -2132,7 +2133,7 @@ def phase_steady(torch) -> dict:
            "dtype": "float32", "schedule": "certified exact"},
            "scans_timed": n_timed, "scans_per_s": n_timed / wall,
            "ms_per_scan": wall * 1e3 / n_timed,
-           "phase_ms_per_scan": {k: per_phase.get(k, 0.0) for k in PHASES},
+           "phase_ms_per_scan": per_phase,
            "descents_per_scan": descents, "n_leaves": n_leaves,
            "segsum_launches": counts["segsum_moments"], "launches": counts,
            "peak_mem_gb": peak_gb,

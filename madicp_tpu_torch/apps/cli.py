@@ -18,6 +18,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import itertools
+import json
 import sys
 import time
 from pathlib import Path
@@ -82,9 +83,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="resume from the checkpoint in --estimate-path")
     p.add_argument("--profile", type=Path, default=None,
                    help="write a torch.profiler trace of the whole run to "
-                        "DIR/trace.json; every event stays in host memory "
-                        "until the run ends, so bound the run with "
-                        "--max-scans")
+                        "DIR/trace.json and the program's own trace (spans "
+                        "of each scan's host calls and device phases, and "
+                        "its counts) to DIR/spans.json; every event stays "
+                        "in host memory until the run ends, so bound the "
+                        "run with --max-scans")
     return p
 
 
@@ -236,8 +239,11 @@ def main(argv=None) -> int:
             open(estimate_path, "a" if start_scan else "w"))
         prof = None
         if args.profile is not None:
+            from madicp_tpu_torch.utils.timing import Trace
+
             args.profile.mkdir(parents=True, exist_ok=True)
             prof = stack.enter_context(_profiler(device))
+            pipeline.trace = Trace(pipeline.device)
         stack.enter_context(reader)
         t_read = time.perf_counter()
         for item in reader:
@@ -308,7 +314,10 @@ def main(argv=None) -> int:
         ckpt_thread.join()
     if prof is not None:
         prof.export_chrome_trace(str(args.profile / "trace.json"))
-        print(f"profiler trace written to {args.profile / 'trace.json'}")
+        (args.profile / "spans.json").write_text(json.dumps(pipeline.trace.drain()))
+        pipeline.trace = None
+        print(f"profiler trace written to {args.profile / 'trace.json'}, the program's "
+              f"spans to {args.profile / 'spans.json'}")
     if visualizer is not None:
         visualizer.close()
     print(f"wrote {n_scans} poses to {estimate_path}")

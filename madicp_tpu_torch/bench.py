@@ -28,13 +28,14 @@ is scans/s over the reference's 10 Hz anytime-realtime sensor rate
 window's rate and their median beside the best (``scans_per_sec``, the
 JSON ``value``, as in ``bench.py``), its descents (the last scan's, as in
 ``bench.py``, and their mean), the (keyframe, query) entries its
-association calls descend a scan, parked ones included, per-phase ms
-from a short :class:`~madicp_tpu_torch.utils.timing.PhaseTimer` window,
-device busy ms and kernels a scan from a short ``torch.profiler`` window
-(on a card), peak device memory and the launches of the step's kernels
-(segment-sum, descent, ICP terms) in the timed windows. On a card the
-timed scans replay the step's captured CUDA graph
-(``models/step_graph.py``); the PhaseTimer's scans run eagerly.
+association calls descend a scan, parked ones included (one eager
+scan), per-phase ms from a short window under the program's
+:class:`~madicp_tpu_torch.utils.timing.Trace` (its device stamps, a
+traced graph on a card), device busy ms and kernels a scan from a short
+``torch.profiler`` window (on a card), peak device memory and the
+launches of the step's kernels (segment-sum, descent, ICP terms) in the
+timed windows. On a card the timed scans replay the step's captured CUDA
+graph (``models/step_graph.py``).
 
 Run on the card (``--device cpu`` runs on the CPU; it never falls back to
 it on its own)::
@@ -68,11 +69,11 @@ import torch
 
 import madicp_tpu_torch.models.pipeline as pipeline_mod
 from madicp_tpu_torch.models.pipeline import Pipeline, PipelineConfig
-from madicp_tpu_torch.models.step_graph import COUNTERS
+from madicp_tpu_torch.models.step_graph import COUNTERS, step_in_place
 from madicp_tpu_torch.ops.tree import build_tree, transform_tree
 from madicp_tpu_torch.probes.segsum_levels import bench_pose, kitti_like_world
 from madicp_tpu_torch.utils.device import card_name, resolve_device, synchronize
-from madicp_tpu_torch.utils.timing import PHASES, PhaseTimer, device_kernels
+from madicp_tpu_torch.utils.timing import Trace, device_kernels, layer_ms
 
 REALTIME_HZ = 10.0  # the reference's anytime-realtime sensor rate
 SCHEDULES = ("exact", "certified", "prefix:8192", "compact:4096", "fast")
@@ -187,14 +188,16 @@ def run_schedule(setup: BenchSetup, spec: str, n_warmup=3, n_steps=12, n_windows
     ``n_warmup`` scans, then ``n_windows`` timed windows of ``n_steps``
     scans (each ending in a device synchronisation; on a card a timed
     scan replays the step's captured graph, and with ``n_warmup`` >= 2
-    none pays for the warm-up or the capture), then ``n_phase`` scans
-    under a PhaseTimer (eager) and, on a card, ``n_phase`` under
-    ``torch.profiler`` (device busy ms and kernels a scan; the profiler
-    slows the host, so its wall time is not the bench's)."""
+    none pays for the warm-up or the capture), then one eager scan (its
+    descent queries), one traced scan (on a card the traced graph's
+    capture) and ``n_phase`` traced ones (their phases' device ms) and, on
+    a card, ``n_phase`` under ``torch.profiler`` (device busy ms and
+    kernels a scan; the profiler slows the host, so its wall time is not
+    the bench's)."""
     pipe = setup.make_pipe(spec)
     dev = pipe.device
     setup.prime(pipe)
-    total = n_warmup + n_windows * n_steps + 2 * n_phase
+    total = n_warmup + n_windows * n_steps + 2 * n_phase + 2
     # staged before any timing: the bench measures the odometry engine,
     # not the data source
     staged = {i: pipe.stage(setup.scan_at(i)) for i in range(1, 1 + total)}
@@ -220,14 +223,18 @@ def run_schedule(setup: BenchSetup, spec: str, n_warmup=3, n_steps=12, n_windows
         rates.append(n_steps / (time.perf_counter() - t0))
         lo += n_steps
     launches = {name: c.launches for name, c in COUNTERS.items()}  # right after it
-    # the timer's scans run eagerly, so the association calls are counted
-    # there (a replay runs no Python); their shapes are a scan's in every
-    # window
-    pipe.timer = timer = PhaseTimer(dev)
+    # the association calls are counted on an eager scan (a replay runs no
+    # Python); their shapes are a scan's in every window
     with counting_descent_queries() as queries:
-        run(lo, lo + n_phase)
-    totals = timer.totals_ms()
-    pipe.timer = None
+        pts, valid, _ = staged[lo]
+        step_in_place(pipe.cfg, pipe._graphs.state, pts[None], valid[None])
+    pipe.trace = Trace(dev)
+    run(lo + 1, lo + 2)  # on a card, the traced graph's capture
+    pipe.trace.drain()
+    lo += 2
+    run(lo, lo + n_phase)
+    totals = layer_ms(pipe.trace.drain())
+    pipe.trace = None
     lo += n_phase
     busy = None
     if dev.type == "cuda":
@@ -246,8 +253,8 @@ def run_schedule(setup: BenchSetup, spec: str, n_warmup=3, n_steps=12, n_windows
         "ms_per_scan": 1000.0 / max(rates),
         "descents": descents[-1],
         "descents_mean": statistics.mean(descents),
-        "descent_queries_per_scan": queries[0] / n_phase,
-        "phase_ms": {k: totals.get(k, 0.0) / n_phase for k in PHASES},
+        "descent_queries_per_scan": queries[0],
+        "phase_ms": {k: ms / n_phase for k, ms in totals.items()},
         "peak_mem_gb": (torch.cuda.max_memory_allocated(dev) / 1e9
                         if dev.type == "cuda" else None),
         "segsum_launches": launches["segsum_moments"],

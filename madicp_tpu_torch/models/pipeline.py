@@ -67,7 +67,7 @@ from madicp_tpu_torch.ops.tree import (
     tree_arena_size,
 )
 from madicp_tpu_torch.utils.device import resolve_device, synchronize
-from madicp_tpu_torch.utils.timing import phase
+from madicp_tpu_torch.utils.timing import host_span, phase, stepping
 
 
 @dataclass(frozen=True)
@@ -212,7 +212,7 @@ def _drop(nt):
 
 
 def initialize_step(
-    cfg: PipelineConfig, state: PipelineState, points, valid, stamp, timer=None,
+    cfg: PipelineConfig, state: PipelineState, points, valid, stamp, stamps=None,
     *, kf_offset: int = 0, points_shard: Optional[PointShard] = None,
 ) -> tuple[PipelineState, StepOutput]:
     """First-scan bootstrap (reference ``pipeline.cpp:267-284``): the scan
@@ -223,45 +223,48 @@ def initialize_step(
     every sequence at once. ``kf_offset`` is the global slot of this
     state's first keyframe when the ring is split over processes (only
     the holder of slot 0 writes it); ``points_shard`` builds from this
-    process's share of the points (see :func:`odometry_step`)."""
+    process's share of the points (see :func:`odometry_step`). ``stamps``:
+    as :func:`odometry_step`'s (phases ``build`` and ``tail``)."""
     del stamp
     if state.X.dim() == 2:
         state, out = initialize_step(cfg, _lift(state), points[None], valid[None], None,
-                                     timer, kf_offset=kf_offset, points_shard=points_shard)
+                                     stamps, kf_offset=kf_offset, points_shard=points_shard)
         return _drop(state), _drop(out)
     B = points.shape[0]
     if points_shard is not None:
         points, valid = points_shard.take(points), points_shard.take(valid)
-    with phase(timer, "build"):
-        tree, _ = build_tree(
-            points, valid, depth=cfg.depth, b_max=cfg.b_max, b_min=cfg.b_min,
-            shard=points_shard,
-        )
-    with phase(timer, "leaves"):
-        leaves = get_leaves(tree, cfg.leaves_cap)
-    dev = points.device
-    eye = torch.eye(4, dtype=cfg.dtype, device=dev)
-    K_l = state.kf_valid.shape[1]
-    with phase(timer, "rings"):
-        if kf_offset == 0:
-            state.kf_tree.nav[:, 0].copy_(tree.nav)
-        state = state._replace(
-            kf_valid=state.kf_valid | (torch.arange(K_l, device=dev) == -kf_offset),
-            kf_head=torch.full((B,), 1 % cfg.num_keyframes, dtype=torch.int32, device=dev),
-            traj=torch.cat([state.traj[:, :-1], eye.expand(B, 1, 4, 4)], dim=1),
-            traj_count=torch.ones((B,), dtype=torch.int32, device=dev),
-            seq=state.seq + 1,
-        )
-    out = StepOutput(
-        pose=eye.expand(B, 4, 4),
-        inlier_ratio=torch.ones((B,), dtype=cfg.dtype, device=dev),
-        map_updated=torch.ones((B,), dtype=torch.bool, device=dev),
-        n_leaves=leaves.valid.sum(-1),
-        leaves_pts=leaves.pts,
-        leaves_valid=leaves.valid,
-        n_leaves_dropped=torch.clamp(leaves.total - cfg.leaves_cap, min=0),
-        n_descents=torch.zeros((B,), dtype=torch.int64, device=dev),
-    )
+    with stepping(stamps, state.seq):
+        with phase(stamps, "build"):
+            tree, _ = build_tree(
+                points, valid, depth=cfg.depth, b_max=cfg.b_max, b_min=cfg.b_min,
+                shard=points_shard,
+            )
+            leaves = get_leaves(tree, cfg.leaves_cap)
+        dev, kf_valid = points.device, state.kf_valid
+        with phase(stamps, "tail"):
+            eye = torch.eye(4, dtype=cfg.dtype, device=dev)
+            K_l = state.kf_valid.shape[1]
+            if kf_offset == 0:
+                state.kf_tree.nav[:, 0].copy_(tree.nav)
+            state = state._replace(
+                kf_valid=state.kf_valid | (torch.arange(K_l, device=dev) == -kf_offset),
+                kf_head=torch.full((B,), 1 % cfg.num_keyframes, dtype=torch.int32, device=dev),
+                traj=torch.cat([state.traj[:, :-1], eye.expand(B, 1, 4, 4)], dim=1),
+                traj_count=torch.ones((B,), dtype=torch.int32, device=dev),
+                seq=state.seq + 1,
+            )
+            out = StepOutput(
+                pose=eye.expand(B, 4, 4),
+                inlier_ratio=torch.ones((B,), dtype=cfg.dtype, device=dev),
+                map_updated=torch.ones((B,), dtype=torch.bool, device=dev),
+                n_leaves=leaves.valid.sum(-1),
+                leaves_pts=leaves.pts,
+                leaves_valid=leaves.valid,
+                n_leaves_dropped=torch.clamp(leaves.total - cfg.leaves_cap, min=0),
+                n_descents=torch.zeros((B,), dtype=torch.int64, device=dev),
+            )
+            if stamps is not None:
+                stamps.counts(out.n_descents, kf_valid, leaves.valid)
     return state, out
 
 
@@ -276,7 +279,7 @@ def icp_rounds(
     leaves_pts: torch.Tensor,
     leaves_valid: torch.Tensor,
     X0: torch.Tensor,
-    timer=None,
+    stamps=None,
     reduce_terms=None,
 ):
     """The GN round schedule over the keyframe ring (``pipeline.cpp:
@@ -303,20 +306,26 @@ def icp_rounds(
     and returns the reduction over all of them (all-reduce over the
     keyframe group); identity by default. The keyframe count is taken
     from the (local) shapes, not from ``cfg.num_keyframes``.
+
+    ``stamps``: the step's device stamps (``utils/timing.py``), or None:
+    the descents, with the masks and counts they start from, are phase
+    ``assoc``; the terms, the update and the certificate's slack pass
+    ``terms``.
     """
     if X0.dim() == 2:
         X, H, matched, n_desc = icp_rounds(
             cfg, SearchTree(nav=kf_tree.nav[None]), kf_valid_f[None], leaves_pts[None],
-            leaves_valid[None], X0[None], timer=timer, reduce_terms=reduce_terms)
+            leaves_valid[None], X0[None], stamps=stamps, reduce_terms=reduce_terms)
         return X[0], H[0], matched[0], n_desc[0]
     if reduce_terms is None:
         reduce_terms = _identity
     dtype, dev = cfg.dtype, X0.device
     B, K = kf_valid_f.shape
     L = leaves_pts.shape[1]
-    nv = leaves_valid.sum(-1)  # (B,) valid moving leaves
-    kf_live = kf_valid_f > 0  # (B, K)
-    kv = kf_live.sum(-1)  # (B,) valid keyframes
+    with phase(stamps, "assoc"):
+        nv = leaves_valid.sum(-1)  # (B,) valid moving leaves
+        kf_live = kf_valid_f > 0  # (B, K)
+        kv = kf_live.sum(-1)  # (B,) valid keyframes
     nav = kf_tree.nav.reshape((B * K,) + kf_tree.nav.shape[2:])
     terms_kw = dict(b_max=cfg.b_max, b_ratio=cfg.b_ratio, rho_ker=cfg.rho_ker)
 
@@ -330,7 +339,7 @@ def icp_rounds(
         merged into them, in place."""
         pts = leaves_pts if pts is None else pts
         Q = need.shape[-1]
-        with phase(timer, "association"):
+        with phase(stamps, "assoc"):
             if pts.dim() == 3:
                 q = pts @ X[:, :3, :3].mT + X[:, None, :3, 3]
             else:
@@ -359,7 +368,7 @@ def icp_rounds(
         group to reduce over, the update takes the per-keyframe terms and
         forms their sums itself (one kernel on the card); with one, the
         sums are all-reduced before the update."""
-        with phase(timer, "terms+solve"):
+        with phase(stamps, "terms"):
             if reduce_terms is not _identity:
                 out = terms_scan(X, payload, with_matched)
                 return (gn_se3_step(X, out[0], out[1]),) + out
@@ -372,12 +381,13 @@ def icp_rounds(
 
     n_its = cfg.max_icp_iterations
     if n_its <= 0:
-        return (
-            X0,
-            torch.zeros((B, 6, 6), dtype=dtype, device=dev),
-            torch.zeros((B, L), dtype=torch.bool, device=dev),
-            torch.zeros((B,), dtype=torch.int64, device=dev),
-        )
+        with phase(stamps, "terms"):
+            return (
+                X0,
+                torch.zeros((B, 6, 6), dtype=dtype, device=dev),
+                torch.zeros((B, L), dtype=torch.bool, device=dev),
+                torch.zeros((B,), dtype=torch.int64, device=dev),
+            )
 
     if cfg.assoc_mode == "fast":
         # ---- fast schedule (JAX models/pipeline.py:390-482) ----
@@ -398,7 +408,8 @@ def icp_rounds(
                            n_gathers=warm_gathers)
 
         n_redesc = sum(1 for r in range(1, n_its - 1) if r % cfg.reassoc_every == 0)
-        n_descents = (1 if n_its == 1 else 2 + n_redesc) * kv * nv
+        with phase(stamps, "assoc"):
+            n_descents = (1 if n_its == 1 else 2 + n_redesc) * kv * nv
         ids, payload = assoc(X0)
         if n_its == 1:
             X, H_last, _, matched = step(X0, payload, True)
@@ -424,7 +435,8 @@ def icp_rounds(
             X = step(X, payload)[0]
         _, payload = descend(X, need, False)
         X, H_last, _, matched = step(X, payload, True)
-        return X, H_last, matched, n_its * kv * nv
+        with phase(stamps, "terms"):
+            return X, H_last, matched, n_its * kv * nv
 
     if cfg.certify_prefix:
         from madicp_tpu_torch.models.schedules_experimental import (
@@ -433,7 +445,7 @@ def icp_rounds(
 
         return prefix_certified_rounds(
             cfg, kf_valid_f, leaves_pts, leaves_valid, X0, descend=descend,
-            terms_scan=terms_scan, reduce_terms=reduce_terms, kv=kv, nv=nv, timer=timer,
+            terms_scan=terms_scan, reduce_terms=reduce_terms, kv=kv, nv=nv, stamps=stamps,
         )
 
     # ---- certified exact schedule (JAX PipelineConfig.certify) ----
@@ -441,8 +453,9 @@ def icp_rounds(
     # displacement stays strictly below its descent's path margin
     # provably descends to the same leaf, so its cached payload is kept
     # and its descent parked.
-    r_norm = torch.sqrt(torch.sum(leaves_pts * leaves_pts, dim=-1))  # (B, L)
-    live_kl = leaves_valid[:, None, :] & kf_live[:, :, None]  # (B, K, L)
+    with phase(stamps, "assoc"):
+        r_norm = torch.sqrt(torch.sum(leaves_pts * leaves_pts, dim=-1))  # (B, L)
+        live_kl = leaves_valid[:, None, :] & kf_live[:, :, None]  # (B, K, L)
 
     def slack_pass(Xp, X, slack, n_descents):
         """A later round's certificate (:mod:`madicp_tpu_torch.kernels.certify_slack`,
@@ -451,13 +464,15 @@ def icp_rounds(
         trig; JAX models/pipeline.py:531-558), in place; the live entries
         whose slack no longer clears the rounding floor ``eps_cert`` are
         returned as ``need`` (B, K, L) and counted into ``n_descents``."""
-        return certify_slack.certify_slack(slack, Xp, X, leaves_pts, r_norm, leaves_valid,
-                                           kf_live, n_descents)
+        with phase(stamps, "terms"):
+            return certify_slack.certify_slack(slack, Xp, X, leaves_pts, r_norm, leaves_valid,
+                                               kf_live, n_descents)
 
     U = min(cfg.certify_compact, L)
     if U:
-        slots = torch.arange(1, U + 1, device=dev).expand(B, K, U).contiguous()
-        sweep_col = U + torch.arange(L, device=dev)  # (L,)
+        with phase(stamps, "assoc"):
+            slots = torch.arange(1, U + 1, device=dev).expand(B, K, U).contiguous()
+            sweep_col = U + torch.arange(L, device=dev)  # (L,)
 
     def descend_need(X, need):
         """Fresh (ids, payload, margin) (B, K, L) for the ``need`` entries
@@ -491,15 +506,17 @@ def icp_rounds(
         pipeline.py:569, as one kernel on the card)."""
         if not U:
             return descend(X, need, True, out=(ids, payload, slack))
-        ids2, payload2, margin2 = descend_need(X, need)
-        return (
-            torch.where(need, ids2, ids),
-            torch.where(need[..., None], payload2, payload),
-            torch.where(need, margin2, slack),
-        )
+        with phase(stamps, "assoc"):
+            ids2, payload2, margin2 = descend_need(X, need)
+            return (
+                torch.where(need, ids2, ids),
+                torch.where(need[..., None], payload2, payload),
+                torch.where(need, margin2, slack),
+            )
 
     ids, payload, slack = descend(X0, live_kl, True)
-    n_descents = kv * nv  # round 0: every live entry descends
+    with phase(stamps, "assoc"):
+        n_descents = kv * nv  # round 0: every live entry descends
     if n_its == 1:
         X, H_last, _, matched = step(X0, payload, True)
         return X, H_last, matched, n_descents
@@ -524,7 +541,7 @@ def odometry_step(
     points,
     valid,
     stamp,
-    timer=None,
+    stamps=None,
     *,
     icp_rounds_fn=None,
     kf_offset: int = 0,
@@ -533,8 +550,11 @@ def odometry_step(
 ) -> tuple[PipelineState, StepOutput]:
     """One full odometry step (reference ``Pipeline::compute``,
     ``pipeline.cpp:125-265``). Updates ``state.fr_tree`` and
-    ``state.kf_tree`` in place. ``timer``: an optional
-    :class:`~madicp_tpu_torch.utils.timing.PhaseTimer`. ``into``: a state
+    ``state.kf_tree`` in place. ``stamps``: the device stamps of a traced
+    step (:class:`~madicp_tpu_torch.utils.timing.StepStamps`), or None:
+    the step's phases, ``deskew``, ``build``, ``assoc``, ``terms`` and
+    ``tail`` (the prediction and everything after the rounds), tile it,
+    and its counts are recorded before the tail. ``into``: a state
     (shaped as ``state``, contiguous) whose tensors take the new state's
     fields, usually ``state`` itself (the step in place:
     :func:`~madicp_tpu_torch.models.step_graph.step_in_place`); the new
@@ -551,7 +571,7 @@ def odometry_step(
     the slot, copies no tree).
 
     For a keyframe ring split over processes: ``icp_rounds_fn(kf_tree,
-    kf_valid, leaves, X0) -> (X, H_last, matched, n_descents)`` replaces
+    kf_valid, leaves, X0, stamps) -> (X, H_last, matched, n_descents)`` replaces
     the round loop (the keyframe-sharded step passes :func:`icp_rounds`
     with an all-reduce hook), and ``kf_offset`` is the global slot of
     this state's first keyframe: the promotion writes a slot only where
@@ -562,51 +582,63 @@ def odometry_step(
     """
     del stamp
     if state.X.dim() == 2:
-        state, out = _odometry_step(cfg, _lift(state), points[None], valid[None], timer,
+        state, out = _odometry_step(cfg, _lift(state), points[None], valid[None], stamps,
                                     icp_rounds_fn, kf_offset, points_shard,
                                     None if into is None else _lift(into))
         return _drop(state), _drop(out)
-    return _odometry_step(cfg, state, points, valid, timer, icp_rounds_fn, kf_offset,
+    return _odometry_step(cfg, state, points, valid, stamps, icp_rounds_fn, kf_offset,
                           points_shard, into)
 
 
-def _odometry_step(cfg, state, points, valid, timer, icp_rounds_fn, kf_offset,
+def _odometry_step(cfg, state, points, valid, stamps, icp_rounds_fn, kf_offset,
                    points_shard, into):
     """:func:`odometry_step` on a batched state."""
+    with stepping(stamps, state.seq):
+        return _phased_step(cfg, state, points, valid, stamps, icp_rounds_fn, kf_offset,
+                            points_shard, into)
+
+
+def _phased_step(cfg, state, points, valid, stamps, icp_rounds_fn, kf_offset, points_shard,
+                 into):
+    """:func:`_odometry_step`'s body: every op inside one phase."""
     dtype, dev = cfg.dtype, points.device
-    # filled in on the device: a copy from the host would synchronise
-    hz = torch.full((), cfg.sensor_hz, dtype=dtype, device=dev)
+    with phase(stamps, "deskew" if cfg.deskew else "build"):
+        # filled in on the device: a copy from the host would synchronise
+        hz = torch.full((), cfg.sensor_hz, dtype=dtype, device=dev)
 
     # ---- deskew (pipeline.cpp:137-138, 79-123) ----
     if cfg.deskew:
-        with phase(timer, "deskew"):
+        with phase(stamps, "deskew"):
             points = deskew_scan(points, valid, state.traj_count >= 2, state.traj[:, -2],
                                  state.traj[:, -1], hz, cfg.deskew_mode)
 
     # ---- current-scan tree (pipeline.cpp:140-144) ----
     if points_shard is not None:
         points, valid = points_shard.take(points), points_shard.take(valid)
-    with phase(timer, "build"):
+    with phase(stamps, "build"):
         tree, _ = build_tree(
             points, valid, depth=cfg.depth, b_max=cfg.b_max, b_min=cfg.b_min,
             shard=points_shard,
         )
-    with phase(timer, "leaves"):
         leaves = get_leaves(tree, cfg.leaves_cap)
 
     # ---- constant-velocity prediction + ICP (pipeline.cpp:146-193) ----
-    # X exp_se3_split(velocity / hz): K14's predict on the card
-    X0 = step_scalars.predict(state.X, state.velocity, hz)
+    with phase(stamps, "tail"):
+        # X exp_se3_split(velocity / hz): K14's predict on the card
+        X0 = step_scalars.predict(state.X, state.velocity, hz)
     if icp_rounds_fn is None:
+        with phase(stamps, "assoc"):
+            kf_valid_f = state.kf_valid.to(dtype)
         X, H_last, matched, n_descents = icp_rounds(
-            cfg, state.kf_tree, state.kf_valid.to(dtype),
-            leaves.pts, leaves.valid, X0, timer=timer,
+            cfg, state.kf_tree, kf_valid_f, leaves.pts, leaves.valid, X0, stamps=stamps,
         )
     else:
         X, H_last, matched, n_descents = icp_rounds_fn(
-            state.kf_tree, state.kf_valid, leaves, X0)
+            state.kf_tree, state.kf_valid, leaves, X0, stamps)
 
-    with phase(timer, "rings"):
+    with phase(stamps, "tail"):
+        if stamps is not None:  # before the tail moves the ring's flags
+            stamps.counts(n_descents, state.kf_valid, leaves.valid)
         # ---- inlier ratio, trajectory and velocity, frame record and
         # promotion (pipeline.cpp:197-262): the scalars by K14's tail (into
         # ``into``'s tensors where given), the trees by K13 on the card. The
@@ -617,6 +649,8 @@ def _odometry_step(cfg, state, points, valid, timer, icp_rounds_fn, kf_offset,
                                  num_keyframes=cfg.num_keyframes, kf_offset=kf_offset,
                                  out=into)
         ring_write.ring_write(tree.nav, X, tail.plan, state.fr_tree.nav, state.kf_tree.nav)
+        leaves_pts = leaves.pts @ X[:, :3, :3].mT + X[:, None, :3, 3]
+        n_leaves_dropped = torch.clamp(leaves.total - cfg.leaves_cap, min=0)
 
     new_state = PipelineState(
         X=X if into is None else into.X,
@@ -641,9 +675,9 @@ def _odometry_step(cfg, state, points, valid, timer, icp_rounds_fn, kf_offset,
         inlier_ratio=tail.ratio,
         map_updated=tail.promote,
         n_leaves=tail.n_leaves,
-        leaves_pts=leaves.pts @ X[:, :3, :3].mT + X[:, None, :3, 3],
+        leaves_pts=leaves_pts,
         leaves_valid=leaves.valid,
-        n_leaves_dropped=torch.clamp(leaves.total - cfg.leaves_cap, min=0),
+        n_leaves_dropped=n_leaves_dropped,
         n_descents=n_descents,
     )
     return new_state, out
@@ -684,10 +718,18 @@ class Pipeline:
     (:class:`~madicp_tpu_torch.models.step_graph.StepGraphs`). On CUDA a
     scan is the replay of one captured graph a configuration, from the
     second odometry scan on; eager are the first scan, the first
-    odometry scan (the warm-up), every scan while :attr:`timer` is set,
-    and every scan on the CPU. :attr:`state` reads the buffers as one
-    sequence's state (views, which every scan overwrites in place) and,
-    assigned, copies into them."""
+    odometry scan (the warm-up) and every scan on the CPU. :attr:`state`
+    reads the buffers as one sequence's state (views, which every scan
+    overwrites in place) and, assigned, copies into them.
+
+    :attr:`trace`: the program's trace
+    (:class:`~madicp_tpu_torch.utils.timing.Trace`), None (off) by
+    default. While set, each scan's step stamps its phases on the device
+    (on CUDA a second graph, captured once: a traced scan is still one
+    replay) and the host API records its spans: ``madicp.stage`` (with
+    ``madicp.stage.pad`` and ``madicp.copy_in``), ``madicp.compute`` (with
+    ``madicp.replay`` and ``madicp.clone_out``) and ``madicp.pose`` (with
+    ``madicp.pose.wait``)."""
 
     def __init__(
         self,
@@ -765,8 +807,7 @@ class Pipeline:
         self._rt_pending = False
         self._now = None  # injectable clock (tests)
         self._n_points_dropped = 0
-        # optional utils.timing.PhaseTimer; while set, every scan is eager
-        self.timer = None
+        self.trace = None
 
     @property
     def state(self) -> PipelineState:
@@ -797,16 +838,24 @@ class Pipeline:
         n_dropped)`` for :meth:`compute_device` (``n_dropped``: points
         beyond the static ``n_points`` capacity, truncated in input
         order)."""
-        pts, valid, n_dropped = self._pad(points)
-        return (
-            torch.as_tensor(pts, device=self.device),
-            torch.as_tensor(valid, device=self.device),
-            n_dropped,
-        )
+        tr = self.trace
+        with host_span(tr, "madicp.stage", None if tr is None else tr.next_staged()):
+            with host_span(tr, "madicp.stage.pad"):
+                pts, valid, n_dropped = self._pad(points)
+            with host_span(tr, "madicp.copy_in"):
+                return (
+                    torch.as_tensor(pts, device=self.device),
+                    torch.as_tensor(valid, device=self.device),
+                    n_dropped,
+                )
 
     def compute_device(self, stamp: float, pts, valid, n_dropped: int = 0) -> None:
         """Process a scan already padded and staged on the device (see
         :meth:`stage`); otherwise identical to :meth:`compute`."""
+        with host_span(self.trace, "madicp.compute"):
+            self._compute_device(pts, valid, n_dropped)
+
+    def _compute_device(self, pts, valid, n_dropped: int) -> None:
         self._n_points_dropped = int(n_dropped)
         due = (
             self.realtime
@@ -833,11 +882,11 @@ class Pipeline:
         """Host-side first-scan/odometry branch; enqueues the scan and
         reads nothing on the host."""
         if self._initialized:
-            out = self._graphs.step(self.cfg, pts[None], valid[None], self.timer)
+            out = self._graphs.step(self.cfg, pts[None], valid[None], self.trace)
         else:
-            out = self._graphs.initialize(self.cfg, pts[None], valid[None], self.timer)
+            out = self._graphs.initialize(self.cfg, pts[None], valid[None], self.trace)
             self._initialized = True
-        self._rt_cfg_warm = self._graphs.ready(self.cfg)
+        self._rt_cfg_warm = self._graphs.ready(self.cfg, self.trace is not None)
         self._last = _drop(out)
 
     def compute_batch(self, stamps, clouds) -> np.ndarray:
@@ -870,11 +919,12 @@ class Pipeline:
         staged = [self.stage(cloud) for cloud in clouds]
         poses = []
         for pts, valid, _ in staged:
-            self._dispatch_step(pts, valid)
+            with host_span(self.trace, "madicp.compute"):
+                self._dispatch_step(pts, valid)
             poses.append(self._last.pose)
         self._n_points_dropped = sum(n for _, _, n in staged)
         self._rt_scans += C
-        return torch.stack(poses).cpu().numpy()
+        return self._read_pose(lambda: torch.stack(poses).cpu().numpy())
 
     def _calibrate_realtime(self, pts, valid) -> None:
         """Rolling anytime-budget calibration: time one synchronised
@@ -928,7 +978,19 @@ class Pipeline:
     # (copies: the buffers change in place, and on the CPU .numpy() of
     # a buffer would share its memory)
     def current_pose(self) -> np.ndarray:
-        return self.state.X.to("cpu", copy=True).numpy()
+        return self._read_pose(lambda: self.state.X.to("cpu", copy=True).numpy())
+
+    def _read_pose(self, read):
+        """``read()``, the host's wait for the device, inside the trace's
+        pose spans; the traced steps' stamps are read after it."""
+        tr = self.trace
+        if tr is None:
+            return read()
+        with tr.span("madicp.pose", tr.last_step):
+            with tr.span("madicp.pose.wait"):
+                out = read()
+            tr.collect()
+        return out
 
     def keyframe_pose(self) -> np.ndarray:
         return self.state.keyframe_to_map.to("cpu", copy=True).numpy()

@@ -48,7 +48,7 @@ def prefix_certified_rounds(
     reduce_terms,
     kv: torch.Tensor,
     nv: torch.Tensor,
-    timer=None,
+    stamps=None,
 ):
     """The prefix-certified exact schedule (``cfg.certify_prefix > 0``)
     over a batch of B sequences: ``kf_valid_f`` (B, K), leaves (B, L, 3)
@@ -74,20 +74,21 @@ def prefix_certified_rounds(
     _, payload0, margin0 = descend(X0, leaves_valid[:, None, :] & live[:, :, None], True)
     n_descents = kv * nv
     if n_its == 1:
-        with phase(timer, "terms+solve"):
+        with phase(stamps, "terms"):
             H_last, b_last, matched = terms_scan(X0, payload0, True)
             return gn_se3_step(X0, H_last, b_last), H_last, matched, n_descents
 
-    with phase(timer, "terms+solve"):
+    with phase(stamps, "terms"):
         X1 = gn_se3_step(X0, *terms_scan(X0, payload0, False))
     # radius scale of the 1D certificate key (see the JAX module): sound
     # for any E0 > 0; the floor of 1.0 keeps the skip guard's fp term above
     # eps_cert on close-range scenes
-    E0 = torch.clamp(
-        torch.sum(torch.where(leaves_valid, _norm(leaves_pts), 0.0), dim=-1)
-        / torch.clamp(nv.to(dtype), min=1.0),
-        min=1.0,
-    )[:, None]  # (B, 1)
+    with phase(stamps, "assoc"):
+        E0 = torch.clamp(
+            torch.sum(torch.where(leaves_valid, _norm(leaves_pts), 0.0), dim=-1)
+            / torch.clamp(nv.to(dtype), min=1.0),
+            min=1.0,
+        )[:, None]  # (B, 1)
 
     def sort_kf(margin, payload, lps, lv, order):
         """Each keyframe's certification baseline from a full
@@ -100,11 +101,13 @@ def prefix_certified_rounds(
             a, perm.reshape(perm.shape + (1,) * (a.dim() - 3)), dim=2)
         return take(payload), take(lps), take(lv), take(mu), take(order)
 
-    sstate = sort_kf(
-        margin0, payload0, leaves_pts[:, None].expand(B, K, L, 3),
-        leaves_valid[:, None].expand(B, K, L),
-        torch.arange(L, device=dev).expand(B, K, L),
-    )
+    with phase(stamps, "assoc"):
+        sstate = sort_kf(
+            margin0, payload0, leaves_pts[:, None].expand(B, K, L, 3),
+            leaves_valid[:, None].expand(B, K, L),
+            torch.arange(L, device=dev).expand(B, K, L),
+        )
+        iota_u = torch.arange(U, device=dev)
 
     def terms_sorted(X, sstate, with_matched: bool):
         payload, lps, lv, _, order = sstate
@@ -127,13 +130,15 @@ def prefix_certified_rounds(
         return (_norm(Xb[:, :3, 3] - Xa[:, :3, 3])[:, None],
                 torch.sqrt(torch.sum(dR * dR, dim=(1, 2)))[:, None])
 
-    iota_u = torch.arange(U, device=dev)
-
     def reassoc_round(X, sstate, A, C, T, nd):
         """One round's re-association. ``T`` (B, K) is a running max, so
         within an epoch a keyframe's uncertified prefix only grows: a
         skipped entry (mu > T) has margin > A + C r + eps_cert and its
         cache provably holds the epoch's leaf."""
+        with phase(stamps, "assoc"):
+            return _reassoc(X, sstate, A, C, T, nd)
+
+    def _reassoc(X, sstate, A, C, T, nd):
         payload, lps, lv, mu, order = sstate
         T = torch.maximum(
             T, torch.maximum(A / E0, C) + eps64 * (1.0 + _norm(X[:, :3, 3]))[:, None])
@@ -159,20 +164,23 @@ def prefix_certified_rounds(
         A, C, T = (torch.where(fits, v, 0.0) for v in (A, C, T))
         return sstate, A, C, T, nd + act_p.sum(dim=(1, 2)) + act_r.sum(dim=(1, 2))
 
-    zeros_k = torch.zeros((B, K), dtype=dtype, device=dev)
+    with phase(stamps, "assoc"):
+        zeros_k = torch.zeros((B, K), dtype=dtype, device=dev)
     A, C, T = zeros_k, zeros_k, zeros_k
     Xp, X = X0, X1
     for _ in range(1, n_its - 1):
-        dt, dR = motion_budget(Xp, X)
+        with phase(stamps, "terms"):  # the certificate's budget, as the slack pass
+            dt, dR = motion_budget(Xp, X)
         sstate, A, C, T, n_descents = reassoc_round(X, sstate, A + dt, C + dR, T, n_descents)
-        with phase(timer, "terms+solve"):
+        with phase(stamps, "terms"):
             Xp, X = X, gn_se3_step(X, *terms_sorted(X, sstate, False))
     # final round: matched flags + H_last from this round's
     # re-association, like the reference's last-iteration reset
     # (pipeline.cpp:172-176)
-    dt, dR = motion_budget(Xp, X)
+    with phase(stamps, "terms"):
+        dt, dR = motion_budget(Xp, X)
     sstate, A, C, T, n_descents = reassoc_round(X, sstate, A + dt, C + dR, T, n_descents)
-    with phase(timer, "terms+solve"):
+    with phase(stamps, "terms"):
         H_last, b_last, matched = terms_sorted(X, sstate, True)
         X = gn_se3_step(X, H_last, b_last)
     return X, H_last, matched, n_descents

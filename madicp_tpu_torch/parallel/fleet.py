@@ -19,8 +19,11 @@ The states live in static buffers
 on CUDA, a batched scan is the replay of one captured graph from the
 second odometry scan on. With a mesh the step issues
 ``torch.distributed`` collectives and runs eagerly (capturing them is
-not done here); so do the first two scans, every scan while
-:attr:`Fleet.timer` is set, and every scan on the CPU.
+not done here); so do the first two scans and every scan on the CPU.
+:attr:`Fleet.trace` switches the program's trace on, as
+``Pipeline.trace`` does: ``madicp.compute`` (with ``madicp.copy_in``,
+``madicp.replay`` and ``madicp.clone_out``) and ``madicp.pose`` (with
+``madicp.pose.wait``) on the host, the step's phases on the device.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from madicp_tpu_torch.models.pipeline import (
     init_state,
 )
 from madicp_tpu_torch.models.step_graph import StepGraphs
+from madicp_tpu_torch.utils.timing import host_span
 from madicp_tpu_torch.parallel.mesh import (
     axis_index,
     axis_size,
@@ -91,8 +95,7 @@ class Fleet:
             init_state(cfg, self.device, batch=b, num_keyframes=cfg.num_keyframes // n_kf),
             cfg.n_points, cfg.dtype)
         self._initialized = False
-        # optional utils.timing.PhaseTimer; while set, every scan is eager
-        self.timer = None
+        self.trace = None  # utils.timing.Trace while on
         if self.device.type == "cuda":
             # the build's widest level: B * 2^depth segments. Its workspace
             # is allocated now, before anything could capture the step
@@ -131,24 +134,33 @@ class Fleet:
         the step itself reads nothing on the host.
         """
         del stamps
-        pts = self._local(points, self.cfg.dtype)
-        val = self._local(valid, torch.bool)
-        kw = {} if self.mesh is None else dict(kf_offset=self._kf_offset,
-                                               points_shard=self._shard)
-        if self._initialized:
-            if self.mesh is not None:
-                kw["icp_rounds_fn"] = self._rounds
-            return self._graphs.step(self.cfg, pts, val, self.timer, **kw)
-        self._initialized = True
-        return self._graphs.initialize(self.cfg, pts, val, self.timer, **kw)
+        tr = self.trace
+        with host_span(tr, "madicp.compute"):
+            with host_span(tr, "madicp.copy_in"):
+                pts = self._local(points, self.cfg.dtype)
+                val = self._local(valid, torch.bool)
+            kw = {} if self.mesh is None else dict(kf_offset=self._kf_offset,
+                                                   points_shard=self._shard)
+            if self._initialized:
+                if self.mesh is not None:
+                    kw["icp_rounds_fn"] = self._rounds
+                return self._graphs.step(self.cfg, pts, val, tr, **kw)
+            self._initialized = True
+            return self._graphs.initialize(self.cfg, pts, val, tr, **kw)
 
     def poses(self) -> np.ndarray:
         """(B, 4, 4) current poses of every sequence (gathered over the
         ``seq`` axis)."""
-        X = self.states.X
-        if self.mesh is not None and axis_size(self.mesh, "seq") > 1:
-            parts = [torch.empty_like(X) for _ in range(axis_size(self.mesh, "seq"))]
-            dist.all_gather(parts, X.contiguous(), group=self.mesh.get_group("seq"))
-            X = torch.cat(parts)
-        return read_replicated(X)
+        tr = self.trace
+        with host_span(tr, "madicp.pose", None if tr is None else tr.last_step):
+            with host_span(tr, "madicp.pose.wait"):
+                X = self.states.X
+                if self.mesh is not None and axis_size(self.mesh, "seq") > 1:
+                    parts = [torch.empty_like(X) for _ in range(axis_size(self.mesh, "seq"))]
+                    dist.all_gather(parts, X.contiguous(), group=self.mesh.get_group("seq"))
+                    X = torch.cat(parts)
+                poses = read_replicated(X)
+            if tr is not None:
+                tr.collect()
+        return poses
 

@@ -36,6 +36,7 @@ from madicp_tpu_torch.models.pipeline import (
 from madicp_tpu_torch.ops.icp_core import associate_ring, terms_from_payload
 from madicp_tpu_torch.ops.tree import PointShard
 from madicp_tpu_torch.parallel.mesh import axis_index, axis_size, make_global
+from madicp_tpu_torch.utils.timing import phase
 
 
 class _Counter:
@@ -71,16 +72,19 @@ def kf_reduce_terms(group):
     return reduce
 
 
-def kf_rounds_fn(cfg: PipelineConfig, group, timer=None):
+def kf_rounds_fn(cfg: PipelineConfig, group):
     """``odometry_step``'s ``icp_rounds_fn`` for a ring split over
     ``group``: the local round schedule with the all-reduce hook, and the
-    descent count summed over the group."""
+    descent count summed over the group (the step's ``stamps`` stamp its
+    phases)."""
     reduce = kf_reduce_terms(group)
 
-    def rounds(kf_tree, kf_valid, leaves, X0):
+    def rounds(kf_tree, kf_valid, leaves, X0, stamps=None):
+        with phase(stamps, "assoc"):
+            kf_valid_f = kf_valid.to(cfg.dtype)
         X, H_last, matched, n_desc = icp_rounds(
-            cfg, kf_tree, kf_valid.to(cfg.dtype), leaves.pts, leaves.valid, X0,
-            timer=timer, reduce_terms=reduce)
+            cfg, kf_tree, kf_valid_f, leaves.pts, leaves.valid, X0,
+            stamps=stamps, reduce_terms=reduce)
         return X, H_last, matched, _all_reduce(n_desc, dist.ReduceOp.SUM, group)
 
     return rounds

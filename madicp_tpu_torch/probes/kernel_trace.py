@@ -62,7 +62,7 @@ parts named by ``--parts`` (default: all but ``step``, ``pdl`` and ``launch``):
   :func:`tail_region`) for the certified flagship, float32 and float64,
   B = 1 and 4, on a scan where every sequence promotes and on one where
   none does: every kernel with its device µs and the line of
-  ``_odometry_step`` and the innermost package line that issued it (a
+  ``_phased_step`` and the innermost package line that issued it (a
   marker kernel a line, :func:`step_lines`), the copies ``write_state``
   makes after the step by its line, and from a replay of the step
   captured whole, the prediction's, the tail's and the copies' graphed
@@ -1283,15 +1283,15 @@ def deskew_rates(device, rounds: int = 2) -> dict:
     with deskew off and in both modes, in turns ``rounds`` times (off,
     reference, binned, then the reverse): each run's median scans/s over
     :data:`DESKEW_DRIVE`'s windows, device busy ms and kernels a scan
-    (profiled), the deskew phase's ms and the step's (eager, under a
-    PhaseTimer), and its distance to the truth."""
+    (profiled), each phase's device ms (graphed, under the program's
+    trace), and its distance to the truth."""
     from madicp_tpu_torch.probes.deskew_drive import SweepSetup, truth_error
-    from madicp_tpu_torch.utils.timing import PhaseTimer, device_kernels
+    from madicp_tpu_torch.utils.timing import Trace, device_kernels, layer_ms
 
     w, n, nw, nph, npr = (DESKEW_DRIVE[k] for k in ("warm", "steps", "windows", "phase",
                                                     "profiled"))
     setup = SweepSetup(device)
-    last = w + n * nw + nph + npr
+    last = w + n * nw + 1 + nph + npr
     order = [None, "reference", "binned"]
     runs = []
     for r in range(rounds):
@@ -1315,11 +1315,13 @@ def deskew_rates(device, rounds: int = 2) -> dict:
                 torch.cuda.synchronize()
                 rates.append(n / (time.perf_counter() - t0))
                 lo += n
-            pipe.timer = timer = PhaseTimer(device)
-            run(lo, lo + nph)
-            phases = {k: v / nph for k, v in timer.totals_ms().items()}
-            pipe.timer = None
-            lo += nph
+            pipe.trace = Trace(device)
+            run(lo, lo + 1)  # the traced graph's capture
+            pipe.trace.drain()
+            run(lo + 1, lo + 1 + nph)
+            phases = {k: ms / nph for k, ms in layer_ms(pipe.trace.drain()).items()}
+            pipe.trace = None
+            lo += 1 + nph
             by_name, wall_ms = device_kernels(lambda: run(lo, lo + npr))
             got = torch.stack(poses).double().cpu().numpy()
             runs.append({
@@ -1422,16 +1424,17 @@ def step_lines(fn, reps: int = REPS) -> list:
 
 
 def tail_region(pipeline_path: str) -> tuple:
-    """``(prediction lines, tail lines)`` of ``_odometry_step`` in
-    ``models/pipeline.py``: the line that forms ``X0``, and every line from
-    ``with phase(timer, "rings"):`` up to ``new_state = PipelineState(``
-    (everything after the round loop up to the new state)."""
+    """``(prediction lines, tail lines)`` of the odometry step's body
+    (``_phased_step`` in ``models/pipeline.py``): the line that forms
+    ``X0``, and every line of the ``tail`` phase after the round loop up
+    to ``new_state = PipelineState(`` (everything after the rounds up to
+    the new state)."""
     lines = open(pipeline_path).read().splitlines()
-    start = next(i for i, s in enumerate(lines) if s.startswith("def _odometry_step(")) + 1
-    find = lambda text: next(i for i in range(start, len(lines))  # noqa: E731
-                             if lines[i - 1].strip().startswith(text))
+    start = next(i for i, s in enumerate(lines) if s.startswith("def _phased_step(")) + 1
+    find = lambda text, lo=start: next(i for i in range(lo, len(lines))  # noqa: E731
+                                       if lines[i - 1].strip().startswith(text))
     x0 = find("X0 =")
-    return {x0}, set(range(find('with phase(timer, "rings")'),
+    return {x0}, set(range(find('with phase(stamps, "tail")', find("X, H_last, matched")),
                            find("new_state = PipelineState(")))
 
 
@@ -1465,7 +1468,7 @@ def tail_trace(setup, pipe, B: int, promote: bool, reps: int = REPS) -> dict:
     sequences stepping the bench's scans from :data:`TAIL_SCAN` on, each
     from ``pipe``'s primed state, with a ``p_th`` that makes every
     sequence promote or none: every kernel of an eager step with the line
-    of ``_odometry_step`` and the innermost package line that issued it
+    of ``_phased_step`` and the innermost package line that issued it
     (:func:`step_lines`), their device µs and kernels by step line and by
     source, and, from a replay of the step captured whole in a CUDA graph
     (its kernels in the eager step's order), the prediction's and the
@@ -1493,8 +1496,8 @@ def tail_trace(setup, pipe, B: int, promote: bool, reps: int = REPS) -> dict:
     predict_lines, tail_lines = tail_region(pipeline_mod.__file__)
     rows = []
     for j, (name, us, chain) in enumerate(eager):
-        for part, func, lines in (("predict", "_odometry_step", predict_lines),
-                                  ("tail", "_odometry_step", tail_lines),
+        for part, func, lines in (("predict", "_phased_step", predict_lines),
+                                  ("tail", "_phased_step", tail_lines),
                                   ("write_state", "write_state", None)):
             line = _in(chain, func, lines)
             if line is not None:

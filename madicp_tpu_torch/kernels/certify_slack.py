@@ -16,6 +16,13 @@ the JAX package's ``madicp_tpu/models/pipeline.py:531-558``
 count. The kernel lives in ``csrc/certify_slack.cu`` (design and bound in
 its header); :func:`certify_slack_plain` is the same math in tensor ops.
 
+``n_live`` (B,) int64 bounds each sequence's leaves: an entry at or past it
+keeps its slack and its ``need`` reads false, and the kernel loads nothing
+of a leaf tile wholly past it. The pipeline passes the count of a scan's
+valid leaves, a prefix of their slots
+(:func:`~madicp_tpu_torch.ops.tree.get_leaves`), so nothing it cuts off
+was live.
+
 ``need`` is a soundness decision, so both versions form every value in one
 explicit order, one rounding an operation: ``d_c = ((m_x dR_c0 + m_y
 dR_c1) + m_z dR_c2) + dt_c`` with ``dR = R - Rp``, ``dt = t - tp`` (no
@@ -42,7 +49,7 @@ counter = build.LaunchCounter()
 # the __global__ functions of csrc/certify_slack.cu, as a CUDA trace names them
 KERNEL_NAMES = ("certify_slack_kernel",)
 _launch = build.Launcher("certify_slack", {  # the stream last
-    "certify_slack": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3,
+    "certify_slack": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3,
 }, counter)
 
 
@@ -73,17 +80,25 @@ def eps_cert(X: torch.Tensor, r_norm: torch.Tensor) -> torch.Tensor:
     return 64.0 * torch.finfo(X.dtype).eps * ((1.0 + t_norm[:, None]) + r_norm)
 
 
-def certify_slack_plain(slack, Xp, X, pts, r_norm, leaves_valid, kf_live, n_descents):
+def certify_slack_plain(slack, Xp, X, pts, r_norm, leaves_valid, kf_live, n_descents,
+                        n_live=None):
     """Plain version: ``slack -= bound`` and ``n_descents += count`` in
-    place; returns ``need`` (B, K, L)."""
-    slack.sub_(motion_bound(pts, Xp, X)[:, None, :])
+    place; returns ``need`` (B, K, L). From ``n_live`` on the slack is kept
+    and ``need`` false."""
+    bound = motion_bound(pts, Xp, X)[:, None, :]
+    if n_live is None:
+        slack.sub_(bound)
+    else:
+        keep = torch.arange(slack.shape[-1], device=slack.device) < n_live[:, None]
+        leaves_valid = leaves_valid & keep
+        slack.copy_(torch.where(keep[:, None, :], slack - bound, slack))
     need = ((slack <= eps_cert(X, r_norm)[:, None, :]) & leaves_valid[:, None, :]
             & kf_live[:, :, None])
     n_descents.add_(need.sum(dim=(1, 2)))
     return need
 
 
-def _check(slack, Xp, X, pts, r_norm, leaves_valid, kf_live, n_descents) -> None:
+def _check(slack, Xp, X, pts, r_norm, leaves_valid, kf_live, n_descents, n_live=None) -> None:
     """Raise on what neither version takes (every device)."""
     dev, dtype = slack.device, slack.dtype
     if dev.type not in ("cpu", "cuda"):
@@ -105,34 +120,42 @@ def _check(slack, Xp, X, pts, r_norm, leaves_valid, kf_live, n_descents) -> None
     want = {"Xp": (Xp, (B, 4, 4)), "X": (X, (B, 4, 4)), "pts": (pts, (B, L, 3)),
             "r_norm": (r_norm, (B, L)), "leaves_valid": (leaves_valid, (B, L)),
             "kf_live": (kf_live, (B, K)), "n_descents": (n_descents, (B,))}
+    if n_live is not None:
+        if n_live.device != dev:
+            raise ValueError("certify_slack: operands on different devices")
+        if n_live.dtype != torch.int64:
+            raise TypeError(f"certify_slack: n_live must be int64, got {n_live.dtype}")
+        want["n_live"] = (n_live, (B,))
     for name, (t, shape) in want.items():
         if tuple(t.shape) != shape:
             raise ValueError(f"certify_slack: want {name} {shape}, got {tuple(t.shape)}")
 
 
-def certify_slack(slack, Xp, X, pts, r_norm, leaves_valid, kf_live, n_descents):
+def certify_slack(slack, Xp, X, pts, r_norm, leaves_valid, kf_live, n_descents, n_live=None):
     """``need`` of :func:`certify_slack_plain` (same arguments, the same
     updates in place): the plain version for CPU tensors, the kernel for
     CUDA ones."""
-    _check(slack, Xp, X, pts, r_norm, leaves_valid, kf_live, n_descents)
+    _check(slack, Xp, X, pts, r_norm, leaves_valid, kf_live, n_descents, n_live)
     if slack.device.type == "cpu":
         return certify_slack_plain(slack, Xp, X, pts, r_norm, leaves_valid, kf_live,
-                                   n_descents)
-    return launch(slack, Xp, X, pts, r_norm, leaves_valid, kf_live, n_descents)
+                                   n_descents, n_live)
+    return launch(slack, Xp, X, pts, r_norm, leaves_valid, kf_live, n_descents, n_live)
 
 
-def launch(slack, Xp, X, pts, r_norm, leaves_valid, kf_live, n_descents):
+def launch(slack, Xp, X, pts, r_norm, leaves_valid, kf_live, n_descents, n_live=None):
     """Run the kernel on CUDA tensors (arguments and result as
     :func:`certify_slack`); one count. ``slack`` and ``n_descents`` must
     be contiguous (they are written in place); the inputs are read
     contiguous (no copy where they are)."""
-    _check(slack, Xp, X, pts, r_norm, leaves_valid, kf_live, n_descents)
+    _check(slack, Xp, X, pts, r_norm, leaves_valid, kf_live, n_descents, n_live)
     if not (slack.is_contiguous() and n_descents.is_contiguous()):
         raise ValueError("certify_slack: slack and n_descents must be contiguous (updated "
                          "in place)")
     B, K, L = slack.shape
     need = torch.empty((B, K, L), dtype=torch.bool, device=slack.device)
     ins = [t.contiguous() for t in (Xp, X, pts, r_norm, leaves_valid, kf_live)]
+    live = None if n_live is None else n_live.contiguous()
     _launch("certify_slack", slack.dtype, slack.device, slack.data_ptr(),
-            *(t.data_ptr() for t in ins), B, K, L, need.data_ptr(), n_descents.data_ptr())
+            *(t.data_ptr() for t in ins), None if live is None else live.data_ptr(), B, K, L,
+            need.data_ptr(), n_descents.data_ptr())
     return need

@@ -5,8 +5,9 @@
 // path margin, less the map-frame displacement of its query since that
 // descent, stays above a rounding floor. From the previous and current
 // poses Xp, X (B, 4, 4), the leaves m (B, L, 3), their norms r_norm (B, L),
-// the slack (B, K, L), leaves_valid (B, L) and kf_live (B, K), for each
-// entry:
+// the slack (B, K, L), leaves_valid (B, L), kf_live (B, K) and
+// optionally the live leaves n_live (B,) int64, for each entry below its
+// sequence's bound min(n_live, L) (L without n_live):
 //   motion bound  dR = R - Rp, dt = t - tp,
 //                 d_c = ((m_x dR_c0 + m_y dR_c1) + m_z dR_c2) + dt_c,
 //                 bound = sqrt((d_0^2 + d_1^2) + d_2^2)
@@ -15,6 +16,9 @@
 //   slack         slack -= bound, in place
 //   need          (slack <= eps_cert) & leaves_valid & kf_live
 //   count         n_descents[b] += the sequence's need entries
+// and from the bound on: slack kept, need false. The pipeline's leaves are
+// a prefix of their slots (get_leaves) and n_live their count, so nothing
+// past the bound was ever live.
 // The bound is a norm of differences, with no trig: an angle bound's
 // rounding (~sqrt(eps) near 0) would certify near-zero-slack entries
 // unsoundly.
@@ -30,7 +34,8 @@
 // entry in float32), need written (1), the leaves, their norms and flags
 // read once a leaf: at the flagship (16 keyframes x 32768 leaves) ~5.3 MB,
 // ~1.6 us at 3.35 TB/s; ~45 operations a leaf and 3 an entry. In a round
-// the slack was written two launches before, so it is read from L2.
+// the slack was written two launches before, so it is read from L2. Past
+// the bound only need is written (1 byte an entry).
 //
 // Design: one launch a round over (leaf tile, keyframe group, sequence):
 // a block of 256 threads, TX = 64 along the leaves and 4 along the
@@ -52,6 +57,11 @@
 // equals the eager call. PERF.md §6 (PR 15) has the A/B of six block
 // shapes behind this one: at B = 4 in float64 (1.6 waves) none matched
 // the one-thread-a-leaf loop it replaced.
+//
+// The bound: a block whose leaf tile lies wholly at or past its
+// sequence's bound stores need = 0 for its entries (16-byte stores where
+// need's rows allow, else a thread's words) and loads nothing else; a
+// tile that straddles the bound masks leaf by leaf.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -91,8 +101,10 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
     certify_slack_kernel(T* __restrict__ slack, const T* __restrict__ Xp,
                          const T* __restrict__ X, const T* __restrict__ pts,
                          const T* __restrict__ r_norm, const uint8_t* __restrict__ leaves_valid,
-                         const uint8_t* __restrict__ kf_live, int K, int L, T floor_scale,
-                         uint8_t* __restrict__ need, unsigned long long* __restrict__ n_descents) {
+                         const uint8_t* __restrict__ kf_live,
+                         const long long* __restrict__ n_live, int K, int L, bool zero16,
+                         T floor_scale, uint8_t* __restrict__ need,
+                         unsigned long long* __restrict__ n_descents) {
   using A = Arith<T>;
   using V = typename Lanes<T>::Vec;
   using Need = typename Lanes<T>::Need;
@@ -108,6 +120,33 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
   const int k_first = blockIdx.y * KG + (threadIdx.x / TX) * KPT;
   const int l_first = tile + tx * N;  // this thread's first leaf
   const long long bL = static_cast<long long>(b) * L;
+  int bound = L;
+  if (n_live != nullptr) {
+    const long long n = n_live[b];
+    bound = static_cast<int>(n < 0 ? 0 : (n < L ? n : L));
+  }
+
+  // a tile wholly past the bound: need = 0 for its entries, nothing else
+  if (tile >= bound) {
+    if (zero16) {  // L and need a multiple of 16 bytes: a 16-byte chunk of a row a thread
+      constexpr int CHUNKS = TL / 16;  // of a keyframe's row in the tile
+      const int k = blockIdx.y * KG + threadIdx.x / CHUNKS;
+      const int l = tile + threadIdx.x % CHUNKS * 16;
+      if (threadIdx.x < KG * CHUNKS && k < K && l < L)
+        *reinterpret_cast<uint4*>(need + (static_cast<long long>(b) * K + k) * L + l) =
+            make_uint4(0, 0, 0, 0);
+    } else {
+#pragma unroll
+      for (int q = 0; q < KPT; ++q) {
+        const int k = k_first + q;
+        const long long at = (static_cast<long long>(b) * K + k) * L + l_first;
+#pragma unroll
+        for (int e = 0; e < N; ++e)
+          if (k < K && l_first + e < L) need[at + e] = 0;
+      }
+    }
+    return;
+  }
 
   // phase: loads
   T sv[KPT][N] = {};
@@ -137,7 +176,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
   // norm and flag
   static_assert(TL <= THREADS, "a leaf a thread");
   const int lt = tile + threadIdx.x;  // this thread's leaf of the bound
-  const bool bounds = threadIdx.x < TL && lt < L;
+  const bool bounds = threadIdx.x < TL && lt < bound;
   T mx = T(0), my = T(0), mz = T(0), rn = T(0);
   bool valid = false;
   if (bounds) {
@@ -179,8 +218,9 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
     Need word = 0;
 #pragma unroll
     for (int e = 0; e < N; ++e) {
-      // past L (the last tile's tail) nothing is read, counted or stored
-      if (VEC ? l_first < L : l_first + e < L) {
+      // past the bound the slack is kept and need is false; past L (the
+      // last tile's tail) nothing is read, counted or stored
+      if (l_first + e < bound) {
         const int t = tx * N + e;
         sv[q][e] = A::sub(sv[q][e], s_bound[t]);
         const bool nd = sv[q][e] <= s_eps[t] && s_valid[t] && live[q];
@@ -224,8 +264,8 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 
 template <typename T>
 int launch(T* slack, const T* Xp, const T* X, const T* pts, const T* r_norm,
-           const uint8_t* leaves_valid, const uint8_t* kf_live, int B, int K, int L,
-           uint8_t* need, long long* n_descents, cudaStream_t stream) {
+           const uint8_t* leaves_valid, const uint8_t* kf_live, const long long* n_live, int B,
+           int K, int L, uint8_t* need, long long* n_descents, cudaStream_t stream) {
   constexpr int N = Lanes<T>::N;
   if (B < 0 || K < 0 || L < 0 || B > 65535) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || K == 0 || L == 0) return static_cast<int>(cudaGetLastError());
@@ -235,9 +275,10 @@ int launch(T* slack, const T* Xp, const T* X, const T* pts, const T* r_norm,
   const dim3 grid((L + tl - 1) / tl, (K + kg - 1) / kg, B), block(THREADS);
   const bool vec = L % N == 0 && reinterpret_cast<uintptr_t>(slack) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(need) % N == 0;
+  const bool zero16 = L % 16 == 0 && reinterpret_cast<uintptr_t>(need) % 16 == 0;
   auto* kernel = vec ? certify_slack_kernel<T, true> : certify_slack_kernel<T, false>;
-  kernel<<<grid, block, 0, stream>>>(slack, Xp, X, pts, r_norm, leaves_valid, kf_live, K, L,
-                                     floor_scale, need,
+  kernel<<<grid, block, 0, stream>>>(slack, Xp, X, pts, r_norm, leaves_valid, kf_live, n_live,
+                                     K, L, zero16, floor_scale, need,
                                      reinterpret_cast<unsigned long long*>(n_descents));
   return static_cast<int>(cudaGetLastError());
 }
@@ -248,22 +289,24 @@ extern "C" {
 
 // Plain C interface for ctypes: (slack (B, K, L), Xp (B, 4, 4), X (B, 4,
 // 4), pts (B, L, 3), r_norm (B, L), leaves_valid (B, L) bool, kf_live (B,
-// K) bool, B, K, L, need (B, K, L) bool, n_descents (B,) int64, stream),
-// every tensor contiguous; slack and n_descents are updated in place.
+// K) bool, n_live (B,) int64 or null, B, K, L, need (B, K, L) bool,
+// n_descents (B,) int64, stream), every tensor contiguous; slack and
+// n_descents are updated in place.
 // Returns the CUDA error code of the launch (0 = success).
 int certify_slack_f32(float* slack, const float* Xp, const float* X, const float* pts,
                       const float* r_norm, const uint8_t* leaves_valid, const uint8_t* kf_live,
-                      int B, int K, int L, uint8_t* need, long long* n_descents, void* stream) {
-  return launch<float>(slack, Xp, X, pts, r_norm, leaves_valid, kf_live, B, K, L, need,
+                      const long long* n_live, int B, int K, int L, uint8_t* need,
+                      long long* n_descents, void* stream) {
+  return launch<float>(slack, Xp, X, pts, r_norm, leaves_valid, kf_live, n_live, B, K, L, need,
                        n_descents, static_cast<cudaStream_t>(stream));
 }
 
 int certify_slack_f64(double* slack, const double* Xp, const double* X, const double* pts,
                       const double* r_norm, const uint8_t* leaves_valid,
-                      const uint8_t* kf_live, int B, int K, int L, uint8_t* need,
-                      long long* n_descents, void* stream) {
-  return launch<double>(slack, Xp, X, pts, r_norm, leaves_valid, kf_live, B, K, L, need,
-                        n_descents, static_cast<cudaStream_t>(stream));
+                      const uint8_t* kf_live, const long long* n_live, int B, int K, int L,
+                      uint8_t* need, long long* n_descents, void* stream) {
+  return launch<double>(slack, Xp, X, pts, r_norm, leaves_valid, kf_live, n_live, B, K, L,
+                        need, n_descents, static_cast<cudaStream_t>(stream));
 }
 
 const char* madicp_cuda_error_string(int code) {

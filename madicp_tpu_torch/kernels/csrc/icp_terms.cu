@@ -2,15 +2,21 @@
 //
 // From an association payload (..., L, 8) = [f (3), n (3), bbox0, flags],
 // the moving points m (..., L, 3) in the scan frame, the valid mask
-// (..., L) and the pose X (..., 4, 4), each with leading axes that
-// broadcast (strides, 0 where an axis broadcasts), for each entry:
+// (..., L), the pose X (..., 4, 4) and optionally the live entries n_live
+// (...) int64, each with leading axes that broadcast (strides, 0 where an
+// axis broadcasts), for each entry l below the leading index's bound
+// min(n_live, L) (L without n_live):
 //   map frame ml_c = ((m_x R_c0 + m_y R_c1) + m_z R_c2) + t_c
 //   gate      matched = |ml - f| <= b_max + b_ratio |m|, valid, flags == 3
 //   residual  e = (ml - f) . n
 //   Jacobian  J = [u, m x u], u = R^T n
 //   weight    s = huber(|e|, rho) (1 - bbox0 / b_max)^2 matched
 // and for each leading index the 21 sums of (s J)^T J and the 6 of s J e,
-// filled into a symmetric H (..., 6, 6) and b (..., 6), plus matched.
+// filled into a symmetric H (..., 6, 6) and b (..., 6), plus matched
+// (false from the bound on; not written at all where the caller takes no
+// matched). Entries past the bound are not read: the pipeline's leaves are
+// a prefix of their slots (get_leaves), so n_live = the count of valid
+// leaves cuts off only entries whose terms are exactly zero.
 //
 // It is the counterpart of madicp_tpu_torch/ops/icp_core.py
 // `terms_from_payload` (plain version: kernels/icp_terms.py
@@ -21,12 +27,17 @@
 // Bound on an H100: bytes (payload, points, valid and X in; matched, H and
 // b out) at 3.35 TB/s; ~130 float operations an entry are ~1/10 of that
 // at the float32 peak. At the flagship (16 keyframes x 32768 leaves) the
-// payload alone is 16.8 MB a round, ~5 us.
+// payload alone is 16.8 MB a round, ~5 us; a KITTI scan's ~59,000 leaves
+// in 131,072 slots read 30 MB of payload a round below the bound, 67 MB
+// without it.
 //
 // Design (one launch a call):
-//   * a thread-block cluster a leading index; its blocks split L into
-//     contiguous tiles, and a thread walks its tile in steps of the block,
-//     loading each entry before it forms the one before it. The work is
+//   * a thread-block cluster a leading index; its blocks split the
+//     leading index's bound into contiguous tiles (formed in the kernel,
+//     a whole number of warps each, so every block of the cluster walks
+//     its share of the live entries whatever the bound), and a thread
+//     walks its tile in steps of the block, loading each entry before it
+//     forms the one before it. The work is
 //     latency- and issue-bound (27 double FMAs and 13 conversions an
 //     entry), so the wrapper's plan (kernels/icp_terms.py `plan`) puts as
 //     many threads on a leading index as the card holds in one wave: the
@@ -34,7 +45,11 @@
 //     an SM) and the cluster (1..8 blocks) come from the clusters the
 //     card reports it holds at once (icp_terms_max_clusters). On the H100
 //     the flagship's 16 keyframes take clusters of 6 blocks of 512: 8
-//     would take two waves (15 fit at once).
+//     would take two waves (15 fit at once). The plan is made for L at
+//     capture; a graph's replay re-tiles each scan's own bound.
+//   * with matched wanted, the cluster's threads store zeros from the
+//     bound to L as 16-byte vectors (a replay reuses the buffer, so a scan
+//     with fewer leaves must not show the previous scan's flags).
 //   * a thread forms each entry's values with _rn intrinsics in the plain
 //     version's order (so `matched` equals it bit for bit; nvcc would
 //     otherwise contract a*b + c into FMAs), the map-frame point ml
@@ -82,7 +97,8 @@ struct View {
 struct Params {
   long long shape[NLEAD];
   View pay, m, valid, x;
-  int L, cluster, tile;
+  long long live[NLEAD];  // n_live's leading strides
+  int L, cluster;
 };
 
 __constant__ int H_ROW[21] = {0, 0, 0, 0, 0, 0, 1, 1, 1, 1, 1, 2, 2, 2, 2, 3, 3, 3, 4, 4, 5};
@@ -94,8 +110,12 @@ __device__ __forceinline__ T clamp_min(T x, T lo) {
   return x != x ? x : (x < lo ? lo : x);
 }
 
+__device__ __forceinline__ long long offset(const long long* lead, const long long* idx) {
+  return idx[0] * lead[0] + idx[1] * lead[1] + idx[2] * lead[2] + idx[3] * lead[3];
+}
+
 __device__ __forceinline__ long long offset(const View& v, const long long* idx) {
-  return idx[0] * v.lead[0] + idx[1] * v.lead[1] + idx[2] * v.lead[2] + idx[3] * v.lead[3];
+  return offset(v.lead, idx);
 }
 
 // the 8 payload values of entry l: two (float) or four (double) 16-byte
@@ -144,8 +164,22 @@ __device__ __forceinline__ void load_entry(const T* __restrict__ pay, const T* _
   x.valid = __ldg(vp + l * p.valid.row) != 0;
 }
 
+// zeros into bytes [lo, hi) of row, by `nthreads` threads (this one
+// `tid`): 16-byte stores from the first aligned byte, single bytes around
+__device__ __forceinline__ void zero_bytes(uint8_t* __restrict__ row, int lo, int hi, int tid,
+                                           int nthreads) {
+  if (lo >= hi) return;
+  const uintptr_t at = reinterpret_cast<uintptr_t>(row + lo);
+  const int head = min(hi - lo, static_cast<int>((16 - at % 16) % 16));
+  const int n16 = (hi - lo - head) / 16;
+  if (tid < head) row[lo + tid] = 0;
+  uint4* v = reinterpret_cast<uint4*>(row + lo + head);
+  for (int i = tid; i < n16; i += nthreads) v[i] = make_uint4(0, 0, 0, 0);
+  for (int i = lo + head + 16 * n16 + tid; i < hi; i += nthreads) row[i] = 0;
+}
+
 // entry l's values in the plain version's order, its matched flag
-// written and its 27 terms added to acc
+// written (where wanted) and its 27 terms added to acc
 template <typename T>
 __device__ __forceinline__ void form_entry(const Entry<T>& x, const T (&R)[3][3],
                                            const T (&t)[3], T inv_b_max, T b_ratio, T b_max,
@@ -169,7 +203,7 @@ __device__ __forceinline__ void form_entry(const Entry<T>& x, const T (&R)[3][3]
   const T rng = A::sqrt(A::add(A::add(A::mul(mx, mx), A::mul(my, my)), A::mul(mz, mz)));
   const T src_ball = A::add(A::mul(b_ratio, rng), b_max);
   const bool ok = dist <= src_ball && x.valid && flags == T(3);
-  matched[l] = ok;
+  if (matched != nullptr) matched[l] = ok;
 
   // residual and analytic Jacobian, u = R^T n
   const T e = A::add(A::add(A::mul(dx, nx), A::mul(dy, ny)), A::mul(dz, nz));
@@ -201,9 +235,9 @@ __device__ __forceinline__ void form_entry(const Entry<T>& x, const T (&R)[3][3]
 template <typename T, bool VEC, int THREADS>
 __global__ void __launch_bounds__(THREADS, 65536 / (REGS * THREADS))
 terms_kernel(Params p, const T* __restrict__ payload, const T* __restrict__ mpts,
-             const uint8_t* __restrict__ valid, const T* __restrict__ X, T inv_b_max,
-             T b_ratio, T b_max, T rho, uint8_t* __restrict__ matched_out,
-             T* __restrict__ H, T* __restrict__ b) {
+             const uint8_t* __restrict__ valid, const T* __restrict__ X,
+             const long long* __restrict__ n_live, T inv_b_max, T b_ratio, T b_max, T rho,
+             uint8_t* __restrict__ matched_out, T* __restrict__ H, T* __restrict__ b) {
   constexpr int WARPS = THREADS / 32;
   __shared__ double red[WARPS][NSUM];
   __shared__ double part[NSUM];
@@ -228,7 +262,16 @@ terms_kernel(Params p, const T* __restrict__ payload, const T* __restrict__ mpts
     for (int j = 0; j < 3; ++j) R[i][j] = xp[i * p.x.row + j * p.x.col];
     t[i] = xp[i * p.x.row + 3 * p.x.col];
   }
-  uint8_t* matched = matched_out + static_cast<long long>(lead) * p.L;
+  uint8_t* matched =
+      matched_out == nullptr ? nullptr : matched_out + static_cast<long long>(lead) * p.L;
+  // the leading index's bound, and the block's tile of it
+  int bound = p.L;
+  if (n_live != nullptr) {
+    const long long n = __ldg(n_live + offset(p.live, idx));
+    bound = static_cast<int>(n < 0 ? 0 : (n < p.L ? n : p.L));
+  }
+  const int tile =
+      static_cast<int>(((static_cast<long long>(bound) + p.cluster - 1) / p.cluster + 31) & ~31ll);
 
   double acc[NSUM];
 #pragma unroll
@@ -236,8 +279,8 @@ terms_kernel(Params p, const T* __restrict__ payload, const T* __restrict__ mpts
 
   // the block's tile, a thread's entries a block apart; each entry's
   // loads are issued before the previous entry is formed
-  const int hi = min(p.L, (rank + 1) * p.tile);
-  int l = rank * p.tile + threadIdx.x;
+  const int hi = min(bound, (rank + 1) * tile);
+  int l = rank * tile + threadIdx.x;
   Entry<T> cur;
   if (l < hi) load_entry<T, VEC>(pay, mp, vp, p, l, cur);
   for (; l < hi; l += THREADS) {
@@ -246,6 +289,9 @@ terms_kernel(Params p, const T* __restrict__ payload, const T* __restrict__ mpts
     form_entry<T>(cur, R, t, inv_b_max, b_ratio, b_max, rho, matched, l, acc);
     cur = next;
   }
+  // matched reads false from the bound on
+  if (matched != nullptr)
+    zero_bytes(matched, bound, p.L, rank * THREADS + threadIdx.x, p.cluster * THREADS);
 
   // the block's 27 sums, in a fixed order: lanes, then warps
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -290,8 +336,8 @@ View read_view(const long long*& meta) {
 
 // the kernel for a working type, a load path and a block size
 template <typename T>
-using Kernel = void (*)(Params, const T*, const T*, const uint8_t*, const T*, T, T, T, T,
-                        uint8_t*, T*, T*);
+using Kernel = void (*)(Params, const T*, const T*, const uint8_t*, const T*,
+                        const long long*, T, T, T, T, uint8_t*, T*, T*);
 
 template <typename T>
 Kernel<T> kernel_for(bool vec, int threads) {
@@ -335,21 +381,21 @@ int max_clusters(int threads, int cluster) {
 
 template <typename T>
 int launch(const long long* meta, const T* payload, const T* mpts, const uint8_t* valid,
-           const T* X, double b_max, double b_ratio, double rho, int n_lead, uint8_t* matched,
-           T* H, T* b, cudaStream_t stream) {
+           const T* X, const long long* n_live, double b_max, double b_ratio, double rho,
+           int n_lead, uint8_t* matched, T* H, T* b, cudaStream_t stream) {
   Params p;
   for (int d = 0; d < NLEAD; ++d) p.shape[d] = *meta++;
   p.pay = read_view(meta);
   p.m = read_view(meta);
   p.valid = read_view(meta);
   p.x = read_view(meta);
+  for (int d = 0; d < NLEAD; ++d) p.live[d] = *meta++;
   p.L = static_cast<int>(*meta++);
   p.cluster = static_cast<int>(*meta++);
-  p.tile = static_cast<int>(*meta++);
   const int threads = static_cast<int>(*meta++);
   const bool vec = *meta++ != 0;
   const Kernel<T> k = kernel_for<T>(vec, threads);
-  if (k == nullptr || p.cluster < 1 || p.cluster > MAX_CLUSTER || p.tile < 0)
+  if (k == nullptr || p.cluster < 1 || p.cluster > MAX_CLUSTER || p.L < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_lead <= 0) return static_cast<int>(cudaGetLastError());
   // torch divides a tensor by a host scalar as a product with the
@@ -359,7 +405,7 @@ int launch(const long long* meta, const T* payload, const T* mpts, const uint8_t
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg = cluster_config(n_lead * p.cluster, threads, p.cluster,
                                                 stream, attr);
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, k, p, payload, mpts, valid, X, inv,
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, k, p, payload, mpts, valid, X, n_live, inv,
                                              static_cast<T>(b_ratio), bm,
                                              static_cast<T>(rho), matched, H, b);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -370,30 +416,32 @@ int launch(const long long* meta, const T* payload, const T* mpts, const uint8_t
 
 extern "C" {
 
-// Plain C interface for ctypes: (meta, payload, m, valid, X, b_max,
-// b_ratio, rho, n_lead, matched (n_lead, L) bool, H (n_lead, 6, 6), b
-// (n_lead, 6), stream). `meta` (host memory, 33 values): the leading
-// shape padded to 4 axes; then for payload, m, valid and X in turn 4
-// leading strides and 2 own strides, in elements; then L, the cluster
-// (blocks a leading index, 1..8), the tile (entries a block), the block
-// (256 or 512 threads) and 1 where every payload row is contiguous and
-// 16-byte aligned (the vector loads). b_max, b_ratio and rho are rounded
+// Plain C interface for ctypes: (meta, payload, m, valid, X, n_live,
+// b_max, b_ratio, rho, n_lead, matched (n_lead, L) bool, H (n_lead, 6, 6),
+// b (n_lead, 6), stream); n_live (int64) and matched may be null (no
+// bound; no matched written). `meta` (host memory, 36 values): the
+// leading shape padded to 4 axes; then for payload, m, valid and X in
+// turn 4 leading strides and 2 own strides, in elements; n_live's 4
+// leading strides; then L, the cluster (blocks a leading index, 1..8), the
+// block (256 or 512 threads) and 1 where every payload row is contiguous
+// and 16-byte aligned (the vector loads). b_max, b_ratio and rho are rounded
 // to the working type here, as torch rounds a host scalar. Returns the
 // cudaGetLastError() code after the launch, or the launch's own error
 // when the card refuses it (0 = success).
 int icp_terms_f32(const long long* meta, const float* payload, const float* mpts,
-                  const uint8_t* valid, const float* X, double b_max, double b_ratio,
-                  double rho, int n_lead, uint8_t* matched, float* H, float* b, void* stream) {
-  return launch<float>(meta, payload, mpts, valid, X, b_max, b_ratio, rho, n_lead, matched, H,
-                       b, static_cast<cudaStream_t>(stream));
+                  const uint8_t* valid, const float* X, const long long* n_live, double b_max,
+                  double b_ratio, double rho, int n_lead, uint8_t* matched, float* H, float* b,
+                  void* stream) {
+  return launch<float>(meta, payload, mpts, valid, X, n_live, b_max, b_ratio, rho, n_lead,
+                       matched, H, b, static_cast<cudaStream_t>(stream));
 }
 
 int icp_terms_f64(const long long* meta, const double* payload, const double* mpts,
-                  const uint8_t* valid, const double* X, double b_max, double b_ratio,
-                  double rho, int n_lead, uint8_t* matched, double* H, double* b,
-                  void* stream) {
-  return launch<double>(meta, payload, mpts, valid, X, b_max, b_ratio, rho, n_lead, matched,
-                        H, b, static_cast<cudaStream_t>(stream));
+                  const uint8_t* valid, const double* X, const long long* n_live,
+                  double b_max, double b_ratio, double rho, int n_lead, uint8_t* matched,
+                  double* H, double* b, void* stream) {
+  return launch<double>(meta, payload, mpts, valid, X, n_live, b_max, b_ratio, rho, n_lead,
+                        matched, H, b, static_cast<cudaStream_t>(stream));
 }
 
 // Clusters of `cluster` blocks of `threads` (float64 when f64 is 1) the

@@ -12,7 +12,7 @@
 //           with no host read keeps every step's slot); columns:
 //           [0] the tick of the step, [1] the scan's id (the state's seq
 //           of the first sequence after the step: seq + 1), [2 + m] the
-//           clock at mark m, then 3 counts a sequence at `off`;
+//           clock at mark m, then 5 counts a sequence at `off`;
 //   cursor  (1,) int32: the slot of the step in flight, set by its first
 //           stamp and read by the later ones;
 //   tick    (1,) int64: steps begun, advanced by each first stamp.
@@ -56,7 +56,9 @@ __global__ void stamp_kernel(long long* ring, int* cursor, long long* tick, cons
 constexpr int COUNT_THREADS = 1024;
 constexpr int COUNT_UNROLL = 8;
 
-// Block b: sequence b's (n_descents, valid keyframes, valid leaves). A
+// Block b: sequence b's (n_descents, valid keyframes, valid leaves, the
+// leaf slots the terms kernels walk a round: K x valid leaves, and the
+// slots they hold: K x L). A
 // bool is a byte of 0 or 1, so a 16-byte vector of them counts as the
 // population of its four words; 16-byte vectors where the row allows,
 // each thread with COUNT_UNROLL loads in flight (one block walks a row of
@@ -95,10 +97,12 @@ __global__ void counts_kernel(long long* ring, const int* cursor, int width, int
   if (threadIdx.x == 0) {
     int kv = 0;
     for (int k = 0; k < K; ++k) kv += kf_valid[b * K + k] ? 1 : 0;
-    long long* row = ring + static_cast<long long>(*cursor) * width + off + 3 * b;
+    long long* row = ring + static_cast<long long>(*cursor) * width + off + 5 * b;
     row[0] = n_descents[b];
     row[1] = kv;
     row[2] = part[0];
+    row[3] = K * part[0];
+    row[4] = K * L;
   }
 }
 

@@ -14,9 +14,18 @@ the card; H and b are sums in another order (the kernel's in double), and
 the kernel takes ``bbox0 / b_max`` as torch's CUDA division by a host
 scalar does, a product with the reciprocal.
 
+``n_live`` (int64, leading axes that broadcast to the call's) bounds each
+leading index's entries: an entry at or past it counts as invalid, so its
+terms are zero and its ``matched`` false, and the kernel neither reads nor
+forms it. The pipeline passes the count of a scan's valid leaves, which
+:func:`~madicp_tpu_torch.ops.tree.get_leaves` packs into a prefix of their
+slots: the walk stops where the leaves do, on the device, with no host
+read. ``with_matched=False`` returns no ``matched`` (the kernel writes
+none).
+
 The kernel runs one launch a call: a thread-block cluster a leading
-index, its blocks splitting L (:func:`plan`), a contiguous payload read
-with 16-byte loads (:func:`vector_rows`). Dispatch is by the tensors'
+index, its blocks splitting the index's bound (:func:`plan`), a
+contiguous payload read with 16-byte loads (:func:`vector_rows`). Dispatch is by the tensors'
 device and nothing else: CPU tensors take the plain version, CUDA tensors
 take the kernel or the call raises, a cluster launch the card refuses
 included. The wrapper allocates only its outputs, reads nothing back to
@@ -45,7 +54,7 @@ MAX_CLUSTER = 8  # blocks a leading index, at most: the portable cluster size
 MIN_PER_THREAD = 8  # entries a thread walks, at least
 MAX_LEAD_AXES = 4
 _launch = build.Launcher("icp_terms", {  # the stream last
-    "icp_terms": ([ctypes.c_void_p] * 5 + [ctypes.c_double] * 3 + [ctypes.c_int]
+    "icp_terms": ([ctypes.c_void_p] * 6 + [ctypes.c_double] * 3 + [ctypes.c_int]
                   + [ctypes.c_void_p] * 4),
 }, counter)
 _MAX_ENTRIES = 2**31 - 1
@@ -53,7 +62,9 @@ _MAX_ENTRIES = 2**31 - 1
 
 class Plan(NamedTuple):
     """A call's launch: ``cluster`` blocks of ``threads`` a leading index,
-    each over ``tile`` consecutive entries of L."""
+    each over ``tile`` consecutive entries of L (the kernel tiles a
+    leading index's bound, where it has one, the same way: a whole number
+    of warps, the cluster's blocks covering it)."""
 
     cluster: int
     tile: int
@@ -165,18 +176,25 @@ def entry_terms(payload, moving_pts, moving_valid, X, *, b_max, b_ratio, rho_ker
     return J, s, e, matched
 
 
-def terms_plain(payload, moving_pts, moving_valid, X, *, b_max, b_ratio, rho_ker):
+def terms_plain(payload, moving_pts, moving_valid, X, *, b_max, b_ratio, rho_ker,
+                n_live=None, with_matched=True):
     """Plain version: ``(H (..., 6, 6), b (..., 6), matched (..., L))``,
-    the normal equations as one masked ``(s J)^T J`` product."""
+    the normal equations as one masked ``(s J)^T J`` product; the entries
+    at or past ``n_live`` masked out (the module docstring), ``matched``
+    None without ``with_matched``."""
+    if n_live is not None:
+        L = moving_valid.shape[-1]
+        moving_valid = moving_valid & (torch.arange(L, device=n_live.device)
+                                       < n_live[..., None])
     J, s, e, matched = entry_terms(payload, moving_pts, moving_valid, X,
                                    b_max=b_max, b_ratio=b_ratio, rho_ker=rho_ker)
     Js = J * s[..., None]
     H = Js.transpose(-1, -2) @ J
     b = torch.sum(Js * e[..., None], dim=-2)
-    return H, b, matched
+    return H, b, matched if with_matched else None
 
 
-def _lead(payload, moving_pts, moving_valid, X) -> tuple:
+def _lead(payload, moving_pts, moving_valid, X, n_live=None) -> tuple:
     """Raise on what neither version takes (every device); the leading
     shape the outputs carry."""
     dev = payload.device
@@ -204,10 +222,23 @@ def _lead(payload, moving_pts, moving_valid, X) -> tuple:
         raise ValueError(f"icp_terms: {L} payload entries, {moving_pts.shape[-2]} points, "
                          f"{moving_valid.shape[-1]} valid flags")
     try:
-        return broadcast_shape(payload.shape[:-2], moving_pts.shape[:-2],
+        lead = broadcast_shape(payload.shape[:-2], moving_pts.shape[:-2],
                                moving_valid.shape[:-1], X.shape[:-2])
     except RuntimeError as err:
         raise ValueError(f"icp_terms: leading axes do not broadcast: {err}") from None
+    if n_live is not None:
+        if n_live.device != dev:
+            raise ValueError("icp_terms: n_live on another device than the payload")
+        if n_live.dtype != torch.int64:
+            raise TypeError(f"icp_terms: n_live must be int64, got {n_live.dtype}")
+        try:
+            fits = broadcast_shape(lead, n_live.shape) == lead
+        except RuntimeError:
+            fits = False
+        if not fits:
+            raise ValueError(f"icp_terms: n_live {tuple(n_live.shape)} does not broadcast to "
+                             f"the leading shape {lead}")
+    return lead
 
 
 def _view(t: torch.Tensor, lead: tuple, own: int) -> list:
@@ -219,22 +250,24 @@ def _view(t: torch.Tensor, lead: tuple, own: int) -> list:
     return [0] * (MAX_LEAD_AXES - len(lead)) + list(st[:len(lead)]) + inner
 
 
-def terms(payload, moving_pts, moving_valid, X, *, b_max, b_ratio, rho_ker):
+def terms(payload, moving_pts, moving_valid, X, *, b_max, b_ratio, rho_ker, n_live=None,
+          with_matched=True):
     """``(H, b, matched)`` of :func:`terms_plain` (same arguments): the
     plain version for CPU tensors, the kernel for CUDA ones."""
-    lead = _lead(payload, moving_pts, moving_valid, X)
+    lead = _lead(payload, moving_pts, moving_valid, X, n_live)
     if payload.device.type == "cpu":
-        return terms_plain(payload, moving_pts, moving_valid, X,
-                           b_max=b_max, b_ratio=b_ratio, rho_ker=rho_ker)
+        return terms_plain(payload, moving_pts, moving_valid, X, b_max=b_max, b_ratio=b_ratio,
+                           rho_ker=rho_ker, n_live=n_live, with_matched=with_matched)
     pl = plan(math.prod(lead), payload.shape[-2], card_capacity(payload.device, payload.dtype))
     return launch(payload, moving_pts, moving_valid, X, b_max=b_max, b_ratio=b_ratio,
-                  rho_ker=rho_ker, pl=pl)
+                  rho_ker=rho_ker, pl=pl, n_live=n_live, with_matched=with_matched)
 
 
-def launch(payload, moving_pts, moving_valid, X, *, b_max, b_ratio, rho_ker, pl: Plan):
+def launch(payload, moving_pts, moving_valid, X, *, b_max, b_ratio, rho_ker, pl: Plan,
+           n_live=None, with_matched=True):
     """Run the kernel on CUDA tensors as ``pl`` says (arguments and results
     as :func:`terms`); one count."""
-    lead = _lead(payload, moving_pts, moving_valid, X)
+    lead = _lead(payload, moving_pts, moving_valid, X, n_live)
     if len(lead) > MAX_LEAD_AXES:
         raise ValueError(f"icp_terms: at most {MAX_LEAD_AXES} leading axes, got {lead}")
     dev, dtype = payload.device, payload.dtype
@@ -243,15 +276,19 @@ def launch(payload, moving_pts, moving_valid, X, *, b_max, b_ratio, rho_ker, pl:
     if n_lead * max(L, 1) > _MAX_ENTRIES:
         raise ValueError(f"icp_terms: at most {_MAX_ENTRIES} entries, got {n_lead} x {L}")
     rho = float(torch.sqrt(torch.tensor(rho_ker, dtype=dtype)))
+    live = [0] * MAX_LEAD_AXES
+    if n_live is not None:
+        live = [0] * (MAX_LEAD_AXES - len(lead)) + list(n_live.expand(lead).stride())
     meta = ([1] * (MAX_LEAD_AXES - len(lead)) + list(lead)
             + _view(payload, lead, 2) + _view(moving_pts, lead, 2)
-            + _view(moving_valid, lead, 1) + _view(X, lead, 2)
-            + [L, pl.cluster, pl.tile, pl.threads, int(vector_rows(payload, lead))])
+            + _view(moving_valid, lead, 1) + _view(X, lead, 2) + live
+            + [L, pl.cluster, pl.threads, int(vector_rows(payload, lead))])
     meta = (ctypes.c_longlong * len(meta))(*meta)
-    matched = torch.empty(lead + (L,), dtype=torch.bool, device=dev)
+    matched = torch.empty(lead + (L,), dtype=torch.bool, device=dev) if with_matched else None
     H = torch.empty(lead + (6, 6), dtype=dtype, device=dev)
     b = torch.empty(lead + (6,), dtype=dtype, device=dev)
     _launch("icp_terms", dtype, dev, meta, payload.data_ptr(), moving_pts.data_ptr(),
-            moving_valid.data_ptr(), X.data_ptr(), float(b_max), float(b_ratio), rho, n_lead,
-            matched.data_ptr(), H.data_ptr(), b.data_ptr())
+            moving_valid.data_ptr(), X.data_ptr(), None if n_live is None else n_live.data_ptr(),
+            float(b_max), float(b_ratio), rho, n_lead,
+            None if matched is None else matched.data_ptr(), H.data_ptr(), b.data_ptr())
     return H, b, matched

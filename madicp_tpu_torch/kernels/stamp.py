@@ -71,19 +71,27 @@ def stamp(ring, cursor, tick, seq, mark: int) -> None:
           None if seq is None else seq.data_ptr(), slots, width, mark)
 
 
+COUNTS = 5  # counts a sequence
+
+
 def counts(ring, cursor, off: int, n_descents, kf_valid, leaves_valid) -> None:
     """Each sequence's ``n_descents`` (B,) int64, count of ``kf_valid``
-    (B, K) and of ``leaves_valid`` (B, L) into columns ``off + 3 b`` to
-    ``off + 3 b + 2`` of ``cursor``'s slot."""
+    (B, K) and of ``leaves_valid`` (B, L), the leaf slots the terms
+    kernels walk a round (K times the valid leaves, the bound they take)
+    and the slots they hold (K x L) into columns ``off + 5 b`` to ``off +
+    5 b + 4`` of ``cursor``'s slot."""
     B, K = kf_valid.shape
     L = leaves_valid.shape[1]
-    if off + 3 * B > ring.shape[1] or n_descents.shape != (B,) or leaves_valid.shape[0] != B:
+    if (off + COUNTS * B > ring.shape[1] or n_descents.shape != (B,)
+            or leaves_valid.shape[0] != B):
         raise ValueError(f"counts: {B} sequences do not fit the ring's columns from {off}")
     if ring.device.type == "cpu":
-        row = ring[int(cursor[0]), off:off + 3 * B].view(B, 3)
+        row = ring[int(cursor[0]), off:off + COUNTS * B].view(B, COUNTS)
         row[:, 0] = n_descents
         row[:, 1] = kf_valid.sum(-1)
         row[:, 2] = leaves_valid.sum(-1)
+        row[:, 3] = K * row[:, 2]
+        row[:, 4] = K * L
         return
     if n_descents.dtype != torch.int64 or kf_valid.dtype != torch.bool or (
             leaves_valid.dtype != torch.bool):

@@ -323,11 +323,15 @@ def icp_rounds(
     B, K = kf_valid_f.shape
     L = leaves_pts.shape[1]
     with phase(stamps, "assoc"):
-        nv = leaves_valid.sum(-1)  # (B,) valid moving leaves
+        # (B,) valid moving leaves: get_leaves packs them into a prefix of
+        # their slots, so the terms kernel and the slack pass walk no slot
+        # past it
+        nv = leaves_valid.sum(-1)
         kf_live = kf_valid_f > 0  # (B, K)
         kv = kf_live.sum(-1)  # (B,) valid keyframes
     nav = kf_tree.nav.reshape((B * K,) + kf_tree.nav.shape[2:])
-    terms_kw = dict(b_max=cfg.b_max, b_ratio=cfg.b_ratio, rho_ker=cfg.rho_ker)
+    terms_kw = dict(b_max=cfg.b_max, b_ratio=cfg.b_ratio, rho_ker=cfg.rho_ker,
+                    n_live=nv[:, None])
 
     def descend(X, need, margin: bool, pts=None, start=None, n_gathers=None, out=None):
         """Descend every (sequence, keyframe, query) entry with ``need``
@@ -356,7 +360,7 @@ def icp_rounds(
         """H/b (+ matched) of each sequence over its keyframes from
         (B, K, L, 8) payloads, reduced over the keyframe group."""
         terms = terms_from_payload(payload, leaves_pts[:, None], leaves_valid[:, None],
-                                   X[:, None], **terms_kw)
+                                   X[:, None], **terms_kw, with_matched=with_matched)
         H = torch.einsum("bk,bkij->bij", kf_valid_f, terms.H)
         b = torch.einsum("bk,bki->bi", kf_valid_f, terms.b)
         if with_matched:
@@ -373,7 +377,7 @@ def icp_rounds(
                 out = terms_scan(X, payload, with_matched)
                 return (gn_se3_step(X, out[0], out[1]),) + out
             terms = terms_from_payload(payload, leaves_pts[:, None], leaves_valid[:, None],
-                                       X[:, None], **terms_kw)
+                                       X[:, None], **terms_kw, with_matched=with_matched)
             out = gn_update.gn_update(X, terms.H, terms.b, kf_valid_f)
             if with_matched:
                 return out + (torch.any(terms.matched & kf_live[..., None], dim=1),)
@@ -466,7 +470,7 @@ def icp_rounds(
         returned as ``need`` (B, K, L) and counted into ``n_descents``."""
         with phase(stamps, "terms"):
             return certify_slack.certify_slack(slack, Xp, X, leaves_pts, r_norm, leaves_valid,
-                                               kf_live, n_descents)
+                                               kf_live, n_descents, n_live=nv)
 
     U = min(cfg.certify_compact, L)
     if U:

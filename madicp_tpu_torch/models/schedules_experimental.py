@@ -67,7 +67,10 @@ def prefix_certified_rounds(
     U = min(cfg.certify_prefix, L)
     eps64 = 64.0 * torch.finfo(dtype).eps
     live = kf_valid_f > 0  # (B, K)
-    terms_kw = dict(b_max=cfg.b_max, b_ratio=cfg.b_ratio, rho_ker=cfg.rho_ker)
+    # the valid leaves sort first in every keyframe's order (masked entries
+    # carry the largest mu), so they stay a prefix: the terms walk nv of them
+    terms_kw = dict(b_max=cfg.b_max, b_ratio=cfg.b_ratio, rho_ker=cfg.rho_ker,
+                    n_live=nv[:, None])
 
     # round 0: full descent against every live keyframe, recording path
     # margins (X0 is the baseline pose of every certificate)
@@ -111,7 +114,8 @@ def prefix_certified_rounds(
 
     def terms_sorted(X, sstate, with_matched: bool):
         payload, lps, lv, _, order = sstate
-        terms = terms_from_payload(payload, lps, lv, X[:, None], **terms_kw)
+        terms = terms_from_payload(payload, lps, lv, X[:, None], **terms_kw,
+                                   with_matched=with_matched)
         H = torch.einsum("bk,bkij->bij", kf_valid_f, terms.H)
         b = torch.einsum("bk,bki->bi", kf_valid_f, terms.b)
         if with_matched:

@@ -38,7 +38,7 @@ from madicp_tpu_torch.ops.tree import SearchTree, search_forest
 class IcpTerms(NamedTuple):
     H: torch.Tensor        # (..., 6, 6)
     b: torch.Tensor        # (..., 6)
-    matched: torch.Tensor  # (..., L) bool — gated matches of this fixed tree
+    matched: torch.Tensor  # (..., L) bool — gated matches of this fixed tree (or None)
 
 
 def associate_packed(
@@ -105,6 +105,8 @@ def terms_from_payload(
     b_max,
     b_ratio,
     rho_ker,
+    n_live: torch.Tensor = None,
+    with_matched: bool = True,
 ) -> IcpTerms:
     """Gate + residual/Jacobian/weights + normal equations from an
     association payload ``(..., L, 8)`` — no tree access. Leading axes
@@ -114,14 +116,19 @@ def terms_from_payload(
     with leading axes that broadcast against the payload's (one pose per
     sequence of a batch: X (B, 1, 4, 4) against payloads (B, K, L, 8)).
     The gate is evaluated under the CURRENT ``X`` (``mad_icp.cpp:81-83``).
+    ``n_live`` (int64, leading axes that broadcast to the payload's): the
+    entries at or past it count as invalid and are not walked (a scan's
+    leaf count: its leaves are a prefix of their slots); without
+    ``with_matched``, ``matched`` is None.
 
     CPU tensors take the plain version
     (:func:`madicp_tpu_torch.kernels.icp_terms.terms_plain`), CUDA tensors
     the terms kernel (``kernels/csrc/icp_terms.cu``: per-entry values in
     the plain version's order, so ``matched`` agrees bit for bit; the 27
     sums in double, in a fixed order)."""
-    H, b, matched = terms_kernel.terms(payload, moving_pts, moving_valid, X,
-                                       b_max=b_max, b_ratio=b_ratio, rho_ker=rho_ker)
+    H, b, matched = terms_kernel.terms(payload, moving_pts, moving_valid, X, b_max=b_max,
+                                       b_ratio=b_ratio, rho_ker=rho_ker, n_live=n_live,
+                                       with_matched=with_matched)
     return IcpTerms(H=H, b=b, matched=matched)
 
 

@@ -122,15 +122,16 @@ def icp_round_sharded(
     trees. The pipeline does not call this; it hooks
     :func:`kf_reduce_terms` into its round schedule. Returns globally
     reduced ``(H, b, matched)``; ``matched`` is the any-keyframe match
-    mask of the moving leaves.
+    mask of the moving leaves. The leaves are ``get_leaves``': the valid
+    ones a prefix of their slots, so the terms walk only that prefix.
     """
     nav = make_global(kf_tree.nav, ("kf",), mesh)
     valid_f = make_global(kf_valid, ("kf",), mesh).to(leaves_pts.dtype)
     K, L = nav.shape[0], leaves_pts.shape[0]
     ml = leaves_pts @ X[:3, :3].T + X[:3, 3]
     _, payload = associate_ring(nav, kf_tree.depth, ml, leaves_valid.expand(K, L))
-    terms = terms_from_payload(payload, leaves_pts, leaves_valid, X,
-                               b_max=b_max, b_ratio=b_ratio, rho_ker=rho_ker)
+    terms = terms_from_payload(payload, leaves_pts, leaves_valid, X, b_max=b_max,
+                               b_ratio=b_ratio, rho_ker=rho_ker, n_live=leaves_valid.sum())
     H = torch.einsum("k,kij->ij", valid_f, terms.H)
     b = torch.einsum("k,ki->i", valid_f, terms.b)
     matched = torch.any(terms.matched & (valid_f > 0)[:, None], dim=0)

@@ -15,7 +15,12 @@ parts named by ``--parts`` (default: all but ``step``, ``pdl`` and ``launch``):
   for a B = 4 batch of its scans 1-4; with the launch floor (a
   one-element ``add_``, device µs and graphed µs a launch).
 - ``terms``: one ``terms_from_payload`` call on the round-0 payload of a
-  pose near scan 1: every kernel it launches, with its median device µs.
+  pose near scan 1: every kernel it launches, with its median device µs;
+  then K7 and K11 at the benchmark's 16 keyframes x 131,072 leaf slots
+  with a scan's valid leaves a prefix of 131,072, 59,000 (a KITTI scan)
+  and 28,000 (a MulRan sweep) slots, each walking every slot and bounded
+  by the leaf count (:func:`bounded_terms`: graphed device µs a call, and
+  whether the bounded calls give the unbounded ones' flags).
 - ``descent``: K6 at a certified round 0, a later certified round (16%
   of the entries live), the fast warm start and a live-share sweep (0%,
   16%, 100%): live entries, panel reads, distinct panels, bound µs,
@@ -88,7 +93,8 @@ parts named by ``--parts`` (default: all but ``step``, ``pdl`` and ``launch``):
 ``--paths`` adds the A/Bs that set the plans: every K8 level on every
 path that can take it (:data:`build_points.PATHS`), every K9 call on both
 node kernels (:data:`build_nodes.PATHS`), K7 at the flagship's 16 and
-the fleet's 64 leading indices with every cluster size, each held bit
+the fleet's 64 leading indices with every cluster size (and at the
+bounded 59,000 and 28,000 leaves of 131,072), each held bit
 for bit to the plain version and timed in a CUDA graph (:func:`graph_ms`). ``chip_smoke.py``'s ``tree``
 and ``assoc`` phases report the traces. Every line is JSON and carries
 the card's name and power limit. Run on the card:
@@ -329,6 +335,60 @@ def terms_trace(args, kw, reps: int = REPS) -> list:
     runs = windows(lambda: icp_terms.terms(*args, **kw), reps)
     return [{"kernel": name, "device_us": statistics.median(run[j][1] for run in runs)}
             for j, (name, _) in enumerate(runs[0])]
+
+
+BOUNDED_L = 131072  # the benchmark's leaf slots a scan (max_leaves 0: n_points)
+BOUNDED_LIVE = (131072, 59000, 28000)  # every slot; a KITTI scan's leaves; a MulRan sweep's
+
+
+def bounded_terms(device, dtype, reps: int = 20, paths: bool = False) -> list:
+    """K7 and K11 on a certified round's synthetic inputs
+    (:func:`~madicp_tpu_torch.probes.gn_cases.round_inputs`, B = 1, 16
+    keyframes, :data:`BOUNDED_L` leaf slots) with the valid leaves a
+    prefix of ``n`` slots, for each ``n`` of :data:`BOUNDED_LIVE`: the
+    graphed device µs a call (``reps`` calls a graph) of K7 walking every
+    slot (no ``n_live``), bounded by ``n`` with and without ``matched``,
+    and of K11 walking every slot and bounded; whether the bounded calls'
+    ``matched``, ``need``, count and slack below the bound equal the
+    unbounded calls' and H, b's largest relative gap. With ``paths``, K7
+    bounded in every block and cluster shape (:func:`terms_plans`)."""
+    from madicp_tpu_torch.kernels import certify_slack
+    from madicp_tpu_torch.probes.gn_cases import TERMS_KW, round_inputs
+
+    r = {k: v.to(device) for k, v in round_inputs(dtype, B=1, K=16, L=BOUNDED_L).items()}
+    rows = []
+    for n in BOUNDED_LIVE:
+        valid = torch.arange(BOUNDED_L, device=device)[None] < n  # (1, L): a prefix
+        nl = torch.tensor([n], dtype=torch.int64, device=device)
+        args = (r["payload"], r["pts"][:, None], valid[:, None], r["Xp"][:, None])
+        full = icp_terms.terms(*args, **TERMS_KW)
+        bounded = icp_terms.terms(*args, **TERMS_KW, n_live=nl[:, None])
+        gap = max(float(((a.double() - w.double()).abs().max() / w.double().abs().max()))
+                  for a, w in zip(bounded[:2], full[:2]))
+        slack = [r["slack"].clone() for _ in range(2)]
+        count = [r["n_descents"].clone() for _ in range(2)]
+
+        def slack_pass(i, live=None):
+            return certify_slack.certify_slack(slack[i], r["Xp"], r["X"], r["pts"], r["r_norm"],
+                                               valid, r["kf_live"], count[i], n_live=live)
+
+        need = (slack_pass(0), slack_pass(1, nl))
+        row = {"n_live": n, "slots": BOUNDED_L, "keyframes": 16,
+               "matched_equal": torch.equal(full[2], bounded[2]), "h_b_rel_gap": gap,
+               "need_equal": torch.equal(*need), "count_equal": torch.equal(*count),
+               "slack_equal_below": torch.equal(slack[0][..., :n], slack[1][..., :n])}
+        row["k7_full_us"] = graph_ms(lambda: icp_terms.terms(*args, **TERMS_KW), reps) * 1e3
+        row["k7_bounded_us"] = graph_ms(
+            lambda: icp_terms.terms(*args, **TERMS_KW, n_live=nl[:, None]), reps) * 1e3
+        row["k7_bounded_no_matched_us"] = graph_ms(
+            lambda: icp_terms.terms(*args, **TERMS_KW, n_live=nl[:, None], with_matched=False),
+            reps) * 1e3
+        row["k11_full_us"] = graph_ms(lambda: slack_pass(0), reps) * 1e3
+        row["k11_bounded_us"] = graph_ms(lambda: slack_pass(1, nl), reps) * 1e3
+        if paths:
+            row["k7_bounded_plans"] = terms_plans(args, dict(TERMS_KW, n_live=nl[:, None]))
+        rows.append(row)
+    return rows
 
 
 class Flagship(NamedTuple):
@@ -851,6 +911,8 @@ def main(argv=None) -> int:
         if "terms" in parts:
             args, tkw = flagship_terms_args(fl, dtype)
             emit("terms", dtype=dname, kernels=terms_trace(args, tkw, a.reps))
+            for row in bounded_terms(dev, dtype, paths=a.paths):
+                emit("terms_bounded", dtype=dname, **row)
             if a.paths:
                 fleet = (args[0].expand(4, 16, *args[0].shape[2:]),) + args[1:]
                 emit("terms_plans", dtype=dname, leads_16=terms_plans(args, tkw),

@@ -16,7 +16,9 @@
   output's leaves and counts). ``madicp.step`` runs from the first stamp
   to the last;
 - **counts** at the same boundaries: each sequence's descents, valid
-  keyframes and valid leaves, written beside the stamps;
+  keyframes and valid leaves, the leaf slots the terms kernels walk a
+  round (their bound: every keyframe's valid leaves) and the slots they
+  hold, written beside the stamps;
 - **host spans** (``time.perf_counter_ns``): the host API's stage, copies,
   replay, output clones and pose read, each with its parent and the scan
   it serves, and as a ``record_function`` of the same name while a
@@ -61,7 +63,7 @@ def bound_ms(nbytes: float, flops: float, kind: str) -> tuple:
 
 class StepStamps:
     """The device stamps of one batch's steps: a ring of :data:`SLOTS`
-    slots of ``2 + marks`` clock columns and 3 counts a sequence
+    slots of ``2 + marks`` clock columns and 5 counts a sequence
     (``kernels/csrc/stamp.cu`` gives the layout), the slot of the step in
     flight and the count of steps begun, on ``device``. ``issued`` is the
     host's count of steps begun: the host advances it for each traced step
@@ -70,7 +72,10 @@ class StepStamps:
     def __init__(self, batch: int, marks: int, device):
         self.marks = marks
         self.off = 2 + marks  # the counts' first column
-        self.ring = torch.zeros((SLOTS, self.off + 3 * batch), dtype=torch.int64, device=device)
+        from madicp_tpu_torch.kernels.stamp import COUNTS
+
+        self.ring = torch.zeros((SLOTS, self.off + COUNTS * batch), dtype=torch.int64,
+                                device=device)
         self.cursor = torch.zeros(1, dtype=torch.int32, device=device)
         self.tick = torch.zeros(1, dtype=torch.int64, device=device)
         self.issued = 0
@@ -203,6 +208,8 @@ class Trace:
         """Read the pending steps' stamps and counts: now with ``force``
         (a wait for the device), else only once they fill half the ring,
         right after a read that waited for their steps."""
+        from madicp_tpu_torch.kernels.stamp import COUNTS
+
         if not self._pending or (not force and len(self._pending) < SLOTS // 2):
             return
         rings = {}
@@ -213,7 +220,7 @@ class Trace:
             if row[0] != ticket:  # overwritten: more steps than slots went unread
                 self._lost += 1
                 continue
-            counts = row[stamps.off:].reshape(-1, 3)
+            counts = row[stamps.off:].reshape(-1, COUNTS)
             self._records.append((key, int(row[1]), row[2:3 + len(layout)].tolist(), layout,
                                   parent, counts.tolist()))
         self._pending = []
@@ -224,7 +231,9 @@ class Trace:
         of ``id``, ``name``, ``start_ns``, ``end_ns``, ``parent``,
         ``scan``, ``where``: "host" or "device"), ``counters`` (a traced
         step's ``scan`` and each sequence's ``n_descents``,
-        ``valid_keyframes``, ``n_leaves``), ``lost`` (steps whose stamps
+        ``valid_keyframes``, ``n_leaves``, ``terms_walked`` and
+        ``terms_slots``: the leaf slots of a round the terms kernels walk
+        and hold), ``lost`` (steps whose stamps
         were overwritten before a read) and ``clock``. A span's ``scan``
         is its step's id (the state's seq after the step), None where the
         step left no record."""
@@ -252,7 +261,9 @@ class Trace:
                       for name, a, b in zip(layout, ns, ns[1:])]
             counters.append(dict(scan=scan, n_descents=[c[0] for c in counts],
                                  valid_keyframes=[c[1] for c in counts],
-                                 n_leaves=[c[2] for c in counts]))
+                                 n_leaves=[c[2] for c in counts],
+                                 terms_walked=[c[3] for c in counts],
+                                 terms_slots=[c[4] for c in counts]))
         out = dict(spans=spans, counters=counters, lost=self._lost,
                    clock=dict(rate=rate, brackets_ns=[c0[2], c1[2]]))
         self._spans, self._records, self._lost = [], [], 0

@@ -18,7 +18,7 @@ import pytest
 import torch
 from scipy.spatial.transform import Rotation
 
-from madicp_tpu_torch.kernels import descent, icp_terms
+from madicp_tpu_torch.kernels import certify_slack, descent, icp_terms
 from madicp_tpu_torch.ops.tree import build_tree, transform_tree
 
 TERMS_KW = dict(b_max=0.2, b_ratio=0.02, rho_ker=0.01)  # rho 0.1: both Huber branches
@@ -264,6 +264,105 @@ def test_terms_vector_rows():
         assert not icp_terms.vector_rows(flat[1:].view(2, 4, 100, 8), (2, 4))
         wide = torch.zeros((3, 100, 12), dtype=dtype)
         assert not icp_terms.vector_rows(wide[..., :8], (3,))
+
+
+# n_live of the bound cases, as a share of L: none live, some (a
+# different count a sequence), every entry, more than L
+BOUNDS = {"zero": (0.0, 0.0), "partial": (0.37, 0.81), "full": (1.0, 1.0), "over": (1.0, 2.5)}
+
+
+def _n_live(case: str, L: int, B: int = 2) -> torch.Tensor:
+    lo, hi = BOUNDS[case]
+    extra = 5 if case == "over" else 0
+    return torch.tensor([int(round(L * (lo if b % 2 == 0 else hi))) + extra for b in range(B)],
+                        dtype=torch.int64)
+
+
+def _cut(valid: torch.Tensor, n_live: torch.Tensor) -> torch.Tensor:
+    """``valid`` (..., L) with every entry at or past ``n_live`` (...) off."""
+    return valid & (torch.arange(valid.shape[-1]) < n_live[..., None])
+
+
+@pytest.mark.parametrize("kernel", ["terms", "certify_slack"])
+@pytest.mark.parametrize("bound", list(BOUNDS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_a_bound_is_the_mask_cut_at_it(kernel, bound, dtype):
+    """``n_live``: K7's and K11's plain versions equal the same call whose
+    valid mask is cut at the bound (bit for bit); ``matched`` and
+    ``need`` are false past it; the bounded slack is the unbounded one
+    below the bound and keeps its input past it; the wrapper (its CPU
+    dispatch) gives the plain version's results and rejects an
+    ``n_live`` of another dtype or shape."""
+    from madicp_tpu_torch.probes.gn_cases import slack_inputs
+
+    if kernel == "terms":
+        payload, pts, valid, X = _terms_inputs((2, 3), (2, 1), (2, 1), 64, dtype=dtype)
+        n = _n_live(bound, 64)[:, None]  # (2, 1): one bound a sequence, over its keyframes
+        got = icp_terms.terms_plain(payload, pts, valid, X, **TERMS_KW, n_live=n)
+        want = icp_terms.terms_plain(payload, pts, _cut(valid, n), X, **TERMS_KW)
+        for a, w in zip(got, want):
+            assert torch.equal(a, w)
+        past = torch.arange(64) >= n[..., None]  # (2, 1, 64)
+        assert not (got[2] & past).any()
+        if bound == "zero":
+            assert not got[0].any() and not got[1].any()
+        H, b, m = icp_terms.terms(payload, pts, valid, X, **TERMS_KW, n_live=n,
+                                  with_matched=False)
+        assert m is None and torch.equal(H, got[0]) and torch.equal(b, got[1])
+        with pytest.raises(TypeError, match="n_live must be int64"):
+            icp_terms.terms(payload, pts, valid, X, **TERMS_KW, n_live=n.int())
+        with pytest.raises(ValueError, match="does not broadcast"):
+            icp_terms.terms(payload, pts, valid, X, **TERMS_KW, n_live=n.expand(2, 4))
+        with pytest.raises(ValueError, match="does not broadcast"):
+            icp_terms.terms(payload, pts, valid, X, **TERMS_KW, n_live=n[None].expand(5, 2, 1))
+        return
+    s = slack_inputs(dtype, B=2, K=3, L=500)
+    n = _n_live(bound, 500)
+    a = {k: v.clone() for k, v in s.items()}
+    c = {k: v.clone() for k, v in s.items()}
+    need = certify_slack.certify_slack_plain(**a, n_live=n)
+    want = certify_slack.certify_slack_plain(**dict(c, leaves_valid=_cut(s["leaves_valid"], n)))
+    assert torch.equal(need, want) and torch.equal(a["n_descents"], c["n_descents"])
+    below = torch.arange(500) < n[:, None]  # (2, 500)
+    assert not (need & ~below[:, None, :]).any()
+    keep = below[:, None, :].expand_as(s["slack"])
+    assert torch.equal(a["slack"][keep], c["slack"][keep])
+    assert torch.equal(a["slack"][~keep], s["slack"][~keep])
+    w = {k: v.clone() for k, v in s.items()}
+    assert torch.equal(certify_slack.certify_slack(**w, n_live=n), need)
+    assert torch.equal(w["slack"], a["slack"]) and torch.equal(w["n_descents"], a["n_descents"])
+    with pytest.raises(TypeError, match="n_live must be int64"):
+        certify_slack.certify_slack(**s, n_live=n.int())
+    with pytest.raises(ValueError, match="want n_live"):
+        certify_slack.certify_slack(**s, n_live=n[:1])
+
+
+def test_the_bound_leaves_a_cpu_drive_bit_for_bit(monkeypatch):
+    """A certified drive whose terms and slack pass take the scan's leaf
+    count as their bound equals, bit for bit, the drive that walks every
+    slot (the leaves are a prefix of their slots: the bound cuts off only
+    entries that were invalid)."""
+    from madicp_tpu_torch.models import pipeline as pl
+
+    def drive():
+        p = pl.Pipeline(10.0, False, 0.2, 0.1, 0.8, 0.1, 0.02, 3, n_points=4096, depth=10,
+                        max_icp_iterations=4, dtype=torch.float64, device="cpu")
+        rng = np.random.default_rng(3)
+        room = rng.permutation(_room(rng, n=700))
+        got = []
+        for i in range(4):
+            p.compute(0.1 * i, room[: 2000 - 300 * i] + [0.1 * i, 0.0, 0.0])
+            got.append((p.current_pose(), p.inlier_ratio(), p.descents()))
+        return got
+
+    bounded = drive()
+    terms, slack = pl.terms_from_payload, certify_slack.certify_slack
+    monkeypatch.setattr(pl, "terms_from_payload",
+                        lambda *a, n_live=None, **kw: terms(*a, **kw))
+    monkeypatch.setattr(certify_slack, "certify_slack", lambda *a, n_live=None: slack(*a))
+    for (xa, ra, da), (xb, rb, db) in zip(bounded, drive()):
+        np.testing.assert_array_equal(xa, xb)
+        assert ra == rb and da == db
 
 
 def test_moving_in_map_order():
@@ -683,3 +782,196 @@ def test_assoc_kernels_replay_in_a_cuda_graph(cuda_device, dtype):
         torch.cuda.synchronize()
         for a, b in zip(out, eager):
             assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bound", list(BOUNDS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_bounded_kernels_match_their_plain_versions_on_cuda(cuda_device, dtype, bound):
+    """K7 with a bound a sequence over (2, 16) leading indices: matched
+    bit for bit with the plain version's (false past the bound), H and b
+    within the unbounded tests' tolerance of the float64 sum of the
+    cut mask's terms, one launch; without matched the same H and b bit
+    for bit. K11 with a bound: need, the slack and the count bit for bit
+    with the plain version, on rows of 16-byte multiples (L = 4096) and
+    not (L = 4095)."""
+    from madicp_tpu_torch.probes.gn_cases import slack_inputs
+
+    L = 4099
+    args = [t.to(cuda_device) for t in _terms_inputs((2, 16), (2, 1), (2, 1), L, seed=7,
+                                                     dtype=dtype)]
+    n = _n_live(bound, L)[:, None].to(cuda_device)
+    cut = args[2] & (torch.arange(L, device=cuda_device) < n[..., None])
+    H_ref, b_ref, m_ref = _terms_reference(args[0], args[1], cut, args[3])
+    before = icp_terms.counter.launches
+    H, b, matched = icp_terms.terms(*args, **TERMS_KW, n_live=n)
+    torch.cuda.synchronize()
+    assert icp_terms.counter.launches == before + 1
+    assert torch.equal(matched, m_ref) and torch.equal(H, H.mT)
+    if bound == "zero":
+        assert not H.any() and not b.any()
+    else:
+        tol = 1e-5 if dtype == torch.float32 else 1e-12
+        assert float(_rel_frobenius(H, H_ref, (-2, -1)).max()) <= tol
+        assert float(_rel_frobenius(b, b_ref, (-1,)).max()) <= tol
+    H2, b2, m2 = icp_terms.terms(*args, **TERMS_KW, n_live=n, with_matched=False)
+    assert m2 is None and torch.equal(H2, H) and torch.equal(b2, b)
+    for Ls in (4096, 4095):
+        s = {k: v.to(cuda_device) for k, v in slack_inputs(dtype, B=2, K=16, L=Ls).items()}
+        p = {k: v.clone() for k, v in s.items()}
+        nl = _n_live(bound, Ls).to(cuda_device)
+        need = certify_slack.certify_slack(**s, n_live=nl)
+        want = certify_slack.certify_slack_plain(**p, n_live=nl)
+        torch.cuda.synchronize()
+        assert torch.equal(need, want)
+        assert torch.equal(s["slack"], p["slack"]) and torch.equal(s["n_descents"],
+                                                                   p["n_descents"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_a_replay_takes_each_calls_bound_on_cuda(cuda_device, dtype):
+    """K7 and K11 captured in one CUDA graph with their bound in a static
+    buffer, replayed with the full L, then a smaller bound, then the full L
+    again: each replay equals the eager calls at its bound bit for bit,
+    and no matched or need flag of an earlier replay survives past a
+    smaller bound."""
+    from madicp_tpu_torch.probes.gn_cases import slack_inputs
+
+    L = 8192
+    args = [t.to(cuda_device) for t in _terms_inputs((2, 16), (2, 1), (2, 1), L, seed=11,
+                                                     dtype=dtype)]
+    s = {k: v.to(cuda_device) for k, v in slack_inputs(dtype, B=2, K=16, L=L).items()}
+    s["slack"].fill_(-1.0)  # every live entry needs a descent: need is dense below the bound
+    init = {k: v.clone() for k, v in s.items()}
+    n = torch.full((2,), L, dtype=torch.int64, device=cuda_device)
+
+    def call():
+        return (icp_terms.terms(*args, **TERMS_KW, n_live=n[:, None])
+                + (certify_slack.certify_slack(**s, n_live=n),))
+
+    def reset():
+        for k, v in init.items():
+            s[k].copy_(v)
+
+    call()
+    reset()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the capture stream
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    reset()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    for bound in ([L, L], [3001, 517], [L, L]):
+        n.copy_(torch.tensor(bound))
+        reset()
+        graph.replay()
+        torch.cuda.synchronize()
+        got = [t.clone() for t in out] + [s["slack"].clone(), s["n_descents"].clone()]
+        reset()
+        eager = list(call()) + [s["slack"].clone(), s["n_descents"].clone()]
+        torch.cuda.synchronize()
+        for a, w in zip(got, eager):
+            assert torch.equal(a, w)
+        past = torch.arange(L, device=cuda_device) >= n[:, None]  # (2, L)
+        assert not (got[2] & past[:, None, :]).any() and not (got[3] & past[:, None, :]).any()
+        if bound[0] == L:  # every valid leaf of a live keyframe needs a descent
+            assert got[2].any() and torch.equal(got[3][0, 0], init["leaves_valid"][0])
+
+
+def _card_pipeline(device, **kw):
+    from madicp_tpu_torch.models.pipeline import Pipeline
+
+    return Pipeline(10.0, False, 0.2, 0.1, 0.8, 0.1, 0.02, 3, n_points=16384, depth=12,
+                    max_icp_iterations=6, device=device, **kw)
+
+
+def _room_scan(i: int, n: int) -> np.ndarray:
+    """``n`` points of the walled room, drawn for scan ``i``, 0.1 m further
+    along x each scan."""
+    rng = np.random.default_rng(i)
+    return rng.permutation(_room(rng, n=4000))[:n] + [0.1 * i, 0.0, 0.0]
+
+
+@pytest.mark.cuda
+def test_a_captured_step_walks_each_scans_own_leaves_on_cuda(cuda_device):
+    """A captured step replayed on a scan with many leaves, then on one
+    with few (and back): its pose, inlier ratio, map flag and descents
+    equal the eager step's on the same state bit for bit; and the
+    certified rounds captured alone, replayed on those scans' leaves,
+    equal their eager calls with no matched flag past a scan's leaves."""
+    from madicp_tpu_torch.models.pipeline import _lift, icp_rounds, odometry_step
+    from madicp_tpu_torch.ops.tree import build_tree, get_leaves
+
+    p = _card_pipeline(cuda_device)
+    for i in range(3):  # the bootstrap, the warm-up, the capture
+        p.compute(0.1 * i, _room_scan(i, 12000))
+    sizes = (12000, 1500, 12000, 900)
+    leaves = []
+    for i, n in enumerate(sizes, start=3):
+        state = _lift(p.state)
+        before = type(state)(*(f._replace(nav=f.nav.clone()) if hasattr(f, "nav") else f.clone()
+                               for f in state))
+        pts, valid, _ = p.stage(_room_scan(i, n))
+        p.compute_device(0.1 * i, pts, valid)
+        _, out = odometry_step(p.cfg, before, pts[None], valid[None], None)
+        assert torch.equal(p.state.X, out.pose[0])
+        assert p.inlier_ratio() == float(out.inlier_ratio[0])
+        assert p.is_map_updated() == bool(out.map_updated[0])
+        assert p.descents() == int(out.n_descents[0])
+        tree, _ = build_tree(pts[None], valid[None], depth=p.cfg.depth, b_max=p.cfg.b_max,
+                             b_min=p.cfg.b_min)
+        leaves.append(get_leaves(tree, p.cfg.leaves_cap))
+    assert int(leaves[1].valid.sum()) < int(leaves[0].valid.sum()) // 2
+
+    st = p.state
+    kf_tree, kf_valid = st.kf_tree, st.kf_valid[None].to(p.cfg.dtype)
+    kf_tree = kf_tree._replace(nav=kf_tree.nav[None])
+    lp, lv = leaves[0].pts.clone(), leaves[0].valid.clone()
+    X0 = st.X[None].clone()
+
+    def rounds():
+        return icp_rounds(p.cfg, kf_tree, kf_valid, lp, lv, X0)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        rounds()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = rounds()
+    for lf in leaves:
+        lp.copy_(lf.pts)
+        lv.copy_(lf.valid)
+        graph.replay()
+        torch.cuda.synchronize()
+        got = [t.clone() for t in out]
+        for a, w in zip(got, rounds()):
+            assert torch.equal(a, w)
+        assert not (got[2] & ~lv).any()
+
+
+@pytest.mark.cuda
+def test_the_bound_adds_no_graph_node_on_cuda(cuda_device, monkeypatch):
+    """The captured step with the bound has as many nodes and launches as
+    the step whose terms and slack pass walk every slot."""
+    from madicp_tpu_torch.models import pipeline as pl
+
+    def captured():
+        p = _card_pipeline(cuda_device)
+        for i in range(3):
+            p.compute(0.1 * i, _room_scan(i, 12000))
+        p.current_pose()
+        (_, nodes, launches), = p._graphs.captured().values()
+        return nodes, launches
+
+    bounded = captured()
+    terms, slack = pl.terms_from_payload, certify_slack.certify_slack
+    monkeypatch.setattr(pl, "terms_from_payload",
+                        lambda *a, n_live=None, **kw: terms(*a, **kw))
+    monkeypatch.setattr(certify_slack, "certify_slack", lambda *a, n_live=None: slack(*a))
+    assert captured() == bounded

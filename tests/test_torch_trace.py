@@ -296,6 +296,18 @@ def test_the_counters_are_the_steps_own(pipe_runs, fleet_runs):
         assert c["valid_keyframes"] == kv
 
 
+def test_the_counters_carry_the_terms_kernels_walk(pipe_runs, fleet_runs):
+    """Each sequence's walked leaf slots a round are its keyframes times
+    its valid leaves (the terms kernels' bound), out of its keyframes
+    times the leaf slots."""
+    K, L = KW["num_keyframes"], PipelineConfig(**KW).leaves_cap
+    for runs in (pipe_runs, fleet_runs):
+        for c in runs[2]["counters"]:
+            assert c["terms_walked"] == [K * n for n in c["n_leaves"]]
+            assert c["terms_slots"] == [K * L] * len(c["n_leaves"])
+            assert all(0 < n < L for n in c["n_leaves"])
+
+
 # ------------------------------------------------------------------- off --
 def test_with_the_trace_off_nothing_is_recorded():
     assert isinstance(timing.phase(None, "build"), type(timing.stepping(None, None)))

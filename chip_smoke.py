@@ -225,6 +225,7 @@ step's measured time, so that its budget is overrun.
 from __future__ import annotations
 
 import json
+import re
 import sys
 import time
 from pathlib import Path
@@ -258,6 +259,7 @@ TAIL_KERNELS = ("step_scalars", "ring_write")  # the prediction and tail's scala
 REGISTRATION_KERNELS = BUILD_KERNELS + ASSOC_KERNELS + ("gn_update",)
 STEP_KERNELS = REGISTRATION_KERNELS + TAIL_KERNELS  # every schedule's step
 ROUNDS = 15  # GN rounds a scan: one gn_update each, a certify_slack each after the first
+GEMM_NAME = re.compile(r"(gemm|gemv|Gemm|Gemv|xmma|cutlass)")  # a library GEMM's kernels
 
 
 def certifies(spec: str) -> bool:
@@ -716,7 +718,7 @@ def phase_assoc(torch, nvidia_smi: str) -> dict:
         nav = ring.reshape(K * M, 56).to(dtype)
         lp = leaves.pts.to(dtype)
         Xt = torch.as_tensor(X, dtype=dtype, device=dev)
-        q = (lp @ Xt[:3, :3].mT + Xt[:3, 3]).expand(K, L, 3).reshape(Q, 3)
+        q = icp_terms.moving_in_map(lp, Xt).expand(K, L, 3).reshape(Q, 3)
         full = dict(valid=need.reshape(Q), return_blocks=True, return_margin=True)
         ids0, payload0, _ = descent.descend_plain(nav, q, base, DEPTH, **full)
         cases = {
@@ -753,36 +755,37 @@ def phase_assoc(torch, nvidia_smi: str) -> dict:
                 "bound_ms": bound, "bound_by": by, "max_abs_err": 0.0,
                 "library_ms": None}
 
-        # the ring form the step launches (one (1, L, 3) query operand for
-        # the K trees): round 0, the fast schedule's warm start, and a
-        # later certified round merged into round 0's results in place
+        # the ring form the step launches (the scan-frame leaves (1, L, 3)
+        # and the pose for the K trees, each query mapped in the kernel):
+        # round 0, the fast schedule's warm start, and a later certified
+        # round merged into round 0's results in place
         ring_nav = nav.view(K, M, 56)
-        q1 = (lp @ Xt[:3, :3].mT + Xt[:3, 3])[None]
-        prev = descent.descend_ring_plain(ring_nav, q1, DEPTH, need, return_margin=True)
+        q1, X1 = lp[None], Xt[None]
+        prev = descent.descend_ring_plain(ring_nav, q1, DEPTH, need, X=X1, return_margin=True)
         ring_cases = {"ring_round0": dict(need=need, return_margin=True),
                       "ring_warm": dict(need=need, start=prev[0] >> 6, n_gathers=3),
                       "ring_later_merged": dict(need=need & later, return_margin=True)}
         for case, kw in ring_cases.items():
             merged = case.endswith("merged")
             bufs = [tuple(t.clone() for t in prev) if merged else None for _ in range(3)]
-            got = descent.descend_ring(ring_nav, q1, DEPTH, **kw, out=bufs[0])
-            want = descent.descend_ring_plain(ring_nav, q1, DEPTH, **kw, out=bufs[1])
+            got = descent.descend_ring(ring_nav, q1, DEPTH, **kw, X=X1, out=bufs[0])
+            want = descent.descend_ring_plain(ring_nav, q1, DEPTH, **kw, X=X1, out=bufs[1])
             for name, a, b in zip(("ids", "blocks", "margins"), got, want):
                 check(a.dtype == b.dtype and torch.equal(a, b),
                       f"descend {dname} {case}: {name} differ from the plain version in "
                       f"{int((a != b).reshape(a.shape[0] * a.shape[1], -1).any(-1).sum())} "
                       "entries")
-            cost = kernel_trace.ring_cost(ring_nav, q1, DEPTH, kw["need"], kw.get("start"),
+            cost = kernel_trace.ring_cost(ring_nav, q1, X1, DEPTH, kw["need"], kw.get("start"),
                                           kw.get("n_gathers"), kw.get("return_margin", False),
                                           merged)
             bound, by = bound_ms(cost["bytes"], cost["operations"], dname)
             call = lambda kw=kw, o=bufs[2]: descent.descend_ring(  # noqa: E731
-                ring_nav, q1, DEPTH, **kw, out=o)
+                ring_nav, q1, DEPTH, **kw, X=X1, out=o)
             out["descend"][dname][case] = {
                 "entries": Q, "live": int(kw["need"].sum()), **cost,
                 "ms": event_ms(call, ASSOC_REPS), "device_ms": graph_ms(call, ASSOC_REPS),
                 "plain_ms": event_ms(lambda kw=kw, o=bufs[2]: descent.descend_ring_plain(
-                    ring_nav, q1, DEPTH, **kw, out=o), ASSOC_REPS),
+                    ring_nav, q1, DEPTH, **kw, X=X1, out=o), ASSOC_REPS),
                 "bound_ms": bound, "bound_by": by, "max_abs_err": 0.0, "library_ms": None,
                 "trace": kernel_trace.launch_us(call)}
         # a whole certified re-association round: descend + three wheres
@@ -799,7 +802,7 @@ def phase_assoc(torch, nvidia_smi: str) -> dict:
             name: kernel_trace.launch_us(lambda fn=fn, bufs=tuple(t.clone() for t in prev):
                                          fn(*later_args, *bufs))
             for name, fn in rounds.items()}
-        del ring_nav, q1, prev, bufs, got, want, res
+        del ring_nav, q1, X1, prev, bufs, got, want, res
 
         # K7 on the round-0 payload, shaped as the pipeline hands it over
         args = (payload0.view(1, K, L, 8), lp[None, None], leaves.valid[None, None],
@@ -1059,7 +1062,8 @@ def record_gn_calls(torch) -> dict:
     """The arguments of every gn_update and certify_slack call of one
     certified flagship scan (the bench's world and primed ring, its scan
     2, eager): ``{name: [args, ...]}``, 15 and 14 calls, each cloned
-    before the call."""
+    before the call, its keyword arguments (the slack pass's ``n_live``)
+    after its positional ones, in the signature's order."""
     from madicp_tpu_torch import bench
     from madicp_tpu_torch.kernels import certify_slack, gn_update
     from madicp_tpu_torch.models.step_graph import step_in_place
@@ -1074,9 +1078,9 @@ def record_gn_calls(torch) -> dict:
     def recorder(name):
         fn = real[name][1]
 
-        def call(*args):
-            calls[name].append(tuple(a.clone() for a in args))
-            return fn(*args)
+        def call(*args, **kw):
+            calls[name].append(tuple(a.clone() for a in args + tuple(kw.values())))
+            return fn(*args, **kw)
         return call
 
     pipe.compute_device(0.1, *pipe.stage(setup.scan_at(1)))
@@ -2071,6 +2075,8 @@ def profile_window(run, n_scans: int) -> dict:
         "device_busy_ms_per_scan": busy_ms / n_scans,
         "device_busy_share": busy_ms / wall_ms,
         "kernels_per_scan": sum(c for _, c in by_name.values()) / n_scans,
+        "gemm_launches_per_scan": sum(c for k, (_, c) in by_name.items()
+                                      if GEMM_NAME.search(k)) / n_scans,
         "kernel_ms_per_scan": own,
         "top_kernels": [{"name": k[:120], "ms_per_scan": ms / n_scans,
                          "launches_per_scan": c / n_scans} for k, (ms, c) in top],
@@ -2326,6 +2332,7 @@ def phase_graphs(torch, nvidia_smi: str) -> dict:
                           "device_busy_ms_per_scan": prof["device_busy_ms_per_scan"],
                           "device_busy_share": prof["device_busy_share"],
                           "kernels_per_scan": prof["kernels_per_scan"],
+                          "gemm_launches_per_scan": prof["gemm_launches_per_scan"],
                           "segsum_launches_per_scan": counts["segsum_moments"] / GRAPH_SCANS,
                           "launches_per_scan": {k: v / GRAPH_SCANS
                                                 for k, v in counts.items()}}
@@ -2346,6 +2353,10 @@ def phase_graphs(torch, nvidia_smi: str) -> dict:
         emit({"phase": "graphs", "part": "flagship", "schedule": spec,
               "nvidia_smi": nvidia_smi, **rows[spec]})
         check(diff <= GRAPH_BOUND_M, f"{spec}: graphed pose {diff:.2e} m from eager")
+        # the association maps its own queries and the output leaves are
+        # formed elementwise: a certified scan runs no library GEMM
+        check(not certifies(spec) or g["gemm_launches_per_scan"] == 0,
+              f"{spec}: {g['gemm_launches_per_scan']} GEMM launches a graphed scan")
         check(kernels_dev <= 0.01, f"{spec}: {g['kernels_per_scan']} kernels a graphed scan "
               f"({replay_io} of them the replay's copies), {e['kernels_per_scan']} eager")
         for name in side:

@@ -75,7 +75,22 @@ def motion_bound(pts: torch.Tensor, Xp: torch.Tensor, X: torch.Tensor) -> torch.
 
 def eps_cert(X: torch.Tensor, r_norm: torch.Tensor) -> torch.Tensor:
     """The certificate's rounding floor (B, L): the side dot-product's
-    rounding noise scales with the map-frame coordinate magnitude."""
+    rounding noise scales with the map-frame coordinate magnitude.
+
+    It covers the rounding of the query the margin was taken at and of
+    the one a later round descends with. The descent forms each query in
+    its kernel (``kernels/csrc/descent.cu``, K7's ``ml``): a coordinate is
+    ``((m_x R_c0 + m_y R_c1) + m_z R_c2) + t_c``, three products and three
+    sums, each rounded once, no FMA. A sum of four terms so formed is
+    within ``gamma_4 = 4u / (1 - 4u)`` (``u = eps / 2``) of the exact one
+    times the sum of the terms' magnitudes, whatever their order, and R's
+    rows are unit vectors, so ``|q_c - exact| <= 2.01 eps (|m| + |t_c|)``
+    and ``|q - exact| <= 2.01 eps (sqrt(3) r + |t|)``. The matrix product
+    that formed the queries before, in the library's order, with or
+    without FMAs, met the same bound, no better. Two queries' rounding,
+    ``< 7 eps r + 4.1 eps |t|``, and the side value's own rounding (three
+    products and two sums over ``q - c``) stay far below ``64 eps ((1 +
+    |t|) + r)``: the floor is unchanged."""
     t_norm = _norm(X[:, 0, 3], X[:, 1, 3], X[:, 2, 3])
     return 64.0 * torch.finfo(X.dtype).eps * ((1.0 + t_norm[:, None]) + r_norm)
 

@@ -21,7 +21,10 @@
 // past the bound was ever live.
 // The bound is a norm of differences, with no trig: an angle bound's
 // rounding (~sqrt(eps) near 0) would certify near-zero-slack entries
-// unsoundly.
+// unsoundly. The floor covers the rounding of the descent's query, which
+// K6 forms in its kernel as ((m_x R_c0 + m_y R_c1) + m_z R_c2) + t_c, no
+// FMA: |error| <= 2.01 eps (sqrt(3) r + |t|), the bound the GEMM that
+// formed it before met in any order (kernels/certify_slack.py `eps_cert`).
 //
 // It is the counterpart of madicp_tpu_torch/models/pipeline.py's certified
 // rounds (plain version: kernels/certify_slack.py `certify_slack_plain`),

@@ -13,13 +13,25 @@
 // margin: the least |sval| over every real interior node evaluated.
 //
 // Two ways to name an entry's tree and query:
-//   * flat: entry i has its own query queries[i] and row offset base_q[i]
-//     (or base0 for all);
+//   * flat: entry i has its own query queries[i], already in the map
+//     frame, and row offset base_q[i] (or base0 for all);
 //   * ring (ring_q > 0): entries are tree-major, (T trees) x (ring_q
 //     queries); entry i = t ring_q + j descends tree t at rows t ring_m +
 //     node with query (t / ring_k) ring_q + j of a (T / ring_k, ring_q, 3)
 //     operand: every group of ring_k consecutive trees (a sequence's
-//     keyframes) shares its queries, which are never copied K-fold.
+//     keyframes) shares its queries, which are never copied K-fold. The
+//     queries are in the scan frame: the entry forms its map-frame query
+//     from the pose X = pose[t / pose_k] of a (T / pose_k, 4, 4) operand
+//     (a sequence's round pose, shared by its pose_k trees), in
+//     registers,
+//       q_c = ((m_x X_c0 + m_y X_c1) + m_z X_c2) + X_c3,
+//     with _rn intrinsics in this order: K7's map-frame point `ml`
+//     (csrc/icp_terms.cu) bit for bit, so the descent and the terms' gate
+//     see one point. The step hands over its leaves and its pose, and no
+//     GEMM forms a (B, L, 3) map-frame copy of them a round.
+// A query is read through its operand's strides (q_group, q_row, q_col in
+// elements; the flat form's group stride is unused): the step's leaves, a
+// strided view of its leaf table, are read where they lie.
 // With `merge` (ring or flat) an entry whose valid flag is false is not
 // descended and its outputs are not written: the caller's buffers keep
 // what they held (the certified schedule's re-association merges a
@@ -34,7 +46,10 @@
 // no Pallas kernel stands behind them.
 //
 // Bound on an H100: the bytes of the distinct panels the descents read
-// plus the queries in and the entries' flags and outputs (3.35 TB/s). A
+// plus the queries in (12 bytes of a scan-frame point in float32, as many
+// as a map-frame one, and 64 bytes a pose) and the entries' flags and
+// outputs (3.35 TB/s). The transform is 9 products and 9 sums a descended
+// entry, against ~8 operations a panel read. A
 // descent is a chain of dependent panel reads (up to 3 a row, 6 rows at
 // depth 16), most of them L2 or HBM misses, so the kernel is bound by how
 // many chains it keeps in flight, not by the bytes.
@@ -65,6 +80,18 @@
 //     a*b + c into an FMA, and one FMA flips a query that lies on a split
 //     plane. So ids, blocks and margins equal the plain version's bit for
 //     bit on the card.
+//   * ring form: each descended entry reads its tree's pose (12 values at
+//     one address across a warp's lanes: a broadcast, from L1 after the
+//     first warp) and forms its query while its first panel read is in
+//     flight, so the transform adds no latency to the chain; the merged
+//     kernel forms it only for the live entries it queues. (A block-wide
+//     load of the poses into shared memory behind a barrier put a
+//     dependent load ahead of every block's flag scan: +24% on a KITTI
+//     scan's merged rounds on an H100.) A query's rounding in this order
+//     is within the certificate's floor eps_cert (kernels/
+//     certify_slack.py: three products and three sums a coordinate,
+//     |error| <= 2.01 eps (|m| + |t_c|), the bound the GEMM it replaces
+//     met in any order).
 // The kernel allocates nothing, reads nothing back to the host, writes
 // each output element at most once (no atomics) and launches on the
 // caller's stream, so it can be captured in a CUDA graph and a replay
@@ -131,6 +158,7 @@ template <typename T>
 struct Args {
   const T* nav;
   const T* queries;
+  long long q_group, q_row, q_col;  // the queries' strides (elements)
   const int64_t* base_q;  // flat: (n,) row offsets, or null for base0
   long long base0;
   const uint8_t* valid;  // (n,) or null
@@ -138,37 +166,57 @@ struct Args {
   long long n;           // entries
   int depth, n_gathers, known_levels, merge;
   long long ring_q, ring_k, ring_m;  // ring_q > 0: the ring form
+  const T* pose;                     // ring form: (T / pose_k, 4, 4) scan to map
+  long long pose_k;                  // trees a pose
   int64_t* node_out;
   T* blk_out;
   T* margin_out;
 };
 
 // the descent of entry i (0 <= i < n): parked on row 0 of its tree where
-// its valid flag is false (under merge the caller passes valid entries)
+// its valid flag is false (under merge the caller passes valid entries);
+// in the ring form its query is mapped by its tree's pose, pose[t / pose_k]
 template <typename T, bool VEC>
 __device__ __forceinline__ void descend_one(const Args<T>& a, long long i) {
   using A = Arith<T>;
-  long long qi = i, base;
+  long long qoff, base, t = 0;
   if (a.ring_q > 0) {
-    const long long t = i / a.ring_q;
-    qi = (t / a.ring_k) * a.ring_q + (i - t * a.ring_q);
+    t = i / a.ring_q;
+    qoff = (t / a.ring_k) * a.q_group + (i - t * a.ring_q) * a.q_row;
     base = t * a.ring_m;
   } else {
+    qoff = i * a.q_row;
     base = a.base_q != nullptr ? a.base_q[i] : a.base0;
   }
   const T* tree = a.nav + base * NAV;
   int64_t node = 1;
   if (a.start != nullptr) node = a.start[i] > 1 ? a.start[i] : 1;
   if (a.valid != nullptr && !a.valid[i]) node = 0;
-  const T qx = a.queries[3 * qi], qy = a.queries[3 * qi + 1], qz = a.queries[3 * qi + 2];
+  const T* qp = a.queries + qoff;
+  T qx = qp[0], qy = qp[a.q_col], qz = qp[2 * a.q_col];
   T blk[8];
 #pragma unroll
   for (int k = 0; k < 8; ++k) blk[k] = T(0);
+  // the first row's panel 0 is read while the query is formed
+  const T* row = tree + node * NAV;
+  if (a.n_gathers > 0) load_panel<T, VEC>(row, blk);
+  if (a.pose != nullptr) {  // K7's ml: ((m_x X_c0 + m_y X_c1) + m_z X_c2) + X_c3
+    const T* pp = a.pose + 16 * (t / a.pose_k);
+    T X[12];
+#pragma unroll
+    for (int k = 0; k < 12; ++k) X[k] = __ldg(pp + k);
+    const T mx = qx, my = qy, mz = qz;
+    qx = A::add(A::add(A::add(A::mul(mx, X[0]), A::mul(my, X[1])), A::mul(mz, X[2])), X[3]);
+    qy = A::add(A::add(A::add(A::mul(mx, X[4]), A::mul(my, X[5])), A::mul(mz, X[6])), X[7]);
+    qz = A::add(A::add(A::add(A::mul(mx, X[8]), A::mul(my, X[9])), A::mul(mz, X[10])), X[11]);
+  }
   T margin = A::max_value();
 
   for (int g = 0; g < a.n_gathers; ++g) {
-    const T* row = tree + node * NAV;
-    load_panel<T, VEC>(row, blk);
+    if (g > 0) {
+      row = tree + node * NAV;
+      load_panel<T, VEC>(row, blk);
+    }
     bool stepped = false;
     int b1 = 0;
 #pragma unroll
@@ -226,9 +274,14 @@ descend_kernel(const Args<T> a) {
 // one descent's chain a warp, in one wave.
 constexpr int WARPS = THREADS / 32;
 constexpr int CHUNKS = 4;
+// blocks an SM holds: float's merged descent capped at 40 registers keeps
+// 1,536 threads' chains in flight (the query's transform would take it to
+// 48 and 1,280); double's 56 registers are under its cap
+template <typename T>
+constexpr int merge_blocks() { return sizeof(T) == 4 ? 6 : 4; }
 
 template <typename T, bool VEC>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, merge_blocks<T>())
 descend_merge_kernel(const Args<T> a) {
   __shared__ long long queue[WARPS][64];
   const int lane = threadIdx.x & 31;
@@ -278,16 +331,19 @@ void launch_vec(const Args<T>& a, cudaStream_t stream) {
 }
 
 template <typename T>
-int launch(const T* nav, const T* queries, const int64_t* base_q, long long base0,
+int launch(const T* nav, const T* queries, long long q_group, long long q_row,
+           long long q_col, const int64_t* base_q, long long base0,
            const uint8_t* valid, const int64_t* start, long long n, int depth,
            int n_gathers, int known_levels, int vec, long long ring_q, long long ring_k,
-           long long ring_m, int merge, int64_t* node_out, T* blk_out, T* margin_out,
-           cudaStream_t stream) {
+           long long ring_m, const T* pose, long long pose_k, int merge, int64_t* node_out,
+           T* blk_out, T* margin_out, cudaStream_t stream) {
   if (merge && valid == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (pose != nullptr && (ring_q <= 0 || pose_k <= 0))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (n <= 0) return static_cast<int>(cudaGetLastError());
-  const Args<T> a{nav, queries, base_q, base0, valid, start, n, depth, n_gathers,
-                  known_levels, merge, ring_q, ring_k, ring_m, node_out, blk_out,
-                  margin_out};
+  const Args<T> a{nav, queries, q_group, q_row, q_col, base_q, base0, valid, start, n, depth, n_gathers,
+                  known_levels, merge, ring_q, ring_k, ring_m, pose, pose_k, node_out,
+                  blk_out, margin_out};
   if (vec) {
     launch_vec<T, true>(a, stream);
   } else {
@@ -300,34 +356,40 @@ int launch(const T* nav, const T* queries, const int64_t* base_q, long long base
 
 extern "C" {
 
-// Plain C interface for ctypes: (nav (R, 56), queries (n, 3) flat or
-// (T / ring_k, ring_q, 3) ring, base_q (n,) int64 or null with base0 the
-// offset of every entry (flat), valid (n,) bool or null, start (n,) int64
-// or null, n, depth, n_gathers, known_levels (1: the depth cap applies, no
-// warm start), vec (1: nav and blk_out are 16-byte aligned), ring_q (0:
-// flat), ring_k, ring_m (rows a tree),
-// merge (1: entries with valid false are neither descended nor written),
-// node_out (n,) int64, blk_out (n, 8) or null, margin_out (n,) or null,
-// stream). Every array is contiguous. Returns the cudaGetLastError() code
-// after the launch (0 = success).
-int descend_f32(const float* nav, const float* queries, const int64_t* base_q,
-                long long base0, const uint8_t* valid, const int64_t* start, long long n,
-                int depth, int n_gathers, int known_levels, int vec, long long ring_q,
-                long long ring_k, long long ring_m, int merge, int64_t* node_out,
-                float* blk_out, float* margin_out, void* stream) {
-  return launch<float>(nav, queries, base_q, base0, valid, start, n, depth, n_gathers,
-                       known_levels, vec, ring_q, ring_k, ring_m, merge, node_out, blk_out,
-                       margin_out, static_cast<cudaStream_t>(stream));
+// Plain C interface for ctypes: (nav (R, 56), queries (n, 3) flat in the
+// map frame or (T / ring_k, ring_q, 3) ring in the scan frame, their
+// strides q_group, q_row, q_col in elements, base_q (n,) int64 or null
+// with base0 the offset of every entry (flat), valid (n,) bool or null,
+// start (n,) int64 or null, n, depth, n_gathers, known_levels (1: the
+// depth cap applies, no warm start), vec (1: nav and blk_out are 16-byte
+// aligned), ring_q (0: flat), ring_k, ring_m (rows a tree), pose (T /
+// pose_k, 4, 4) the ring form's scan-to-map poses (null in the flat
+// form), pose_k (trees a pose), merge (1: entries with valid false are
+// neither descended nor written), node_out (n,) int64, blk_out (n, 8) or
+// null, margin_out (n,) or null, stream). Every array but the queries is
+// contiguous. Returns the cudaGetLastError() code after the launch (0 =
+// success).
+int descend_f32(const float* nav, const float* queries, long long q_group, long long q_row,
+                long long q_col, const int64_t* base_q, long long base0, const uint8_t* valid,
+                const int64_t* start, long long n, int depth, int n_gathers, int known_levels,
+                int vec, long long ring_q, long long ring_k, long long ring_m, const float* pose,
+                long long pose_k, int merge, int64_t* node_out, float* blk_out,
+                float* margin_out, void* stream) {
+  return launch<float>(nav, queries, q_group, q_row, q_col, base_q, base0, valid, start, n,
+                       depth, n_gathers, known_levels, vec, ring_q, ring_k, ring_m, pose, pose_k,
+                       merge, node_out, blk_out, margin_out, static_cast<cudaStream_t>(stream));
 }
 
-int descend_f64(const double* nav, const double* queries, const int64_t* base_q,
-                long long base0, const uint8_t* valid, const int64_t* start, long long n,
-                int depth, int n_gathers, int known_levels, int vec, long long ring_q,
-                long long ring_k, long long ring_m, int merge, int64_t* node_out,
+int descend_f64(const double* nav, const double* queries, long long q_group, long long q_row,
+                long long q_col, const int64_t* base_q, long long base0, const uint8_t* valid,
+                const int64_t* start, long long n, int depth, int n_gathers, int known_levels,
+                int vec, long long ring_q, long long ring_k, long long ring_m,
+                const double* pose, long long pose_k, int merge, int64_t* node_out,
                 double* blk_out, double* margin_out, void* stream) {
-  return launch<double>(nav, queries, base_q, base0, valid, start, n, depth, n_gathers,
-                        known_levels, vec, ring_q, ring_k, ring_m, merge, node_out, blk_out,
-                        margin_out, static_cast<cudaStream_t>(stream));
+  return launch<double>(nav, queries, q_group, q_row, q_col, base_q, base0, valid, start, n,
+                        depth, n_gathers, known_levels, vec, ring_q, ring_k, ring_m, pose,
+                        pose_k, merge, node_out, blk_out, margin_out,
+                        static_cast<cudaStream_t>(stream));
 }
 
 const char* madicp_cuda_error_string(int code) {

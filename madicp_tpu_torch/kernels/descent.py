@@ -13,12 +13,15 @@ form the side value in one order, ``(p0 + p1) + p2`` over ``p = (q - c)
 
 :func:`descend_ring` is the same descent over a ring of trees, the form
 the step launches (:func:`madicp_tpu_torch.ops.icp_core.associate_ring`):
-each sequence's queries serve its keyframes' trees where they lie, and
-with ``out`` only the ``need`` entries are descended and written into
-the previous round's results in place, which is the certified
-schedule's merge (the JAX package's ``madicp_tpu/models/pipeline.py:569``
-``reassociate``); :func:`descend_ring_plain` is the flat plain descent
-followed by that merge's ``torch.where``s.
+each sequence's queries, in the scan frame, serve its keyframes' trees
+where they lie, each entry mapping its query by its sequence's pose
+``X`` in K7's order (:func:`~madicp_tpu_torch.kernels.icp_terms.moving_in_map`,
+so the descent and the terms' gate see one point), and with ``out`` only
+the ``need`` entries are descended and written into the previous round's
+results in place, which is the certified schedule's merge (the JAX
+package's ``madicp_tpu/models/pipeline.py:569`` ``reassociate``);
+:func:`descend_ring_plain` is ``moving_in_map`` and the flat plain
+descent, followed by that merge's ``torch.where``s.
 
 Dispatch is by the tensors' device and nothing else: CPU tensors take
 the plain version, CUDA tensors take the kernel or the call raises. The
@@ -34,14 +37,16 @@ from typing import Optional
 import torch
 
 from madicp_tpu_torch.kernels import build
+from madicp_tpu_torch.kernels.icp_terms import moving_in_map
 
 counter = build.LaunchCounter()
 # the __global__ functions of csrc/descent.cu, as a CUDA trace names them
 KERNEL_NAMES = ("descend_kernel", "descend_merge_kernel")
 _launch = build.Launcher("descent", {  # the stream last
-    "descend": ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_void_p] * 2
+    "descend": ([ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 3 + [ctypes.c_void_p]
+                + [ctypes.c_longlong] + [ctypes.c_void_p] * 2
                 + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 3
-                + [ctypes.c_int] + [ctypes.c_void_p] * 4),
+                + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int] + [ctypes.c_void_p] * 4),
 }, counter)
 THREADS = 256  # a block of csrc/descent.cu
 _MAX_QUERIES = 2**31 - 1
@@ -207,9 +212,10 @@ def _check(nav, queries, base, depth, valid, start, n_gathers) -> None:
 
 
 def _run(nav, queries, depth, n_gathers, known_levels, node, blk, margin, *, base=0,
-         valid=None, start=None, ring=(0, 1, 0), merge=False) -> None:
+         valid=None, start=None, ring=(0, 1, 0), pose=None, pose_k=1, merge=False) -> None:
     """Launch the kernel over ``node.numel()`` entries (arguments as the C
-    interface of ``csrc/descent.cu`` takes them)."""
+    interface of ``csrc/descent.cu`` takes them; the queries (Q, 3) or
+    (G, Q, 3) are read through their strides, no copy)."""
     n = node.numel()
     if n > _MAX_QUERIES:
         raise ValueError(f"descend: at most {_MAX_QUERIES} entries, got {n}")
@@ -221,10 +227,11 @@ def _run(nav, queries, depth, n_gathers, known_levels, node, blk, margin, *, bas
     # blocks out start on 16-byte boundaries
     vec = nav.data_ptr() % 16 == 0 and (blk is None or blk.data_ptr() % 16 == 0)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    _launch("descend", nav.dtype, nav.device, nav.data_ptr(), queries.data_ptr(),
-            ptr(base_t), base0, ptr(valid), ptr(start), n, depth, n_gathers,
-            int(known_levels), int(vec), *ring, int(merge), node.data_ptr(), ptr(blk),
-            ptr(margin))
+    q_group = queries.stride(0) if queries.dim() == 3 else 0
+    _launch("descend", nav.dtype, nav.device, nav.data_ptr(), queries.data_ptr(), q_group,
+            queries.stride(-2), queries.stride(-1), ptr(base_t), base0, ptr(valid), ptr(start),
+            n, depth, n_gathers, int(known_levels), int(vec), *ring, ptr(pose), pose_k,
+            int(merge), node.data_ptr(), ptr(blk), ptr(margin))
 
 
 def descend(nav, queries, base, depth, valid=None, start=None,
@@ -247,7 +254,7 @@ def descend(nav, queries, base, depth, valid=None, start=None,
     node = torch.empty((Q,), dtype=torch.int64, device=dev)
     blk = torch.empty((Q, 8), dtype=nav.dtype, device=dev) if return_blocks else None
     margin = torch.empty((Q,), dtype=nav.dtype, device=dev) if return_margin else None
-    _run(nav, queries.contiguous(), depth, n_gathers, known_levels, node, blk, margin,
+    _run(nav, queries, depth, n_gathers, known_levels, node, blk, margin,
          base=base, valid=None if valid is None else valid.contiguous(),
          start=None if start is None else start.to(torch.int64).contiguous())
     out = (node,)
@@ -258,16 +265,20 @@ def descend(nav, queries, base, depth, valid=None, start=None,
     return out if len(out) > 1 else node
 
 
-def descend_ring_plain(nav, queries, depth, need, start=None, n_gathers=None,
+def descend_ring_plain(nav, queries, depth, need, *, X, start=None, n_gathers=None,
                        return_margin=False, out=None):
-    """Plain version of :func:`descend_ring`: the queries copied to every
-    tree of their group and :func:`descend_plain` over the flat table;
-    with ``out``, each result merged into its buffer where ``need`` holds
-    (``torch.where``, then copied in place)."""
+    """Plain version of :func:`descend_ring`: each group's queries mapped
+    by its pose (:func:`~madicp_tpu_torch.kernels.icp_terms.moving_in_map`,
+    the kernel's order), copied to every tree of the group and descended
+    by :func:`descend_plain` over the flat table; with ``out``, each result
+    merged into its buffer where ``need`` holds (``torch.where``, then
+    copied in place)."""
     T, M = nav.shape[:2]
     queries = queries.reshape((-1,) + queries.shape[-2:])
     G, Q = queries.shape[:2]
-    q = queries[:, None].expand(G, T // G, Q, 3).reshape(T * Q, 3)
+    X = X.reshape((-1, 4, 4))
+    mapped = moving_in_map(queries, X.repeat_interleave(G // X.shape[0], dim=0))
+    q = mapped[:, None].expand(G, T // G, Q, 3).reshape(T * Q, 3)
     base = (torch.arange(T, device=nav.device) * M)[:, None].expand(T, Q).reshape(T * Q)
     res = descend_plain(nav.reshape(T * M, nav.shape[2]), q, base, depth, need.reshape(T * Q),
                         None if start is None else start.reshape(T * Q), n_gathers, True,
@@ -280,7 +291,7 @@ def descend_ring_plain(nav, queries, depth, need, start=None, n_gathers=None,
     return out
 
 
-def _check_ring(nav, queries, depth, need, start, n_gathers, return_margin, out) -> None:
+def _check_ring(nav, queries, X, depth, need, start, n_gathers, return_margin, out) -> None:
     """Raise on what neither version of :func:`descend_ring` takes."""
     if nav.dim() != 3 or queries.dim() not in (2, 3) or need.dim() != 2:
         raise ValueError(f"descend_ring: want nav (T, M, 56), queries (G, Q, 3) or (Q, 3) "
@@ -291,8 +302,15 @@ def _check_ring(nav, queries, depth, need, start, n_gathers, return_margin, out)
     if nav.shape[0] != T or queries.shape[-2] != Q or T % G:
         raise ValueError(f"descend_ring: {T} trees and {Q} queries a tree do not match nav "
                          f"{tuple(nav.shape)} and queries {tuple(queries.shape)}")
-    _check(nav.reshape(-1, nav.shape[-1]), queries.reshape(-1, queries.shape[-1]), 0, depth,
-           None, None, n_gathers)
+    if X.dim() not in (2, 3) or X.shape[-2:] != (4, 4) or (X.dim() == 3 and G % X.shape[0]):
+        raise ValueError(f"descend_ring: X must be (P, 4, 4) with P dividing the {G} query "
+                         f"groups, or (4, 4), got {tuple(X.shape)}")
+    if X.dtype != nav.dtype or X.device != nav.device:
+        raise TypeError(f"descend_ring: X is {X.dtype} on {X.device}, nav {nav.dtype} on "
+                        f"{nav.device}")
+    # one group's queries: flattening a strided (G, Q, 3) view would copy it
+    _check(nav.reshape(-1, nav.shape[-1]), queries[0] if queries.dim() == 3 else queries, 0,
+           depth, None, None, n_gathers)
     for name, t in (("need", need), ("start", start)):
         if t is not None and (t.device != nav.device or t.shape != (T, Q)):
             raise ValueError(f"descend_ring: {name} must be ({T}, {Q}) on {nav.device}")
@@ -310,33 +328,41 @@ def _check_ring(nav, queries, depth, need, start, n_gathers, return_margin, out)
         raise ValueError(f"descend_ring: out must be {want} on {nav.device}")
 
 
-def descend_ring(nav, queries, depth, need, start=None, n_gathers: Optional[int] = None,
+def descend_ring(nav, queries, depth, need, *, X, start=None, n_gathers: Optional[int] = None,
                  return_margin: bool = False, out=None):
     """Descend every (tree, query) entry of a ring of trees in one launch.
 
     ``nav`` (T, M, 56): T trees of M rows (a batch's keyframe rings, B K
-    trees); ``queries`` (G, Q, 3) in the map frame, each shared by the T /
-    G consecutive trees of its group (a sequence's keyframes), or (Q, 3)
-    shared by all; ``need`` (T, Q) the entries to descend, the others
-    park on row 0 of their tree; ``start`` (T, Q) LOCAL warm-start nodes.
-    Returns ``(ids (T, Q), blocks (T, Q, 8)[, margins (T, Q)])``, as
-    :func:`descend` with blocks over the flat entries. With ``out``, those
-    tensors' previous values: only the ``need`` entries are descended and
-    written, in place (the certified re-association's merge), and
-    ``out`` is returned.
+    trees); ``queries`` (G, Q, 3) in the scan frame, each shared by the T
+    / G consecutive trees of its group (a sequence's keyframes), or (Q, 3)
+    shared by all; ``X`` (P, 4, 4) the scan-to-map poses, P dividing G,
+    each shared by G / P consecutive groups (a sequence's pose: P = G = B
+    for shared queries, P = B with G = B K per-tree queries), or (4, 4)
+    for all: an entry descends with its query mapped by its pose in K7's
+    order (``((m_x X_c0 + m_y X_c1) + m_z X_c2) + X_c3``); ``need`` (T, Q)
+    the entries to descend, the others park on row 0 of their tree;
+    ``start`` (T, Q) LOCAL warm-start nodes. Returns ``(ids (T, Q), blocks
+    (T, Q, 8)[, margins (T, Q)])``, as :func:`descend` with blocks over
+    the flat entries of the mapped queries. With ``out``, those tensors'
+    previous values: only the ``need`` entries are descended and written,
+    in place (the certified re-association's merge), and ``out`` is
+    returned.
 
     CPU tensors take :func:`descend_ring_plain`; CUDA tensors the kernel,
-    which reads each group's queries where they lie (no K-fold copy, no
+    which reads each group's queries where they lie, through their
+    strides, and forms each descended entry's map-frame query in registers
+    from its sequence's pose (no map-frame copy, no K-fold copy, no
     row-offset table)."""
-    _check_ring(nav, queries, depth, need, start, n_gathers, return_margin, out)
+    _check_ring(nav, queries, X, depth, need, start, n_gathers, return_margin, out)
     if nav.device.type == "cpu":
-        return descend_ring_plain(nav, queries, depth, need, start, n_gathers, return_margin,
-                                  out)
+        return descend_ring_plain(nav, queries, depth, need, X=X, start=start,
+                                  n_gathers=n_gathers, return_margin=return_margin, out=out)
     if not nav.is_contiguous():
         raise ValueError("descend_ring: nav must be contiguous (the kernel reads its rows)")
     T, M = nav.shape[:2]
     Q = need.shape[1]
     G = queries.shape[0] if queries.dim() == 3 else 1
+    P = X.shape[0] if X.dim() == 3 else 1
     known_levels = start is None
     if n_gathers is None:
         n_gathers = default_gathers(depth, True)
@@ -350,8 +376,8 @@ def descend_ring(nav, queries, depth, need, start=None, n_gathers: Optional[int]
             res += (torch.empty((T, Q), dtype=dtype, device=dev),)
     else:
         res = tuple(out)
-    _run(nav, queries.contiguous(), depth, n_gathers, known_levels, res[0], res[1],
+    _run(nav, queries, depth, n_gathers, known_levels, res[0], res[1],
          res[2] if return_margin else None, valid=need.contiguous(),
          start=None if start is None else start.to(torch.int64).contiguous(),
-         ring=(Q, T // G, M), merge=out is not None)
+         ring=(Q, T // G, M), pose=X.contiguous(), pose_k=T // P, merge=out is not None)
     return res

@@ -122,14 +122,14 @@ def vector_rows(payload: torch.Tensor, lead: tuple) -> bool:
 
 
 def moving_in_map(moving_pts: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
-    """The moving points in the map frame, ``m R^T + t``: each coordinate
-    ``((m_x R_c0 + m_y R_c1) + m_z R_c2) + t_c``, one rounding an
-    operation, the kernel's order."""
-    m = moving_pts
-    X = X[..., None, :, :]  # broadcasts over L
-    return torch.stack([((m[..., 0] * X[..., c, 0] + m[..., 1] * X[..., c, 1])
-                         + m[..., 2] * X[..., c, 2]) + X[..., c, 3] for c in range(3)],
-                       dim=-1)
+    """The moving points ``(..., L, 3)`` in the map frame of the poses
+    ``X`` ``(..., 4, 4)`` (leading axes that broadcast), ``m R^T + t``:
+    each coordinate ``((m_x R_c0 + m_y R_c1) + m_z R_c2) + t_c``, one
+    rounding an operation, the kernels' order (K7's ``ml``, K6's query).
+    Four tensor ops, the nine products first: no GEMM, whose order is the
+    library's."""
+    p = moving_pts[..., None, :] * X[..., None, :3, :3]  # (..., L, 3, 3): m_j R_cj
+    return ((p[..., 0] + p[..., 1]) + p[..., 2]) + X[..., None, :3, 3]
 
 
 def entry_terms(payload, moving_pts, moving_valid, X, *, b_max, b_ratio, rho_ker):

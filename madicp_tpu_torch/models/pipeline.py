@@ -51,6 +51,7 @@ import numpy as np
 import torch
 
 from madicp_tpu_torch.kernels import certify_slack, gn_update, ring_write, segsum, step_scalars
+from madicp_tpu_torch.kernels.icp_terms import moving_in_map
 from madicp_tpu_torch.ops.constants import FRAME_WINDOW, MAX_ICP_ITS, SMOOTHING_T
 from madicp_tpu_torch.ops.deskew import deskew_scan
 from madicp_tpu_torch.ops.icp_core import (
@@ -338,19 +339,17 @@ def icp_rounds(
         (B, K, Q); the others park on row 0 of their keyframe's arena.
         ``pts``: the queries in the scan frame, (B, Q, 3) (each sequence's
         serve its K keyframes as they are, never copied K-fold) or (B, K,
-        Q, 3); the leaves by default. Results are (B, K, Q, ...); with
-        ``out`` (such results) only the ``need`` entries are descended and
-        merged into them, in place."""
+        Q, 3); the leaves by default. The descent maps each by its
+        sequence's pose in ``X`` (B, 4, 4) itself. Results are (B, K, Q,
+        ...); with ``out`` (such results) only the ``need`` entries are
+        descended and merged into them, in place."""
         pts = leaves_pts if pts is None else pts
         Q = need.shape[-1]
         with phase(stamps, "assoc"):
-            if pts.dim() == 3:
-                q = pts @ X[:, :3, :3].mT + X[:, None, :3, 3]
-            else:
-                q = (pts @ X[:, None, :3, :3].mT + X[:, None, None, :3, 3]).reshape(B * K, Q, 3)
             res = associate_ring(
-                nav.view(B * K, -1, nav.shape[-1]), cfg.depth, q,
-                need.reshape(B * K, Q), start=None if start is None else start.reshape(B * K, Q),
+                nav.view(B * K, -1, nav.shape[-1]), cfg.depth, pts.reshape((-1, Q, 3)),
+                need.reshape(B * K, Q), X=X,
+                start=None if start is None else start.reshape(B * K, Q),
                 n_gathers=n_gathers, return_margin=margin,
                 out=None if out is None else tuple(o.view((B * K,) + o.shape[2:]) for o in out),
             )
@@ -653,7 +652,7 @@ def _phased_step(cfg, state, points, valid, stamps, icp_rounds_fn, kf_offset, po
                                  num_keyframes=cfg.num_keyframes, kf_offset=kf_offset,
                                  out=into)
         ring_write.ring_write(tree.nav, X, tail.plan, state.fr_tree.nav, state.kf_tree.nav)
-        leaves_pts = leaves.pts @ X[:, :3, :3].mT + X[:, None, :3, 3]
+        leaves_pts = moving_in_map(leaves.pts, X)
         n_leaves_dropped = torch.clamp(leaves.total - cfg.leaves_cap, min=0)
 
     new_state = PipelineState(

@@ -69,8 +69,10 @@ def associate_packed(
 def associate_ring(
     nav: torch.Tensor,
     depth: int,
-    moving_pts_map: torch.Tensor,
+    moving_pts: torch.Tensor,
     need: torch.Tensor,
+    *,
+    X: torch.Tensor,
     start: torch.Tensor = None,
     n_gathers: int = None,
     return_margin: bool = False,
@@ -80,19 +82,25 @@ def associate_ring(
     batched call over its ``(K, M, 56)`` arenas, each query on its
     keyframe's rows.
 
-    ``nav`` (K, M, 56); ``moving_pts_map`` (Q, 3) shared by every keyframe,
+    ``nav`` (K, M, 56); ``moving_pts`` (Q, 3) shared by every keyframe,
     or (G, Q, 3) shared by each group of K / G consecutive keyframes (a
-    batch's sequences: G = B, K = B x keyframes), already in the map
-    frame; ``need`` (K, Q) — entries without it park on row 0 of their
-    keyframe's arena. ``start`` (K, Q) holds LOCAL node ids. Returns
-    ``(leaf_ids, payload[, margin])`` shaped (K, Q, ...), as
-    :func:`associate_packed`. With ``out`` (those tensors of an earlier
-    call) only the ``need`` entries are descended and written, in place:
-    the certified schedule's re-association merge.
+    batch's sequences: G = B, K = B x keyframes), in the scan frame;
+    ``X`` the scan-to-map poses, (P, 4, 4) with P dividing G (a
+    sequence's pose for its groups) or (4, 4): each entry descends with
+    its query mapped by its pose in the terms' order
+    (:func:`~madicp_tpu_torch.kernels.icp_terms.moving_in_map`, K7's
+    ``ml``); callers holding map-frame points pass the identity. ``need``
+    (K, Q) — entries without it park on row 0 of their keyframe's arena.
+    ``start`` (K, Q) holds LOCAL node ids. Returns ``(leaf_ids, payload[,
+    margin])`` shaped (K, Q, ...), as :func:`associate_packed`. With
+    ``out`` (those tensors of an earlier call) only the ``need`` entries
+    are descended and written, in place: the certified schedule's
+    re-association merge.
 
     :func:`madicp_tpu_torch.kernels.descent.descend_ring`: on the card one
-    launch reads each group's queries where they lie."""
-    return descent.descend_ring(nav, moving_pts_map, depth, need, start=start,
+    launch reads each group's queries where they lie and maps them in
+    registers."""
+    return descent.descend_ring(nav, moving_pts, depth, need, X=X, start=start,
                                 n_gathers=n_gathers, return_margin=return_margin, out=out)
 
 
@@ -149,7 +157,7 @@ def icp_terms_packed(
     (``nav`` e.g. ``(K*M, 56)``, ``base`` the tree's row offset);
     ``moving_pts`` (L, 3) in the local frame, ``X`` the current
     moving-to-fixed estimate."""
-    ml = moving_pts @ X[:3, :3].T + X[:3, 3]
+    ml = terms_kernel.moving_in_map(moving_pts, X)  # the terms' own map-frame points
     _, payload = associate_packed(nav, base, depth, ml, moving_valid, ladder=ladder)
     return terms_from_payload(
         payload, moving_pts, moving_valid, X,

@@ -128,8 +128,7 @@ def icp_round_sharded(
     nav = make_global(kf_tree.nav, ("kf",), mesh)
     valid_f = make_global(kf_valid, ("kf",), mesh).to(leaves_pts.dtype)
     K, L = nav.shape[0], leaves_pts.shape[0]
-    ml = leaves_pts @ X[:3, :3].T + X[:3, 3]
-    _, payload = associate_ring(nav, kf_tree.depth, ml, leaves_valid.expand(K, L))
+    _, payload = associate_ring(nav, kf_tree.depth, leaves_pts, leaves_valid.expand(K, L), X=X)
     terms = terms_from_payload(payload, leaves_pts, leaves_valid, X, b_max=b_max,
                                b_ratio=b_ratio, rho_ker=rho_ker, n_live=leaves_valid.sum())
     H = torch.einsum("k,kij->ij", valid_f, terms.H)

@@ -27,8 +27,9 @@ parts named by ``--parts`` (default: all but ``step``, ``pdl`` and ``launch``):
   kernel µs (median of ``reps`` eager calls under torch.profiler) and
   graphed µs a call; and a whole later re-association round as descend +
   three ``where``s, kernel by kernel. ``ring`` (with ``descent``) adds the
-  ring form the step launches, the merged later round and the round as
-  the step runs it.
+  ring form the step launches (scan-frame leaves and the pose), each
+  case beside the former GEMM + add + K6, the merged later round and
+  the round as the step runs it.
 - ``resources``: each K6 and K9 kernel's registers, stack and spills from
   ``nvcc -Xptxas -v`` and the threads an SM holds at that count.
 - ``gn``: a certified round's pose update and slack pass on the
@@ -89,6 +90,13 @@ parts named by ``--parts`` (default: all but ``step``, ``pdl`` and ``launch``):
   graphed device ms of both forms in the order one, two, two, one, and
   whether the two write the same rings bit for bit (:func:`ring_split_ab`).
   Not in the default.
+- ``step_ops``: where the step's library GEMMs come from: one eager step
+  of each schedule of :data:`bench.SCHEDULES` at B = 1 and of the
+  certified one at the fleet's B = 11, on the bench's primed scan stream
+  at the benchmark's leaf count (:func:`step_ops`): every kernel whose
+  name is a GEMM's and every kernel the association's descents issue,
+  each with the package lines that issued it (:func:`step_lines`). Not
+  in the default.
 
 ``--paths`` adds the A/Bs that set the plans: every K8 level on every
 path that can take it (:data:`build_points.PATHS`), every K9 call on both
@@ -123,8 +131,8 @@ from madicp_tpu_torch.utils.timing import bound_ms, device_trace, graph_ms
 
 REPS = 5  # graph replays a trace
 PARTS = ("build", "terms", "descent", "ring", "nodes", "resources", "gn", "step", "pdl",
-         "launch", "deskew", "tail", "rates", "ring_split", "tail_designs")
-DEFAULT_PARTS = PARTS[:-8]
+         "launch", "deskew", "tail", "rates", "ring_split", "tail_designs", "step_ops")
+DEFAULT_PARTS = PARTS[:-9]
 # a later certified round's uncertified share: a certified flagship scan
 # descends 1.71 M entries, 0.52 M of them in round 0, and each of the other
 # 14 rounds hands the descent 0.52 M entries of which ~16% are live
@@ -422,7 +430,8 @@ def descent_inputs(fl: Flagship, dtype) -> dict:
     """The descent's flagship inputs in ``dtype``, as the step hands them
     over (every (keyframe, leaf) entry, keyframe-major): the flat table
     ``nav`` (K M, 56), the scan-frame leaves ``pts`` (1, L, 3), the pose
-    ``X`` (1, 4, 4), the map-frame queries ``q`` (K L, 3), ``base`` (K
+    ``X`` (1, 4, 4), the map-frame queries ``q`` (K L, 3) (``moving_in_map``:
+    the ring form's in-kernel query) for the flat form, ``base`` (K
     L,), ``need`` (K, L) the live entries, ``later`` (K, L) a later
     certified round's uncertified share (:data:`LIVE`, seed
     :data:`LIVE_SEED`), and round 0's ``ids``, ``payload``, ``margin`` (K,
@@ -433,7 +442,7 @@ def descent_inputs(fl: Flagship, dtype) -> dict:
     lp = fl.leaves.pts.to(dtype)
     Xt = torch.as_tensor(fl.X, dtype=dtype, device=dev)
     nav = fl.ring.reshape(K * M, 56).to(dtype)
-    q = (lp @ Xt[:3, :3].mT + Xt[:3, 3]).expand(K, L, 3).reshape(K * L, 3)
+    q = icp_terms.moving_in_map(lp, Xt).expand(K, L, 3).reshape(K * L, 3)
     base = (torch.arange(K, device=dev) * M)[:, None].expand(K, L).reshape(K * L)
     need = fl.leaves.valid[None].expand(K, L).contiguous()
     later = need & live_mask((K, L), LIVE, dev)
@@ -466,18 +475,21 @@ def descent_cost(nav, q, base, depth, kw: dict) -> dict:
             "operations": int(keys.numel()) * DESCENT_FLOPS_PER_PANEL}
 
 
-def ring_cost(nav, queries, depth, need, start=None, n_gathers=None, return_margin=False,
+def ring_cost(nav, queries, X, depth, need, start=None, n_gathers=None, return_margin=False,
               merged=False) -> dict:
     """What one :func:`descent.descend_ring` call needs, as
     :func:`descent_cost` counts it: ``nav`` (T, M, 56), ``queries`` (G, Q,
-    3), ``need`` (T, Q). The queries are read once a group; ``merged``
-    (``out`` given) descends and writes only the ``need`` entries, and
-    reads the others' flags alone."""
+    3) in the scan frame, ``X`` (P, 4, 4) their poses, ``need`` (T, Q).
+    The scan-frame queries are read once a group (as many bytes as
+    map-frame ones) and the poses once; ``merged`` (``out`` given)
+    descends and writes only the ``need`` entries, and reads the others'
+    flags alone."""
     T, M = nav.shape[:2]
     G, Q = queries.shape[:2]
     esize = nav.element_size()
     flat = nav.reshape(T * M, 56)
-    q = queries[:, None].expand(G, T // G, Q, 3).reshape(T * Q, 3)
+    mapped = icp_terms.moving_in_map(queries, X.repeat_interleave(G // X.shape[0], dim=0))
+    q = mapped[:, None].expand(G, T // G, Q, 3).reshape(T * Q, 3)
     base = (torch.arange(T, device=nav.device) * M)[:, None].expand(T, Q).reshape(T * Q)
     live = need.reshape(-1)
     kw = dict(start=None if start is None else start.reshape(-1), n_gathers=n_gathers,
@@ -494,7 +506,7 @@ def ring_cost(nav, queries, depth, need, start=None, n_gathers=None, return_marg
         nbytes = T * Q + G * Q * 3 * esize
     distinct = int(torch.unique(keys).numel())
     nbytes += (distinct * 8 * esize + n * (8 + 8 * esize) + (n * esize if return_margin else 0)
-               + (n * 8 if start is not None else 0))
+               + (n * 8 if start is not None else 0) + X.shape[0] * 16 * esize)
     return {"descended": n, "panel_reads": int(keys.numel()), "distinct_panels": distinct,
             "bytes": nbytes, "operations": int(keys.numel()) * DESCENT_FLOPS_PER_PANEL}
 
@@ -542,17 +554,18 @@ def descent_cases(inp: dict, depth: int) -> dict:
 
 def unmerged_round(nav, depth, pts, X, need, ids, payload, slack, parts: bool = False):
     """A certified re-association round as the step ran it before the
-    merged mode: the queries formed and copied K-fold, the entries' row
-    offsets in the flat table ``nav`` (B K M, 56), every entry descended
-    (the others parked) and the fresh results merged where ``need`` (B,
-    K, L) holds by three ``torch.where``. With ``parts``, also ``{step:
-    callable}`` of its steps on their own (for :func:`launch_us`)."""
+    merged mode: the queries formed (here in the kernel's order,
+    ``moving_in_map``) and copied K-fold, the entries' row offsets in the
+    flat table ``nav`` (B K M, 56), every entry descended (the others
+    parked) and the fresh results merged where ``need`` (B, K, L) holds by
+    three ``torch.where``. With ``parts``, also ``{step: callable}`` of
+    its steps on their own (for :func:`launch_us`)."""
     B, K, Q = need.shape
     dev = nav.device
     M = nav.shape[0] // (B * K)
 
     def queries():
-        return pts @ X[:, :3, :3].mT + X[:, None, :3, 3]
+        return icp_terms.moving_in_map(pts, X)
 
     def copies(qb):
         return qb[:, None].expand(B, K, Q, 3).reshape(B * K * Q, 3)
@@ -575,23 +588,30 @@ def unmerged_round(nav, depth, pts, X, need, ids, payload, slack, parts: bool = 
     out = where(fresh)
     if not parts:
         return out
-    return out, {"queries (GEMM, add)": queries, "K-fold query copies": lambda: copies(qb),
+    return out, {"queries (moving_in_map)": queries, "K-fold query copies": lambda: copies(qb),
                  "row offsets": offsets, "descend": lambda: descend(q, base),
                  "three where": lambda: where(fresh)}
 
 
 def merged_round(nav, depth, pts, X, need, ids, payload, slack):
     """A certified re-association round as the step runs it
-    (``models/pipeline.py`` ``icp_rounds``, ``certify_compact`` 0): each
-    sequence's queries formed once and the ``need`` (B, K, L) entries
-    descended and merged into ``ids``, ``payload``, ``slack`` in place."""
+    (``models/pipeline.py`` ``icp_rounds``, ``certify_compact`` 0): the
+    ``need`` (B, K, L) entries descended with the scan-frame leaves ``pts``
+    (B, L, 3) mapped by their sequence's pose ``X`` (B, 4, 4) in the kernel
+    and merged into ``ids``, ``payload``, ``slack`` in place."""
     from madicp_tpu_torch.ops.icp_core import associate_ring
 
     B, K, Q = need.shape
-    q = pts @ X[:, :3, :3].mT + X[:, None, :3, 3]
-    return associate_ring(nav.view(B * K, -1, nav.shape[-1]), depth, q, need.reshape(B * K, Q),
-                          return_margin=True,
+    return associate_ring(nav.view(B * K, -1, nav.shape[-1]), depth, pts, need.reshape(B * K, Q),
+                          X=X, return_margin=True,
                           out=tuple(o.view((B * K,) + o.shape[2:]) for o in (ids, payload, slack)))
+
+
+def query_gemm(pts, X):
+    """The query transform the step ran before the descent mapped its own
+    queries: a (B, L, 3) map-frame copy of the leaves by a batched matrix
+    product (a cuBLAS GEMM on the card) and a broadcast add."""
+    return pts @ X[:, :3, :3].mT + X[:, None, :3, 3]
 
 
 def descent_trace(fl: Flagship, dtype, reps: int = REPS, ring: bool = False) -> dict:
@@ -600,7 +620,10 @@ def descent_trace(fl: Flagship, dtype, reps: int = REPS, ring: bool = False) -> 
     kernel's device µs and the graphed µs of a call) and the whole
     certified re-association round at the later round's share as descend
     + three ``where``s, kernel by kernel. ``ring`` adds the ring form of
-    the cases (one (1, L, 3) query operand for the K trees), the merged
+    the cases (the scan-frame leaves (1, L, 3) and the pose for the K
+    trees, each query mapped in the kernel), each beside the former path
+    (``gemm_path``: :func:`query_gemm`'s GEMM and add, then K6 on their
+    map-frame copy under the identity pose, step by step), the merged
     later round (only its live entries descended and written in place)
     and the round as the step runs it (:func:`merged_round`)."""
     inp = descent_inputs(fl, dtype)
@@ -622,25 +645,33 @@ def descent_trace(fl: Flagship, dtype, reps: int = REPS, ring: bool = False) -> 
     out["round_unmerged"] = launch_us(lambda: unmerged_round(*args, *prev), reps, steps)
     if ring:
         ring_nav = nav.view(K, -1, 56)
-        q1 = inp["pts"] @ inp["X"][:, :3, :3].mT + inp["X"][:, None, :3, 3]  # (1, L, 3)
+        pts, X = inp["pts"], inp["X"]  # the step's operands: (1, L, 3) and (1, 4, 4)
+        eye = torch.eye(4, dtype=dtype, device=X.device)
+        q1 = query_gemm(pts, X)  # the map-frame copy the step made before
         bufs = tuple(t.clone() for t in prev)
         flat = {"round0": dict(need=inp["need"], return_margin=True),
                 "later_round": dict(need=inp["later"], return_margin=True),
                 "later_merged": dict(need=inp["later"], return_margin=True,
                                      out=tuple(b[0] for b in bufs))}
         for case, kw in flat.items():
-            calls[f"ring_{case}"] = lambda kw=kw: descent.descend_ring(ring_nav, q1, depth, **kw)
+            calls[f"ring_{case}"] = lambda kw=kw: descent.descend_ring(ring_nav, pts, depth, X=X,
+                                                                       **kw)
             out[f"ring_{case}"] = launch_us(calls[f"ring_{case}"], reps)
+            # the former path: the GEMM and the add, then K6 on their copy
+            copy = lambda kw=kw: descent.descend_ring(ring_nav, q1, depth, X=eye,  # noqa: E731
+                                                      **kw)
+            out[f"ring_{case}"]["gemm_path"] = launch_us(
+                lambda copy=copy: (query_gemm(pts, X), copy()), reps,
+                {"queries (GEMM, add)": lambda: query_gemm(pts, X),
+                 "K6 on the map-frame copy": copy})
         for case, kw in flat.items():
-            cost = ring_cost(ring_nav, q1, depth, kw["need"], return_margin=True,
+            cost = ring_cost(ring_nav, pts, X, depth, kw["need"], return_margin=True,
                              merged="out" in kw)
             out[f"ring_{case}"].update(
                 cost, bound_us=bound_ms(cost["bytes"], cost["operations"], dname)[0] * 1e3)
         out["round_merged"] = launch_us(
             lambda: merged_round(*args, *bufs), reps,
-            {"queries (GEMM, add)": lambda: inp["pts"] @ inp["X"][:, :3, :3].mT
-             + inp["X"][:, None, :3, 3],
-             "descend, merged": calls["ring_later_merged"]})
+            {"descend, merged": calls["ring_later_merged"]})
         # the merged round's results are the unmerged round's, bit for bit
         want = unmerged_round(*args, *prev)
         got = merged_round(*args, *(t.clone() for t in prev))
@@ -859,7 +890,7 @@ def main(argv=None) -> int:
                     help="every K8 and K9 level on every path, K7 with every cluster size")
     ap.add_argument("--parts", default=",".join(DEFAULT_PARTS),
                     help=f"comma list of {', '.join(PARTS)} (default: all but step, pdl, "
-                    "launch, deskew, tail, rates, ring_split and tail_designs)")
+                    "launch, deskew, tail, rates, ring_split, tail_designs and step_ops)")
     a = ap.parse_args(argv)
     parts = set(a.parts.split(","))
     if parts - set(PARTS):
@@ -959,6 +990,9 @@ def main(argv=None) -> int:
     if "ring_split" in parts:
         for row in ring_split_ab(dev):
             emit("ring_split", **row)
+    if "step_ops" in parts:
+        for row in step_ops(dev, a.reps):
+            emit("step_ops", **row)
     return 0
 
 
@@ -1850,5 +1884,61 @@ def ring_split_ab(device, reps: int = RING_SPLIT_REPS):
         torch.cuda.empty_cache()
 
 
+# a library GEMM's kernel names (cuBLAS, CUTLASS)
+GEMM_NAME = re.compile(r"(gemm|gemv|Gemm|Gemv|xmma|cutlass)")
+STEP_OPS_BATCHES = (1, 11)  # a CLI sequence; the fleet's KITTI 00-10
+STEP_OPS_LEAVES = 131072  # the benchmark's leaf slots (max_leaves 0: n_points)
+
+
+def step_ops(device, reps: int = REPS):
+    """One eager step (``step_in_place``, float32) of each schedule of
+    :data:`bench.SCHEDULES` at B = 1 and of the certified one at every B
+    of :data:`STEP_OPS_BATCHES`, each sequence from the bench's primed
+    state on its own scan (:data:`TAIL_SCAN` on), with
+    :data:`STEP_OPS_LEAVES` leaf slots: the step's kernel count, its
+    GEMMs (:data:`GEMM_NAME`) and the kernels the association's descents
+    issue (``icp_rounds``' ``descend``), each grouped by the chain of
+    package lines that issued it (:func:`step_lines`) with its count and
+    device µs. Yields one dict a step."""
+    from madicp_tpu_torch import bench
+    from madicp_tpu_torch.models.pipeline import _map
+    from madicp_tpu_torch.models.step_graph import step_in_place
+
+    setup = bench.BenchSetup(device, 131072, 16, 16, STEP_OPS_LEAVES)
+    cases = [(spec, 1) for spec in bench.SCHEDULES] + [
+        ("certified", B) for B in STEP_OPS_BATCHES if B > 1]
+    for spec, B in cases:
+        pipe = setup.make_pipe(spec)
+        setup.prime(pipe)
+        state = _map(lambda t: t[None].repeat((B,) + (1,) * t.dim()).contiguous(), pipe.state)
+        staged = [pipe.stage(setup.scan_at(TAIL_SCAN + b)) for b in range(B)]
+        pts = torch.stack([p for p, _, _ in staged])
+        valid = torch.stack([v for _, v, _ in staged])
+        cfg = pipe.cfg
+        del pipe, staged
+        step = lambda: step_in_place(cfg, state, pts, valid)  # noqa: E731
+        for _ in range(2):
+            step()
+        torch.cuda.synchronize()
+        eager = step_lines(step, reps)
+        groups: dict = {}
+        for name, us, chain in eager:
+            if not (GEMM_NAME.search(name) or _in(chain, "descend") is not None):
+                continue
+            key = (name, " > ".join(chain))
+            n, total = groups.get(key, (0, 0.0))
+            groups[key] = (n + 1, total + us)
+        rows = [{"kernel": name, "gemm": bool(GEMM_NAME.search(name)), "count": n,
+                 "device_us": us, "issued_by": chain}
+                for (name, chain), (n, us) in groups.items()]
+        yield {"schedule": spec, "B": B, "leaf_slots": STEP_OPS_LEAVES,
+               "step_kernels": len(eager),
+               "gemms": sum(r["count"] for r in rows if r["gemm"]),
+               "gemm_us": sum(r["device_us"] for r in rows if r["gemm"]), "kernels": rows}
+        del state, pts, valid
+        torch.cuda.empty_cache()
+
+
 if __name__ == "__main__":
     raise SystemExit(main())
+

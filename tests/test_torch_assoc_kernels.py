@@ -91,30 +91,83 @@ def descent_case(case: str, n: int = 600, seed: int = 0):
 DESCENT_CASES = ["root", "warm", "depth9", "ids"]
 
 
-def ring_case(case: str, n: int = 600, seed: int = 0, groups: int = 1):
+def half_turns(groups: int, rng) -> torch.Tensor:
+    """(groups, 4, 4) float64 poses: turns within 0.01-0.04 rad of a half
+    turn about a tilted axis, and translations of a few metres."""
+    X = np.broadcast_to(np.eye(4), (groups, 4, 4)).copy()
+    axis = np.array([0.3, -0.2, 1.0]) / np.linalg.norm([0.3, -0.2, 1.0])
+    for g in range(groups):
+        X[g, :3, :3] = Rotation.from_rotvec((np.pi - 0.01 * (g + 1)) * axis).as_matrix()
+        X[g, :3, 3] = rng.normal(0, 3.0, 3)
+    return torch.from_numpy(X)
+
+
+def to_scan(mapped: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
+    """Map-frame points (G, Q, 3) in the scan frame of their group's pose
+    (P, 4, 4), P dividing G: ``R^T (q - t)``."""
+    X = X.repeat_interleave(mapped.shape[0] // X.shape[0], dim=0)
+    return (mapped - X[:, None, :3, 3]) @ X[:, :3, :3]
+
+
+def ring_case(case: str, n: int = 600, seed: int = 0, groups: int = 1, form: str = "ring"):
     """A :func:`descent_case` in the ring form the step launches: the
     forest's two trees as (T, M, 56) (``groups`` copies of them, T = 2
-    groups), each group's queries (``groups``, n, 3) shared by its two
-    trees, ``need`` (T, n) (the case's valid flags in the first tree,
-    another 70% in the second), a warm start from a first descent's ids,
-    and round 0's results as a merge's previous buffers."""
+    groups), the queries in the scan frame of each group's pose ``X``
+    (:func:`half_turns`; ``form`` "ring": each group's (``groups``, n, 3)
+    shared by its two trees, "flat": each tree's own, (T, n, 3)), ``need``
+    (T, n) (the case's valid flags in the first tree, another 70% in the
+    second), a warm start from a first descent's ids, and round 0's
+    results as a merge's previous buffers. Returns ``(ring, queries,
+    depth, kwargs, prev)``, ``X`` among the kwargs."""
     nav, q, depth, _, kw = descent_case(case, n=n, seed=seed)
     M = nav.shape[0] // 2
     rng = np.random.default_rng(seed + 1)
     T = 2 * groups
+    G = groups if form == "ring" else T
     ring = nav.view(2, M, 56).repeat(groups, 1, 1)
-    queries = (q[None] + torch.from_numpy(rng.normal(0, 0.05, (groups, n, 3)))).to(nav.dtype)
+    mapped = (q[None] + torch.from_numpy(rng.normal(0, 0.05, (G, n, 3)))).to(nav.dtype)
+    X = half_turns(groups, rng)
+    queries = to_scan(mapped, X)
     valid = kw.get("valid", torch.ones(n, dtype=torch.bool))
     need = torch.stack([valid, torch.from_numpy(rng.random(n) < 0.7)]).repeat(groups, 1)
-    rkw = dict(need=need, return_margin=case != "ids")
+    rkw = dict(need=need, X=X, return_margin=case != "ids")
     if case == "warm":
-        ids0 = descent.descend_ring_plain(ring, queries, depth, torch.ones_like(need))[0]
+        ids0 = descent.descend_ring_plain(ring, queries, depth, torch.ones_like(need), X=X)[0]
         rkw.update(start=ids0 >> 4, n_gathers=3)
     # the previous round: every entry, 3 cm away
     prev = descent.descend_ring_plain(ring, queries + 0.03, depth,
-                                      torch.ones((T, n), dtype=torch.bool),
+                                      torch.ones((T, n), dtype=torch.bool), X=X,
                                       return_margin=rkw["return_margin"])
     return ring, queries, depth, rkw, prev
+
+
+def axis_ring(L: int, dtype, device, form: str = "ring"):
+    """Three one-split trees whose root planes are x = 0, y = 0 and z = 0
+    (children leaves), ``L`` scan-frame points at 1-30 m and a pose near
+    a half turn: ``(ring (3, 4, 56), queries, X (1, 4, 4), pts (L, 3))``,
+    the queries (1, L, 3) shared by the three trees or (form "flat") each
+    tree's own copy (3, L, 3). A descent of tree c ends on node 2 + (q_c
+    >= 0) with margin |q_c|: it shows the mapped query's coordinate c
+    (:func:`descended_queries`)."""
+    rng = np.random.default_rng(L)
+    pts = rng.normal(0, 1, (L, 3))
+    pts *= rng.uniform(1, 30, (L, 1)) / np.linalg.norm(pts, axis=-1, keepdims=True)
+    ring = torch.zeros((3, 4, 56), dtype=torch.float64)
+    for c in range(3):
+        ring[c, 1, 3 + c] = 1.0  # the root's split normal, through the origin
+        ring[c, 1, 6:8] = torch.tensor([3.0, 2.0])  # both children; real interior
+        ring[c, 1, 15] = ring[c, 1, 23] = 3.0  # the children are leaves
+        ring[c, 2, 7] = ring[c, 3, 7] = 3.0
+    pts = torch.from_numpy(pts)
+    queries = pts[None] if form == "ring" else pts[None].expand(3, L, 3)
+    X = half_turns(1, rng)
+    return (ring.to(dtype).to(device), queries.to(dtype).to(device), X.to(dtype).to(device),
+            pts.to(dtype).to(device))
+
+
+def descended_queries(ids: torch.Tensor, margin: torch.Tensor) -> torch.Tensor:
+    """The mapped queries (L, 3) an :func:`axis_ring` descent saw."""
+    return torch.where(ids == 3, margin, -margin).mT
 
 
 # ------------------------------------------------------------------ CPU --
@@ -457,18 +510,21 @@ def test_terms_plain_matches_jax(jax_ref, case):
         np.testing.assert_array_equal(matched[idx].numpy(), np.asarray(want.matched))
 
 
+@pytest.mark.parametrize("form", ["ring", "flat"])
 @pytest.mark.parametrize("groups", [1, 2])
 @pytest.mark.parametrize("case", DESCENT_CASES)
-def test_ring_form_is_the_expanded_call(case, groups):
-    """The ring form (each group's queries shared by its trees, row
-    offsets from the entry's tree) equals today's call over the flat
-    table with the queries copied to every tree and a per-entry base,
-    bit for bit; with ``out`` only the ``need`` entries change."""
-    ring, queries, depth, kw, prev = ring_case(case, groups=groups)
+def test_ring_form_is_the_expanded_call(case, groups, form):
+    """The ring form (each group's queries, mapped by its pose, shared by
+    its trees or each tree's own; row offsets from the entry's tree)
+    equals today's call over the flat table with the mapped queries
+    (``moving_in_map``) copied to every tree and a per-entry base, bit for
+    bit; with ``out`` only the ``need`` entries change."""
+    ring, queries, depth, kw, prev = ring_case(case, groups=groups, form=form)
     T, M = ring.shape[:2]
-    n = queries.shape[1]
+    G, n = queries.shape[:2]
     got = descent.descend_ring(ring, queries, depth, **kw)
-    q = queries[:, None].expand(groups, T // groups, n, 3).reshape(T * n, 3)
+    mapped = icp_terms.moving_in_map(queries, kw["X"].repeat_interleave(G // groups, dim=0))
+    q = mapped[:, None].expand(G, T // G, n, 3).reshape(T * n, 3)
     base = (torch.arange(T) * M)[:, None].expand(T, n).reshape(T * n)
     start = kw.get("start")
     want = descent.descend(ring.reshape(T * M, 56), q, base, depth,
@@ -479,6 +535,42 @@ def test_ring_form_is_the_expanded_call(case, groups):
     assert len(got) == len(want)
     for a, b in zip(got, want):
         assert a.shape[:2] == (T, n) and torch.equal(a.reshape(b.shape), b)
+
+
+@pytest.mark.parametrize("merged", [False, True])
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("form", ["ring", "flat"])
+def test_mapped_queries_descend_as_the_transform_then_the_descent(form, B, merged):
+    """Scan-frame queries with the sequences' poses descend as the step's
+    former path did: each sequence's queries transformed by a matrix
+    product, then the descent of the map-frame points (under the identity
+    pose). Float64, the ring form (a sequence's queries shared by its
+    trees) and the flat one (each tree's own, the sequence's pose),
+    fresh and merged into the previous buffers: ids and blocks equal,
+    margins within 1e-12."""
+    ring, queries, depth, kw, prev = ring_case("root", n=400, groups=B, form=form)
+    X = kw.pop("X")
+    G = queries.shape[0]
+    Xg = X.repeat_interleave(G // B, dim=0)
+    q = queries @ Xg[:, :3, :3].mT + Xg[:, None, :3, 3]
+    bufs = [tuple(t.clone() for t in prev) if merged else None for _ in range(2)]
+    got = descent.descend_ring_plain(ring, queries, depth, **kw, X=X, out=bufs[0])
+    want = descent.descend_ring_plain(ring, q, depth, **kw, X=torch.eye(4, dtype=X.dtype),
+                                      out=bufs[1])
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    torch.testing.assert_close(got[2], want[2], rtol=0, atol=1e-12)
+    assert int((got[0] > 1).sum()) > 0.5 * got[0].numel()
+
+
+@pytest.mark.parametrize("form", ["ring", "flat"])
+def test_ring_query_is_the_terms_map_frame_point(form):
+    """The plain ring descent maps each query as the terms do
+    (``moving_in_map``, K7's ``ml``), bit for bit: the one-split trees of
+    :func:`axis_ring` show each coordinate of the query it descended."""
+    ring, queries, X, pts = axis_ring(500, torch.float64, "cpu", form)
+    need = torch.ones((3, 500), dtype=torch.bool)
+    ids, _, margin = descent.descend_ring(ring, queries, 2, need, X=X, return_margin=True)
+    assert torch.equal(descended_queries(ids, margin), icp_terms.moving_in_map(pts, X[0]))
 
 
 @pytest.mark.parametrize("case", DESCENT_CASES)
@@ -499,17 +591,27 @@ def test_merged_plain_is_descend_plain_and_where(case):
 
 def test_ring_argument_checks():
     ring, queries, depth, kw, prev = ring_case("root", n=64, groups=2)
+    X = kw["X"]
     with pytest.raises(ValueError, match="do not match"):
-        descent.descend_ring(ring[:3], queries, depth, kw["need"][:3])
+        descent.descend_ring(ring[:3], queries, depth, kw["need"][:3], X=X)
     with pytest.raises(ValueError, match="start must be"):
-        descent.descend_ring(ring, queries, depth, kw["need"], start=kw["need"][:, 1:].long())
+        descent.descend_ring(ring, queries, depth, kw["need"], X=X,
+                             start=kw["need"][:, 1:].long())
     with pytest.raises(TypeError, match="need must be bool"):
-        descent.descend_ring(ring, queries, depth, kw["need"].long())
+        descent.descend_ring(ring, queries, depth, kw["need"].long(), X=X)
     with pytest.raises(ValueError, match="out must be"):
-        descent.descend_ring(ring, queries, depth, kw["need"], return_margin=True,
+        descent.descend_ring(ring, queries, depth, kw["need"], X=X, return_margin=True,
                              out=prev[:2])
     with pytest.raises(TypeError, match="queries are"):
-        descent.descend_ring(ring, queries.float(), depth, kw["need"])
+        descent.descend_ring(ring, queries.float(), depth, kw["need"], X=X)
+    with pytest.raises(ValueError, match="P dividing"):
+        descent.descend_ring(ring, queries, depth, kw["need"], X=X.repeat(2, 1, 1)[:3])
+    with pytest.raises(ValueError, match="P dividing"):
+        descent.descend_ring(ring, queries, depth, kw["need"], X=X[:, :3])
+    with pytest.raises(TypeError, match="X is"):
+        descent.descend_ring(ring, queries, depth, kw["need"], X=X.float())
+    with pytest.raises(TypeError, match="X"):
+        descent.descend_ring(ring, queries, depth, kw["need"])
 
 
 def test_certified_drive_merges_in_place_as_descend_and_where(monkeypatch):
@@ -604,9 +706,11 @@ def test_descend_kernel_takes_an_unaligned_table_on_cuda(cuda_device):
         assert torch.equal(a, b)
 
 
-def _ring_on(case, dtype, device, n=1000, groups=1):
-    ring, queries, depth, kw, prev = ring_case(case, n=n, seed=n + groups, groups=groups)
+def _ring_on(case, dtype, device, n=1000, groups=1, form="ring"):
+    ring, queries, depth, kw, prev = ring_case(case, n=n, seed=n + groups, groups=groups,
+                                               form=form)
     prev = tuple(t.to(dtype) if t.is_floating_point() else t for t in prev)
+    kw["X"] = kw["X"].to(dtype)
     return (ring.to(dtype).to(device), queries.to(dtype).to(device), depth, _to(kw, device),
             tuple(t.to(device) for t in prev))
 
@@ -615,14 +719,18 @@ def _ring_on(case, dtype, device, n=1000, groups=1):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("case", DESCENT_CASES)
 @pytest.mark.parametrize("groups", [1, 4])
-def test_ring_kernel_is_bitwise_the_plain_version_on_cuda(cuda_device, dtype, case, groups):
-    """The ring form on the card (each group's queries shared by its two
-    trees; 4 groups: a B = 4 batch of 2 keyframes), fresh and merged into
-    the previous buffers: ids, blocks and margins bit for bit against the
-    plain version, 1000 queries a tree (not a multiple of a block); one
-    launch a call, and the merge leaves the entries without ``need``
-    untouched."""
-    ring, queries, depth, kw, prev = _ring_on(case, dtype, cuda_device, groups=groups)
+@pytest.mark.parametrize("form", ["ring", "flat"])
+def test_ring_kernel_is_bitwise_the_plain_version_on_cuda(cuda_device, dtype, case, groups,
+                                                          form):
+    """The ring form on the card (each group's scan-frame queries, mapped
+    in the kernel by its pose near a half turn, shared by its two trees
+    or each tree's own; 4 groups: a B = 4 batch of 2 keyframes), fresh
+    and merged into the previous buffers: ids, blocks and margins bit for
+    bit against the plain version, 1000 queries a tree (not a multiple of
+    a block); one launch a call, and the merge leaves the entries without
+    ``need`` untouched."""
+    ring, queries, depth, kw, prev = _ring_on(case, dtype, cuda_device, groups=groups,
+                                              form=form)
     for merged in (False, True):
         want = descent.descend_ring_plain(ring, queries, depth, **kw,
                                           out=tuple(t.clone() for t in prev) if merged else None)
@@ -637,18 +745,108 @@ def test_ring_kernel_is_bitwise_the_plain_version_on_cuda(cuda_device, dtype, ca
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("form", ["ring", "flat"])
+def test_ring_kernel_query_is_the_terms_ml_on_cuda(cuda_device, dtype, form):
+    """K6's in-kernel query is K7's map-frame point ``ml`` bit for bit: the
+    one-split trees of :func:`axis_ring` show each coordinate of the
+    query the kernel descended, and K7 with that point as its matched
+    point and a zero radius (b_max 1e-30, b_ratio 0) gates every entry in
+    (``dist`` is 0 only where its ``ml`` is the same point) and none once
+    the point moves by an ulp; the query is also the plain ``moving_in_map``
+    on the card."""
+    L = 3000
+    ring, queries, X, pts = axis_ring(L, dtype, cuda_device, form)
+    need = torch.ones((3, L), dtype=torch.bool, device=cuda_device)
+    ids, _, margin = descent.descend_ring(ring, queries, 2, need, X=X, return_margin=True)
+    q = descended_queries(ids, margin)
+    assert torch.equal(q, icp_terms.moving_in_map(pts, X[0]))
+    payload = torch.zeros((L, 8), dtype=dtype, device=cuda_device)
+    payload[:, 3], payload[:, 7] = 1.0, 3.0
+    gate = dict(b_max=1e-30, b_ratio=0.0, rho_ker=0.01)
+    valid = torch.ones(L, dtype=torch.bool, device=cuda_device)
+    for f, inside in ((q, True), (torch.nextafter(q, q + 1.0), False)):
+        payload[:, :3] = f
+        _, _, matched = icp_terms.terms(payload, pts, valid, X[0], **gate)
+        assert bool(matched.all()) if inside else not bool(matched.any())
+
+
+@pytest.mark.cuda
+def test_parked_entries_descend_to_the_leaf_they_kept_on_cuda(cuda_device, monkeypatch):
+    """On a certified drive stepped eagerly on the card, every entry a
+    later round's certificate parks (live, its slack above the floor)
+    descends, when forced fresh from the root with the round's pose, to
+    the leaf it kept: each merged re-association is checked against a
+    fresh descent of every live entry."""
+    from madicp_tpu_torch.models.pipeline import _lift, odometry_step
+
+    real, checked = descent.descend_ring, []
+
+    def checking(nav, queries, depth, need, out=None, **kw):
+        if out is not None:
+            kept = out[0].clone()
+            parked = (kept > 0) & ~need
+            fresh = real(nav, queries, depth, need | (kept > 0), **kw)[0]
+            checked.append((int(parked.sum()), int((fresh != kept)[parked].sum())))
+        return real(nav, queries, depth, need, out=out, **kw)
+
+    p = _card_pipeline(cuda_device, dtype=torch.float32)
+    for i in range(3):
+        p.compute(0.1 * i, _room_scan(i, 12000))
+    monkeypatch.setattr(descent, "descend_ring", checking)
+    state = _lift(p.state)
+    for i in range(3, 7):
+        pts, valid, _ = p.stage(_room_scan(i, 12000))
+        state, _ = odometry_step(p.cfg, state, pts[None], valid[None], None)
+    assert len(checked) == 4 * (p.cfg.max_icp_iterations - 1)
+    assert sum(n for n, _ in checked) > 0 and all(bad == 0 for _, bad in checked)
+
+
+@pytest.mark.cuda
 def test_ring_kernel_takes_an_unaligned_table_on_cuda(cuda_device):
     """A ring that starts off a 16-byte boundary takes the scalar loads,
-    fresh and merged: still bit for bit."""
+    fresh and merged, with queries that are a strided view of wider rows
+    (as the step's leaves are of its leaf table), read where they lie:
+    still bit for bit."""
     ring, queries, depth, kw, prev = _ring_on("root", torch.float32, cuda_device, n=777)
     flat = torch.zeros(ring.numel() + 1, dtype=torch.float32, device=cuda_device)
     shifted = flat[1:].view(ring.shape)
     shifted.copy_(ring)
+    wide = torch.zeros(queries.shape[:-1] + (8,), dtype=torch.float32, device=cuda_device)
+    wide[..., :3] = queries
+    queries = wide[..., :3]
+    assert not queries.is_contiguous()
     for merged in (False, True):
         bufs = [tuple(t.clone() for t in prev) if merged else None for _ in range(2)]
         for a, b in zip(descent.descend_ring(shifted, queries, depth, **kw, out=bufs[0]),
                         descent.descend_ring_plain(shifted, queries, depth, **kw, out=bufs[1])):
             assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("merged", [False, True])
+def test_ring_kernel_reads_strided_queries_in_place_on_cuda(cuda_device, merged):
+    """A B = 4 batch's queries as a strided view of wider rows (the step's
+    leaves are one of their leaf table) are read where they lie: the call
+    allocates its outputs and nothing else (no copy of the queries, no
+    flattened view), and equals the call on a contiguous copy bit for
+    bit."""
+    ring, queries, depth, kw, prev = _ring_on("root", torch.float32, cuda_device, groups=4)
+    wide = torch.zeros(queries.shape[:-1] + (8,), dtype=torch.float32, device=cuda_device)
+    wide[..., :3] = queries
+    strided = wide[..., :3]
+    bufs = [tuple(t.clone() for t in prev) if merged else None for _ in range(2)]
+    want = descent.descend_ring(ring, queries, depth, **kw, out=bufs[0])
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(cuda_device)
+    torch.cuda.reset_peak_memory_stats(cuda_device)
+    got = descent.descend_ring(ring, strided, depth, **kw, out=bufs[1])
+    torch.cuda.synchronize()
+    grown = torch.cuda.max_memory_allocated(cuda_device) - before
+    outputs = 0 if merged else sum(-(-t.numel() * t.element_size() // 512) * 512 for t in got)
+    assert grown == outputs
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

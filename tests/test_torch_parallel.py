@@ -222,7 +222,8 @@ def test_sharded_step_and_round_on_a_one_rank_world(batches):
         X = torch.eye(4, dtype=torch.float64)
         H, b, matched = icp_round_sharded(mesh, ring, kf_valid, leaves.pts, leaves.valid,
                                           X, b_max=0.2, b_ratio=0.02, rho_ker=0.1)
-        _, payload = associate_ring(ring.nav, DEPTH, leaves.pts, leaves.valid.expand(K, 256))
+        _, payload = associate_ring(ring.nav, DEPTH, leaves.pts, leaves.valid.expand(K, 256),
+                                    X=X)
         t = terms_from_payload(payload, leaves.pts, leaves.valid, X,
                                b_max=0.2, b_ratio=0.02, rho_ker=0.1)
         w = kf_valid.double()

@@ -221,8 +221,9 @@ def main(argv=None) -> int:
         scan_index = itertools.count()
 
         def _stage(item):
-            # producer thread: pad + copy to the pipeline's device; no
-            # kernel launches. A resume's skipped scans are not copied.
+            # producer thread: the copy to the pipeline's device, padded
+            # there; none of the step's kernels. A resume's skipped scans
+            # are not copied.
             if next(scan_index) < start_scan:
                 return None
             ts, points = item

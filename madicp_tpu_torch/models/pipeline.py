@@ -686,6 +686,18 @@ def _phased_step(cfg, state, points, valid, stamps, icp_rounds_fn, kf_offset, po
     return new_state, out
 
 
+def fill_rows(dst: np.ndarray, points) -> tuple:
+    """Write a cloud's first ``len(dst)`` rows into ``dst``, converted to
+    its dtype as numpy converts; rows past the cloud keep what they held.
+    Returns ``(n, n_dropped)``: the rows written, and the points beyond
+    the capacity (truncated in input order)."""
+    points = np.asarray(points)
+    N = dst.shape[0]
+    n = min(points.shape[0], N)
+    dst[:n] = points[:n]
+    return n, max(0, points.shape[0] - N)
+
+
 def _warn_if_matmul_precision_degraded() -> None:
     """Warn when float32 matmuls were lowered (TF32) AFTER ``import
     madicp_tpu_torch`` pinned full precision. TF32 keeps ~10 mantissa
@@ -730,7 +742,8 @@ class Pipeline:
     default. While set, each scan's step stamps its phases on the device
     (on CUDA a second graph, captured once: a traced scan is still one
     replay) and the host API records its spans: ``madicp.stage`` (with
-    ``madicp.stage.pad`` and ``madicp.copy_in``), ``madicp.compute`` (with
+    ``madicp.stage.wait`` on CUDA, ``madicp.stage.pad`` and
+    ``madicp.copy_in``), ``madicp.compute`` (with
     ``madicp.replay`` and ``madicp.clone_out``) and ``madicp.pose`` (with
     ``madicp.pose.wait``)."""
 
@@ -797,6 +810,7 @@ class Pipeline:
         # the build's widest level, 2^depth segments: its workspace is
         # allocated now, before anything could capture the step
         segsum.reserve(self.device, self.cfg.n_points, 1 << self.cfg.depth)
+        self._iota = torch.arange(self.cfg.n_points, dtype=torch.int32, device=self.device)
         self._last: Optional[StepOutput] = None
         self._initialized = False
         # anytime-realtime calibration (see compute())
@@ -837,20 +851,37 @@ class Pipeline:
         self.compute_device(stamp, *self.stage(points))
 
     def stage(self, points: np.ndarray):
-        """Pad a cloud and move it to the device. Returns ``(pts, valid,
-        n_dropped)`` for :meth:`compute_device` (``n_dropped``: points
-        beyond the static ``n_points`` capacity, truncated in input
-        order)."""
+        """Move a cloud to the device at the static shape. Returns ``(pts,
+        valid, n_dropped)`` for :meth:`compute_device`: fresh device
+        tensors, ``pts`` the cloud's first ``n_points`` rows in the
+        configuration's dtype (converted as numpy converts) and zeros
+        after them, ``valid`` true on those rows (``iota < n``);
+        ``n_dropped`` the points beyond the capacity, truncated in input
+        order.
+
+        On CUDA the rows cross once, unpadded, by an asynchronous copy
+        from a page-locked buffer of torch's caching host allocator, which
+        hands a buffer out again only once the copies made from it are
+        done; the padding and the mask are made on the card, on the stream
+        current here, which the step shares. On the CPU the rows are
+        written straight into ``pts``."""
         tr = self.trace
+        N, dtype = self.cfg.n_points, self.cfg.dtype
         with host_span(tr, "madicp.stage", None if tr is None else tr.next_staged()):
+            if self.device.type != "cuda":
+                with host_span(tr, "madicp.stage.pad"):
+                    pts = torch.zeros((N, 3), dtype=dtype)
+                    n, n_dropped = fill_rows(pts.numpy(), points)
+                with host_span(tr, "madicp.copy_in"):
+                    return pts, self._iota < n, n_dropped
+            with host_span(tr, "madicp.stage.wait"):
+                rows = torch.empty((N, 3), dtype=dtype, pin_memory=True)
             with host_span(tr, "madicp.stage.pad"):
-                pts, valid, n_dropped = self._pad(points)
+                n, n_dropped = fill_rows(rows.numpy(), points)
             with host_span(tr, "madicp.copy_in"):
-                return (
-                    torch.as_tensor(pts, device=self.device),
-                    torch.as_tensor(valid, device=self.device),
-                    n_dropped,
-                )
+                pts = torch.zeros((N, 3), dtype=dtype, device=self.device)
+                pts[:n].copy_(rows[:n], non_blocking=True)
+                return pts, self._iota < n, n_dropped
 
     def compute_device(self, stamp: float, pts, valid, n_dropped: int = 0) -> None:
         """Process a scan already padded and staged on the device (see
@@ -958,24 +989,6 @@ class Pipeline:
             self.cfg = dataclasses.replace(self.cfg, max_icp_iterations=new_its)
             self._rt_cfg_warm = False
         self._rt_calibrated = True
-
-    def _pad(self, points: np.ndarray):
-        """Pad a cloud to the static shape; returns HOST arrays plus the
-        count of points truncated by the capacity (surfaced by
-        :meth:`points_dropped`)."""
-        points = np.asarray(points)
-        n = points.shape[0]
-        N = self.cfg.n_points
-        n_dropped = max(0, n - N)
-        if n > N:
-            points = points[:N]
-            n = N
-        np_dtype = np.float64 if self.cfg.dtype == torch.float64 else np.float32
-        pts = np.zeros((N, 3), dtype=np_dtype)
-        pts[:n] = points
-        valid = np.zeros(N, bool)
-        valid[:n] = True
-        return pts, valid, n_dropped
 
     # -- accessors (reference pipeline.h:60-71, pipeline.cpp:286-308) -------
     # (copies: the buffers change in place, and on the CPU .numpy() of

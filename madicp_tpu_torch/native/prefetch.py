@@ -28,11 +28,13 @@ class Prefetcher:
     def __init__(self, reader, depth: int = 4, transform=None):
         """``transform(item) -> item`` runs on the PRODUCER thread — use
         it to stage work off the consumer's critical path (e.g.
-        ``Pipeline.stage`` to pad each scan and copy it to the device).
-        It may return None for an item the consumer will skip. A CUDA
-        transform names its device explicitly (torch's current device is
-        per thread) and launches no kernel: the step's kernels share
-        workspaces ordered on one stream."""
+        ``Pipeline.stage`` to copy each scan to the device and pad it
+        there). It may return None for an item the consumer will skip. A
+        CUDA transform names its device explicitly (torch's current device
+        is per thread), works on the stream the consumer steps on (each
+        thread's default: what it stages is ordered before the step that
+        reads it) and launches none of the step's kernels, whose
+        workspaces are ordered on that one stream."""
         self._reader = reader
         self._queue: queue.Queue = queue.Queue(maxsize=max(1, depth))
         self._thread: threading.Thread | None = None

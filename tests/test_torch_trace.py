@@ -215,8 +215,8 @@ def test_layer_totals_sum_the_device_spans(pipe_runs):
 
 
 # ------------------------------------------------------------ host spans --
-PARENTS = {"madicp.stage.pad": "madicp.stage", "madicp.copy_in": ("madicp.stage",
-                                                                  "madicp.compute"),
+PARENTS = {"madicp.stage.wait": "madicp.stage", "madicp.stage.pad": "madicp.stage",
+           "madicp.copy_in": ("madicp.stage", "madicp.compute"),
            "madicp.replay": "madicp.compute", "madicp.clone_out": "madicp.compute",
            "madicp.pose.wait": "madicp.pose"}
 

@@ -23,9 +23,9 @@ script exits non-zero without the final line):
               it reads (the bound's bytes), each in the flat form and in
               the ring form the step launches (one query operand for the
               16 trees; the later round merged into round 0's results in
-              place), and a whole certified re-association round as
-              descend + three where against the step's merged one, kernel
-              by kernel from torch.profiler; the terms' matched bit for bit
+              place), and the step's merged certified re-association
+              round, kernel by kernel from torch.profiler; the terms'
+              matched bit for bit
               and H, b within 1e-5 (1e-12 in float64) relative of a float64
               sum of the plain version's per-entry terms; eager, graphed
               and plain ms and bounds; the kernels of one call by name,
@@ -111,8 +111,8 @@ script exits non-zero without the final line):
               outputs and in place (the state its own destination, as
               the step calls it: every destination kept), both routes;
               eager, graphed and plain ms and the bound of each, and the
-              tail's graphed ms against its one-block design (the probe's
-              copy, built by kernel_variants) and in place, in turns. Then
+              tail's graphed ms in place and with fresh outputs, in
+              turns. Then
               the certified flagship drive, graphed, with the kernels,
               with all three on their plain versions (plain_tail) and
               with the state copied after the step as before the tail
@@ -788,21 +788,12 @@ def phase_assoc(torch, nvidia_smi: str) -> dict:
                     ring_nav, q1, DEPTH, **kw, X=X1, out=o), ASSOC_REPS),
                 "bound_ms": bound, "bound_by": by, "max_abs_err": 0.0, "library_ms": None,
                 "trace": kernel_trace.launch_us(call)}
-        # a whole certified re-association round: descend + three wheres
-        # (the K-fold query copies included) against the step's merged one
+        # the step's certified re-association round, merged in place
         later_args = (nav, DEPTH, lp[None], Xt[None], (need & later)[None])
-        prev = tuple(t[None] for t in prev)
-        rounds = {"unmerged": kernel_trace.unmerged_round,
-                  "merged": kernel_trace.merged_round}
-        res = {name: fn(*later_args, *(t.clone() for t in prev)) for name, fn in rounds.items()}
-        check(all(torch.equal(a, b.view(a.shape)) for a, b in zip(res["merged"],
-                                                                 res["unmerged"])),
-              f"descend {dname}: the merged round differs from descend + where")
-        out["descend"][dname]["round"] = {
-            name: kernel_trace.launch_us(lambda fn=fn, bufs=tuple(t.clone() for t in prev):
-                                         fn(*later_args, *bufs))
-            for name, fn in rounds.items()}
-        del ring_nav, q1, X1, prev, bufs, got, want, res
+        bufs = tuple(t[None].clone() for t in prev)
+        out["descend"][dname]["round"] = {"merged": kernel_trace.launch_us(
+            lambda: kernel_trace.merged_round(*later_args, *bufs))}
+        del ring_nav, q1, X1, prev, bufs, got, want
 
         # K7 on the round-0 payload, shaped as the pipeline hands it over
         args = (payload0.view(1, K, L, 8), lp[None, None], leaves.valid[None, None],
@@ -1614,11 +1605,9 @@ def tail_case(torch, rec: dict, state, case: str, dname: str, what: str, timed: 
     fresh outputs and in place (the state its own destination, as the
     step calls it: the destination's tensors kept); with ``timed`` eager,
     graphed and plain ms of each and the bound (the tail's in place, as
-    the step runs it), and the tail's graphed ms in place, with fresh
-    outputs and in its one-block design (``probes/csrc/tail_one_block.cu``,
-    built by ``kernel_variants``), in turns."""
+    the step runs it), and the tail's graphed ms in place and with fresh
+    outputs, in turns."""
     from madicp_tpu_torch.kernels import ring_write, step_scalars
-    from madicp_tpu_torch.probes import kernel_variants as kv
     from madicp_tpu_torch.probes.kernel_trace import clone_scalars
     from madicp_tpu_torch.utils.timing import bound_ms, event_ms, graph_ms
 
@@ -1706,16 +1695,12 @@ def tail_case(torch, rec: dict, state, case: str, dname: str, what: str, timed: 
                      "plain_ms": event_ms(plain, TAIL_REPS),
                      "plain_device_ms": graph_ms(plain, TAIL_REPS), "bound_ms": bound,
                      "bound_by": by, "bytes": nbytes, "library_ms": None}
-    # the tail in place (the step's form), with fresh outputs and in its
-    # earlier one-block design, in turns (in place, one block, fresh,
-    # fresh, one block, in place), and the eager ms of the fresh call
-    one_block = kv.build_variant("tail_one_block", source=kv.TAIL_ONE_BLOCK.read_text())[0]
+    # the tail in place (the step's form) and with fresh outputs, in turns
+    # (in place, fresh, fresh, in place), and the eager ms of the fresh call
     forms = {"in_place": kernels["tail"][0],
-             "one_block": lambda: kv.tail_one_block(one_block, st, X, H, matched, valid, hz,
-                                                    **kw),
              "fresh": lambda: step_scalars.launch_tail(st, X, H, matched, valid, hz, **kw)}
     ab = {form: [] for form in forms}
-    for form in ("in_place", "one_block", "fresh", "fresh", "one_block", "in_place"):
+    for form in ("in_place", "fresh", "fresh", "in_place"):
         ab[form].append(graph_ms(forms[form], TAIL_REPS))
     row["tail"]["ab_device_ms"] = ab
     row["tail"]["fresh_ms"] = event_ms(forms["fresh"], TAIL_REPS)

@@ -11,7 +11,7 @@ Layout
 ------
 - :mod:`madicp_tpu_torch.ops`      batched tensor math (lie algebra, 3x3
                                    eigh, MAD-tree build/search, ICP core,
-                                   deskew)
+                                   deskew, the velocity estimate)
 - :mod:`madicp_tpu_torch.kernels`  hand-written CUDA kernels for Hopper
                                    (``csrc/*.cu``), their ctypes wrappers
                                    and their plain PyTorch versions

@@ -40,11 +40,8 @@
 // its vector of the window's tree `best`, which no thread of this launch
 // writes. A sequence that does not promote copies no keyframe tree: its
 // threads read one flag; one launch beat two (the frame record, then the
-// promotion) in every case measured. The probe builds that two-launch
-// form by cutting this source at the promotion's store and at `V v = {};`
-// (probes/kernel_variants.py `ring_write_split_source`), so it raises if
-// either line changes. (One thread a whole panel stored each half of a
-// warp's 1 KB in its own instruction: 1.9 TB/s.)
+// promotion) in every case measured. (One thread a whole panel stored
+// each half of a warp's 1 KB in its own instruction: 1.9 TB/s.)
 
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -22,7 +22,7 @@ live in ``csrc/step_scalars.cu`` (design and bound in its header);
 :func:`predict_plain` and :func:`tail_plain` are the same math in tensor
 ops, through the functions the package's other callers use
 (``ops/lie.py`` ``exp_se3_split`` and ``se3_compose``,
-``models/vel_estimator.py`` ``estimate_velocity``, ``ops/icp_core.py``
+``ops/velocity.py`` ``estimate_velocity``, ``ops/icp_core.py``
 ``neg_logdet``), each written one operation at a time in the kernels'
 order, with constants as 0-dim tensors of the working type: ``v / hz``
 and ``1 / hz`` are true divisions on every device, ``p_th`` is compared
@@ -52,9 +52,9 @@ from typing import NamedTuple
 import torch
 
 from madicp_tpu_torch.kernels import build
-from madicp_tpu_torch.models.vel_estimator import estimate_velocity
 from madicp_tpu_torch.ops.icp_core import neg_logdet
 from madicp_tpu_torch.ops.lie import exp_se3_split, scalars, se3_compose
+from madicp_tpu_torch.ops.velocity import estimate_velocity
 
 counter = build.LaunchCounter()
 # the __global__ functions of csrc/step_scalars.cu, as a CUDA trace names them

@@ -1,6 +1,7 @@
 """Per-launch device time of the hand-written kernels at the flagship
 configuration (16 keyframes x 32768 leaves, 131072 points, depth 16), the
-parts named by ``--parts`` (default: all but ``step``, ``pdl`` and ``launch``):
+parts named by ``--parts`` (default: ``build``, ``terms``, ``descent``,
+``ring``, ``nodes``, ``resources`` and ``gn``):
 
 - ``build``: one ``build_tree`` of the bench's scan 1 captured whole in a
   CUDA graph and replayed in ``reps`` profiled windows. For each K8
@@ -25,11 +26,9 @@ parts named by ``--parts`` (default: all but ``step``, ``pdl`` and ``launch``):
   of the entries live), the fast warm start and a live-share sweep (0%,
   16%, 100%): live entries, panel reads, distinct panels, bound µs,
   kernel µs (median of ``reps`` eager calls under torch.profiler) and
-  graphed µs a call; and a whole later re-association round as descend +
-  three ``where``s, kernel by kernel. ``ring`` (with ``descent``) adds the
-  ring form the step launches (scan-frame leaves and the pose), each
-  case beside the former GEMM + add + K6, the merged later round and
-  the round as the step runs it.
+  graphed µs a call. ``ring`` (with ``descent``) adds the ring form the
+  step launches (scan-frame leaves and the pose), the merged later round
+  and the round as the step runs it.
 - ``resources``: each K6 and K9 kernel's registers, stack and spills from
   ``nvcc -Xptxas -v`` and the threads an SM holds at that count.
 - ``gn``: a certified round's pose update and slack pass on the
@@ -38,22 +37,14 @@ parts named by ``--parts`` (default: all but ``step``, ``pdl`` and ``launch``):
   and SASS instructions; the GN update as the plain chain (``solve_gn``,
   ``clamp_step``, ``exp_se3_split``, the product; each step's kernels
   and graphed µs, and the whole); the keyframe sums the step formed with
-  two einsums; K10 ``gn_update`` (and, where it takes them, on the
-  per-keyframe terms), its plain version and a stamped variant's cycles
-  a phase (:func:`gn_stamps`); K11 ``certify_slack`` warm and after an
+  two einsums; K10 ``gn_update`` on the summed and on the per-keyframe
+  terms, its plain version and a stamped variant's cycles a phase
+  (:func:`gn_stamps`); K11 ``certify_slack`` warm and after an
   L2 flush, its launch's share of the card, and its plain version.
 - ``step``: the bench's certified, exact and fast schedules graphed
   (median scans/s, device busy ms and kernels a scan; certified's 8
   poses and every kernel's µs a call in two graphed scans) and fleets of
   B = 1, 2 and 4, each beside an eager twin (scans/s, host enqueue ms).
-- ``pdl``: the certified schedule graphed with K10 and K11 under
-  programmatic dependent launch (a variant built here) and as the package
-  launches them, in :data:`PDL_PAIRS` alternating pairs (:func:`pdl_ab`),
-  with the captured graphs' programmatic edges and their poses against
-  ordinary launches' bit for bit. Not in the default.
-- ``launch``: K10 and K11 on a certified round's inputs in each launch
-  variant of :data:`LAUNCH_VARIANTS` (:func:`launch_ab`): graphed and
-  device µs, bit for bit against the package. Not in the default.
 - ``deskew``: the step's deskew (``ops/deskew.py`` ``deskew_scan``) of
   MulRan-shaped sweeps (``probes/deskew_drive.py``) in both modes, float32
   and float64, B = 1 and 4, each sweep in draw order and in column
@@ -72,24 +63,12 @@ parts named by ``--parts`` (default: all but ``step``, ``pdl`` and ``launch``):
   marker kernel a line, :func:`step_lines`), the copies ``write_state``
   makes after the step by its line, and from a replay of the step
   captured whole, the prediction's, the tail's and the copies' graphed
-  device µs and kernel counts (:func:`tail_trace`); then the
-  ``tail_designs`` part. Not in the default.
-- ``tail_designs``: K14's tail on a recorded flagship step's operands,
-  float32 and float64, B = 1 and 4: the package's kernel fresh and in
-  place, its one-block design and that design cut to the flag counts
-  alone and to the chain alone (:func:`tail_designs`), graphed device
-  µs in turns. Not in the default.
+  device µs and kernel counts (:func:`tail_trace`); then, on a recorded
+  step's operands at each B, the cycles of each warp of K14's tail
+  between its phases (:func:`tail_stamps`). Not in the default.
 - ``rates``: the deskew part's certified flagship drive alone
   (:func:`deskew_rates`, one round: deskew off, reference, binned). Not
   in the default.
-- ``ring_split``: K13 ``ring_write`` in one launch (the package) and as
-  two (the frame record, then the promotion: variants built here,
-  :func:`kernel_variants.ring_write_split_source`) on flagship rings,
-  float32 and float64, B = 1 and 4, with no sequence promoting, each
-  promoting an older window frame and each promoting its own scan:
-  graphed device ms of both forms in the order one, two, two, one, and
-  whether the two write the same rings bit for bit (:func:`ring_split_ab`).
-  Not in the default.
 - ``step_ops``: where the step's library GEMMs come from: one eager step
   of each schedule of :data:`bench.SCHEDULES` at B = 1 and of the
   certified one at the fleet's B = 11, on the bench's primed scan stream
@@ -130,9 +109,9 @@ from madicp_tpu_torch.probes import build_levels
 from madicp_tpu_torch.utils.timing import bound_ms, device_trace, graph_ms
 
 REPS = 5  # graph replays a trace
-PARTS = ("build", "terms", "descent", "ring", "nodes", "resources", "gn", "step", "pdl",
-         "launch", "deskew", "tail", "rates", "ring_split", "tail_designs", "step_ops")
-DEFAULT_PARTS = PARTS[:-9]
+PARTS = ("build", "terms", "descent", "ring", "nodes", "resources", "gn", "step", "deskew",
+         "tail", "rates", "step_ops")
+DEFAULT_PARTS = PARTS[:-5]
 # a later certified round's uncertified share: a certified flagship scan
 # descends 1.71 M entries, 0.52 M of them in round 0, and each of the other
 # 14 rounds hands the descent 0.52 M entries of which ~16% are live
@@ -552,47 +531,6 @@ def descent_cases(inp: dict, depth: int) -> dict:
     return cases
 
 
-def unmerged_round(nav, depth, pts, X, need, ids, payload, slack, parts: bool = False):
-    """A certified re-association round as the step ran it before the
-    merged mode: the queries formed (here in the kernel's order,
-    ``moving_in_map``) and copied K-fold, the entries' row offsets in the
-    flat table ``nav`` (B K M, 56), every entry descended (the others
-    parked) and the fresh results merged where ``need`` (B, K, L) holds by
-    three ``torch.where``. With ``parts``, also ``{step: callable}`` of
-    its steps on their own (for :func:`launch_us`)."""
-    B, K, Q = need.shape
-    dev = nav.device
-    M = nav.shape[0] // (B * K)
-
-    def queries():
-        return icp_terms.moving_in_map(pts, X)
-
-    def copies(qb):
-        return qb[:, None].expand(B, K, Q, 3).reshape(B * K * Q, 3)
-
-    def offsets():
-        return (torch.arange(B * K, device=dev) * M)[:, None].expand(B * K, Q).reshape(-1)
-
-    def descend(q, base):
-        return descent.descend(nav, q, base, depth, valid=need.reshape(-1), return_blocks=True,
-                               return_margin=True)
-
-    def where(fresh):
-        ids2, payload2, margin2 = (f.view((B, K, Q) + f.shape[1:]) for f in fresh)
-        return (torch.where(need, ids2, ids), torch.where(need[..., None], payload2, payload),
-                torch.where(need, margin2, slack))
-
-    qb = queries()
-    q, base = copies(qb), offsets()
-    fresh = descend(q, base)
-    out = where(fresh)
-    if not parts:
-        return out
-    return out, {"queries (moving_in_map)": queries, "K-fold query copies": lambda: copies(qb),
-                 "row offsets": offsets, "descend": lambda: descend(q, base),
-                 "three where": lambda: where(fresh)}
-
-
 def merged_round(nav, depth, pts, X, need, ids, payload, slack):
     """A certified re-association round as the step runs it
     (``models/pipeline.py`` ``icp_rounds``, ``certify_compact`` 0): the
@@ -607,25 +545,15 @@ def merged_round(nav, depth, pts, X, need, ids, payload, slack):
                           out=tuple(o.view((B * K,) + o.shape[2:]) for o in (ids, payload, slack)))
 
 
-def query_gemm(pts, X):
-    """The query transform the step ran before the descent mapped its own
-    queries: a (B, L, 3) map-frame copy of the leaves by a batched matrix
-    product (a cuBLAS GEMM on the card) and a broadcast add."""
-    return pts @ X[:, :3, :3].mT + X[:, None, :3, 3]
-
-
 def descent_trace(fl: Flagship, dtype, reps: int = REPS, ring: bool = False) -> dict:
     """K6 at the flagship in ``dtype``: each case of :func:`descent_cases`
     (its live entries, panel reads, distinct panels, bound µs, its
-    kernel's device µs and the graphed µs of a call) and the whole
-    certified re-association round at the later round's share as descend
-    + three ``where``s, kernel by kernel. ``ring`` adds the ring form of
-    the cases (the scan-frame leaves (1, L, 3) and the pose for the K
-    trees, each query mapped in the kernel), each beside the former path
-    (``gemm_path``: :func:`query_gemm`'s GEMM and add, then K6 on their
-    map-frame copy under the identity pose, step by step), the merged
-    later round (only its live entries descended and written in place)
-    and the round as the step runs it (:func:`merged_round`)."""
+    kernel's device µs and the graphed µs of a call). ``ring`` adds the
+    ring form of the cases (the scan-frame leaves (1, L, 3) and the pose
+    for the K trees, each query mapped in the kernel), the merged later
+    round (only its live entries descended and written in place) and the
+    round as the step runs it (:func:`merged_round`, at the later round's
+    share)."""
     inp = descent_inputs(fl, dtype)
     depth = fl.cfg.depth
     dname = str(dtype).split(".")[1]
@@ -639,16 +567,12 @@ def descent_trace(fl: Flagship, dtype, reps: int = REPS, ring: bool = False) -> 
         out[case] = {"live": int(kw["valid"].sum()), **cost,
                      "bound_us": bound_ms(cost["bytes"], cost["operations"], dname)[0] * 1e3,
                      **launch_us(calls[case], reps)}
-    prev = (inp["ids"][None], inp["payload"][None], inp["margin"][None])
-    args = (nav, depth, inp["pts"], inp["X"], inp["later"][None])
-    _, steps = unmerged_round(*args, *prev, parts=True)
-    out["round_unmerged"] = launch_us(lambda: unmerged_round(*args, *prev), reps, steps)
     if ring:
         ring_nav = nav.view(K, -1, 56)
         pts, X = inp["pts"], inp["X"]  # the step's operands: (1, L, 3) and (1, 4, 4)
-        eye = torch.eye(4, dtype=dtype, device=X.device)
-        q1 = query_gemm(pts, X)  # the map-frame copy the step made before
-        bufs = tuple(t.clone() for t in prev)
+        args = (nav, depth, pts, X, inp["later"][None])
+        bufs = (inp["ids"][None].clone(), inp["payload"][None].clone(),
+                inp["margin"][None].clone())
         flat = {"round0": dict(need=inp["need"], return_margin=True),
                 "later_round": dict(need=inp["later"], return_margin=True),
                 "later_merged": dict(need=inp["later"], return_margin=True,
@@ -657,14 +581,6 @@ def descent_trace(fl: Flagship, dtype, reps: int = REPS, ring: bool = False) -> 
             calls[f"ring_{case}"] = lambda kw=kw: descent.descend_ring(ring_nav, pts, depth, X=X,
                                                                        **kw)
             out[f"ring_{case}"] = launch_us(calls[f"ring_{case}"], reps)
-            # the former path: the GEMM and the add, then K6 on their copy
-            copy = lambda kw=kw: descent.descend_ring(ring_nav, q1, depth, X=eye,  # noqa: E731
-                                                      **kw)
-            out[f"ring_{case}"]["gemm_path"] = launch_us(
-                lambda copy=copy: (query_gemm(pts, X), copy()), reps,
-                {"queries (GEMM, add)": lambda: query_gemm(pts, X),
-                 "K6 on the map-frame copy": copy})
-        for case, kw in flat.items():
             cost = ring_cost(ring_nav, pts, X, depth, kw["need"], return_margin=True,
                              merged="out" in kw)
             out[f"ring_{case}"].update(
@@ -672,13 +588,6 @@ def descent_trace(fl: Flagship, dtype, reps: int = REPS, ring: bool = False) -> 
         out["round_merged"] = launch_us(
             lambda: merged_round(*args, *bufs), reps,
             {"descend, merged": calls["ring_later_merged"]})
-        # the merged round's results are the unmerged round's, bit for bit
-        want = unmerged_round(*args, *prev)
-        got = merged_round(*args, *(t.clone() for t in prev))
-        if not all(torch.equal(a, b) for a, b in zip(got, (w.view(g.shape) for w, g in
-                                                             zip(want, got)))):
-            raise AssertionError(f"descend {dname}: the merged round differs from descend + "
-                                 "where")
     return out
 
 
@@ -889,8 +798,8 @@ def main(argv=None) -> int:
     ap.add_argument("--paths", action="store_true",
                     help="every K8 and K9 level on every path, K7 with every cluster size")
     ap.add_argument("--parts", default=",".join(DEFAULT_PARTS),
-                    help=f"comma list of {', '.join(PARTS)} (default: all but step, pdl, "
-                    "launch, deskew, tail, rates, ring_split, tail_designs and step_ops)")
+                    help=f"comma list of {', '.join(PARTS)} (default: all but step, deskew, "
+                    "tail, rates and step_ops)")
     a = ap.parse_args(argv)
     parts = set(a.parts.split(","))
     if parts - set(PARTS):
@@ -963,10 +872,6 @@ def main(argv=None) -> int:
         fl = None
         torch.cuda.empty_cache()
         emit("step", **step_numbers(dev))
-    if "launch" in parts:
-        emit("launch", rows=launch_ab(fl or flagship_assoc(dev), a.reps))
-    if "pdl" in parts:
-        emit("pdl", **pdl_ab(dev))
     if "deskew" in parts:
         from madicp_tpu_torch.probes.deskew_drive import SweepSetup
 
@@ -982,14 +887,10 @@ def main(argv=None) -> int:
     if "tail" in parts:
         for row in tail_traces(dev, a.reps):
             emit("tail", **row)
-    if parts & {"tail", "tail_designs"}:
-        for row in tail_design_traces(dev):
-            emit("tail_designs", **row)
+        for row in tail_stamp_traces(dev):
+            emit("tail_stamps", **row)
     if "rates" in parts:
         emit("deskew_rates", **deskew_rates(dev, rounds=1))
-    if "ring_split" in parts:
-        for row in ring_split_ab(dev):
-            emit("ring_split", **row)
     if "step_ops" in parts:
         for row in step_ops(dev, a.reps):
             emit("step_ops", **row)
@@ -1051,13 +952,6 @@ def terms_sum(w, Hk, bk) -> tuple:
     return torch.einsum("bk,bkij->bij", w, Hk), torch.einsum("bk,bki->bi", w, bk)
 
 
-def folds(gn_update) -> bool:
-    """Whether the tree's K10 wrapper takes the per-keyframe terms."""
-    import inspect
-
-    return "w" in inspect.signature(gn_update.gn_update).parameters
-
-
 def gn_stamps(gn_update, g: dict, calls: int = GN_STAMP_CALLS) -> dict:
     """Where K10's time goes: a variant of ``csrc/gn_update.cu`` with
     ``clock64`` stamps at its phases (:func:`kernel_variants.stamp_source`),
@@ -1074,8 +968,7 @@ def gn_stamps(gn_update, g: dict, calls: int = GN_STAMP_CALLS) -> dict:
 
     lib, _ = kv.build_variant("gn_update", transform=transform)
     labels = holder["labels"]
-    args = ((g["Xp"], g["Hk"], g["bk"], g["w"]) if folds(gn_update)
-            else (g["Xp"], g["H"], g["b"]))
+    args = (g["Xp"], g["Hk"], g["bk"], g["w"])
     runs = []
     with kv.use_variant(gn_update._launch, lib):
         for _ in range(calls):
@@ -1104,17 +997,13 @@ def gn_resources() -> dict:
 def slack_occupancy(regs: dict, B: int, K: int, L: int, dtype) -> dict:
     """K11's launch at (B, K, L): blocks, threads and their share of the
     threads the card holds at its register count (no shared-memory
-    limit; 132 SMs). ``regs`` (:func:`gn_resources`) names the kernels:
-    the tiled design (``certify_slack_kernel<T, VEC>``: a block covers 64
-    x 16 bytes of leaves and 16 keyframes) or PR 14's one thread a leaf."""
+    limit; 132 SMs) of the vector form of ``certify_slack_kernel<T, VEC>``
+    (named in ``regs``, :func:`gn_resources`): a block covers 64 x 16
+    bytes of leaves and 16 keyframes."""
     threads = 256
     f64 = dtype == torch.float64
-    tiled = [k for k in regs if ("double" in k) == f64 and "true" in k]
-    if tiled:
-        grid = (-(-L // (64 * 128 // torch.finfo(dtype).bits)), -(-K // 16), B)
-    else:
-        grid = (-(-L // threads), B)
-    name = (tiled or [k for k in regs if ("double" in k) == f64])[0]
+    name = next(k for k in regs if ("double" in k) == f64 and "true" in k)
+    grid = (-(-L // (64 * 128 // torch.finfo(dtype).bits)), -(-K // 16), B)
     blocks = math.prod(grid)
     registers = regs[name]["registers"]
     return {"kernel": name, "grid": list(grid), "blocks": blocks, "threads_a_block": threads,
@@ -1137,8 +1026,7 @@ def gn_trace(fl: Flagship, dtype, B: int, reps: int = REPS) -> dict:
     each traced call its kernels in launch order with their median device
     µs (``kernels``; their count is the call's launches) and its graphed
     µs (``graph_us``)."""
-    import importlib.util
-
+    from madicp_tpu_torch.kernels import certify_slack, gn_update
     from madicp_tpu_torch.ops.icp_core import clamp_step, solve_gn
     from madicp_tpu_torch.ops.lie import exp_se3_split
 
@@ -1153,22 +1041,13 @@ def gn_trace(fl: Flagship, dtype, B: int, reps: int = REPS) -> dict:
                                   "exp": lambda: exp_se3_split(dxc),
                                   "product": lambda: Xp @ dX}),
            "terms_sum": launch_us(lambda: terms_sum(g["w"], g["Hk"], g["bk"]), reps)}
-    if importlib.util.find_spec("madicp_tpu_torch.kernels.gn_update") is None:
-        return out
-    from madicp_tpu_torch.kernels import certify_slack, gn_update
-
     out["gn_update"] = launch_us(lambda: gn_update.gn_update(Xp, H, b), reps)
-    if folds(gn_update):
-        out["gn_update_folded"] = launch_us(
-            lambda: gn_update.gn_update(Xp, g["Hk"], g["bk"], g["w"]), reps)
-        out["gn_update_plain_folded"] = launch_us(
-            lambda: gn_update.gn_update_plain(Xp, g["Hk"], g["bk"], g["w"]), reps)
-    else:  # the einsums and the update as the step ran them
-        out["terms_sum_then_gn_update"] = launch_us(
-            lambda: gn_update.gn_update(Xp, *terms_sum(g["w"], g["Hk"], g["bk"])), reps)
+    out["gn_update_folded"] = launch_us(
+        lambda: gn_update.gn_update(Xp, g["Hk"], g["bk"], g["w"]), reps)
+    out["gn_update_plain_folded"] = launch_us(
+        lambda: gn_update.gn_update_plain(Xp, g["Hk"], g["bk"], g["w"]), reps)
     out["gn_update_plain"] = launch_us(lambda: gn_update.gn_update_plain(Xp, H, b), reps)
-    if folds(gn_update):  # the stamps mark the warp design's phases
-        out["gn_stamps"] = gn_stamps(gn_update, g)
+    out["gn_stamps"] = gn_stamps(gn_update, g)
     tail = (g["slack"], Xp, X, g["pts"], g["r_norm"], g["leaves_valid"], g["kf_live"],
             g["n_descents"])
     work = tuple(t.clone() for t in tail)  # the slack and the count change in place
@@ -1195,112 +1074,6 @@ def step_kernels(pipe, setup, first: int, n: int = 2) -> dict:
         rows[key] = (tot + us, c + cnt)
     return {k: {"us_a_call": us / c, "calls_a_scan": c / n, "us_a_scan": us / n}
             for k, (us, c) in sorted(rows.items(), key=lambda kv: -kv[1][0])}
-
-
-# K10's and K11's launch variants (:func:`kernel_variants.launch_source`):
-# name -> (what each kernel does where it would wait for the kernel before
-# it, how it is launched); "ordinary" is the package
-LAUNCH_VARIANTS = {"ordinary": (None, None), "launch_ex": (None, "ex"),
-                   "barrier": ("barrier", None),
-                   "griddepcontrol": ("griddepcontrol", None),
-                   "griddepcontrol_launch_ex": ("griddepcontrol", "ex")}
-
-
-def launch_ab(fl: Flagship, reps: int = REPS) -> list:
-    """K10 (the per-keyframe form) and K11 on a certified round's flagship
-    inputs (:func:`gn_inputs`, B = 1 and 4, both types) built in each of
-    :data:`LAUNCH_VARIANTS`, the variants in order and then in reverse:
-    graphed µs a call, device µs, and whether each result equals the
-    package's bit for bit."""
-    from madicp_tpu_torch.kernels import certify_slack, gn_update
-    from madicp_tpu_torch.probes import kernel_variants as kv
-
-    libs = {v: {m: kv.build_variant(m._launch.name, transform=lambda s, n=m._launch.name, a=a:
-                                    kv.launch_source(n, s, *a))[0]
-                for m in (gn_update, certify_slack)}
-            for v, a in LAUNCH_VARIANTS.items()}
-    cases = []
-    for dtype in (torch.float32, torch.float64):
-        for B in GN_BATCHES:
-            g = gn_inputs(fl, dtype, B)
-            tail = (g["slack"], g["Xp"], g["X"], g["pts"], g["r_norm"], g["leaves_valid"],
-                    g["kf_live"], g["n_descents"])
-            want = (gn_update.gn_update(g["Xp"], g["Hk"], g["bk"], g["w"]),
-                    certify_slack.certify_slack(*(t.clone() for t in tail)))
-            cases.append((dtype, B, g, tail, want))
-    rows = []
-    for v in list(LAUNCH_VARIANTS) + list(reversed(LAUNCH_VARIANTS)):
-        with contextlib.ExitStack() as stack:
-            for m, lib in libs[v].items():
-                stack.enter_context(kv.use_variant(m._launch, lib))
-            for dtype, B, g, tail, want in cases:
-                k10 = lambda g=g: gn_update.gn_update(g["Xp"], g["Hk"], g["bk"], g["w"])  # noqa: E731
-                work = tuple(t.clone() for t in tail)
-                need = certify_slack.certify_slack(*(t.clone() for t in tail))
-                same = (all(torch.equal(a, b) for a, b in zip(k10(), want[0]))
-                        and torch.equal(need, want[1]))
-                a, b = launch_us(k10, reps), launch_us(
-                    lambda work=work: certify_slack.certify_slack(*work), reps)
-                rows.append({"variant": v, "dtype": str(dtype).split(".")[1], "B": B,
-                             "equal": same, "gn_update_graph_us": a["graph_us"],
-                             "gn_update_device_us": [k["device_us"] for k in a["kernels"] or []],
-                             "certify_slack_graph_us": b["graph_us"],
-                             "certify_slack_device_us": [k["device_us"]
-                                                         for k in b["kernels"] or []]})
-    return rows
-
-
-PDL_PAIRS = 10  # (on, off) pairs of the A/B, alternating: on, off, off, on, ...
-
-
-def pdl_ab(device, pairs: int = PDL_PAIRS) -> dict:
-    """The certified schedule graphed with K10 and K11 launched as the
-    package launches them (``off``: ordinary launches) and as programmatic
-    dependents of the kernel before each (``on``: a variant,
-    :func:`kernel_variants.programmatic_source`), ``pairs`` times each in
-    the order on, off, off, on, ...: each run's median scans/s, device
-    busy ms and kernels a scan, the captured graph's edges and
-    programmatic edges, and whether its 8 graphed poses equal the first
-    ``off`` run's bit for bit; the medians and the on/off ratio."""
-    from madicp_tpu_torch import bench
-    from madicp_tpu_torch.kernels import certify_slack, gn_update
-    from madicp_tpu_torch.probes import kernel_variants as kv
-
-    libs = {"on": {m: kv.build_variant(
-        m._launch.name, transform=lambda s, n=m._launch.name: kv.programmatic_source(n, s))[0]
-        for m in (gn_update, certify_slack)}}
-    setup = bench.BenchSetup(device, 131072, 16, 16, 32768)
-    order = [("on", "off") if i % 2 == 0 else ("off", "on") for i in range(pairs)]
-    rows, ref = [], None
-    for variant in [v for pair in order for v in pair]:
-        with contextlib.ExitStack() as stack:
-            for m, lib in libs.get(variant, {}).items():
-                stack.enter_context(kv.use_variant(m._launch, lib))
-            r = bench.run_schedule(setup, "certified", 3, 12, 3)
-            fresh = bench.BenchSetup(device, 131072, 16, 16, 32768)  # the same rings each run
-            pipe = fresh.make_pipe("certified")
-            fresh.prime(pipe)
-            poses = []
-            for i in range(1, 9):  # scan 3 captures, the later ones replay
-                pipe.compute_device(0.1 * i, *pipe.stage(fresh.scan_at(i)))
-                poses.append(pipe._last.pose.clone())
-            edges = [kv.graph_edges(g.graph.raw_cuda_graph())
-                     for g in pipe._graphs._graphs.values()]
-        poses = torch.stack(poses)
-        if ref is None and variant == "off":
-            ref = poses
-        rows.append({"pdl": variant, "median_scans_per_sec": r["median_scans_per_sec"],
-                     "windows": r["windows"], "profile": r["profile"], "graph_edges": edges,
-                     "poses": poses})
-        del pipe, fresh
-        torch.cuda.empty_cache()
-    for row in rows:
-        row["poses_equal_off"] = bool(torch.equal(row.pop("poses"), ref))
-    med = {v: statistics.median(row["median_scans_per_sec"] for row in rows if row["pdl"] == v)
-           for v in ("on", "off")}
-    rate = {(i // 2, row["pdl"]): row["median_scans_per_sec"] for i, row in enumerate(rows)}
-    return {"runs": rows, "median_scans_per_sec": med, "on_over_off": med["on"] / med["off"],
-            "pairs_on_ahead": sum(rate[i, "on"] > rate[i, "off"] for i in range(pairs))}
 
 
 DESKEW_MODES = ("reference", "binned")
@@ -1711,92 +1484,31 @@ def clone_scalars(state):
     return type(state)(*(None if v is None else v.clone() for v in state))
 
 
-TAIL_DESIGN_REPS = 20  # graphed calls a timing
-
-
-def tail_designs(rec: dict, reps: int = TAIL_DESIGN_REPS) -> dict:
-    """K14's tail on one recorded step's operands (:func:`record_tail`):
-    the package's kernel with fresh outputs and, where the package takes
-    ``out``, in place (the state its own destination, as the step calls
-    it); the one-block design (:data:`kernel_variants.TAIL_ONE_BLOCK`)
-    and its two cuts, the counts alone and the chain alone
-    (:func:`kernel_variants.tail_cut_source`). Each one's graphed device
-    µs, taken in the order of the list and then in reverse; whether the
-    one-block design and the in-place call give the fresh call's bits;
-    the eager ms of ``step_scalars.tail`` (the wrapper the step calls,
-    host work included), fresh and in place."""
-    import inspect
-
-    from madicp_tpu_torch.kernels import step_scalars
-    from madicp_tpu_torch.probes import kernel_variants as kv
-    from madicp_tpu_torch.utils.timing import event_ms
-
-    st, args, kw = rec["tail"]
-    text = kv.TAIL_ONE_BLOCK.read_text()
-    libs = {name: kv.build_variant("tail_one_block", source=src)[0] for name, src in
-            (("one_block", text), ("counts_only", kv.tail_cut_source(text, "counts")),
-             ("chain_only", kv.tail_cut_source(text, "chain")))}
-    fns = {"package": lambda: step_scalars.launch_tail(st, *args, **kw)}
-    fresh = fns["package"]()
-    same = {"one_block": kv.tail_one_block(libs["one_block"], st, *args, **kw)}
-    eager = {"tail": lambda: step_scalars.tail(st, *args, **kw)}
-    if "out" in inspect.signature(step_scalars.launch_tail).parameters:
-        dst = clone_scalars(st)
-        same["package_in_place"] = step_scalars.launch_tail(dst, *args, **kw, out=dst)
-        fns["package_in_place"] = lambda: step_scalars.launch_tail(dst, *args, **kw, out=dst)
-        eager["tail_in_place"] = lambda: step_scalars.tail(dst, *args, **kw, out=dst)
-    for name, lib in libs.items():
-        fns[name] = lambda lib=lib: kv.tail_one_block(lib, st, *args, **kw)
-    torch.cuda.synchronize()
-    equal = {name: all(torch.equal(a, b) or (a.is_floating_point() and torch.equal(
-        a.nan_to_num(), b.nan_to_num()) and torch.equal(a.isnan(), b.isnan()))
-        for a, b in zip(t, fresh)) for name, t in same.items()}
-    us: dict = {name: [] for name in fns}
-    for name in list(fns) + list(reversed(fns)):
-        us[name].append(graph_ms(fns[name], reps) * 1e3)
-    return {"B": st.X.shape[0], "L": args[2].shape[-1], "equal_to_fresh": equal,
-            "graphed_device_us": us,
-            "eager_ms": {name: event_ms(fn, reps) for name, fn in eager.items()}}
-
-
 def tail_stamps(rec: dict) -> dict:
     """Where K14's tail spends its cycles on one recorded step
-    (:func:`record_tail`): the package's kernel in place and the
-    one-block design, each built with a ``clock64`` stamp at every
-    ``// phase:`` line of its source kept by each warp of block 0
-    (:func:`kernel_variants.stamp_source` with ``per_warp``), launched
-    once eagerly: {design: {phase: {warp: cycles after the first
-    stamp}}}."""
-    import inspect
-
+    (:func:`record_tail`): the package's kernel in place, built with a
+    ``clock64`` stamp at every ``// phase:`` line of its source kept by
+    each warp of block 0 (:func:`kernel_variants.stamp_source` with
+    ``per_warp``), launched once eagerly: {phase: {warp: cycles after
+    the first stamp}}."""
     from madicp_tpu_torch.kernels import build as kbuild
     from madicp_tpu_torch.kernels import step_scalars
     from madicp_tpu_torch.probes import kernel_variants as kv
 
     st, args, kw = rec["tail"]
-    out = {}
-    text = kv.TAIL_ONE_BLOCK.read_text()
-    stamped, labels = kv.stamp_source(text, per_warp=True)
-    lib, _ = kv.build_variant("tail_one_block", source=stamped)
-    kv.clear_stamps(lib)
-    kv.tail_one_block(lib, st, *args, **kw)
-    torch.cuda.synchronize()
-    out["one_block"] = kv.read_warp_stamps(lib, labels)
-    if "out" in inspect.signature(step_scalars.launch_tail).parameters:
-        stamped, labels = kv.stamp_source((kbuild.CSRC / "step_scalars.cu").read_text(),
-                                          per_warp=True)
-        lib, _ = kv.build_variant("step_scalars", source=stamped)
-        dst = clone_scalars(st)
-        with kv.use_variant(step_scalars._launch, lib):
-            kv.clear_stamps(lib)
-            step_scalars.launch_tail(dst, *args, **kw, out=dst)
-            torch.cuda.synchronize()
-        out["package_in_place"] = kv.read_warp_stamps(lib, labels)
-    return out
+    stamped, labels = kv.stamp_source((kbuild.CSRC / "step_scalars.cu").read_text(),
+                                      per_warp=True)
+    lib, _ = kv.build_variant("step_scalars", source=stamped)
+    dst = clone_scalars(st)
+    with kv.use_variant(step_scalars._launch, lib):
+        kv.clear_stamps(lib)
+        step_scalars.launch_tail(dst, *args, **kw, out=dst)
+        torch.cuda.synchronize()
+    return kv.read_warp_stamps(lib, labels)
 
 
-def tail_design_traces(device):
-    """:func:`tail_designs` on a step of the primed certified flagship
+def tail_stamp_traces(device):
+    """:func:`tail_stamps` on a step of the primed certified flagship
     (:func:`tail_pipe`) after two warm steps, float32 and float64, at each
     of :data:`TAIL_BATCHES` (yields one dict each)."""
     from madicp_tpu_torch import bench
@@ -1815,70 +1527,8 @@ def tail_design_traces(device):
             for _ in range(2):
                 step_in_place(pipe.cfg, state, pts, valid)
             rec = record_tail(pipe.cfg, state, pts, valid)
-            yield {"dtype": str(dtype).split(".")[1], **tail_designs(rec),
-                   "stamps": tail_stamps(rec)}
+            yield {"dtype": str(dtype).split(".")[1], "B": B, "stamps": tail_stamps(rec)}
             del state, rec
-            torch.cuda.empty_cache()
-        del pipe
-        torch.cuda.empty_cache()
-
-
-RING_SPLIT_REPS = 20  # graphed calls a timing
-# (head, best, slot, write) of every sequence in each case of ring_split_ab
-RING_SPLIT_PLANS = {"no_promote": (1, 0, 0, 0), "promote": (1, 0, 1, 1),
-                    "promote_head": (1, 1, 1, 1)}
-
-
-def ring_split_ab(device, reps: int = RING_SPLIT_REPS):
-    """K13 as the package launches it (one launch) and in its two-launch
-    form (:func:`kernel_variants.ring_write_split_source`) on the rings of
-    the primed certified flagship pipeline (:func:`tail_pipe`), its first
-    keyframe tree as the scan's tree: for float32 and float64, B = 1 and 4
-    and each plan of :data:`RING_SPLIT_PLANS`, whether both forms write
-    the same rings bit for bit, and each form's graphed device ms (one,
-    two, two, one; yields one dict each)."""
-    from madicp_tpu_torch import bench
-    from madicp_tpu_torch.kernels import ring_write
-    from madicp_tpu_torch.models.pipeline import _map
-    from madicp_tpu_torch.probes import kernel_variants as kv
-
-    libs = {part: kv.build_variant("ring_write", transform=lambda s, part=part:
-                                   kv.ring_write_split_source(s, part))[0]
-            for part in ("frame", "promote")}
-
-    def two(*args):
-        for part in ("frame", "promote"):
-            with kv.use_variant(ring_write._launch, libs[part]):
-                ring_write.launch(*args)
-
-    setup = bench.BenchSetup(device, 131072, 16, 16, 32768)
-    for dtype in (torch.float32, torch.float64):
-        pipe = tail_pipe(setup, dtype)
-        F = pipe.state.fr_tree.nav.shape[0]
-        if F < 2:
-            raise ValueError(f"ring_split_ab: a window of {F} frame cannot promote an older one")
-        for B in (1, 4):
-            state = _map(lambda t: t[None].repeat((B,) + (1,) * t.dim()).contiguous(),
-                         pipe.state)
-            nav = state.kf_tree.nav[:, 0].contiguous()
-            for case, plan in RING_SPLIT_PLANS.items():
-                plan = torch.tensor([plan] * B, dtype=torch.int32, device=device)
-                rings = {form: (state.fr_tree.nav.clone(), state.kf_tree.nav.clone())
-                         for form in ("one", "two")}
-                ring_write.launch(nav, state.X, plan, *rings["one"])
-                two(nav, state.X, plan, *rings["two"])
-                torch.cuda.synchronize()
-                equal = all(torch.equal(a, b) for a, b in zip(rings["one"], rings["two"]))
-                fns = {"one": lambda: ring_write.launch(nav, state.X, plan, *rings["one"]),
-                       "two": lambda: two(nav, state.X, plan, *rings["two"])}
-                ms = {"one": [], "two": []}
-                for form in ("one", "two", "two", "one"):
-                    ms[form].append(graph_ms(fns[form], reps))
-                yield {"dtype": str(dtype).split(".")[1], "B": B, "case": case,
-                       "plan": plan[0].tolist(), "equal": equal, "one_device_ms": ms["one"],
-                       "two_device_ms": ms["two"]}
-                del rings
-            del state, nav
             torch.cuda.empty_cache()
         del pipe
         torch.cuda.empty_cache()

@@ -17,10 +17,11 @@ from madicp_tpu.ops.constants import SMOOTHING_T
 from madicp_tpu.ops.tree import _segsum_moments_pallas
 from madicp_tpu_torch.kernels import deskew as k12
 from madicp_tpu_torch.kernels.segsum import counter, segsum_moments, segsum_moments_ref
-from madicp_tpu_torch.models.vel_estimator import VelEstimator, estimate_velocity
+from madicp_tpu_torch.models.vel_estimator import VelEstimator
 import madicp_tpu_torch.ops.deskew as pt_deskew
 import madicp_tpu_torch.ops.lie as pt_lie
 from madicp_tpu_torch.ops.eigh3 import eigh3
+from madicp_tpu_torch.ops.velocity import estimate_velocity
 
 torch.set_num_threads(2)
 

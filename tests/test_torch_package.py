@@ -3,6 +3,7 @@ CPU fallback, the import-time precision pins, kernel dispatch and build
 guards, and the KITTI CLI end to end on the CPU. Tests marked ``cuda``
 hold the CUDA kernel to its plain version and skip without a card."""
 
+import ast
 import json
 import subprocess
 import sys
@@ -43,6 +44,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         "import madicp_tpu_torch.probes.segsum_levels\n"
         "import madicp_tpu_torch.probes.build_levels\n"
         "import madicp_tpu_torch.probes.profile_windows\n"
+        "import madicp_tpu_torch.probes.kernel_trace, madicp_tpu_torch.probes.kernel_variants\n"
+        "import madicp_tpu_torch.probes.gn_cases, madicp_tpu_torch.probes.op_census\n"
         "import madicp_tpu_torch.probes.deskew_drive, madicp_tpu_torch.kernels.deskew\n"
         "import madicp_tpu_torch.kernels.ring_write, madicp_tpu_torch.kernels.step_scalars\n"
         "import madicp_tpu_torch.bench\n"
@@ -64,6 +67,25 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_kernels_import_nothing_above_ops():
+    """The kernels layer sits under ``ops``: no module of
+    ``madicp_tpu_torch/kernels/`` imports the models, the fleet, the apps
+    or the probes, at its top or inside a function."""
+    above = ("models", "parallel", "apps", "probes")
+    bad = []
+    for path in sorted((REPO / "madicp_tpu_torch" / "kernels").glob("*.py")):
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                names = [node.module] + [f"{node.module}.{a.name}" for a in node.names]
+            else:
+                continue
+            bad += [f"{path.name}:{node.lineno} {n}" for n in names
+                    if n.startswith(tuple(f"madicp_tpu_torch.{m}" for m in above))]
+    assert not bad, bad
 
 
 def test_entry_points_refuse_to_fall_back_to_the_cpu():

@@ -5,7 +5,7 @@ copy).
 
 On the CPU, from numpy inputs made from a seed: the plain prediction
 against the JAX package's ``exp_se3_split`` and product; the velocity
-estimate (``models/vel_estimator.py``, which the plain tail calls)
+estimate (``ops/velocity.py``, which the plain tail calls)
 against its ``estimate_velocity`` for window lengths 0, 1, 2, 5 and 10,
 with and without the robust clamp; ``neg_logdet`` (the explicit LU)
 against its ``neg_logdet``, also where ``det H <= 0`` gives the dtype's
@@ -22,8 +22,7 @@ ulps of values up to ~40 in two orders of rounding against XLA's
 fused, reassociated float32). The tail written in place (``out``, the
 step's form) equals the fresh tail bit for bit and keeps its
 destinations; a CPU drive of ``step_in_place`` equals the functional
-``odometry_step`` and copies no state field; the probe's one-block
-variants of K14 cut its source where they say. Tests marked ``cuda``
+``odometry_step`` and copies no state field. Tests marked ``cuda``
 hold both kernels to their plain versions on the card bit for bit in
 every case, float32 and float64, B = 1 and 4, fresh and in place, and
 skip without one. JAX is imported by the CPU tests only, so a machine
@@ -36,10 +35,10 @@ from scipy.spatial.transform import Rotation
 
 from madicp_tpu_torch.kernels import ring_write, step_scalars
 from madicp_tpu_torch.models.pipeline import PipelineState
-from madicp_tpu_torch.models.vel_estimator import estimate_velocity
 from madicp_tpu_torch.ops.constants import FRAME_WINDOW, SMOOTHING_T
 from madicp_tpu_torch.ops.icp_core import neg_logdet
 from madicp_tpu_torch.ops.tree import NAV_WIDTH, SearchTree
+from madicp_tpu_torch.ops.velocity import estimate_velocity
 
 torch.set_num_threads(2)
 
@@ -557,60 +556,6 @@ def test_wrong_operands_raise():
         ring_write.launch(odd, X, plan, state.fr_tree.nav, state.kf_tree.nav)
 
 
-def test_k13_two_launch_variant_sources_cut_the_kernel_at_its_promotion():
-    """The probe's two-launch form of K13 is the package's source cut in
-    two: the frame record without the promotion's store, and the
-    promotion returning before the frame record; a source whose cut
-    points changed, or an unknown part, raises."""
-    from madicp_tpu_torch.kernels import build
-    from madicp_tpu_torch.probes import kernel_variants as kv
-
-    text = (build.CSRC / "ring_write.cu").read_text()
-    lines = text.split("\n")
-    frame = kv.ring_write_split_source(text, "frame").split("\n")
-    assert [line for line in lines if line not in frame] == [
-        "  if (write) *key = pl.y == pl.x ? ov : *src;"]
-    assert len(frame) == len(lines) - 1
-    promote = kv.ring_write_split_source(text, "promote").split("\n")
-    at = promote.index("  V v = {};")
-    assert promote[at - 3:at] == kv.RING_PROMOTE_ONLY.split("\n")
-    assert promote[:at - 3] + promote[at:] == lines
-    with pytest.raises(ValueError):
-        kv.ring_write_split_source(text, "both")
-    with pytest.raises(ValueError):
-        kv.ring_write_split_source(text.replace("*key = pl.y", "*key = pl.z"), "frame")
-
-
-def test_k14_one_block_variant_sources_cut_the_kernel_where_they_say():
-    """The probe's cuts of K14's one-block design: ``counts`` turns the
-    three chain warps' branches off and gives the count branch the warps
-    that count; ``chain`` replaces the count's loads by constants and
-    changes nothing else; a source whose branches changed, or an unknown
-    cut, raises."""
-    from madicp_tpu_torch.probes import kernel_variants as kv
-
-    text = kv.TAIL_ONE_BLOCK.read_text()
-    lines = text.split("\n")
-    counts = kv.tail_cut_source(text, "counts").split("\n")
-    assert len(counts) == len(lines)
-    changed = [(a, b) for a, b in zip(lines, counts) if a != b]
-    assert changed == [("  if (warp == 1) {", "  if (false) {"),
-                       ("  } else if (warp == 2) {", "  } else if (false) {"),
-                       ("  } else if (warp == 3) {", "  } else if (false) {"),
-                       ("  } else {", kv.TAIL_COUNT_ONLY)]
-    chain = kv.tail_cut_source(text, "chain").split("\n")
-    at = chain.index(kv.TAIL_CONSTANT_COUNTS)
-    end = lines.index("#pragma unroll", lines.index("    int nv = 0, nm = 0, done = 0;"))
-    assert chain[:at] == lines[:at] and chain[at + 1:] == lines[end:]
-    assert all("m4[" not in line and "v[i]" not in line for line in lines[:at] + lines[end:])
-    assert any("m4[" in line for line in lines[at:end])
-    with pytest.raises(ValueError):
-        kv.tail_cut_source(text, "both")
-    with pytest.raises(ValueError):
-        kv.tail_cut_source(text.replace("  } else if (warp == 2) {", "  } else if (2 == warp) {"),
-                           "counts")
-
-
 # ------------------------------------------------------------------ card --
 @pytest.fixture
 def cuda_device():
@@ -673,31 +618,6 @@ def test_k14_scalars_on_every_branch_on_cuda(cuda_device, dtype):
             want = step_scalars.tail_plain(s, X, Hn, matched, valid, hz, **kw)
             for name, g, w in zip(step_scalars.Tail._fields, got, want):
                 assert _equal(g, w), (count, case, name)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("case", CASES)
-def test_k13_two_launch_variant_writes_the_rings_the_package_writes_on_cuda(cuda_device, dtype,
-                                                                             case):
-    """The probe's two-launch form of K13 (the frame record, then the
-    promotion: variants built from the package's source) writes the rings
-    the package's one launch writes, bit for bit, so the probe's A/B times
-    one computation."""
-    from madicp_tpu_torch.probes import kernel_variants as kv
-
-    state, X, H, matched, valid, hz, nav, kw = tail_case(case, dtype, B=4, device=cuda_device)
-    plan = step_scalars.tail(state, X, H, matched, valid, hz, **kw).plan
-    fr, kf = state.fr_tree.nav.clone(), state.kf_tree.nav.clone()
-    ring_write.launch(nav, X, plan, fr, kf)
-    fr2, kf2 = state.fr_tree.nav.clone(), state.kf_tree.nav.clone()
-    for part in ("frame", "promote"):
-        lib, _ = kv.build_variant("ring_write", transform=lambda s, part=part:
-                                  kv.ring_write_split_source(s, part))
-        with kv.use_variant(ring_write._launch, lib):
-            ring_write.launch(nav, X, plan, fr2, kf2)
-    torch.cuda.synchronize()
-    assert torch.equal(fr, fr2) and torch.equal(kf, kf2)
 
 
 @pytest.mark.cuda
